@@ -5,19 +5,27 @@
 
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card: its name and power limit; builds every Hopper kernel of the
-     port from the sources in this checkout (nvcc, sm_90a);
-  2. each kernel against its plain PyTorch version on the card, at the
-     training shape (B4 H16 S1024 D128 bf16, causal and not) and in f32;
+     port from the sources in this checkout (nvcc, sm_90a, one process per
+     source, all started together);
+  2. each kernel against its plain PyTorch version on the card, with q, k
+     and v laid out as the step hands them over: simple_attention at the
+     flagship's shape (B4 H16 S1024 D128, bf16 causal and not, f32);
+     causal_attention at the S=2048 rung's (B4 H8 S2048 D128, bf16 and
+     f32); blocked_flash at the S=4096 rung's (B2 H8 S4096 D128: bf16
+     causal and not, f32, and cross-attention Sq=1024 Skv=4096);
   3. a small model on the card (kernels) against the same model on the CPU
      (plain path): the loss and gradients agree;
-  4. the main path: the GPT-1.3B training step (h2048, 24 layers, 16 heads,
-     vocab 50304, B4 S1024, bf16, remat "names", fused CE) through the
-     port's setup() and step, with random weights from a seed. Every count
-     is zeroed just before it and read just after: each step must launch
-     the attention kernels 24 times forward and 24 times backward, with no
-     dispatch fallback, a finite loss near ln(vocab) at step 0, and a loss
-     that falls. Prints ms/step, tokens/s, MFU and peak memory;
-  5. each kernel timed at the training shape beside its plain version, its
+  4. the paths, each through the port's setup() and step with random
+     weights from a seed (PATHS): the GPT-1.3B flagship step (h2048, 24
+     layers, 16 heads, vocab 50304, B4 S1024, bf16, remat "names", fused
+     CE), then the reference bench's long-context rungs (bench.py:301-333),
+     the 350M-class model (h1024, 24 layers, 8 heads of 128) at B4 S2048
+     and at B2 S4096. Every count is zeroed just before a path and read
+     just after: each step must launch each kernel of the path's tier 24
+     times and no other attention kernel, with dispatch only to that tier,
+     a finite loss near ln(vocab) at step 0 and a loss that falls. Prints
+     ms/step, tokens/s, MFU, peak memory and where the time goes;
+  5. each kernel timed at its path's shape beside its plain version, its
      bound on this card and one PyTorch library call that computes the same
      function (scaled_dot_product_attention, never used by the port).
 Prints the card line, then one {"kernels": [...]} line, then as the last
@@ -35,9 +43,58 @@ import numpy as np
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM, dense bf16 tensor cores
 PEAK_HBM_BYTES = 3.35e12     # H100 SXM HBM3
-SHAPE = (4, 16, 1024, 128)   # B, H, S, D of the 1.3B step's attention
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}   # max |err| / max |plain|
-STEPS_WARM, STEPS_TIMED = 2, 6
+
+# (label, GPTConfig fields, B, S, dispatch tier, the kernels each layer
+#  launches once a step, warm-up steps, timed steps)
+PATHS = (
+    ("flagship", dict(vocab_size=50304, hidden_size=2048, num_layers=24,
+                      num_heads=16, max_seq_len=1024), 4, 1024, "simple",
+     ("simple_attention_fwd", "simple_attention_bwd"), 2, 6),
+    ("train_s2048", dict(vocab_size=50304, hidden_size=1024, num_layers=24,
+                         num_heads=8, max_seq_len=2048), 4, 2048,
+     "causal_skip", ("causal_attention_fwd", "causal_attention_bwd"), 1, 3),
+    ("train_s4096", dict(vocab_size=50304, hidden_size=1024, num_layers=24,
+                         num_heads=8, max_seq_len=4096), 2, 4096, "blocked",
+     ("blocked_flash_fwd", "blocked_flash_bwd_dq", "blocked_flash_bwd_dkv"),
+     1, 3),
+)
+
+# (kernel, source stem, line of its pl.pallas_call in the reference, the
+#  path whose shape it is held and timed at, its outputs, the products its
+#  function needs, the [B, H, S, D] tensors it must move, whether it moves
+#  an lse, the library call of the same function)
+KERNELS = (
+    ("simple_attention_fwd", "simple_attention", 113, "flagship", ("o",),
+     2, 4, False, "fwd"),
+    ("simple_attention_bwd", "simple_attention", 130, "flagship",
+     ("dq", "dk", "dv"), 5, 7, False, "bwd"),
+    ("causal_attention_fwd", "causal_attention", 164, "train_s2048",
+     ("o", "lse"), 2, 4, True, "fwd"),
+    ("causal_attention_bwd", "causal_attention", 184, "train_s2048",
+     ("dq", "dk", "dv"), 5, 8, True, "bwd"),
+    ("blocked_flash_fwd", "blocked_flash", 210, "train_s4096", ("o", "lse"),
+     2, 4, True, "fwd"),
+    ("blocked_flash_bwd_dq", "blocked_flash", 326, "train_s4096", ("dq",),
+     3, 6, True, "bwd"),
+    ("blocked_flash_bwd_dkv", "blocked_flash", 362, "train_s4096",
+     ("dk", "dv"), 4, 7, True, "bwd"),
+)
+
+# Phase 2's cases: (source stem, path of the shape, Sq (None: the path's S),
+# dtype name, causal). The first bf16 causal case of each source at its
+# path's shape gives the kernels' max_abs_err.
+CHECKS = (
+    ("simple_attention", "flagship", None, "bfloat16", True),
+    ("simple_attention", "flagship", None, "bfloat16", False),
+    ("simple_attention", "flagship", None, "float32", True),
+    ("causal_attention", "train_s2048", None, "bfloat16", True),
+    ("causal_attention", "train_s2048", None, "float32", True),
+    ("blocked_flash", "train_s4096", None, "bfloat16", True),
+    ("blocked_flash", "train_s4096", None, "bfloat16", False),
+    ("blocked_flash", "train_s4096", 1024, "bfloat16", False),
+    ("blocked_flash", "train_s4096", None, "float32", True),
+)
 
 
 def card_line():
@@ -63,20 +120,26 @@ def cuda_ms(fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
-def attention_bounds(b, h, s, d, itemsize, causal=True):
-    """Least time (ms) of the forward and backward on this card: the larger
-    of the operations over the bf16 peak and the bytes (each input read
-    once, each output written once) over HBM. Causal work counts the pairs
-    (i, j <= i) only; the forward does 2 products, the backward 5."""
-    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
-    tensor = b * h * s * d * itemsize
-    out = {}
-    for name, products, tensors in (("fwd", 2, 4), ("bwd", 5, 7)):
-        ops_ms = products * 2 * pairs * d / PEAK_BF16_FLOPS * 1e3
-        bytes_ms = tensors * tensor / PEAK_HBM_BYTES * 1e3
-        out[name] = (max(ops_ms, bytes_ms),
-                     "operations" if ops_ms > bytes_ms else "bytes")
-    return out
+def attention_shape(label):
+    """B, H, S, D of a path's attention."""
+    _, fields, batch, seq, *_ = next(p for p in PATHS if p[0] == label)
+    heads = fields["num_heads"]
+    return batch, heads, seq, fields["hidden_size"] // heads
+
+
+def bound(kernel):
+    """Least time (ms) of a kernel at its path's shape (bf16) on this card
+    and what sets it: its products of 2 * pairs * D operations over the
+    bf16 peak, against its bytes (each input read once, each output
+    written once) over HBM. Causal pairs (i, j <= i) only."""
+    name, _, _, label, _, products, tensors, lse, _ = kernel
+    b, h, s, d = attention_shape(label)
+    ops_ms = products * 2 * b * h * s * (s + 1) // 2 * d \
+        / PEAK_BF16_FLOPS * 1e3
+    nbytes = tensors * b * h * s * d * 2 + (b * h * s * 4 if lse else 0)
+    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms > bytes_ms else "bytes")
 
 
 def max_err(got, want):
@@ -95,44 +158,98 @@ class Run:
             self.failures.append(what)
 
 
-def path_inputs(gen, dtype, torch):
-    """q, k, v as the main path hands them to the kernels (views into one
-    [B, S, 3*H*D] qkv activation, [B, H, S, D] by strides) and a dO."""
-    b, h, s, d = SHAPE
-    qkv = torch.randn(b, s, 3 * h * d, generator=gen, device="cuda").to(dtype)
-    q, k, v = (x.reshape(b, s, h, d).transpose(1, 2)
-               for x in qkv.split(h * d, dim=-1))
-    do = torch.randn(b, s, h, d, generator=gen, device="cuda").to(dtype)
-    return q, k, v, do.transpose(1, 2)
+def path_inputs(gen, dtype, torch, shape, sq=None):
+    """q, k, v and dO as a model hands them to the kernels: [B, H, S, D]
+    views into one [B, S, 3*H*D] qkv activation, or for cross-attention
+    (sq given) q a view of a [B, Sq, H*D] activation and k, v views of one
+    [B, S, 2*H*D]."""
+    b, h, s, d = shape
+    sq = sq or s
+
+    def heads(x, n):
+        return x.reshape(b, n, h, d).transpose(1, 2)
+
+    def randn(*size):
+        return torch.randn(*size, generator=gen, device="cuda").to(dtype)
+
+    if sq == s:
+        q, k, v = (heads(x, s) for x in randn(b, s, 3 * h * d).split(h * d, -1))
+    else:
+        q = heads(randn(b, sq, h * d), sq)
+        k, v = (heads(x, s) for x in randn(b, s, 2 * h * d).split(h * d, -1))
+    return q, k, v, heads(randn(b, sq, h * d), sq)
 
 
-def check_kernels(run, sa, torch):
-    """Phase 2: each kernel against its plain version on the card."""
+def kernel_calls(mods, source, q, k, v, do, scale, causal):
+    """{kernel: (launch, plain version)} of one source's kernels on these
+    inputs. A backward takes the forward kernel's own o and lse, as the
+    step hands them over."""
+    sa, ca, bf = mods
+    if source == "simple_attention":
+        return {
+            "simple_attention_fwd": (
+                lambda: sa.simple_attention_fwd_cuda(q, k, v, scale, causal),
+                lambda: sa.simple_attention_reference(q, k, v, scale,
+                                                      causal)),
+            "simple_attention_bwd": (
+                lambda: sa.simple_attention_bwd_cuda(q, k, v, do, scale,
+                                                     causal),
+                lambda: sa.simple_attention_bwd_reference(q, k, v, do, scale,
+                                                          causal))}
+    if source == "causal_attention":
+        o, lse = ca.causal_attention_fwd_cuda(q, k, v, scale)
+        res = (q, k, v, o, lse, do, scale)
+        return {
+            "causal_attention_fwd": (
+                lambda: ca.causal_attention_fwd_cuda(q, k, v, scale),
+                lambda: ca.causal_attention_reference(q, k, v, scale)),
+            "causal_attention_bwd": (
+                lambda: ca.causal_attention_bwd_cuda(*res),
+                lambda: ca.causal_attention_bwd_reference(*res))}
+    o, lse = bf.blocked_flash_fwd_cuda(q, k, v, scale, causal)
+    res = (q, k, v, o, lse, do, scale, causal)
+    return {
+        "blocked_flash_fwd": (
+            lambda: bf.blocked_flash_fwd_cuda(q, k, v, scale, causal),
+            lambda: bf.blocked_flash_reference(q, k, v, scale, causal)),
+        "blocked_flash_bwd_dq": (
+            lambda: bf.blocked_flash_bwd_dq_cuda(*res),
+            lambda: bf.blocked_flash_bwd_dq_reference(*res)),
+        "blocked_flash_bwd_dkv": (
+            lambda: bf.blocked_flash_bwd_dkv_cuda(*res),
+            lambda: bf.blocked_flash_bwd_dkv_reference(*res))}
+
+
+def _tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def check_kernels(run, mods, torch):
+    """Phase 2: every kernel against its plain version on the card, each
+    output (lse included) within the dtype's tolerance of the plain
+    output's scale (an lse within the f32 one). Returns the worst absolute
+    error of each kernel in its bf16 causal case at its path's shape."""
+    outputs = {k[0]: k[4] for k in KERNELS}
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
-    for dtype, causal in ((torch.bfloat16, True), (torch.bfloat16, False),
-                          (torch.float32, True)):
-        q, k, v, do = path_inputs(gen, dtype, torch)
-        scale = 1.0 / math.sqrt(SHAPE[-1])
-        tol = TOL[str(dtype).split(".")[-1]]
-        o = sa.simple_attention_fwd_cuda(q, k, v, scale, causal)
-        grads = sa.simple_attention_bwd_cuda(q, k, v, do, scale, causal)
-        torch.cuda.synchronize()
-        want_o = sa.simple_attention_reference(q, k, v, scale, causal)
-        want_g = sa.simple_attention_bwd_reference(q, k, v, do, scale, causal)
-        torch.cuda.synchronize()
-        tag = f"{str(dtype).split('.')[-1]} causal={causal}"
-        fa, fr = max_err(o, want_o)
-        run.check(fr <= tol, f"simple_attention_fwd {tag}: max abs err {fa:.3e}"
-                  f" rel {fr:.3e} (tolerance rel {tol})")
-        ba, br = 0.0, 0.0
-        for name, g, w in zip(("dq", "dk", "dv"), grads, want_g):
-            a, r = max_err(g, w)
-            ba, br = max(ba, a), max(br, r)
-            run.check(r <= tol, f"simple_attention_bwd {tag} {name}: max abs "
-                      f"err {a:.3e} rel {r:.3e} (tolerance rel {tol})")
-        if dtype == torch.bfloat16 and causal:
-            errs = {"fwd": (fa, tol), "bwd": (ba, tol)}
+    for source, label, sq, dname, causal in CHECKS:
+        dtype = getattr(torch, dname)
+        shape = attention_shape(label)
+        q, k, v, do = path_inputs(gen, dtype, torch, shape, sq)
+        calls = kernel_calls(mods, source, q, k, v, do,
+                             1.0 / math.sqrt(shape[-1]), causal)
+        tag = (f"{dname} causal={causal} Sq={sq or shape[2]} Skv={shape[2]} "
+               f"(B{shape[0]} H{shape[1]} D{shape[3]})")
+        for name, (launch, plain) in calls.items():
+            got = _tuple(launch())
+            torch.cuda.synchronize()
+            for out, g, w in zip(outputs[name], got, _tuple(plain())):
+                tol = TOL["float32"] if out == "lse" else TOL[dname]
+                a, r = max_err(g, w)
+                run.check(r <= tol, f"{name} {out} {tag}: max abs err {a:.3e}"
+                          f" rel {r:.3e} (tolerance rel {tol})")
+                if dname == "bfloat16" and causal and sq is None:
+                    errs[name] = max(errs.get(name, 0.0), a)
     return errs
 
 
@@ -168,24 +285,25 @@ def check_small_model(run, TH, GPTConfig, torch):
               f"worst grad leaf rel err {worst:.3e} (tolerance 1e-4)")
 
 
-def main_path(run, TH, GPTConfig, sa, fa, cost_model, torch):
-    """Phase 4: the GPT-1.3B training step through setup() and its step."""
-    cfg = GPTConfig(vocab_size=50304, hidden_size=2048, num_layers=24,
-                    num_heads=16, max_seq_len=1024)
+def drive(run, path, TH, GPTConfig, mods, fa, cost_model, torch):
+    """Phase 4, one path: the training step through setup() and its step,
+    with every count zeroed just before and read just after."""
+    label, fields, batch, seq, tier, kernels, warm, timed_steps = path
+    cfg = GPTConfig(**fields)
     pcfg = TH.ParallelConfig(remat=True, remat_policy="names", fused_ce=True,
                              param_dtype=torch.bfloat16,
                              compute_dtype=torch.bfloat16, moment_dtype=None)
-    batch, seq = 4, 1024
     params, opt_state, step = TH.setup(cfg, pcfg, seed=0)
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (batch, seq))).cuda()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    sa.reset_launch_counts()
+    for mod in mods:
+        mod.reset_launch_counts()
     fa.reset_dispatch_counts()
     losses = []
-    for _ in range(STEPS_WARM):
+    for _ in range(warm):
         params, opt_state, loss = step(params, opt_state, (ids, ids))
         losses.append(float(loss))
     start = torch.cuda.Event(enable_timing=True)
@@ -194,47 +312,52 @@ def main_path(run, TH, GPTConfig, sa, fa, cost_model, torch):
     t0 = time.perf_counter()
     start.record()
     timed = []
-    for _ in range(STEPS_TIMED):
+    for _ in range(timed_steps):
         params, opt_state, loss = step(params, opt_state, (ids, ids))
         timed.append(loss)
     end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(sa.LAUNCHES)
+    launches = {name: n for mod in mods for name, n in mod.LAUNCHES.items()}
     dispatch = dict(fa.DISPATCH_COUNTS)
     losses += [float(x) for x in timed]
 
-    steps = STEPS_WARM + STEPS_TIMED
+    steps = warm + timed_steps
     L = cfg.num_layers
-    ms = start.elapsed_time(end) / STEPS_TIMED
+    ms = start.elapsed_time(end) / timed_steps
     tok_s = batch * seq / (ms / 1e3)
     fpt = cost_model.gpt_flops_per_token(cfg, seq)
     mfu = cost_model.mfu(tok_s, fpt, "H100")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"main path: losses {[round(x, 4) for x in losses]}", flush=True)
-    print(f"main path: {ms:.2f} ms/step (device events), "
-          f"{wall / STEPS_TIMED * 1e3:.2f} ms/step (host clock), "
+    print(f"{label}: h{cfg.hidden_size}, {L} layers, {cfg.num_heads} heads "
+          f"of {cfg.hidden_size // cfg.num_heads}, vocab {cfg.vocab_size}, "
+          f"B{batch} S{seq}; losses {[round(x, 4) for x in losses]}",
+          flush=True)
+    print(f"{label}: {ms:.2f} ms/step (device events), "
+          f"{wall / timed_steps * 1e3:.2f} ms/step (host clock), "
           f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} at {fpt:.4e} FLOP/token, "
           f"peak memory {peak_gb:.2f} GB", flush=True)
     ticks = ", ".join(f"{m}{{{v}}}: {n}" for (m, v), n in dispatch.items())
-    print(f"main path: launches {launches}, dispatch {ticks}", flush=True)
-    run.check(all(math.isfinite(x) for x in losses), "losses are finite")
+    print(f"{label}: launches {launches}, dispatch {ticks}", flush=True)
+    run.check(all(math.isfinite(x) for x in losses),
+              f"{label}: losses are finite")
     run.check(10.0 <= losses[0] <= 11.5,
-              f"step-0 loss {losses[0]:.4f} near ln(50304) = 10.826")
-    run.check(losses[-1] < losses[0], "loss falls over the steps")
-    run.check(launches == {"simple_attention_fwd": L * steps,
-                           "simple_attention_bwd": L * steps},
-              f"{L} forward and {L} backward kernel launches per step "
-              f"over {steps} steps")
+              f"{label}: step-0 loss {losses[0]:.4f} near ln(50304) = 10.826")
+    run.check(losses[-1] < losses[0], f"{label}: loss falls over the steps")
+    run.check(launches == {n: L * steps if n in kernels else 0
+                           for n in launches},
+              f"{label}: {L} launches per step of each of {list(kernels)} "
+              f"over {steps} steps, and no other attention kernel")
     # under "names" the recompute passes through dispatch again and gets
-    # the saved output back without a launch: 2 ticks a layer, 1 launch
-    run.check(set(dispatch) == {("attn.dispatch", "simple")}
-              and dispatch[("attn.dispatch", "simple")] >= L * steps,
-              "every attention dispatched to simple, no fallback")
-    run.check(0 < mfu < 1, "MFU within (0, 1)")
+    # the saved outputs back without a launch: 2 ticks a layer, 1 launch
+    run.check(set(dispatch) == {("attn.dispatch", tier)}
+              and dispatch[("attn.dispatch", tier)] >= L * steps,
+              f"{label}: every attention dispatched to {tier}, no fallback")
+    run.check(0 < mfu < 1, f"{label}: MFU within (0, 1)")
     split = step_breakdown(TH, cfg, pcfg, params, opt_state, ids, torch)
-    return {"launches": launches, "ms_per_step": ms, "tokens_per_s": tok_s,
-            "mfu": mfu, "peak_memory_gb": peak_gb, **split}
+    return {"launches": launches, "steps": steps, "ms_per_step": ms,
+            "tokens_per_s": tok_s, "mfu": mfu, "peak_memory_gb": peak_gb,
+            "step0_loss": losses[0], "last_loss": losses[-1], **split}
 
 
 def step_breakdown(TH, cfg, pcfg, params, opt_state, ids, torch):
@@ -283,28 +406,29 @@ def step_breakdown(TH, cfg, pcfg, params, opt_state, ids, torch):
             "profiled_step_ms": wall_ms, "kernel_ms": busy}
 
 
-def time_kernels(sa, torch):
-    """Phase 5: kernel, plain and library times at the training shape."""
+def time_kernels(mods, torch):
+    """Phase 5: kernel, plain and library times of every kernel at its
+    path's shape (bf16, causal). The library call is one
+    scaled_dot_product_attention(is_causal=True) forward, and its backward
+    (dq, dk and dv together) beside each backward kernel."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(2)
-    q, k, v, do = path_inputs(gen, torch.bfloat16, torch)
-    scale = 1.0 / math.sqrt(SHAPE[-1])
-    t = {
-        "fwd": cuda_ms(lambda: sa.simple_attention_fwd_cuda(
-            q, k, v, scale, True)),
-        "bwd": cuda_ms(lambda: sa.simple_attention_bwd_cuda(
-            q, k, v, do, scale, True)),
-        "plain_fwd": cuda_ms(lambda: sa.simple_attention_reference(
-            q, k, v, scale, True), reps=3),
-        "plain_bwd": cuda_ms(lambda: sa.simple_attention_bwd_reference(
-            q, k, v, do, scale, True), reps=3),
-        "library_fwd": cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True)),
-    }
-    ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
-    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-    t["library_bwd"] = cuda_ms(lambda: torch.autograd.grad(
-        out, (ql, kl, vl), do, retain_graph=True))
+    t = {}
+    for source in dict.fromkeys(k[1] for k in KERNELS):
+        label = next(k[3] for k in KERNELS if k[1] == source)
+        shape = attention_shape(label)
+        q, k, v, do = path_inputs(gen, torch.bfloat16, torch, shape)
+        calls = kernel_calls(mods, source, q, k, v, do,
+                             1.0 / math.sqrt(shape[-1]), True)
+        for name, (launch, plain) in calls.items():
+            t[name] = cuda_ms(launch)
+            t[f"plain {name}"] = cuda_ms(plain, reps=3)
+        t[f"fwd {source}"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+        ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
+        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        t[f"bwd {source}"] = cuda_ms(lambda: torch.autograd.grad(
+            out, (ql, kl, vl), do, retain_graph=True))
     return t
 
 
@@ -323,6 +447,8 @@ def main():
         from paddle_tpu_torch.models import gpt_hybrid as TH
         from paddle_tpu_torch.models.gpt import GPTConfig
         from paddle_tpu_torch.ops.hopper import _build
+        from paddle_tpu_torch.ops.hopper import blocked_flash as bf
+        from paddle_tpu_torch.ops.hopper import causal_attention as ca
         from paddle_tpu_torch.ops.hopper import flash_attention as fa
         from paddle_tpu_torch.ops.hopper import simple_attention as sa
     except ImportError as e:
@@ -347,35 +473,40 @@ def main():
         print(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)}"
               f" registers a thread, {spills} bytes spilled")
 
-    errs = check_kernels(run, sa, torch)
+    mods = (sa, ca, bf)
+    errs = check_kernels(run, mods, torch)
     check_small_model(run, TH, GPTConfig, torch)
-    path = main_path(run, TH, GPTConfig, sa, fa, cost_model, torch)
-    times = time_kernels(sa, torch)
+    paths = {}
+    for path in PATHS:
+        paths[path[0]] = drive(run, path, TH, GPTConfig, mods, fa,
+                               cost_model, torch)
+        torch.cuda.empty_cache()
+    times = time_kernels(mods, torch)
     torch.cuda.synchronize()
 
-    bounds = attention_bounds(*SHAPE, itemsize=2, causal=True)
-    steps = STEPS_WARM + STEPS_TIMED
     kernels = []
-    for part, line in (("fwd", 113), ("bwd", 130)):
-        name = f"simple_attention_{part}"
+    for kern in KERNELS:
+        name, source, line, label, *_, library = kern
+        launches = paths[label]["launches"][name]
+        bound_ms, bound_by = bound(kern)
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/ops/hopper/csrc/simple_attention.cu",
-            "replaces": f"paddle_tpu/ops/pallas/simple_attention.py:{line}",
-            "launches": path["launches"][name],
-            "launches_per_step": path["launches"][name] / steps,
-            "max_abs_err": errs[part][0], "tolerance_rel": errs[part][1],
-            "ms": times[part], "plain_ms": times[f"plain_{part}"],
-            "bound_ms": bounds[part][0], "bound_by": bounds[part][1],
-            "library_ms": times[f"library_{part}"],
+            "source": f"paddle_tpu_torch/ops/hopper/csrc/{source}.cu",
+            "replaces": f"paddle_tpu/ops/pallas/{source}.py:{line}",
+            "launches": launches,
+            "launches_per_step": launches / paths[label]["steps"],
+            "max_abs_err": errs[name], "tolerance_rel": TOL["bfloat16"],
+            "ms": times[name], "plain_ms": times[f"plain {name}"],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": times[f"{library} {source}"],
         })
-    for kern in kernels:
-        print(f"{kern['name']}: {kern['ms']:.3f} ms, bound "
-              f"{kern['bound_ms']:.4f} ms ({kern['bound_by']}), roofline "
-              f"share {kern['bound_ms'] / kern['ms']:.4f}, plain "
-              f"{kern['plain_ms']:.3f} ms, library {kern['library_ms']:.3f} ms")
-    print(json.dumps({"step": {k: v for k, v in path.items()
-                               if k != "launches"}}))
+        print(f"{name}: {times[name]:.3f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), roofline share {bound_ms / times[name]:.4f}, "
+              f"plain {times[f'plain {name}']:.3f} ms, library "
+              f"{times[f'{library} {source}']:.3f} ms")
+    print(json.dumps({"paths": {
+        label: {k: v for k, v in p.items() if k != "launches"}
+        for label, p in paths.items()}}))
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed",
               file=sys.stderr)

@@ -6,8 +6,10 @@ runs its single-device case (dp=pp=tp=1) eagerly on one CUDA card:
 - parameters are the reference's dict of stacked ``[L, ...]`` block leaves
   in the ``x @ W`` orientation, so ``params_from_jax`` is a plain copy;
 - attention goes through ``ops/hopper/flash_attention.flash_attention_maybe``
-  (the Hopper ``simple_attention`` kernel at the 1.3B shape), with the
-  reference's plain einsum where dispatch returns None;
+  (the Hopper ``simple_attention`` kernel at the 1.3B shape,
+  ``causal_attention`` at S=2048 and ``blocked_flash`` at S=4096 on the
+  350M-class rungs), with the reference's plain einsum where dispatch
+  returns None;
 - remat is ``torch.utils.checkpoint`` per block; the ``"names"`` and
   ``"dots"`` policies are selective-checkpoint policies over aten ops and
   the attention op;
@@ -29,8 +31,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..device import resolve_device
 from ..ops.fused_ce import fused_lm_ce
-from ..ops.hopper import simple_attention as sa
-from ..ops.hopper.flash_attention import flash_attention_maybe
+from ..ops.hopper.flash_attention import ATTENTION_OPS, flash_attention_maybe
 from .gpt import GPTConfig
 
 
@@ -212,8 +213,10 @@ def _policy_context(pcfg):
 
     "dots": save every matmul output (jax's dots_saveable), recompute the
     rest, the attention op included. "names": save the outputs named in
-    remat_save_names, recognised by op: "attn_out" is the Hopper attention
-    op, and "qkv"/"proj"/"ffn1"/"ffn2" are _block's addmm calls in order.
+    remat_save_names, recognised by op: "attn_out" is any of the Hopper
+    attention ops (all their outputs: o, and the lse that the
+    causal_attention and blocked_flash backwards read), and
+    "qkv"/"proj"/"ffn1"/"ffn2" are _block's addmm calls in order.
     Where attention takes the plain path (CPU), "attn_out" names no op and
     is recomputed; values are the same either way."""
     names = set(pcfg.remat_save_names)
@@ -222,7 +225,7 @@ def _policy_context(pcfg):
     def policy(ctx, func, *args, **kwargs):
         if pcfg.remat_policy == "dots":
             save = func in _DOTS
-        elif func == sa.OP:
+        elif func in ATTENTION_OPS:
             save = "attn_out" in names
         elif func == torch.ops.aten.addmm.default:
             i = seen[ctx.is_recompute]

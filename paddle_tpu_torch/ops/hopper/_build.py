@@ -2,8 +2,9 @@
 
 Each source ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, compiled for ``sm_90a`` on first use into ``_build/`` beside this
-file (listed in ``.gitignore``), under a name keyed by a hash of the source
-and the flags: an edited source is rebuilt, an unchanged one is loaded as it
+file (listed in ``.gitignore``), under a name keyed by a hash of every file
+under ``csrc/`` (the sources and the ``.cuh`` headers they share) and the
+flags: an edit anywhere there rebuilds, an unchanged tree is loaded as it
 is. Nothing is built when the module is imported.
 
     python3 -c "from paddle_tpu_torch.ops.hopper import _build; _build.build_all()"
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("simple_attention",)
+SOURCES = ("simple_attention", "causal_attention", "blocked_flash")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -42,7 +43,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    digest = hashlib.sha256(name.encode())
+    for path in sorted(p for p in CSRC.iterdir() if p.is_file()):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

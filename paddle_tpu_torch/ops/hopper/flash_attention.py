@@ -2,17 +2,20 @@
 
 Port of ``paddle_tpu/ops/pallas/flash_attention.py`` (``supported_shape``,
 ``_gate_reason``, ``flash_attention_maybe``). The port walks the reference's
-static chain with the reference's own gates, so that it picks the tier the
+static chain with the tiers' own gates, so that it picks the tier the
 reference picks: the monolithic ``simple_attention`` where the whole (b, h)
 slice fits the reference's VMEM budget (S <= 1024 at D=128), then
 ``causal_attention`` (the causal S=2048 rung), ``qblock_attention`` (the
 non-causal middle tier), ``blocked_flash`` (S >= 4096), and last the
-library flash kernel, which in the port will route to the Hopper
-``blocked_flash``. Only ``simple_attention`` is ported so far; a shape the
-reference would send to another tier raises ``NotImplementedError`` naming
-it, and never falls back to plain attention on the card. The reference's
-runtime autotuner (``ops/pallas/autotune.py``), which can override the
-chain on a TPU, is not ported yet either (ROADMAP queue 2).
+library flash kernel. ``qblock_attention`` is not ported yet, and the last
+tier, which wraps JAX's own kernel in the reference, has no Hopper kernel:
+it is reached only by shapes that ``blocked_flash``'s gate refuses (a head
+dim such as 192, causal Sq != Skv). A shape sent to either raises
+``NotImplementedError`` naming it, and never falls back to plain attention
+on the card. The reference's runtime autotuner (``ops/pallas/autotune.py``),
+which can override the chain on a TPU, is not ported yet either (ROADMAP
+queue 2); the port takes the static chain, as the reference does on a
+cold trace.
 
 Errors propagate: a kernel that fails to build or launch raises.
 """
@@ -22,7 +25,13 @@ from collections import Counter
 
 import torch
 
+from . import blocked_flash as bf
+from . import causal_attention as ca
 from . import simple_attention as sa
+
+# Every registered attention op whose outputs the "names" remat policy keeps
+# as "attn_out" (models/gpt_hybrid.py).
+ATTENTION_OPS = (sa.OP, ca.OP, ca.HYBRID_OP, bf.OP)
 
 # attn.dispatch{kernel=} and attn.dispatch_fallback{reason=} ticks since the
 # last reset_dispatch_counts(), keyed (metric, label value).
@@ -59,25 +68,7 @@ def _gate_reason(q, k):
     return "dtype"
 
 
-# ---- gates of the reference's tiers that have no Hopper kernel yet ----------
-def _itemsize(dtype):
-    return 2 if dtype in (torch.bfloat16, torch.float16) else 4
-
-
-def _causal_gate(bhsd, dtype, budget=11 * 2 ** 20):
-    """causal_attention.supported (causal_attention.py:133, _pick_nq :59)."""
-    b, h, s, d = bhsd
-    if d % 128 != 0 and d != 64:
-        return False
-    isz = _itemsize(dtype)
-    for nq in (2, 4, 8, 16):
-        bq = s // nq
-        need = (5 * s * d * isz + 2 * s * d * 4 + 2 * bq * s * 4 + 8 * s * 4)
-        if s % (nq * 128) == 0 and need <= budget:
-            return True
-    return False
-
-
+# ---- the gate of the reference's tier that has no Hopper kernel yet --------
 def _qblock_gate(bhsd, dtype, budget=11 * 2 ** 20):
     """simple_attention2.supported (simple_attention2.py:108, _pick_bq :94)."""
     b, h, s, d = bhsd
@@ -88,16 +79,6 @@ def _qblock_gate(bhsd, dtype, budget=11 * 2 ** 20):
         if bq <= s and need <= budget and s % bq == 0:
             return True
     return False
-
-
-def _blocked_gate(bhsd, skv, dtype, causal):
-    """blocked_flash.supported (blocked_flash.py:96)."""
-    b, h, s, d = bhsd
-    if d % 128 != 0 and d != 64:
-        return False
-    if s % 128 != 0 or skv % 128 != 0:
-        return False
-    return not (causal and s != skv)
 
 
 def _unported(kernel, reference):
@@ -112,8 +93,9 @@ def flash_attention_maybe(q, k, v, causal=False, scale=None):
     None (the caller then takes plain attention) for CPU tensors, as the
     reference returns None off a TPU, and for CUDA shapes the library gate
     rejects, counted on ``attn.dispatch_fallback{reason=}``. A CUDA shape
-    that ``simple_attention``'s gate admits launches it and ticks
-    ``attn.dispatch{kernel="simple"}``; any other tier raises."""
+    that a ported tier's gate admits launches its kernels and ticks
+    ``attn.dispatch{kernel=}`` ("simple", "causal_skip", "blocked"); the
+    unported tiers raise."""
     if q.device.type != "cuda":
         return None
     return _dispatch(q, k, v, causal, scale)
@@ -126,16 +108,23 @@ def _dispatch(q, k, v, causal, scale):
         return None
     bhsd = (q.shape[0], q.shape[2], q.shape[1], q.shape[3])
     same_len = q.shape[1] == k.shape[1]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if same_len and sa.supported(bhsd, q.dtype):
         _count("attn.dispatch", "simple")
-        out = sa.attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=causal,
-                                scale=scale)
-        return out.transpose(1, 2)
-    if causal and same_len and _causal_gate(bhsd, q.dtype):
-        _unported("causal_skip", "ops/pallas/causal_attention.py")
+        return sa.attention_bhsd(qt, kt, vt, causal=causal,
+                                 scale=scale).transpose(1, 2)
+    if causal and same_len and ca.supported(bhsd, q.dtype):
+        _count("attn.dispatch", "causal_skip")
+        return ca.attention_bhsd(qt, kt, vt, causal=True,
+                                 scale=scale).transpose(1, 2)
     if same_len and _qblock_gate(bhsd, q.dtype):
         _unported("qblock", "ops/pallas/simple_attention2.py")
-    if _blocked_gate(bhsd, k.shape[1], q.dtype, causal):
-        _unported("blocked", "ops/pallas/blocked_flash.py")
-    _unported("library_flash", "to be served by the Hopper blocked_flash")
+    if bf.supported(bhsd, k.shape[1], q.dtype, causal):
+        _count("attn.dispatch", "blocked")
+        return bf.attention_bhsd(qt, kt, vt, causal=causal,
+                                 scale=scale).transpose(1, 2)
+    raise NotImplementedError(
+        f"attention tier 'library_flash' (JAX's own flash kernel in the "
+        f"reference) for q {tuple(q.shape)}, kv length {k.shape[1]}, "
+        f"{q.dtype}, causal={causal}: no Hopper kernel takes this shape "
+        "yet; ROADMAP queue 2 lists it")

@@ -15,20 +15,16 @@ tensors it runs the plain versions below, which the tests and
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
-from . import _build
+from . import _launch as L
 
 NEG_INF = -1e30
 
 # Kernel launches since the last reset_launch_counts(), by kernel.
 LAUNCHES = {"simple_attention_fwd": 0, "simple_attention_bwd": 0}
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_HEAD_DIMS = (64, 128, 256)
 
 
 def reset_launch_counts():
@@ -73,83 +69,22 @@ def simple_attention_bwd_reference(q, k, v, do, sm_scale, causal=True):
 
 
 # --------------------------------- kernels ----------------------------------
-def _aligned(t):
-    """Unit-stride head dim and 16-byte aligned rows: the kernels' loads."""
-    align = 16 // t.element_size()
-    return t.stride(-1) == 1 and t.data_ptr() % 16 == 0 \
-        and all(st % align == 0 for st in t.stride()[:-1])
-
-
-def _check(what, tensors, shape, dtype):
-    """Refuses what the kernels do not take, before any pointer is passed.
-    q, k and v (the first three) must share one layout."""
-    for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"simple_attention {what}: expected CUDA "
-                             f"tensors, got {t.device}")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"simple_attention {what}: expected {dtype} "
-                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
-        if t.device != tensors[0].device:
-            raise ValueError(f"simple_attention {what}: tensors on "
-                             f"{t.device} and {tensors[0].device}")
-        if not _aligned(t):
-            raise ValueError(
-                f"simple_attention {what}: the head dim must be unit-stride "
-                f"and rows 16-byte aligned, got strides {t.stride()}")
-    if any(t.stride() != tensors[0].stride() for t in tensors[1:3]):
-        raise ValueError(f"simple_attention {what}: q, k and v must share "
-                         "one layout")
-    if dtype not in _DTYPE_CODE:
-        raise ValueError(f"simple_attention {what}: dtype {dtype} "
-                         f"not in {list(_DTYPE_CODE)}")
-    b, h, s, d = shape
-    if d not in _HEAD_DIMS:
-        raise NotImplementedError(
-            f"simple_attention: head dim {d} has no Hopper kernel yet "
-            f"(built for {_HEAD_DIMS}; ROADMAP queue 2)")
-    if s % 64:
-        raise ValueError(f"simple_attention: S={s} is not a multiple of 64")
-
-
-def _strides(t):
-    """(batch, head, row) element strides of a [B, H, S, D] view."""
-    return t.stride(0), t.stride(1), t.stride(2)
-
-
-def _empty_bshd(b, h, s, d, like):
-    """[B, H, S, D] view of a fresh [B, S, H, D] buffer: what the model's
-    [B, S, H*D] activations reshape to without a copy."""
-    return torch.empty(b, s, h, d, dtype=like.dtype,
-                       device=like.device).transpose(1, 2)
-
-
-_typed_lib = []
+_SIGNATURES = {
+    "sa_fwd": [L.INT, L.INT] + [L.VP] * 4 + [L.LL] * 6
+              + [L.INT, L.INT, L.INT, L.FLOAT, L.INT, L.VP],
+    "sa_bwd": [L.INT, L.INT] + [L.VP] * 10 + [L.LL] * 9
+              + [L.INT, L.INT, L.INT, L.FLOAT, L.INT, L.VP],
+}
 
 
 def _lib():
-    """The kernels' library with every entry point's C types declared."""
-    if not _typed_lib:
-        lib = _build.library("simple_attention")
-        vp, ll, i, f = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                        ctypes.c_float)
-        lib.sa_fwd.argtypes = [i, i, vp, vp, vp, vp, ll, ll, ll, ll, ll, ll,
-                               i, i, i, f, i, vp]
-        lib.sa_fwd.restype = i
-        lib.sa_bwd.argtypes = [i, i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
-                               ll, ll, ll, ll, ll, ll, ll, ll, ll,
-                               i, i, i, f, i, vp]
-        lib.sa_bwd.restype = i
-        lib.sa_error_string.argtypes = [i]
-        lib.sa_error_string.restype = ctypes.c_char_p
-        _typed_lib.append(lib)
-    return _typed_lib[0]
+    return L.library("simple_attention", "sa", _SIGNATURES)
 
 
-def _raise_on(lib, err, what):
-    if err:
-        raise RuntimeError(f"simple_attention {what} kernel failed to launch: "
-                           f"{lib.sa_error_string(err).decode()} ({err})")
+def _check(what, tensors, shape, dtype):
+    """q, k and v (the first three) must share one layout."""
+    L.check("simple_attention", what, [(t, shape, dtype) for t in tensors])
+    L.same_layout("simple_attention", what, tensors[:3])
 
 
 def simple_attention_fwd_cuda(q, k, v, sm_scale, causal):
@@ -158,15 +93,11 @@ def simple_attention_fwd_cuda(q, k, v, sm_scale, causal):
     shape = tuple(q.shape)
     _check("forward", (q, k, v), shape, q.dtype)
     b, h, s, d = shape
-    o = _empty_bshd(b, h, s, d, q)
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.sa_fwd(_DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(),
-                         v.data_ptr(), o.data_ptr(), *_strides(q),
-                         *_strides(o), b, h, s, float(sm_scale), int(causal),
-                         stream)
-    _raise_on(lib, err, "forward")
+    o = L.empty_bshd(b, h, s, d, q)
+    L.launch(_lib(), "sa", "simple_attention", "forward", q.device, "sa_fwd",
+             L.DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(),
+             v.data_ptr(), o.data_ptr(), *L.strides(q), *L.strides(o),
+             b, h, s, float(sm_scale), int(causal))
     LAUNCHES["simple_attention_fwd"] += 1
     return o
 
@@ -178,18 +109,14 @@ def simple_attention_bwd_cuda(q, k, v, do, sm_scale, causal):
     shape = tuple(q.shape)
     _check("backward", (q, k, v, do), shape, q.dtype)
     b, h, s, d = shape
-    dq, dk, dv = (_empty_bshd(b, h, s, d, q) for _ in range(3))
+    dq, dk, dv = (L.empty_bshd(b, h, s, d, q) for _ in range(3))
     stats = torch.empty(3, b, h, s, dtype=torch.float32, device=q.device)
-    lib = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.sa_bwd(_DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(),
-                         v.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                         dk.data_ptr(), dv.data_ptr(), stats[0].data_ptr(),
-                         stats[1].data_ptr(), stats[2].data_ptr(),
-                         *_strides(q), *_strides(do), *_strides(dq),
-                         b, h, s, float(sm_scale), int(causal), stream)
-    _raise_on(lib, err, "backward")
+    L.launch(_lib(), "sa", "simple_attention", "backward", q.device, "sa_bwd",
+             L.DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(),
+             v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+             dv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+             stats[2].data_ptr(), *L.strides(q), *L.strides(do),
+             *L.strides(dq), b, h, s, float(sm_scale), int(causal))
     LAUNCHES["simple_attention_bwd"] += 1
     return dq, dk, dv
 
@@ -228,7 +155,7 @@ def _setup_context(ctx, inputs, output):
 
 def _backward(ctx, do):
     q, k, v = ctx.saved_tensors
-    if not _aligned(do):      # e.g. the expanded gradient of a sum()
+    if not L.aligned(do):      # e.g. the expanded gradient of a sum()
         do = do.contiguous()
     dq, dk, dv = _attention_bwd_op(q, k, v, do, ctx.sm_scale, ctx.causal)
     return dq, dk, dv, None, None
@@ -240,12 +167,12 @@ _attention_op.register_autograd(_backward, setup_context=_setup_context)
 # Shapes and layouts only (meta tensors, tracing): what the kernels return.
 @_attention_op.register_fake
 def _attention_fake(q, k, v, sm_scale, causal):
-    return _empty_bshd(*q.shape, q)
+    return L.empty_bshd(*q.shape, q)
 
 
 @_attention_bwd_op.register_fake
 def _attention_bwd_fake(q, k, v, do, sm_scale, causal):
-    return tuple(_empty_bshd(*q.shape, q) for _ in range(3))
+    return tuple(L.empty_bshd(*q.shape, q) for _ in range(3))
 
 # What a selective-checkpoint policy sees when the op runs.
 OP = torch.ops.paddle_tpu_torch.simple_attention.default

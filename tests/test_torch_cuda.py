@@ -13,6 +13,8 @@ import torch
 
 from paddle_tpu_torch.models import gpt_hybrid as TH
 from paddle_tpu_torch.models.gpt import GPTConfig
+from paddle_tpu_torch.ops.hopper import blocked_flash as tbf
+from paddle_tpu_torch.ops.hopper import causal_attention as tca
 from paddle_tpu_torch.ops.hopper import flash_attention as tfa
 from paddle_tpu_torch.ops.hopper import simple_attention as tsa
 
@@ -75,3 +77,136 @@ def test_train_step_goes_through_the_kernels():
     assert tsa.LAUNCHES == {"simple_attention_fwd": 3 * L,
                             "simple_attention_bwd": 3 * L}
     assert set(tfa.DISPATCH_COUNTS) == {("attn.dispatch", "simple")}
+
+
+def _randn(gen, dtype, *shape):
+    return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+
+def _qkv_views(gen, dtype, b, h, s, d):
+    """q, k, v as the model hands them over: [B, H, S, D] views into one
+    [B, S, 3*H*D] activation."""
+    qkv = _randn(gen, dtype, b, s, 3 * h * d)
+    return [x.reshape(b, s, h, d).transpose(1, 2)
+            for x in qkv.split(h * d, dim=-1)]
+
+
+# Tolerances as above: f32 1e-4, bf16 2e-2, f16 1e-2 of the output scale.
+_DTYPES = [(torch.float32, 1e-4), (torch.bfloat16, 2e-2),
+           (torch.float16, 1e-2)]
+
+
+@pytest.mark.parametrize("dtype,tol", _DTYPES)
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_causal_attention_kernels_match_plain_versions(d, dtype, tol):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(d + 1)
+    q, k, v = _qkv_views(gen, dtype, 2, 4, 256, d)
+    do = _randn(gen, dtype, 2, 4, 256, d)
+    scale = 1.0 / np.sqrt(d)
+    o, lse = tca.causal_attention_fwd_cuda(q, k, v, scale)
+    want_o, want_lse = tca.causal_attention_reference(q, k, v, scale)
+    assert _rel_err(o, want_o) < tol
+    assert lse.dtype == torch.float32 and _rel_err(lse, want_lse) < 1e-5
+    gots = tca.causal_attention_bwd_cuda(q, k, v, want_o, want_lse, do,
+                                         scale)
+    wants = tca.causal_attention_bwd_reference(q, k, v, want_o, want_lse,
+                                               do, scale)
+    for g, w in zip(gots, wants):
+        assert _rel_err(g, w) < tol
+
+
+@pytest.mark.parametrize("dtype,tol", _DTYPES)
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_blocked_flash_kernels_match_plain_versions(d, dtype, tol):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(d + 2)
+    scale = 1.0 / np.sqrt(d)
+    for causal, sq, skv in ((True, 384, 384), (False, 256, 256),
+                            (False, 128, 384)):
+        q = _randn(gen, dtype, 2, 4, sq, d)
+        k, v = (_randn(gen, dtype, 2, 4, skv, d) for _ in range(2))
+        do = _randn(gen, dtype, 2, 4, sq, d)
+        o, lse = tbf.blocked_flash_fwd_cuda(q, k, v, scale, causal)
+        want_o, want_lse = tbf.blocked_flash_reference(q, k, v, scale,
+                                                       causal)
+        assert _rel_err(o, want_o) < tol, (causal, sq, skv)
+        assert _rel_err(lse, want_lse) < 1e-5, (causal, sq, skv)
+        dq = tbf.blocked_flash_bwd_dq_cuda(q, k, v, want_o, want_lse, do,
+                                           scale, causal)
+        assert _rel_err(dq, tbf.blocked_flash_bwd_dq_reference(
+            q, k, v, want_o, want_lse, do, scale, causal)) < tol
+        gots = tbf.blocked_flash_bwd_dkv_cuda(q, k, v, want_o, want_lse, do,
+                                              scale, causal)
+        wants = tbf.blocked_flash_bwd_dkv_reference(q, k, v, want_o,
+                                                    want_lse, do, scale,
+                                                    causal)
+        for g, w in zip(gots, wants):
+            assert _rel_err(g, w) < tol, (causal, sq, skv)
+
+
+def test_new_kernel_wrappers_refuse_causal_cross_attention():
+    _need_card()
+    q = torch.zeros(1, 2, 128, 64, device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros(1, 2, 256, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Sq == Skv"):
+        tbf.blocked_flash_fwd_cuda(q, k, k, 0.125, True)
+
+
+# The rungs' tiers at a tiny width: S=2048 at D=64 takes causal_skip (nq=4)
+# and S=4096 at D=128 takes blocked (qblock's gate refuses it; at D=64 it
+# would admit it, and qblock has no kernel yet).
+@pytest.mark.parametrize("s,d,tier,launches", [
+    (2048, 64, "causal_skip", {"causal_attention_fwd": 1,
+                               "causal_attention_bwd": 1}),
+    (4096, 128, "blocked", {"blocked_flash_fwd": 1,
+                            "blocked_flash_bwd_dq": 1,
+                            "blocked_flash_bwd_dkv": 1})])
+def test_long_context_step_goes_through_the_new_kernels(s, d, tier,
+                                                        launches):
+    _need_card()
+    cfg = GPTConfig(vocab_size=256, hidden_size=2 * d, num_layers=2,
+                    num_heads=2, max_seq_len=s)
+    pcfg = TH.ParallelConfig(remat=True, remat_policy="names",
+                             param_dtype=torch.bfloat16,
+                             compute_dtype=torch.bfloat16)
+    params, opt, step = TH.setup(cfg, pcfg, seed=0)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (1, s))).cuda()
+    tfa.reset_dispatch_counts()
+    for mod in (tsa, tca, tbf):
+        mod.reset_launch_counts()
+    losses = [float(step(params, opt, (ids, ids))[2]) for _ in range(3)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    steps_layers = 3 * cfg.num_layers
+    got = {**tsa.LAUNCHES, **tca.LAUNCHES, **tbf.LAUNCHES}
+    assert got == {n: launches.get(n, 0) * steps_layers for n in got}
+    assert set(tfa.DISPATCH_COUNTS) == {("attn.dispatch", tier)}
+
+
+# An independent yardstick for the lse backward kernels: autograd of the
+# plain forward (f32), not the plain backward they share their formula with.
+# Both kernels and the plain backward sum in f32; 1e-5 of the gradient's
+# scale leaves room for another summation order and nothing more.
+@pytest.mark.parametrize("module", ["causal_attention", "blocked_flash"])
+def test_lse_backward_kernels_match_autograd_of_the_plain_forward(module):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = (_randn(gen, torch.float32, 1, 2, 256, 64)
+                   for _ in range(4))
+    if module == "causal_attention":
+        o, lse = tca.causal_attention_fwd_cuda(q, k, v, 0.125)
+        got = tca.causal_attention_bwd_cuda(q, k, v, o, lse, do, 0.125)
+        plain = tca.causal_attention_reference
+    else:
+        o, lse = tbf.blocked_flash_fwd_cuda(q, k, v, 0.125, True)
+        res = (q, k, v, o, lse, do, 0.125, True)
+        got = (tbf.blocked_flash_bwd_dq_cuda(*res),
+               *tbf.blocked_flash_bwd_dkv_cuda(*res))
+
+        def plain(*a):
+            return tbf.blocked_flash_reference(*a, True)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    want = torch.autograd.grad(plain(*leaves, 0.125)[0], leaves, do)
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) < 1e-5

@@ -1,7 +1,8 @@
 """The PyTorch port's GPT training step (paddle_tpu_torch.models.gpt_hybrid)
 against the JAX reference (paddle_tpu.models.gpt_hybrid) on the CPU: step-0
 loss and every gradient leaf, a three-step trajectory, gradient merge, a
-bf16 run, remat, and the attention dispatch counters.
+bf16 run, remat, the slice's attention kernels inside the step, and the
+attention dispatch counters.
 
 Both sides get the reference's own parameters (jax draws, brought over by
 params_from_jax) and the same numpy token ids. The tiny config has h=128
@@ -16,8 +17,13 @@ import jax.numpy as jnp
 
 from paddle_tpu.models import gpt_hybrid as GH
 from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
+from paddle_tpu.ops.pallas import blocked_flash as jbf
+from paddle_tpu.ops.pallas import causal_attention as jca
+from paddle_tpu.ops.pallas import flash_attention as jfa
 from paddle_tpu_torch.models import gpt_hybrid as TH
 from paddle_tpu_torch.models.gpt import GPTConfig
+from paddle_tpu_torch.ops.hopper import blocked_flash as tbf
+from paddle_tpu_torch.ops.hopper import causal_attention as tca
 from paddle_tpu_torch.ops.hopper import flash_attention as tfa
 from paddle_tpu_torch.ops.hopper import simple_attention as tsa
 
@@ -37,9 +43,20 @@ def _pcfgs(**kw):
     return GH.ParallelConfig(**jkw), TH.ParallelConfig(**kw)
 
 
-def _ids(seed=0, b=B):
+def _ids(seed=0, b=B, s=S):
     return np.random.RandomState(seed).randint(0, SIZE["vocab_size"],
-                                               (b, S)).astype(np.int32)
+                                               (b, s)).astype(np.int32)
+
+
+# The slice's tiers in the tiny model: at D=64, S=256 takes
+# causal_attention's kernel (nq=2) and S=384 blocked_flash's (blocks of 128).
+SLICE_S = {"simple": S, "causal_skip": 256, "blocked": 384}
+
+
+def _cfgs(tier):
+    """The tiny config (jax, torch) at the tier's sequence length."""
+    size = dict(SIZE, max_seq_len=SLICE_S[tier])
+    return JaxGPTConfig(**size), GPTConfig(**size)
 
 
 def _np_tree(tree):
@@ -72,21 +89,21 @@ def _assert_leaves_close(got, want, rel, what, atol=0.0):
             f"{what} {name}: {err} > {rel} * {scale} + {atol}"
 
 
-def _jax_value_and_grad(jpcfg, params, ids):
+def _jax_value_and_grad(jpcfg, params, ids, jcfg=JCFG):
     mesh = GH.build_mesh(jpcfg, jax.devices()[:1])
     batch = (jnp.asarray(ids), jnp.asarray(ids))
     loss, grads = jax.value_and_grad(
-        lambda p: GH.loss_fn(p, batch, JCFG, jpcfg, mesh))(params)
+        lambda p: GH.loss_fn(p, batch, jcfg, jpcfg, mesh))(params)
     return float(loss), _np_tree(grads)
 
 
-def _torch_value_and_grad(tpcfg, np_params, ids):
+def _torch_value_and_grad(tpcfg, np_params, ids, tcfg=TCFG):
     params = TH.params_from_jax(np_params, device="cpu")
     leaves = TH._leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     ids_t = torch.from_numpy(ids).long()
-    loss = TH.loss_fn(params, (ids_t, ids_t), TCFG, tpcfg)
+    loss = TH.loss_fn(params, (ids_t, ids_t), tcfg, tpcfg)
     grads = torch.autograd.grad(loss, leaves)
     tree, it = {}, iter(grads)
 
@@ -213,41 +230,88 @@ def test_multi_device_configs_raise(bad):
         TH.build_train_step(TCFG, tp)
 
 
-def _count_plain_attention(monkeypatch):
-    """Routes the CPU attention through the registered Hopper op (whose CPU
-    body is the plain version) and counts the plain forward's calls."""
+_TIER_MODULES = {"simple": (tsa, "simple_attention_reference"),
+                 "causal_skip": (tca, "causal_attention_reference"),
+                 "blocked": (tbf, "blocked_flash_reference")}
+
+
+def _count_plain_attention(monkeypatch, tier="simple"):
+    """Routes the CPU attention through the tier's registered Hopper op
+    (whose CPU body is the plain version) and counts the plain forward's
+    calls."""
+    mod, plain_name = _TIER_MODULES[tier]
     calls = {"fwd": 0}
-    plain = tsa.simple_attention_reference
+    plain = getattr(mod, plain_name)
 
     def counted(*a, **kw):
         calls["fwd"] += 1
         return plain(*a, **kw)
 
     def through_op(q, k, v, causal=False, scale=None):
-        out = tsa.attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
+        out = mod.attention_bhsd(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), causal=causal,
                                  scale=scale)
         return out.transpose(1, 2)
 
-    monkeypatch.setattr(tsa, "simple_attention_reference", counted)
+    monkeypatch.setattr(mod, plain_name, counted)
     monkeypatch.setattr(TH, "flash_attention_maybe", through_op)
     return calls
 
 
-# "names" keeps the attention op's output, so a forward + backward runs the
-# attention forward once per layer; "full" runs it again in the recompute.
-@pytest.mark.parametrize("policy,per_layer", [("names", 1), ("full", 2),
-                                              ("dots", 2)])
+# "names" keeps the attention op's outputs (o, and lse for the new tiers),
+# so a forward + backward runs the attention forward once per layer; "full"
+# and "dots" run it again in the recompute.
+_POLICIES = (("names", 1), ("full", 2), ("dots", 2))
+
+
+@pytest.mark.parametrize("policy,per_layer,tier", [
+    *(pytest.param(p, n, "simple", id=f"{p}-{n}") for p, n in _POLICIES),
+    *(pytest.param(p, n, t, id=f"{p}-{n}-{t}")
+      for t in ("causal_skip", "blocked") for p, n in _POLICIES)])
 def test_remat_policy_decides_attention_recompute(monkeypatch, policy,
-                                                  per_layer):
-    calls = _count_plain_attention(monkeypatch)
+                                                  per_layer, tier):
+    calls = _count_plain_attention(monkeypatch, tier)
+    jcfg, tcfg = _cfgs(tier)
     jp, tp = _pcfgs(remat=True, remat_policy=policy)
-    params = _np_tree(GH.init_params(JCFG, jp, jax.random.PRNGKey(0)))
-    ids = _ids()
-    tloss, tgrads = _torch_value_and_grad(tp, params, ids)
+    params = _np_tree(GH.init_params(jcfg, jp, jax.random.PRNGKey(0)))
+    ids = _ids(b=2, s=SLICE_S[tier])
+    tloss, tgrads = _torch_value_and_grad(tp, params, ids, tcfg)
     assert calls["fwd"] == per_layer * SIZE["num_layers"]
     # the op's plain path is the reference's attention: values unchanged
-    jloss, jgrads = _jax_value_and_grad(jp, params, ids)
+    jloss, jgrads = _jax_value_and_grad(jp, params, ids, jcfg)
+    np.testing.assert_allclose(tloss, jloss, rtol=1e-5)
+    _assert_leaves_close(tgrads, jgrads, 2e-5, "grad")
+
+
+def _route_jax_attention(monkeypatch, tier):
+    """Sends the reference's attention through the tier's Pallas kernel in
+    interpret mode (it returns None off a TPU); no file of it changes."""
+    kernel = {"causal_skip": jca, "blocked": jbf}[tier]
+
+    def through_kernel(q, k, v, causal=False, scale=None):
+        out = kernel.attention_bhsd(
+            *(jnp.swapaxes(x, 1, 2) for x in (q, k, v)), causal=causal,
+            scale=scale, interpret=True)
+        return jnp.swapaxes(out, 1, 2)
+
+    monkeypatch.setattr(jfa, "flash_attention_maybe", through_kernel)
+
+
+# The slice as a whole: both steps' attention runs the tier's kernel (the
+# reference's in interpret mode, the port's op on its CPU body), under the
+# rungs' remat "names"; the f32 tolerances of the step-0 test above.
+@pytest.mark.parametrize("tier", ["causal_skip", "blocked"])
+def test_slice_step0_loss_and_grads_through_the_rung_kernels(monkeypatch,
+                                                             tier):
+    _route_jax_attention(monkeypatch, tier)
+    calls = _count_plain_attention(monkeypatch, tier)
+    jcfg, tcfg = _cfgs(tier)
+    jp, tp = _pcfgs(remat=True, remat_policy="names", fused_ce=True)
+    params = _np_tree(GH.init_params(jcfg, jp, jax.random.PRNGKey(3)))
+    ids = _ids(seed=7, b=2, s=SLICE_S[tier])
+    jloss, jgrads = _jax_value_and_grad(jp, params, ids, jcfg)
+    tloss, tgrads = _torch_value_and_grad(tp, params, ids, tcfg)
+    assert calls["fwd"] == SIZE["num_layers"]
     np.testing.assert_allclose(tloss, jloss, rtol=1e-5)
     _assert_leaves_close(tgrads, jgrads, 2e-5, "grad")
 
@@ -280,10 +344,34 @@ def test_dispatch_picks_simple_and_never_falls_back():
     assert tfa.DISPATCH_COUNTS == {("attn.dispatch", "simple"): 1}
 
 
-@pytest.mark.parametrize("s,causal,tier", [
-    (2048, True, "causal_skip"), (2048, False, "qblock"),
-    (8192, True, "blocked")])
+@pytest.mark.parametrize("s,causal,tier", [(2048, False, "qblock")])
 def test_dispatch_raises_for_unported_tiers(s, causal, tier):
     q = torch.empty(1, s, 2, 128, dtype=torch.bfloat16, device="meta")
     with pytest.raises(NotImplementedError, match=tier):
         tfa._dispatch(q, q, q, causal, None)
+
+
+# The rungs' attention shapes, [B, S, H, D]: train_s2048 and train_s4096.
+@pytest.mark.parametrize("shape,tier", [((4, 2048, 8, 128), "causal_skip"),
+                                        ((2, 4096, 8, 128), "blocked")])
+def test_dispatch_sends_the_rungs_to_their_kernels(shape, tier):
+    tfa.reset_dispatch_counts()
+    q = torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    out = tfa._dispatch(q, q, q, True, None)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert tfa.DISPATCH_COUNTS == {("attn.dispatch", tier): 1}
+
+
+# What the reference sends to JAX's own library kernel: a head dim that
+# blocked_flash's gate refuses, and causal attention with Sq != Skv.
+@pytest.mark.parametrize("q_shape,kv_len", [((1, 4096, 2, 192), 4096),
+                                            ((1, 2048, 2, 128), 4096)])
+def test_dispatch_raises_where_no_hopper_kernel_takes_the_shape(q_shape,
+                                                                kv_len):
+    tfa.reset_dispatch_counts()
+    q = torch.empty(q_shape, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(q_shape[0], kv_len, *q_shape[2:], dtype=torch.bfloat16,
+                    device="meta")
+    with pytest.raises(NotImplementedError, match="library_flash"):
+        tfa._dispatch(q, k, k, True, None)
+    assert not tfa.DISPATCH_COUNTS

@@ -16,7 +16,8 @@ from paddle_tpu_torch.cost_model import cost_model
 from paddle_tpu_torch.models import gpt_hybrid as TH
 from paddle_tpu_torch.models.gpt import GPTConfig
 from paddle_tpu_torch.ops import fused_ce
-from paddle_tpu_torch.ops.hopper import _build, flash_attention, simple_attention
+from paddle_tpu_torch.ops.hopper import (_build, blocked_flash, causal_attention,
+                                         flash_attention, simple_attention)
 
 cfg = GPTConfig.tiny()
 pcfg = TH.ParallelConfig(remat=True, remat_policy="names")
