@@ -13,6 +13,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      causal_attention at the S=2048 rung's (B4 H8 S2048 D128, bf16 and
      f32); blocked_flash at the S=4096 rung's (B2 H8 S4096 D128: bf16
      causal and not, f32, and cross-attention Sq=1024 Skv=4096);
+     qblock_attention at the GPT-3 Medium layout's (B2 H16 S4096 D64: bf16
+     causal and not, f32) and at the S=2048 rung's, non-causal (the
+     non-causal middle tier);
   3. a small model on the card (kernels) against the same model on the CPU
      (plain path): the loss and gradients agree;
   4. the paths, each through the port's setup() and step with random
@@ -20,14 +23,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
      layers, 16 heads, vocab 50304, B4 S1024, bf16, remat "names", fused
      CE), then the reference bench's long-context rungs (bench.py:301-333),
      the 350M-class model (h1024, 24 layers, 8 heads of 128) at B4 S2048
-     and at B2 S4096. Every count is zeroed just before a path and read
-     just after: each step must launch each kernel of the path's tier 24
+     and at B2 S4096, and the same width at GPT-3 Medium's published head
+     layout (16 heads of 64; Brown et al. 2020, Table 2.1) at B2 S4096,
+     which the reference's gates send to qblock_attention. Every count is
+     zeroed just before a path and read just after: each step must launch
+     each kernel of the path's tier 24
      times and no other attention kernel, with dispatch only to that tier,
      a finite loss near ln(vocab) at step 0 and a loss that falls. Prints
      ms/step, tokens/s, MFU, peak memory and where the time goes;
   5. each kernel timed at its path's shape beside its plain version, its
      bound on this card and one PyTorch library call that computes the same
-     function (scaled_dot_product_attention, never used by the port).
+     function (scaled_dot_product_attention, never used by the port);
+  6. the attention autotuner: at each path's attention shape (bf16,
+     causal) autotune.measure times every candidate's forward+backward (the
+     median of 5 windows, and their spread); the winner must be the
+     fastest Hopper kernel, plain attention ("xla") timed beside them but
+     never the winner, every ported tier finite and library_flash None (no
+     Hopper kernel); the persisted table, reloaded, must give the same
+     winner, decide() too, and one flash_attention_maybe call must then
+     launch the winner's kernel.
+The whole run keeps the autotuner's table in a fresh temporary
+PADDLE_TPU_CACHE_DIR, empty until phase 6, with FLAGS_attn_autotune at its
+default: phases 2-5 run the configuration a user gets on a new checkout.
 Prints the card line, then one {"kernels": [...]} line, then as the last
 line {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
@@ -35,8 +52,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -58,12 +77,21 @@ PATHS = (
                          num_heads=8, max_seq_len=4096), 2, 4096, "blocked",
      ("blocked_flash_fwd", "blocked_flash_bwd_dq", "blocked_flash_bwd_dkv"),
      1, 3),
+    ("train_s4096_d64", dict(vocab_size=50304, hidden_size=1024,
+                             num_layers=24, num_heads=16, max_seq_len=4096),
+     2, 4096, "qblock", ("qblock_attention_fwd", "qblock_attention_bwd"),
+     1, 3),
 )
 
-# (kernel, source stem, line of its pl.pallas_call in the reference, the
+# (kernel, module stem (the reference's and the port's), line of its
+#  pl.pallas_call in the reference, the
 #  path whose shape it is held and timed at, its outputs, the products its
 #  function needs, the [B, H, S, D] tensors it must move, whether it moves
 #  an lse, the library call of the same function)
+# simple_attention2's kernels are simple_attention.cu's; that file's header
+# says why.
+CUDA_SOURCE = {"simple_attention2": "simple_attention"}
+
 KERNELS = (
     ("simple_attention_fwd", "simple_attention", 113, "flagship", ("o",),
      2, 4, False, "fwd"),
@@ -79,6 +107,10 @@ KERNELS = (
      3, 6, True, "bwd"),
     ("blocked_flash_bwd_dkv", "blocked_flash", 362, "train_s4096",
      ("dk", "dv"), 4, 7, True, "bwd"),
+    ("qblock_attention_fwd", "simple_attention2", 131, "train_s4096_d64",
+     ("o",), 2, 4, False, "fwd"),
+    ("qblock_attention_bwd", "simple_attention2", 151, "train_s4096_d64",
+     ("dq", "dk", "dv"), 5, 7, False, "bwd"),
 )
 
 # Phase 2's cases: (source stem, path of the shape, Sq (None: the path's S),
@@ -94,6 +126,10 @@ CHECKS = (
     ("blocked_flash", "train_s4096", None, "bfloat16", False),
     ("blocked_flash", "train_s4096", 1024, "bfloat16", False),
     ("blocked_flash", "train_s4096", None, "float32", True),
+    ("simple_attention2", "train_s4096_d64", None, "bfloat16", True),
+    ("simple_attention2", "train_s4096_d64", None, "bfloat16", False),
+    ("simple_attention2", "train_s4096_d64", None, "float32", True),
+    ("simple_attention2", "train_s2048", None, "bfloat16", False),
 )
 
 
@@ -184,7 +220,18 @@ def kernel_calls(mods, source, q, k, v, do, scale, causal):
     """{kernel: (launch, plain version)} of one source's kernels on these
     inputs. A backward takes the forward kernel's own o and lse, as the
     step hands them over."""
-    sa, ca, bf = mods
+    sa, ca, bf, sa2 = mods
+    if source == "simple_attention2":
+        return {
+            "qblock_attention_fwd": (
+                lambda: sa2.qblock_attention_fwd_cuda(q, k, v, scale, causal),
+                lambda: sa2.qblock_attention_reference(q, k, v, scale,
+                                                       causal)),
+            "qblock_attention_bwd": (
+                lambda: sa2.qblock_attention_bwd_cuda(q, k, v, do, scale,
+                                                      causal),
+                lambda: sa2.qblock_attention_bwd_reference(q, k, v, do, scale,
+                                                           causal))}
     if source == "simple_attention":
         return {
             "simple_attention_fwd": (
@@ -432,6 +479,71 @@ def time_kernels(mods, torch):
     return t
 
 
+# The forward kernel that each autotune winner launches.
+WINNER_KERNEL = {"simple": "simple_attention_fwd",
+                 "causal_skip": "causal_attention_fwd",
+                 "qblock": "qblock_attention_fwd"}
+
+
+def check_autotune(run, mods, fa, at, torch):
+    """Phase 6: the autotuner at each path's attention shape (bf16,
+    causal), on the run's fresh table. Returns {path: {"winner",
+    "timings_ms", "spread_ms"}}."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tuned = {}
+    for label in (p[0] for p in PATHS):
+        b, h, s, d = attention_shape(label)
+        bshd, dt = (b, s, h, d), torch.bfloat16
+        tag = f"autotune {label} (B{b} S{s} H{h} D{d}, bf16 causal)"
+        key = at._key(bshd, s, dt, True)
+        run.check(at.lookup(bshd, s, dt, True) is None,
+                  f"{tag}: no entry before the measurement")
+        winner = at.measure(bshd, s, dt, True)
+        ms = at._table[key]["timings_ms"]
+        spread = at._table[key]["spread_ms"]
+        tuned[label] = {"winner": winner, "timings_ms": ms,
+                        "spread_ms": spread}
+        kernels = {n: t for n, t in ms.items()
+                   if t is not None and n != at.PLAIN}
+        ranked = sorted(kernels, key=kernels.get)
+        print(f"{tag}: forward+backward ms (median of 5 windows, spread) "
+              + ", ".join(f"{n} {t} ({spread[n]})" for n, t in ms.items())
+              + f"; winner {winner}, next kernel {ranked[1:2]}, plain "
+              f"attention {'faster' if ms[at.PLAIN] < ms[winner] else 'slower'}"
+              " than the winner", flush=True)
+        run.check(winner == ranked[0],
+                  f"{tag}: the winner is the fastest Hopper kernel")
+        run.check(all(t is not None for n, t in ms.items()
+                      if n != "library_flash")
+                  and ms.get("library_flash", "absent") is None,
+                  f"{tag}: every ported tier and plain attention timed, "
+                  "library_flash None (no Hopper kernel)")
+        with open(at._cache_path()) as f:
+            disk = json.load(f).get(key, {}).get("winner")
+        at._table = None
+        again = at.lookup(bshd, s, dt, True)
+        q = torch.empty(bshd, dtype=dt, device="cuda")
+        decided = at.decide(q, q, True)
+        run.check(disk == again == decided == winner,
+                  f"{tag}: persisted {disk}, reloaded {again}, decided "
+                  f"{decided}")
+        q, k, v, _ = path_inputs(gen, dt, torch, (b, h, s, d))
+        for mod in mods:
+            mod.reset_launch_counts()
+        fa.reset_dispatch_counts()
+        out = fa.flash_attention_maybe(*(x.transpose(1, 2) for x in (q, k, v)),
+                                       causal=True)
+        torch.cuda.synchronize()
+        launched = {n: c for mod in mods for n, c in mod.LAUNCHES.items() if c}
+        want = {"blocked_flash_fwd" if winner.startswith("blocked_")
+                else WINNER_KERNEL[winner]: 1}
+        run.check(dict(fa.DISPATCH_COUNTS) == {("attn.dispatch", winner): 1}
+                  and launched == want and out is not None,
+                  f"{tag}: one flash_attention_maybe call dispatches "
+                  f"{winner}, launches {launched}")
+    return tuned
+
+
 def main():
     try:
         import torch
@@ -447,10 +559,12 @@ def main():
         from paddle_tpu_torch.models import gpt_hybrid as TH
         from paddle_tpu_torch.models.gpt import GPTConfig
         from paddle_tpu_torch.ops.hopper import _build
+        from paddle_tpu_torch.ops.hopper import autotune as at
         from paddle_tpu_torch.ops.hopper import blocked_flash as bf
         from paddle_tpu_torch.ops.hopper import causal_attention as ca
         from paddle_tpu_torch.ops.hopper import flash_attention as fa
         from paddle_tpu_torch.ops.hopper import simple_attention as sa
+        from paddle_tpu_torch.ops.hopper import simple_attention2 as sa2
     except ImportError as e:
         print(f"chip_smoke: run from the root of the repository ({e})",
               file=sys.stderr)
@@ -473,16 +587,23 @@ def main():
         print(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)}"
               f" registers a thread, {spills} bytes spilled")
 
-    mods = (sa, ca, bf)
-    errs = check_kernels(run, mods, torch)
-    check_small_model(run, TH, GPTConfig, torch)
-    paths = {}
-    for path in PATHS:
-        paths[path[0]] = drive(run, path, TH, GPTConfig, mods, fa,
-                               cost_model, torch)
-        torch.cuda.empty_cache()
-    times = time_kernels(mods, torch)
-    torch.cuda.synchronize()
+    cache_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              ".cache")
+    os.makedirs(cache_root, exist_ok=True)
+    mods = (sa, ca, bf, sa2)
+    with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+        os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+        at._table = None
+        errs = check_kernels(run, mods, torch)
+        check_small_model(run, TH, GPTConfig, torch)
+        paths = {}
+        for path in PATHS:
+            paths[path[0]] = drive(run, path, TH, GPTConfig, mods, fa,
+                                   cost_model, torch)
+            torch.cuda.empty_cache()
+        times = time_kernels(mods, torch)
+        torch.cuda.synchronize()
+        tuned = check_autotune(run, mods, fa, at, torch)
 
     kernels = []
     for kern in KERNELS:
@@ -491,7 +612,8 @@ def main():
         bound_ms, bound_by = bound(kern)
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"paddle_tpu_torch/ops/hopper/csrc/{source}.cu",
+            "source": "paddle_tpu_torch/ops/hopper/csrc/"
+                      f"{CUDA_SOURCE.get(source, source)}.cu",
             "replaces": f"paddle_tpu/ops/pallas/{source}.py:{line}",
             "launches": launches,
             "launches_per_step": launches / paths[label]["steps"],
@@ -507,6 +629,7 @@ def main():
     print(json.dumps({"paths": {
         label: {k: v for k, v in p.items() if k != "launches"}
         for label, p in paths.items()}}))
+    print(json.dumps({"autotune": tuned}))
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed",
               file=sys.stderr)

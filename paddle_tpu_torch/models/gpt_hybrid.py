@@ -8,8 +8,9 @@ runs its single-device case (dp=pp=tp=1) eagerly on one CUDA card:
 - attention goes through ``ops/hopper/flash_attention.flash_attention_maybe``
   (the Hopper ``simple_attention`` kernel at the 1.3B shape,
   ``causal_attention`` at S=2048 and ``blocked_flash`` at S=4096 on the
-  350M-class rungs), with the reference's plain einsum where dispatch
-  returns None;
+  350M-class rungs, ``qblock_attention`` at S=4096 with 64-wide heads, or
+  the attention autotuner's measured winner), with the reference's plain
+  einsum where dispatch returns None;
 - remat is ``torch.utils.checkpoint`` per block; the ``"names"`` and
   ``"dots"`` policies are selective-checkpoint policies over aten ops and
   the attention op;

@@ -32,6 +32,16 @@
 // scheduled first. The forward and the tile code are in attention_tiles.cuh,
 // which causal_attention.cu shares.
 //
+// These kernels also replace paddle_tpu/ops/pallas/simple_attention2.py
+// (qblock_attention, the middle tier). Read side by side, its Pallas kernels
+// compute this same function with the same rounding points and the same
+// recompute backward; only the f32 order in which dk and dv are summed
+// differs (it adds one q block's share at a time; launch B here loops over
+// the q tiles). Its TPU design streams q in blocks and keeps k and v whole in
+// VMEM, 1 MB of f32 each per (b, h) at its train shape (S=4096, D=64), which
+// a Hopper block cannot hold: the tiling above is the Hopper counterpart.
+// simple_attention2.py launches sa_fwd and sa_bwd under its own counters.
+//
 // Interface: plain C, pointers as void*, strides in elements; the head dim
 // must be unit-stride and every row 16-byte aligned (the Python wrapper
 // checks). Each entry point returns cudaGetLastError() after its launches.

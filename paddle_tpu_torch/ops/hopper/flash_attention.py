@@ -1,21 +1,20 @@
 """Attention dispatch: which Hopper kernel takes a [B, S, H, D] attention.
 
 Port of ``paddle_tpu/ops/pallas/flash_attention.py`` (``supported_shape``,
-``_gate_reason``, ``flash_attention_maybe``). The port walks the reference's
-static chain with the tiers' own gates, so that it picks the tier the
-reference picks: the monolithic ``simple_attention`` where the whole (b, h)
-slice fits the reference's VMEM budget (S <= 1024 at D=128), then
-``causal_attention`` (the causal S=2048 rung), ``qblock_attention`` (the
-non-causal middle tier), ``blocked_flash`` (S >= 4096), and last the
-library flash kernel. ``qblock_attention`` is not ported yet, and the last
-tier, which wraps JAX's own kernel in the reference, has no Hopper kernel:
-it is reached only by shapes that ``blocked_flash``'s gate refuses (a head
-dim such as 192, causal Sq != Skv). A shape sent to either raises
-``NotImplementedError`` naming it, and never falls back to plain attention
-on the card. The reference's runtime autotuner (``ops/pallas/autotune.py``),
-which can override the chain on a TPU, is not ported yet either (ROADMAP
-queue 2); the port takes the static chain, as the reference does on a
-cold trace.
+``_gate_reason``, ``flash_attention``, ``flash_attention_maybe``). After the
+library gate the autotuner's winner (``autotune.decide``: a Hopper kernel
+that ``autotune.measure`` found fastest for the shape) takes precedence,
+exactly where the reference consults it; without one the port walks the
+reference's static chain with the tiers' own gates, so that it picks the
+tier the reference picks: the monolithic ``simple_attention`` where the
+whole (b, h) slice fits the reference's VMEM budget (S <= 1024 at D=128),
+then ``causal_attention`` (the causal S=2048 rung), ``qblock_attention``
+(the non-causal middle tier, and causal S=4096 at D=64), ``blocked_flash``
+(S >= 4096), and last the library flash kernel. That last tier wraps JAX's
+own kernel in the reference and has no Hopper kernel: it is reached only by
+shapes that ``blocked_flash``'s gate refuses (a head dim such as 192, causal
+Sq != Skv), and ``flash_attention`` raises ``NotImplementedError`` naming
+the shape; the port never falls back to plain attention on the card there.
 
 Errors propagate: a kernel that fails to build or launch raises.
 """
@@ -25,13 +24,15 @@ from collections import Counter
 
 import torch
 
+from . import autotune
 from . import blocked_flash as bf
 from . import causal_attention as ca
 from . import simple_attention as sa
+from . import simple_attention2 as sa2
 
 # Every registered attention op whose outputs the "names" remat policy keeps
 # as "attn_out" (models/gpt_hybrid.py).
-ATTENTION_OPS = (sa.OP, ca.OP, ca.HYBRID_OP, bf.OP)
+ATTENTION_OPS = (sa.OP, ca.OP, ca.HYBRID_OP, sa2.OP, bf.OP)
 
 # attn.dispatch{kernel=} and attn.dispatch_fallback{reason=} ticks since the
 # last reset_dispatch_counts(), keyed (metric, label value).
@@ -68,23 +69,15 @@ def _gate_reason(q, k):
     return "dtype"
 
 
-# ---- the gate of the reference's tier that has no Hopper kernel yet --------
-def _qblock_gate(bhsd, dtype, budget=11 * 2 ** 20):
-    """simple_attention2.supported (simple_attention2.py:108, _pick_bq :94)."""
-    b, h, s, d = bhsd
-    if (d % 128 != 0 and d != 64) or s % 128 != 0:
-        return False
-    for bq in (1024, 512, 256, 128):
-        need = 2 * bq * s * 4 + 4 * s * d * 4 + 3 * bq * d * 4
-        if bq <= s and need <= budget and s % bq == 0:
-            return True
-    return False
-
-
-def _unported(kernel, reference):
+def flash_attention(q, k, v, causal=False, scale=None):
+    """The reference's library tier (``flash_attention.py:53``, JAX's own
+    Pallas TPU flash kernel, which this repo did not write): no Hopper
+    kernel takes its shapes yet."""
     raise NotImplementedError(
-        f"attention tier {kernel!r} ({reference}) has no Hopper kernel yet: "
-        "ROADMAP queue 2 lists it")
+        f"attention tier 'library_flash' (JAX's own flash kernel in the "
+        f"reference) for q {tuple(q.shape)}, kv length {k.shape[1]}, "
+        f"{q.dtype}, causal={causal}: no Hopper kernel takes this shape "
+        "yet; ROADMAP queue 2 lists it")
 
 
 def flash_attention_maybe(q, k, v, causal=False, scale=None):
@@ -94,8 +87,9 @@ def flash_attention_maybe(q, k, v, causal=False, scale=None):
     reference returns None off a TPU, and for CUDA shapes the library gate
     rejects, counted on ``attn.dispatch_fallback{reason=}``. A CUDA shape
     that a ported tier's gate admits launches its kernels and ticks
-    ``attn.dispatch{kernel=}`` ("simple", "causal_skip", "blocked"); the
-    unported tiers raise."""
+    ``attn.dispatch{kernel=}`` ("simple", "causal_skip", "qblock",
+    "blocked", or the autotuner's winner, which is always a kernel); the
+    library tier raises."""
     if q.device.type != "cuda":
         return None
     return _dispatch(q, k, v, causal, scale)
@@ -106,6 +100,12 @@ def _dispatch(q, k, v, causal, scale):
     if not _supported(q, k, v):
         _count("attn.dispatch_fallback", _gate_reason(q, k))
         return None
+    # a winner in the autotuner's table (written by autotune.measure)
+    # takes precedence over the static chain below
+    tuned = autotune.decide(q, k, causal)
+    if tuned is not None:
+        _count("attn.dispatch", tuned)
+        return autotune.run(tuned, q, k, v, causal, scale)
     bhsd = (q.shape[0], q.shape[2], q.shape[1], q.shape[3])
     same_len = q.shape[1] == k.shape[1]
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -117,14 +117,12 @@ def _dispatch(q, k, v, causal, scale):
         _count("attn.dispatch", "causal_skip")
         return ca.attention_bhsd(qt, kt, vt, causal=True,
                                  scale=scale).transpose(1, 2)
-    if same_len and _qblock_gate(bhsd, q.dtype):
-        _unported("qblock", "ops/pallas/simple_attention2.py")
+    if same_len and sa2.supported(bhsd, q.dtype):
+        _count("attn.dispatch", "qblock")
+        return sa2.attention_bhsd(qt, kt, vt, causal=causal,
+                                  scale=scale).transpose(1, 2)
     if bf.supported(bhsd, k.shape[1], q.dtype, causal):
         _count("attn.dispatch", "blocked")
         return bf.attention_bhsd(qt, kt, vt, causal=causal,
                                  scale=scale).transpose(1, 2)
-    raise NotImplementedError(
-        f"attention tier 'library_flash' (JAX's own flash kernel in the "
-        f"reference) for q {tuple(q.shape)}, kv length {k.shape[1]}, "
-        f"{q.dtype}, causal={causal}: no Hopper kernel takes this shape "
-        "yet; ROADMAP queue 2 lists it")
+    return flash_attention(q, k, v, causal=causal, scale=scale)

@@ -81,44 +81,57 @@ def _lib():
     return L.library("simple_attention", "sa", _SIGNATURES)
 
 
-def _check(what, tensors, shape, dtype):
+def _check(kernel, what, tensors, shape, dtype):
     """q, k and v (the first three) must share one layout."""
-    L.check("simple_attention", what, [(t, shape, dtype) for t in tensors])
-    L.same_layout("simple_attention", what, tensors[:3])
+    L.check(kernel, what, [(t, shape, dtype) for t in tensors])
+    L.same_layout(kernel, what, tensors[:3])
 
 
-def simple_attention_fwd_cuda(q, k, v, sm_scale, causal):
-    """Launches the forward kernel: q/k/v [B, H, S, D] CUDA views sharing
+def launch_fwd(kernel, q, k, v, sm_scale, causal):
+    """One launch of the forward kernel, named ``kernel`` in errors (it also
+    serves ``simple_attention2``): q/k/v [B, H, S, D] CUDA views sharing
     one layout -> o [B, H, S, D] (a view of a [B, S, H, D] buffer)."""
     shape = tuple(q.shape)
-    _check("forward", (q, k, v), shape, q.dtype)
+    _check(kernel, "forward", (q, k, v), shape, q.dtype)
     b, h, s, d = shape
     o = L.empty_bshd(b, h, s, d, q)
-    L.launch(_lib(), "sa", "simple_attention", "forward", q.device, "sa_fwd",
+    L.launch(_lib(), "sa", kernel, "forward", q.device, "sa_fwd",
              L.DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(),
              v.data_ptr(), o.data_ptr(), *L.strides(q), *L.strides(o),
              b, h, s, float(sm_scale), int(causal))
-    LAUNCHES["simple_attention_fwd"] += 1
     return o
 
 
-def simple_attention_bwd_cuda(q, k, v, do, sm_scale, causal):
-    """Launches the backward pair (dq + row statistics, then dk/dv).
-    Returns (dq, dk, dv), each a [B, H, S, D] view of a [B, S, H, D]
-    buffer."""
+def launch_bwd(kernel, q, k, v, do, sm_scale, causal):
+    """One backward pair (dq + row statistics, then dk/dv), named
+    ``kernel`` in errors. Returns (dq, dk, dv), each a [B, H, S, D] view of
+    a [B, S, H, D] buffer."""
     shape = tuple(q.shape)
-    _check("backward", (q, k, v, do), shape, q.dtype)
+    _check(kernel, "backward", (q, k, v, do), shape, q.dtype)
     b, h, s, d = shape
     dq, dk, dv = (L.empty_bshd(b, h, s, d, q) for _ in range(3))
     stats = torch.empty(3, b, h, s, dtype=torch.float32, device=q.device)
-    L.launch(_lib(), "sa", "simple_attention", "backward", q.device, "sa_bwd",
+    L.launch(_lib(), "sa", kernel, "backward", q.device, "sa_bwd",
              L.DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(),
              v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
              dv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
              stats[2].data_ptr(), *L.strides(q), *L.strides(do),
              *L.strides(dq), b, h, s, float(sm_scale), int(causal))
-    LAUNCHES["simple_attention_bwd"] += 1
     return dq, dk, dv
+
+
+def simple_attention_fwd_cuda(q, k, v, sm_scale, causal):
+    """Launches the forward kernel (``launch_fwd``)."""
+    o = launch_fwd("simple_attention", q, k, v, sm_scale, causal)
+    LAUNCHES["simple_attention_fwd"] += 1
+    return o
+
+
+def simple_attention_bwd_cuda(q, k, v, do, sm_scale, causal):
+    """Launches the backward pair (``launch_bwd``): (dq, dk, dv)."""
+    grads = launch_bwd("simple_attention", q, k, v, do, sm_scale, causal)
+    LAUNCHES["simple_attention_bwd"] += 1
+    return grads
 
 
 # ------------------------------ the registered op ---------------------------

@@ -1,5 +1,6 @@
 """The port's Hopper kernels on the card: each kernel against its plain
-PyTorch version, and a small train step that must go through them.
+PyTorch version, small train steps that must go through them, and the
+attention autotuner's measurement.
 
 Every test here needs a CUDA device and skips without one. The file imports
 neither jax nor the JAX package, so it also runs where only PyTorch is
@@ -7,16 +8,30 @@ installed:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import json
+
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch.models import gpt_hybrid as TH
 from paddle_tpu_torch.models.gpt import GPTConfig
+from paddle_tpu_torch.ops.hopper import autotune as tat
 from paddle_tpu_torch.ops.hopper import blocked_flash as tbf
 from paddle_tpu_torch.ops.hopper import causal_attention as tca
 from paddle_tpu_torch.ops.hopper import flash_attention as tfa
 from paddle_tpu_torch.ops.hopper import simple_attention as tsa
+from paddle_tpu_torch.ops.hopper import simple_attention2 as tsa2
+
+_KERNEL_MODULES = (tsa, tca, tbf, tsa2)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_autotune_table(tmp_path, monkeypatch):
+    """Dispatch consults the autotuner's table: each test gets an empty
+    one in its own directory."""
+    monkeypatch.setenv("PADDLE_TPU_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(tat, "_table", None)
 
 
 def _need_card():
@@ -153,15 +168,18 @@ def test_new_kernel_wrappers_refuse_causal_cross_attention():
         tbf.blocked_flash_fwd_cuda(q, k, k, 0.125, True)
 
 
-# The rungs' tiers at a tiny width: S=2048 at D=64 takes causal_skip (nq=4)
-# and S=4096 at D=128 takes blocked (qblock's gate refuses it; at D=64 it
-# would admit it, and qblock has no kernel yet).
+# The rungs' tiers at a tiny width: S=2048 at D=64 takes causal_skip (nq=4),
+# S=4096 at D=128 takes blocked (qblock's gate refuses it there), and
+# S=1408 at D=64 takes qblock (the monolithic gate refuses it and
+# causal_attention's strips need a multiple of 256).
 @pytest.mark.parametrize("s,d,tier,launches", [
     (2048, 64, "causal_skip", {"causal_attention_fwd": 1,
                                "causal_attention_bwd": 1}),
     (4096, 128, "blocked", {"blocked_flash_fwd": 1,
                             "blocked_flash_bwd_dq": 1,
-                            "blocked_flash_bwd_dkv": 1})])
+                            "blocked_flash_bwd_dkv": 1}),
+    (1408, 64, "qblock", {"qblock_attention_fwd": 1,
+                          "qblock_attention_bwd": 1})])
 def test_long_context_step_goes_through_the_new_kernels(s, d, tier,
                                                         launches):
     _need_card()
@@ -174,12 +192,12 @@ def test_long_context_step_goes_through_the_new_kernels(s, d, tier,
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (1, s))).cuda()
     tfa.reset_dispatch_counts()
-    for mod in (tsa, tca, tbf):
+    for mod in _KERNEL_MODULES:
         mod.reset_launch_counts()
     losses = [float(step(params, opt, (ids, ids))[2]) for _ in range(3)]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
     steps_layers = 3 * cfg.num_layers
-    got = {**tsa.LAUNCHES, **tca.LAUNCHES, **tbf.LAUNCHES}
+    got = {n: c for mod in _KERNEL_MODULES for n, c in mod.LAUNCHES.items()}
     assert got == {n: launches.get(n, 0) * steps_layers for n in got}
     assert set(tfa.DISPATCH_COUNTS) == {("attn.dispatch", tier)}
 
@@ -210,3 +228,93 @@ def test_lse_backward_kernels_match_autograd_of_the_plain_forward(module):
     want = torch.autograd.grad(plain(*leaves, 0.125)[0], leaves, do)
     for g, w in zip(got, want):
         assert _rel_err(g, w) < 1e-5
+
+
+@pytest.mark.parametrize("dtype,tol", _DTYPES)
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_qblock_kernels_match_plain_versions(d, dtype, tol):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(d + 3)
+    # S=384: the plain versions run 3 q blocks of 128 (_pick_bq)
+    q, k, v = _qkv_views(gen, dtype, 2, 4, 384, d)
+    do = _randn(gen, dtype, 2, 4, 384, d)
+    scale = 1.0 / np.sqrt(d)
+    for causal in (True, False):
+        got = tsa2.qblock_attention_fwd_cuda(q, k, v, scale, causal)
+        want = tsa2.qblock_attention_reference(q, k, v, scale, causal)
+        assert _rel_err(got, want) < tol, causal
+        gots = tsa2.qblock_attention_bwd_cuda(q, k, v, do, scale, causal)
+        wants = tsa2.qblock_attention_bwd_reference(q, k, v, do, scale,
+                                                    causal)
+        for g, w in zip(gots, wants):
+            assert _rel_err(g, w) < tol, causal
+
+
+def test_autotune_measures_on_the_card_and_persists():
+    _need_card()
+    bshd = (1, 512, 2, 64)
+    names = tat.candidates(bshd, 512, torch.bfloat16, True)
+    winner = tat.measure(bshd, 512, torch.bfloat16, True)
+    assert winner in names and winner != tat.PLAIN
+    with open(tat._cache_path()) as f:
+        entry = json.load(f)[tat._key(bshd, 512, torch.bfloat16, True)]
+    assert entry["winner"] == winner
+    times, spread = entry["timings_ms"], entry["spread_ms"]
+    assert set(times) == set(spread) == set(names)
+    assert times["library_flash"] is None
+    assert all(t > 0 and spread[n] >= 0 for n, t in times.items()
+               if n != "library_flash")
+    tat._table = None
+    assert tat.lookup(bshd, 512, torch.bfloat16, True) == winner
+
+
+# A winner in the table (here one the static chain would not pick at this
+# shape) is what flash_attention_maybe launches.
+def test_dispatch_launches_the_autotune_winner():
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (x.transpose(1, 2)
+               for x in _qkv_views(gen, torch.bfloat16, 1, 2, 512, 64))
+    tat._load_table()[tat._key(tuple(q.shape), 512, torch.bfloat16,
+                               True)] = {"winner": "qblock"}
+    tfa.reset_dispatch_counts()
+    for mod in _KERNEL_MODULES:
+        mod.reset_launch_counts()
+    out = tfa.flash_attention_maybe(q, k, v, causal=True)
+    want = tsa2.qblock_attention_reference(
+        *(x.transpose(1, 2) for x in (q, k, v)), 0.125, True)
+    assert _rel_err(out.transpose(1, 2), want) < 2e-2
+    assert tfa.DISPATCH_COUNTS == {("attn.dispatch", "qblock"): 1}
+    assert {n: c for mod in _KERNEL_MODULES
+            for n, c in mod.LAUNCHES.items() if c} == \
+        {"qblock_attention_fwd": 1}
+
+
+# Plain attention timed fastest still leaves the call on a Hopper kernel:
+# measure picks the fastest kernel, and an entry that names "xla" is no
+# entry (the static chain's kernel takes the call).
+def test_dispatch_launches_a_kernel_when_plain_attention_is_fastest(
+        monkeypatch):
+    _need_card()
+    timed = tat._time_candidate
+    monkeypatch.setattr(tat, "_time_candidate", lambda name, *a, **k: (
+        [1e-9] if name == tat.PLAIN else timed(name, *a, **k)))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (x.transpose(1, 2)
+               for x in _qkv_views(gen, torch.bfloat16, 1, 2, 512, 64))
+    key = tat._key(tuple(q.shape), 512, torch.bfloat16, True)
+    for stale in (False, True):
+        if stale:
+            tat._load_table()[key] = {"winner": tat.PLAIN}
+        else:
+            tat.measure(tuple(q.shape), 512, torch.bfloat16, True)
+            assert tat._table[key]["timings_ms"][tat.PLAIN] == 0.0
+        tfa.reset_dispatch_counts()
+        for mod in _KERNEL_MODULES:
+            mod.reset_launch_counts()
+        out = tfa.flash_attention_maybe(q, k, v, causal=True)
+        assert out is not None and out.shape == q.shape
+        (kernel,) = [kk for (_, kk) in tfa.DISPATCH_COUNTS]
+        assert kernel != tat.PLAIN
+        assert sum(c for mod in _KERNEL_MODULES
+                   for c in mod.LAUNCHES.values()) == 1

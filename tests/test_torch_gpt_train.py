@@ -20,18 +20,29 @@ from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from paddle_tpu.ops.pallas import blocked_flash as jbf
 from paddle_tpu.ops.pallas import causal_attention as jca
 from paddle_tpu.ops.pallas import flash_attention as jfa
+from paddle_tpu.ops.pallas import simple_attention2 as jsa2
 from paddle_tpu_torch.models import gpt_hybrid as TH
 from paddle_tpu_torch.models.gpt import GPTConfig
+from paddle_tpu_torch.ops.hopper import autotune as tat
 from paddle_tpu_torch.ops.hopper import blocked_flash as tbf
 from paddle_tpu_torch.ops.hopper import causal_attention as tca
 from paddle_tpu_torch.ops.hopper import flash_attention as tfa
 from paddle_tpu_torch.ops.hopper import simple_attention as tsa
+from paddle_tpu_torch.ops.hopper import simple_attention2 as tsa2
 
 SIZE = dict(vocab_size=256, hidden_size=128, num_layers=2, num_heads=2,
             max_seq_len=64)
 JCFG, TCFG = JaxGPTConfig(**SIZE), GPTConfig(**SIZE)
 B, S = 4, 64
 _JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+@pytest.fixture(autouse=True)
+def _fresh_autotune_table(tmp_path, monkeypatch):
+    """Dispatch consults the autotuner's table: give each test an empty
+    one, never a table left on disk by an earlier run."""
+    monkeypatch.setenv("PADDLE_TPU_CACHE_DIR", str(tmp_path))
+    monkeypatch.setattr(tat, "_table", None)
 
 
 def _pcfgs(**kw):
@@ -48,9 +59,11 @@ def _ids(seed=0, b=B, s=S):
                                                (b, s)).astype(np.int32)
 
 
-# The slice's tiers in the tiny model: at D=64, S=256 takes
-# causal_attention's kernel (nq=2) and S=384 blocked_flash's (blocks of 128).
-SLICE_S = {"simple": S, "causal_skip": 256, "blocked": 384}
+# The slices' tiers in the tiny model: at D=64, S=256 takes
+# causal_attention's kernel (nq=2), S=384 blocked_flash's (blocks of 128),
+# and S=1408 qblock_attention's (the monolithic gate refuses it, and
+# causal_attention's strips need a multiple of 256; 11 q blocks of 128).
+SLICE_S = {"simple": S, "causal_skip": 256, "blocked": 384, "qblock": 1408}
 
 
 def _cfgs(tier):
@@ -232,7 +245,8 @@ def test_multi_device_configs_raise(bad):
 
 _TIER_MODULES = {"simple": (tsa, "simple_attention_reference"),
                  "causal_skip": (tca, "causal_attention_reference"),
-                 "blocked": (tbf, "blocked_flash_reference")}
+                 "blocked": (tbf, "blocked_flash_reference"),
+                 "qblock": (tsa2, "qblock_attention_reference")}
 
 
 def _count_plain_attention(monkeypatch, tier="simple"):
@@ -267,7 +281,7 @@ _POLICIES = (("names", 1), ("full", 2), ("dots", 2))
 @pytest.mark.parametrize("policy,per_layer,tier", [
     *(pytest.param(p, n, "simple", id=f"{p}-{n}") for p, n in _POLICIES),
     *(pytest.param(p, n, t, id=f"{p}-{n}-{t}")
-      for t in ("causal_skip", "blocked") for p, n in _POLICIES)])
+      for t in ("causal_skip", "blocked", "qblock") for p, n in _POLICIES)])
 def test_remat_policy_decides_attention_recompute(monkeypatch, policy,
                                                   per_layer, tier):
     calls = _count_plain_attention(monkeypatch, tier)
@@ -286,7 +300,7 @@ def test_remat_policy_decides_attention_recompute(monkeypatch, policy,
 def _route_jax_attention(monkeypatch, tier):
     """Sends the reference's attention through the tier's Pallas kernel in
     interpret mode (it returns None off a TPU); no file of it changes."""
-    kernel = {"causal_skip": jca, "blocked": jbf}[tier]
+    kernel = {"causal_skip": jca, "blocked": jbf, "qblock": jsa2}[tier]
 
     def through_kernel(q, k, v, causal=False, scale=None):
         out = kernel.attention_bhsd(
@@ -300,7 +314,7 @@ def _route_jax_attention(monkeypatch, tier):
 # The slice as a whole: both steps' attention runs the tier's kernel (the
 # reference's in interpret mode, the port's op on its CPU body), under the
 # rungs' remat "names"; the f32 tolerances of the step-0 test above.
-@pytest.mark.parametrize("tier", ["causal_skip", "blocked"])
+@pytest.mark.parametrize("tier", ["causal_skip", "blocked", "qblock"])
 def test_slice_step0_loss_and_grads_through_the_rung_kernels(monkeypatch,
                                                              tier):
     _route_jax_attention(monkeypatch, tier)
@@ -344,11 +358,33 @@ def test_dispatch_picks_simple_and_never_falls_back():
     assert tfa.DISPATCH_COUNTS == {("attn.dispatch", "simple"): 1}
 
 
-@pytest.mark.parametrize("s,causal,tier", [(2048, False, "qblock")])
-def test_dispatch_raises_for_unported_tiers(s, causal, tier):
-    q = torch.empty(1, s, 2, 128, dtype=torch.bfloat16, device="meta")
-    with pytest.raises(NotImplementedError, match=tier):
-        tfa._dispatch(q, q, q, causal, None)
+# The middle tier, [B, S, H, D]: non-causal S=2048 at D=128, and the
+# train_s4096_d64 path's shape (GPT-3 Medium's heads at S=4096, causal).
+@pytest.mark.parametrize("shape,causal", [((1, 2048, 2, 128), False),
+                                          ((2, 4096, 16, 64), True)])
+def test_dispatch_sends_the_middle_tier_to_qblock(shape, causal):
+    tfa.reset_dispatch_counts()
+    q = torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    out = tfa._dispatch(q, q, q, causal, None)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert tfa.DISPATCH_COUNTS == {("attn.dispatch", "qblock"): 1}
+
+
+# A winner in the autotuner's table takes precedence over the static chain
+# (which would pick qblock here); an entry naming plain attention ("xla")
+# is no entry, and the static chain's kernel takes the call.
+@pytest.mark.parametrize("winner,tier", [
+    ("blocked_bq256_bkv512", "blocked_bq256_bkv512"), ("simple", "simple"),
+    ("xla", "qblock")])
+def test_dispatch_follows_the_autotune_table(winner, tier):
+    shape = (2, 4096, 16, 64) if winner != "simple" else (2, 1024, 16, 64)
+    tat._load_table()[tat._key(shape, shape[1], torch.bfloat16, True)] = \
+        {"winner": winner}
+    tfa.reset_dispatch_counts()
+    q = torch.empty(shape, dtype=torch.bfloat16, device="meta")
+    out = tfa._dispatch(q, q, q, True, None)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert tfa.DISPATCH_COUNTS == {("attn.dispatch", tier): 1}
 
 
 # The rungs' attention shapes, [B, S, H, D]: train_s2048 and train_s4096.

@@ -16,8 +16,10 @@ from paddle_tpu_torch.cost_model import cost_model
 from paddle_tpu_torch.models import gpt_hybrid as TH
 from paddle_tpu_torch.models.gpt import GPTConfig
 from paddle_tpu_torch.ops import fused_ce
-from paddle_tpu_torch.ops.hopper import (_build, blocked_flash, causal_attention,
-                                         flash_attention, simple_attention)
+from paddle_tpu_torch.core import flags
+from paddle_tpu_torch.ops.hopper import (_build, autotune, blocked_flash,
+                                         causal_attention, flash_attention,
+                                         simple_attention, simple_attention2)
 
 cfg = GPTConfig.tiny()
 pcfg = TH.ParallelConfig(remat=True, remat_policy="names")
@@ -26,6 +28,9 @@ ids = torch.randint(0, cfg.vocab_size, (2, 32))
 loss = float(step(params, opt, (ids, ids))[2])
 assert loss == loss
 assert cost_model.gpt_flops_per_token(cfg, 32) > 0
+assert flags.get_flag("FLAGS_attn_autotune") in (True, False)
+assert autotune.candidates((2, 4096, 16, 64), 4096, torch.bfloat16,
+                           True)[0] == "qblock"
 
 def foreign(name):
     return (name in ("jax", "jaxlib", "paddle_tpu")
