@@ -6,15 +6,16 @@
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card: its name and power limit; builds every Hopper kernel of the
      port from the sources in this checkout (nvcc, sm_90a, one process per
-     source, all started together);
+     source, all started together), and prints each source's and each
+     tensor-core kernel's registers and spilled bytes;
   2. each kernel against its plain PyTorch version on the card, with q, k
      and v laid out as the step hands them over: simple_attention at the
-     flagship's shape (B4 H16 S1024 D128, bf16 causal and not, f32);
-     causal_attention at the S=2048 rung's (B4 H8 S2048 D128, bf16 and
-     f32); blocked_flash at the S=4096 rung's (B2 H8 S4096 D128: bf16
+     flagship's shape (B4 H16 S1024 D128, bf16 causal and not, f16, f32);
+     causal_attention at the S=2048 rung's (B4 H8 S2048 D128, bf16, f16
+     and f32); blocked_flash at the S=4096 rung's (B2 H8 S4096 D128: bf16
      causal and not, f32, and cross-attention Sq=1024 Skv=4096);
      qblock_attention at the GPT-3 Medium layout's (B2 H16 S4096 D64: bf16
-     causal and not, f32) and at the S=2048 rung's, non-causal (the
+     causal and not, f16, f32) and at the S=2048 rung's, non-causal (the
      non-causal middle tier);
   3. a small model on the card (kernels) against the same model on the CPU
      (plain path): the loss and gradients agree;
@@ -33,7 +34,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      ms/step, tokens/s, MFU, peak memory and where the time goes;
   5. each kernel timed at its path's shape beside its plain version, its
      bound on this card and one PyTorch library call that computes the same
-     function (scaled_dot_product_attention, never used by the port);
+     function (scaled_dot_product_attention, never used by the port), each
+     as the median of 5 windows of CUDA events, with their spread;
   6. the attention autotuner: at each path's attention shape (bf16,
      causal) autotune.measure times every candidate's forward+backward (the
      median of 5 windows, and their spread); the winner must be the
@@ -45,8 +47,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
 The whole run keeps the autotuner's table in a fresh temporary
 PADDLE_TPU_CACHE_DIR, empty until phase 6, with FLAGS_attn_autotune at its
 default: phases 2-5 run the configuration a user gets on a new checkout.
-Prints the card line, then one {"kernels": [...]} line, then as the last
-line {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
+Prints the card line, then one {"kernels": [...]} line (each row with its
+design: tensor cores or CUDA cores), then as the last line
+{"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -62,7 +65,11 @@ import numpy as np
 
 PEAK_BF16_FLOPS = 989e12     # H100 SXM, dense bf16 tensor cores
 PEAK_HBM_BYTES = 3.35e12     # H100 SXM HBM3
-TOL = {"bfloat16": 2e-2, "float32": 1e-4}   # max |err| / max |plain|
+# max |err| / max |plain|. f32: the same f32 arithmetic in another order.
+# bf16: a few of bf16's 2^-8 steps of the output (the tensor-core backward
+# also rounds P and dS to bf16 before its products). f16: the card tests'
+# 1e-2, many of its 2^-11 steps; its narrower range rounds P under 6e-8 to 0.
+TOL = {"bfloat16": 2e-2, "float16": 1e-2, "float32": 1e-4}
 
 # (label, GPTConfig fields, B, S, dispatch tier, the kernels each layer
 #  launches once a step, warm-up steps, timed steps)
@@ -92,6 +99,12 @@ PATHS = (
 # says why.
 CUDA_SOURCE = {"simple_attention2": "simple_attention"}
 
+# The kernels whose products run on the tensor cores for bf16 and f16
+# (csrc/attention_mma.cuh); the others are f32 FMA on the CUDA cores.
+MMA_KERNELS = ("simple_attention_fwd", "simple_attention_bwd",
+               "causal_attention_fwd", "qblock_attention_fwd",
+               "qblock_attention_bwd")
+
 KERNELS = (
     ("simple_attention_fwd", "simple_attention", 113, "flagship", ("o",),
      2, 4, False, "fwd"),
@@ -119,8 +132,10 @@ KERNELS = (
 CHECKS = (
     ("simple_attention", "flagship", None, "bfloat16", True),
     ("simple_attention", "flagship", None, "bfloat16", False),
+    ("simple_attention", "flagship", None, "float16", True),
     ("simple_attention", "flagship", None, "float32", True),
     ("causal_attention", "train_s2048", None, "bfloat16", True),
+    ("causal_attention", "train_s2048", None, "float16", True),
     ("causal_attention", "train_s2048", None, "float32", True),
     ("blocked_flash", "train_s4096", None, "bfloat16", True),
     ("blocked_flash", "train_s4096", None, "bfloat16", False),
@@ -128,6 +143,7 @@ CHECKS = (
     ("blocked_flash", "train_s4096", None, "float32", True),
     ("simple_attention2", "train_s4096_d64", None, "bfloat16", True),
     ("simple_attention2", "train_s4096_d64", None, "bfloat16", False),
+    ("simple_attention2", "train_s4096_d64", None, "float16", True),
     ("simple_attention2", "train_s4096_d64", None, "float32", True),
     ("simple_attention2", "train_s2048", None, "bfloat16", False),
 )
@@ -141,19 +157,47 @@ def card_line():
     ).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=10):
-    """Mean device time of fn() over reps calls, after one warm-up call."""
+def windows_ms(fn, reps, windows=5):
+    """(median, max - min) over windows of the mean device time of fn()
+    across reps calls (CUDA events), after one warm-up call."""
     import torch
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times)), max(times) - min(times)
+
+
+def ptxas_rows(log):
+    """(kernel, registers, spilled bytes) of each entry function in an
+    nvcc -Xptxas -v log; kernel reads as name<dtype,D> from the mangled
+    name (f float, __nv_bfloat16, __half)."""
+    import re
+    rows, kernel, spill = [], None, 0
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            m = re.search(r"\d+([a-z_]+_kernel)I\d*(\w+?)Li(\d+)E",
+                          entry.group(1))
+            kernel = (f"{m.group(1)}<{m.group(2)},{m.group(3)}>" if m
+                      else entry.group(1))
+            spill = 0
+        spilled = re.search(r"(\d+) bytes spill stores", line)
+        if spilled:
+            spill = int(spilled.group(1))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and kernel is not None:
+            rows.append((kernel, int(used.group(1)), spill))
+            kernel = None
+    return rows
 
 
 def attention_shape(label):
@@ -424,9 +468,9 @@ def step_breakdown(TH, cfg, pcfg, params, opt_state, ids, torch):
         return grads
 
     grads = fwd_bwd()
-    fb_ms = cuda_ms(fwd_bwd, reps=2)
-    opt_ms = cuda_ms(lambda: TH.adamw_update(params, grads, opt_state),
-                     reps=2)
+    fb_ms = windows_ms(fwd_bwd, reps=2, windows=1)[0]
+    opt_ms = windows_ms(lambda: TH.adamw_update(params, grads, opt_state),
+                        reps=2, windows=1)[0]
     del grads
     step = TH.build_train_step(cfg, pcfg)
     torch.cuda.synchronize()
@@ -455,9 +499,10 @@ def step_breakdown(TH, cfg, pcfg, params, opt_state, ids, torch):
 
 def time_kernels(mods, torch):
     """Phase 5: kernel, plain and library times of every kernel at its
-    path's shape (bf16, causal). The library call is one
-    scaled_dot_product_attention(is_causal=True) forward, and its backward
-    (dq, dk and dv together) beside each backward kernel."""
+    path's shape (bf16, causal), each {name: (median ms, spread ms)} over 5
+    windows. The library call is one scaled_dot_product_attention(
+    is_causal=True) forward, and its backward (dq, dk and dv together)
+    beside each backward kernel."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(2)
     t = {}
@@ -468,14 +513,15 @@ def time_kernels(mods, torch):
         calls = kernel_calls(mods, source, q, k, v, do,
                              1.0 / math.sqrt(shape[-1]), True)
         for name, (launch, plain) in calls.items():
-            t[name] = cuda_ms(launch)
-            t[f"plain {name}"] = cuda_ms(plain, reps=3)
-        t[f"fwd {source}"] = cuda_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+            t[name] = windows_ms(launch, reps=10)
+            t[f"plain {name}"] = windows_ms(plain, reps=3)
+        t[f"fwd {source}"] = windows_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            reps=10)
         ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
         out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-        t[f"bwd {source}"] = cuda_ms(lambda: torch.autograd.grad(
-            out, (ql, kl, vl), do, retain_graph=True))
+        t[f"bwd {source}"] = windows_ms(lambda: torch.autograd.grad(
+            out, (ql, kl, vl), do, retain_graph=True), reps=10)
     return t
 
 
@@ -581,11 +627,14 @@ def main():
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(logs)} "
           f"(nvcc, sm_90a)", flush=True)
     for name, log in logs.items():
-        regs = [int(w.split()[0]) for w in log.split("Used ")[1:]]
-        spills = sum(int(w.split()[0]) for w in log.split(", ")
-                     if w.endswith("spill stores"))
-        print(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)}"
-              f" registers a thread, {spills} bytes spilled")
+        rows = ptxas_rows(log)
+        print(f"  {name}: {len(rows)} kernels, at most "
+              f"{max((r for _, r, _ in rows), default=0)} registers a "
+              f"thread, {sum(sp for _, _, sp in rows)} bytes spilled")
+        for kernel, regs, spill in rows:
+            if kernel.startswith("mma_"):
+                print(f"    {kernel}: {regs} registers, {spill} bytes "
+                      "spilled")
 
     cache_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               ".cache")
@@ -610,22 +659,29 @@ def main():
         name, source, line, label, *_, library = kern
         launches = paths[label]["launches"][name]
         bound_ms, bound_by = bound(kern)
+        (ms, spread), (plain_ms, plain_spread), (lib_ms, lib_spread) = (
+            times[name], times[f"plain {name}"], times[f"{library} {source}"])
+        design = ("tensor cores (mma.sync)" if name in MMA_KERNELS
+                  else "CUDA cores (fma)")
         kernels.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/ops/hopper/csrc/"
                       f"{CUDA_SOURCE.get(source, source)}.cu",
             "replaces": f"paddle_tpu/ops/pallas/{source}.py:{line}",
+            "design": design,
             "launches": launches,
             "launches_per_step": launches / paths[label]["steps"],
             "max_abs_err": errs[name], "tolerance_rel": TOL["bfloat16"],
-            "ms": times[name], "plain_ms": times[f"plain {name}"],
+            "ms": ms, "ms_spread": spread,
+            "plain_ms": plain_ms, "plain_ms_spread": plain_spread,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": times[f"{library} {source}"],
+            "library_ms": lib_ms, "library_ms_spread": lib_spread,
         })
-        print(f"{name}: {times[name]:.3f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}), roofline share {bound_ms / times[name]:.4f}, "
-              f"plain {times[f'plain {name}']:.3f} ms, library "
-              f"{times[f'{library} {source}']:.3f} ms")
+        print(f"{name} [{design}]: {ms:.3f} ms (spread {spread:.3f}), "
+              f"bound {bound_ms:.4f} ms ({bound_by}), roofline share "
+              f"{bound_ms / ms:.4f}, plain {plain_ms:.3f} ms (spread "
+              f"{plain_spread:.3f}), library {lib_ms:.3f} ms (spread "
+              f"{lib_spread:.3f})")
     print(json.dumps({"paths": {
         label: {k: v for k, v in p.items() if k != "launches"}
         for label, p in paths.items()}}))

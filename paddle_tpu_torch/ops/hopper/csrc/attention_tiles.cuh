@@ -1,5 +1,9 @@
-// Tile primitives shared by the attention kernels of this directory, and the
-// two-pass softmax forward that simple_attention and causal_attention share.
+// CUDA-core tile primitives shared by the attention kernels of this
+// directory, and the f32 two-pass softmax forward that simple_attention and
+// causal_attention share. Products here are f32 FMA: the lse backward
+// (lse_backward.cuh) and blocked_flash's online forward use them for every
+// dtype, the two-pass forward and the recompute backward for f32 only (bf16
+// and f16 run on the tensor cores, attention_mma.cuh).
 //
 // A block of 256 threads (16 x 16) owns one tile of BM rows. Tiles live in
 // shared memory as f32 with an odd row pitch, which keeps every access

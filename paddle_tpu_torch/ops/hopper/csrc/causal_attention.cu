@@ -8,27 +8,33 @@
 // a backward from (q, k, v, o, lse) with p = exp(s - lse) in f32,
 // delta = rowsum(dO * O) and dk, dv summed in f32.
 //
-// What bounds it on this card: at the rung's shape (B4 H8 S2048 D128, bf16)
-// the forward moves ~67 MB and the causal half needs ~34 GFLOP, the backward
-// ~134 MB and ~86 GFLOP; with tensor cores both would be bound by operations.
-// This first version does its products with FMA on the CUDA cores, so it is
-// bound by operations and by the shared-memory bandwidth feeding them.
+// What bounds it on this card: operations. At the rung's shape (B4 H8 S2048
+// D128, bf16) the forward needs ~34 GFLOP for the causal half and moves
+// ~67 MB, the backward ~86 GFLOP and ~134 MB; on the tensor cores both are
+// bound by operations.
 //
 // What the design does about it: the TPU kernel split q into nq static strips
 // so that strip i scores only against kv[: (i+1) bq] and never computes the
 // upper triangle. Here the same skip falls out of the tiling: every block owns
-// one 64-row q tile (32 at D=256) and loops over the kv tiles up to the
-// diagonal. The forward is simple_attention's two-pass kernel
-// (attention_tiles.cuh) with the lse output switched on; the backward is the
-// lse pair of lse_backward.cuh (dq, then dk/dv), two launches without
-// atomics. The strip count nq of the reference only gates which shapes this
-// tier takes (the Python wrapper checks it).
+// one 64-row q tile and loops over the kv tiles up to the diagonal, masking
+// only the tiles that straddle it. The forward is simple_attention's two-pass
+// kernel with the lse output switched on: for bf16 and f16 on the tensor
+// cores (mma.sync, ldmatrix, cp.async; attention_mma.cuh), for f32 as f32
+// FMA on the CUDA cores (attention_tiles.cuh), chosen by dtype at compile
+// time. The backward is the lse pair of lse_backward.cuh (dq, then dk/dv),
+// two launches without atomics, still on the CUDA cores. The strip count nq
+// of the reference only gates which shapes this tier takes (the Python
+// wrapper checks it).
+//
+// What it leaves for later: the lse backward on the tensor cores, then wgmma
+// with TMA and warp specialisation for both (attention_mma.cuh).
 //
 // Interface: plain C, pointers as void*, strides in elements as a host array
 // of (sb, sh, ss) triples; the head dim must be unit-stride, every row
 // 16-byte aligned and lse [B, H, S] f32 contiguous (the Python wrapper
 // checks). Each entry point returns cudaGetLastError() after its launches.
 
+#include "attention_mma.cuh"
 #include "lse_backward.cuh"
 
 extern "C" {
@@ -39,9 +45,9 @@ int ca_fwd(int dtype, int d, const void* q, const void* k, const void* v, void* 
   auto cs = static_cast<cudaStream_t>(stream);
   return static_cast<int>(by_dtype_and_d(dtype, d, [&](auto t, auto dc) {
     using T = decltype(t);
-    return launch_fwd<T, decltype(dc)::value>(q, k, v, o, static_cast<float*>(lse),
-                                                layout_at(st, 0), layout_at(st, 1), B, H, S,
-                                                scale, 1, cs);
+    return launch_two_pass_fwd<T, decltype(dc)::value>(q, k, v, o, static_cast<float*>(lse),
+                                                         layout_at(st, 0), layout_at(st, 1), B,
+                                                         H, S, scale, 1, cs);
   }));
 }
 

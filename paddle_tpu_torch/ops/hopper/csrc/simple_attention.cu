@@ -2,55 +2,62 @@
 // written for Hopper (sm_90a).
 //
 // Replaces: paddle_tpu/ops/pallas/simple_attention.py, the Pallas kernels
-// `_fwd_kernel` (pl.pallas_call in `_fwd`) and `_bwd_kernel` (in `_bwd`).
+// `_fwd_kernel` (pl.pallas_call in `_fwd`) and `_bwd_kernel` (in `_bwd`), and
+// paddle_tpu/ops/pallas/simple_attention2.py (qblock_attention, the middle
+// tier), `_fwd_kernel` and `_bwd_kernel` (in its `_fwd` and `_bwd`).
 // Same function: O = softmax(scale * Q K^T, top-left causal mask at -1e30) V
 // with scores and softmax in f32, p rounded to the input dtype before PV, and
 // a backward that recomputes P in f32 with delta = rowsum(dP * P).
 //
-// What bounds it on this card: at the training shape (S=1024, D=128, bf16)
-// the forward moves ~67 MB and does ~17 GFLOP (causal half), the backward
-// ~117 MB and ~43 GFLOP, so with tensor cores the forward would be bound by
-// bytes and the backward by operations. This first version does its products
-// with FMA on the CUDA cores (f32, 67 TFLOP/s peak), so it is bound by
-// operations and by shared-memory bandwidth feeding them.
+// What bounds it on this card: operations. At the flagship's shape (B4 H16
+// S1024 D128, bf16, causal) the forward needs ~17 GFLOP and moves ~67 MB
+// (0.017 and 0.020 ms at the card's peaks), the backward ~43 GFLOP and
+// ~117 MB; at qblock's (B2 H16 S4096 D64) 69 and 172 GFLOP for the same
+// bytes. Doing 3 and 9 products where these count 2 and 5, on the 989
+// TFLOP/s bf16 tensor cores, every launch is bound by operations.
 //
-// What the design does about it: the TPU kernel held the whole [S, S] f32
-// score matrix (4 MiB at S=1024) in VMEM; a Hopper block has 227 KB of shared
-// memory, so here every block owns one tile of BM rows and loops over tiles:
+// What the design does about it: bf16 and f16 run on the tensor cores
+// (mma.sync, ldmatrix, cp.async; attention_mma.cuh, whose header gives the
+// design, its one new rounding point and what it leaves for later):
 //   forward      one block per (q tile, head, batch). Pass 1 finds the row max
 //                m and sum l over kv tiles; pass 2 forms p = exp(s - m) / l,
 //                rounds it to the input dtype exactly where the reference
 //                does, and accumulates PV in f32. kv tiles past the diagonal
-//                are skipped when causal (exp(-1e30 - m) is exactly 0 in f32).
-//   backward A   one block per (q tile, head, batch): recomputes m and l,
-//                then delta = rowsum(dP * P), then dq = sum dS K. Writes dq
-//                and m, l, delta (f32 scratch [B, H, S]).
+//                are skipped when causal, and (bf16, f16) only the tiles
+//                that straddle the diagonal are masked.
+//   backward A   one block per (q tile, head, batch): one pass for m, l and
+//                delta = rowsum(dP * P), one for dq = sum dS K. Writes dq and
+//                m, l, delta (f32 scratch [B, H, S]).
 //   backward B   one block per (kv tile, head, batch): loops over the q tiles
 //                at and below the diagonal, rebuilds P from m and l, and
 //                accumulates dv = P^T dO and dk = dS^T Q in f32 registers.
+// f32 inputs run the same two-pass forward and three-pass recompute backward
+// as products of f32 FMA on the CUDA cores (attention_tiles.cuh and launch A
+// and B below), chosen by dtype at compile time (launch_recompute_bwd).
 // No atomics, so the result is deterministic. Heavy causal tiles are
-// scheduled first. The forward and the tile code are in attention_tiles.cuh,
-// which causal_attention.cu shares.
+// scheduled first. causal_attention.cu shares the forward.
 //
-// These kernels also replace paddle_tpu/ops/pallas/simple_attention2.py
-// (qblock_attention, the middle tier). Read side by side, its Pallas kernels
-// compute this same function with the same rounding points and the same
-// recompute backward; only the f32 order in which dk and dv are summed
-// differs (it adds one q block's share at a time; launch B here loops over
-// the q tiles). Its TPU design streams q in blocks and keeps k and v whole in
-// VMEM, 1 MB of f32 each per (b, h) at its train shape (S=4096, D=64), which
-// a Hopper block cannot hold: the tiling above is the Hopper counterpart.
+// qblock_attention: read side by side, its Pallas kernels compute this same
+// function with the same rounding points and the same recompute backward;
+// only the f32 order in which dk and dv are summed differs (it adds one q
+// block's share at a time; launch B here loops over the q tiles). Its TPU
+// design streams q in blocks and keeps k and v whole in VMEM, 1 MB of f32
+// each per (b, h) at its train shape (S=4096, D=64), which a Hopper block
+// cannot hold: the tiling above is the Hopper counterpart.
 // simple_attention2.py launches sa_fwd and sa_bwd under its own counters.
+//
+// What it leaves for later: wgmma with TMA and warp specialisation
+// (attention_mma.cuh).
 //
 // Interface: plain C, pointers as void*, strides in elements; the head dim
 // must be unit-stride and every row 16-byte aligned (the Python wrapper
 // checks). Each entry point returns cudaGetLastError() after its launches.
 
-#include "attention_tiles.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
-// Backward launch A: dq, and the row statistics m, l, delta for launch B.
+// f32 backward launch A: dq, and the row statistics m, l, delta for launch B.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -138,7 +145,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Backward launch B: dk and dv of one kv tile, over the q tiles that see it.
+// f32 backward launch B: dk and dv of one kv tile, over the q tiles that see it.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -242,6 +249,22 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+// The recompute backward: tensor cores for bf16 and f16 (attention_mma.cuh),
+// launches A and B above for f32 (by dtype, at compile time).
+template <typename T, int D>
+cudaError_t launch_recompute_bwd(const void* q, const void* k, const void* v, const void* dout,
+                                 void* dq, void* dk, void* dv, float* m, float* l, float* delta,
+                                 Layout in, Layout g, Layout out, int B, int H, int S,
+                                 float scale, int causal, cudaStream_t st) {
+  if constexpr (std::is_same<T, float>::value) {
+    return launch_bwd<T, D>(q, k, v, dout, dq, dk, dv, m, l, delta, in, g, out, B, H, S, scale,
+                            causal, st);
+  } else {
+    return launch_mma_bwd<T, D>(q, k, v, dout, dq, dk, dv, m, l, delta, in, g, out, B, H, S,
+                                scale, causal, st);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -253,8 +276,8 @@ int sa_fwd(int dtype, int d, const void* q, const void* k, const void* v, void* 
   auto st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(by_dtype_and_d(dtype, d, [&](auto t, auto dc) {
     using T = decltype(t);
-    return launch_fwd<T, decltype(dc)::value>(q, k, v, o, nullptr, in, out, B, H, S, scale,
-                                                causal, st);
+    return launch_two_pass_fwd<T, decltype(dc)::value>(q, k, v, o, nullptr, in, out, B, H, S,
+                                                         scale, causal, st);
   }));
 }
 
@@ -267,7 +290,7 @@ int sa_bwd(int dtype, int d, const void* q, const void* k, const void* v, const 
   auto st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(by_dtype_and_d(dtype, d, [&](auto t, auto dc) {
     using T = decltype(t);
-    return launch_bwd<T, decltype(dc)::value>(
+    return launch_recompute_bwd<T, decltype(dc)::value>(
         q, k, v, dout, dq, dk, dv, static_cast<float*>(m), static_cast<float*>(l),
         static_cast<float*>(delta), in, g, out, B, H, S, scale, causal, st);
   }));
