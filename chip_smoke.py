@@ -13,7 +13,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      flagship's shape (B4 H16 S1024 D128, bf16 causal and not, f16, f32);
      causal_attention at the S=2048 rung's (B4 H8 S2048 D128, bf16, f16
      and f32); blocked_flash at the S=4096 rung's (B2 H8 S4096 D128: bf16
-     causal and not, f32, and cross-attention Sq=1024 Skv=4096);
+     and f16, causal and not and cross-attention Sq=1024 Skv=4096, and f32
+     causal; its dq launch's delta too);
      qblock_attention at the GPT-3 Medium layout's (B2 H16 S4096 D64: bf16
      causal and not, f16, f32) and at the S=2048 rung's, non-causal (the
      non-causal middle tier);
@@ -48,7 +49,7 @@ The whole run keeps the autotuner's table in a fresh temporary
 PADDLE_TPU_CACHE_DIR, empty until phase 6, with FLAGS_attn_autotune at its
 default: phases 2-5 run the configuration a user gets on a new checkout.
 Prints the card line, then one {"kernels": [...]} line (each row with its
-design: tensor cores or CUDA cores), then as the last line
+design), then as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 """
 from __future__ import annotations
@@ -93,37 +94,37 @@ PATHS = (
 # (kernel, module stem (the reference's and the port's), line of its
 #  pl.pallas_call in the reference, the
 #  path whose shape it is held and timed at, its outputs, the products its
-#  function needs, the [B, H, S, D] tensors it must move, whether it moves
-#  an lse, the library call of the same function)
+#  function needs, the [B, H, S, D] tensors it must move, the f32 [B, H, S]
+#  row statistics it must move (lse, delta), the library call of the same
+#  function)
 # simple_attention2's kernels are simple_attention.cu's; that file's header
 # says why.
 CUDA_SOURCE = {"simple_attention2": "simple_attention"}
 
-# The kernels whose products run on the tensor cores for bf16 and f16
-# (csrc/attention_mma.cuh); the others are f32 FMA on the CUDA cores.
-MMA_KERNELS = ("simple_attention_fwd", "simple_attention_bwd",
-               "causal_attention_fwd", "qblock_attention_fwd",
-               "qblock_attention_bwd")
+# Every kernel runs its bf16 and f16 products on the tensor cores
+# (csrc/attention_mma.cuh); f32 runs as f32 FMA on the CUDA cores. The rows
+# below are bf16.
+DESIGN = "tensor cores (mma.sync)"
 
 KERNELS = (
     ("simple_attention_fwd", "simple_attention", 113, "flagship", ("o",),
-     2, 4, False, "fwd"),
+     2, 4, 0, "fwd"),
     ("simple_attention_bwd", "simple_attention", 130, "flagship",
-     ("dq", "dk", "dv"), 5, 7, False, "bwd"),
+     ("dq", "dk", "dv"), 5, 7, 0, "bwd"),
     ("causal_attention_fwd", "causal_attention", 164, "train_s2048",
-     ("o", "lse"), 2, 4, True, "fwd"),
+     ("o", "lse"), 2, 4, 1, "fwd"),
     ("causal_attention_bwd", "causal_attention", 184, "train_s2048",
-     ("dq", "dk", "dv"), 5, 8, True, "bwd"),
+     ("dq", "dk", "dv"), 5, 8, 1, "bwd"),
     ("blocked_flash_fwd", "blocked_flash", 210, "train_s4096", ("o", "lse"),
-     2, 4, True, "fwd"),
-    ("blocked_flash_bwd_dq", "blocked_flash", 326, "train_s4096", ("dq",),
-     3, 6, True, "bwd"),
+     2, 4, 1, "fwd"),
+    ("blocked_flash_bwd_dq", "blocked_flash", 326, "train_s4096",
+     ("dq", "delta"), 3, 6, 2, "bwd"),
     ("blocked_flash_bwd_dkv", "blocked_flash", 362, "train_s4096",
-     ("dk", "dv"), 4, 7, True, "bwd"),
+     ("dk", "dv"), 4, 6, 2, "bwd"),
     ("qblock_attention_fwd", "simple_attention2", 131, "train_s4096_d64",
-     ("o",), 2, 4, False, "fwd"),
+     ("o",), 2, 4, 0, "fwd"),
     ("qblock_attention_bwd", "simple_attention2", 151, "train_s4096_d64",
-     ("dq", "dk", "dv"), 5, 7, False, "bwd"),
+     ("dq", "dk", "dv"), 5, 7, 0, "bwd"),
 )
 
 # Phase 2's cases: (source stem, path of the shape, Sq (None: the path's S),
@@ -140,6 +141,9 @@ CHECKS = (
     ("blocked_flash", "train_s4096", None, "bfloat16", True),
     ("blocked_flash", "train_s4096", None, "bfloat16", False),
     ("blocked_flash", "train_s4096", 1024, "bfloat16", False),
+    ("blocked_flash", "train_s4096", None, "float16", True),
+    ("blocked_flash", "train_s4096", None, "float16", False),
+    ("blocked_flash", "train_s4096", 1024, "float16", False),
     ("blocked_flash", "train_s4096", None, "float32", True),
     ("simple_attention2", "train_s4096_d64", None, "bfloat16", True),
     ("simple_attention2", "train_s4096_d64", None, "bfloat16", False),
@@ -179,15 +183,17 @@ def windows_ms(fn, reps, windows=5):
 def ptxas_rows(log):
     """(kernel, registers, spilled bytes) of each entry function in an
     nvcc -Xptxas -v log; kernel reads as name<dtype,D> from the mangled
-    name (f float, __nv_bfloat16, __half)."""
+    name (f float, __nv_bfloat16, __half), with ",lse" or ",recompute"
+    after D for the dq launch's two forms."""
     import re
     rows, kernel, spill = [], None, 0
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            m = re.search(r"\d+([a-z_]+_kernel)I\d*(\w+?)Li(\d+)E",
+            m = re.search(r"\d+([a-z_]+_kernel)I\d*(\w+?)Li(\d+)E(?:Lb(\d)E)?",
                           entry.group(1))
-            kernel = (f"{m.group(1)}<{m.group(2)},{m.group(3)}>" if m
+            form = {"1": ",lse", "0": ",recompute"}.get(m and m.group(4), "")
+            kernel = (f"{m.group(1)}<{m.group(2)},{m.group(3)}{form}>" if m
                       else entry.group(1))
             spill = 0
         spilled = re.search(r"(\d+) bytes spill stores", line)
@@ -212,11 +218,11 @@ def bound(kernel):
     and what sets it: its products of 2 * pairs * D operations over the
     bf16 peak, against its bytes (each input read once, each output
     written once) over HBM. Causal pairs (i, j <= i) only."""
-    name, _, _, label, _, products, tensors, lse, _ = kernel
+    name, _, _, label, _, products, tensors, stats, _ = kernel
     b, h, s, d = attention_shape(label)
     ops_ms = products * 2 * b * h * s * (s + 1) // 2 * d \
         / PEAK_BF16_FLOPS * 1e3
-    nbytes = tensors * b * h * s * d * 2 + (b * h * s * 4 if lse else 0)
+    nbytes = tensors * b * h * s * d * 2 + stats * b * h * s * 4
     bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
     return (max(ops_ms, bytes_ms),
             "operations" if ops_ms > bytes_ms else "bytes")
@@ -299,15 +305,18 @@ def kernel_calls(mods, source, q, k, v, do, scale, causal):
                 lambda: ca.causal_attention_bwd_reference(*res))}
     o, lse = bf.blocked_flash_fwd_cuda(q, k, v, scale, causal)
     res = (q, k, v, o, lse, do, scale, causal)
+    _, delta = bf.blocked_flash_bwd_dq_cuda(*res)   # what dk/dv reads
     return {
         "blocked_flash_fwd": (
             lambda: bf.blocked_flash_fwd_cuda(q, k, v, scale, causal),
             lambda: bf.blocked_flash_reference(q, k, v, scale, causal)),
         "blocked_flash_bwd_dq": (
             lambda: bf.blocked_flash_bwd_dq_cuda(*res),
-            lambda: bf.blocked_flash_bwd_dq_reference(*res)),
+            lambda: (bf.blocked_flash_bwd_dq_reference(*res),
+                     (do.float() * o.float()).sum(-1))),
         "blocked_flash_bwd_dkv": (
-            lambda: bf.blocked_flash_bwd_dkv_cuda(*res),
+            lambda: bf.blocked_flash_bwd_dkv_cuda(q, k, v, lse, delta, do,
+                                                  scale, causal),
             lambda: bf.blocked_flash_bwd_dkv_reference(*res))}
 
 
@@ -317,9 +326,10 @@ def _tuple(x):
 
 def check_kernels(run, mods, torch):
     """Phase 2: every kernel against its plain version on the card, each
-    output (lse included) within the dtype's tolerance of the plain
-    output's scale (an lse within the f32 one). Returns the worst absolute
-    error of each kernel in its bf16 causal case at its path's shape."""
+    output (lse and delta included) within the dtype's tolerance of the
+    plain output's scale (an lse or a delta, f32 row statistics, within the
+    f32 one). Returns the worst absolute error of each kernel in its bf16
+    causal case at its path's shape."""
     outputs = {k[0]: k[4] for k in KERNELS}
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
@@ -335,7 +345,8 @@ def check_kernels(run, mods, torch):
             got = _tuple(launch())
             torch.cuda.synchronize()
             for out, g, w in zip(outputs[name], got, _tuple(plain())):
-                tol = TOL["float32"] if out == "lse" else TOL[dname]
+                tol = TOL["float32"] if out in ("lse", "delta") \
+                    else TOL[dname]
                 a, r = max_err(g, w)
                 run.check(r <= tol, f"{name} {out} {tag}: max abs err {a:.3e}"
                           f" rel {r:.3e} (tolerance rel {tol})")
@@ -661,14 +672,12 @@ def main():
         bound_ms, bound_by = bound(kern)
         (ms, spread), (plain_ms, plain_spread), (lib_ms, lib_spread) = (
             times[name], times[f"plain {name}"], times[f"{library} {source}"])
-        design = ("tensor cores (mma.sync)" if name in MMA_KERNELS
-                  else "CUDA cores (fma)")
         kernels.append({
             "name": name, "route": "cuda",
             "source": "paddle_tpu_torch/ops/hopper/csrc/"
                       f"{CUDA_SOURCE.get(source, source)}.cu",
             "replaces": f"paddle_tpu/ops/pallas/{source}.py:{line}",
-            "design": design,
+            "design": DESIGN,
             "launches": launches,
             "launches_per_step": launches / paths[label]["steps"],
             "max_abs_err": errs[name], "tolerance_rel": TOL["bfloat16"],
@@ -677,7 +686,7 @@ def main():
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms, "library_ms_spread": lib_spread,
         })
-        print(f"{name} [{design}]: {ms:.3f} ms (spread {spread:.3f}), "
+        print(f"{name} [{DESIGN}]: {ms:.3f} ms (spread {spread:.3f}), "
               f"bound {bound_ms:.4f} ms ({bound_by}), roofline share "
               f"{bound_ms / ms:.4f}, plain {plain_ms:.3f} ms (spread "
               f"{plain_spread:.3f}), library {lib_ms:.3f} ms (spread "

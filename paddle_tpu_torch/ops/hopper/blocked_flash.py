@@ -3,14 +3,16 @@
 Port of ``paddle_tpu/ops/pallas/blocked_flash.py``: the same gate and block
 choice (``_pick_block``, ``_blocks_for``, ``block_candidates``,
 ``supported``, verbatim), function and residuals (o, lse). The forward, the
-dq launch and the dk/dv launch are CUDA kernels for ``sm_90a``
-(``csrc/blocked_flash.cu``, whose header says how a block's own loop takes
-the place of the reference's sequential grid).
+dq launch and the dk/dv launch are CUDA kernels for ``sm_90a``, on the
+tensor cores for bf16 and f16 (``csrc/blocked_flash.cu``, whose header says
+how a block's own loop takes the place of the reference's sequential grid).
+The dq launch also returns delta = rowsum(dO * O), which the dk/dv launch
+reads, so that delta is summed once per row.
 
 Block sizes: ``block_q``/``block_kv`` are validated as the reference does.
 They set the plain version's kv loop, and with it where the running max
-moves and so where bf16 rounds p; the kernels tile by their own 64 rows
-(32 at D=256) whatever the blocks. Causal is top-left and needs Sq == Skv;
+moves and so where bf16 rounds p; the kernels stream kv in their own tiles
+of 64 rows (32 at D=256) whatever the blocks. Causal is top-left and needs Sq == Skv;
 non-causal cross-attention (Sq != Skv) is supported.
 
 Devices: for CUDA tensors the ops launch the kernels or raise; for CPU
@@ -139,7 +141,7 @@ def blocked_flash_bwd_dkv_reference(q, k, v, o, lse, do, sm_scale,
 _TAIL = [L.STRIDES, L.INT, L.INT, L.INT, L.INT, L.FLOAT, L.INT, L.VP]
 _SIGNATURES = {
     "bf_fwd": [L.INT, L.INT] + [L.VP] * 5 + _TAIL,
-    "bf_bwd_dq": [L.INT, L.INT] + [L.VP] * 7 + _TAIL,
+    "bf_bwd_dq": [L.INT, L.INT] + [L.VP] * 8 + _TAIL,
     "bf_bwd_dkv": [L.INT, L.INT] + [L.VP] * 8 + _TAIL,
 }
 
@@ -159,13 +161,16 @@ def _launch(what, fn, tensors, laid_out, sm_scale, causal):
              int(causal))
 
 
-def _check_bwd(what, q, k, v, o, lse, do):
+def _check_bwd(what, q, k, v, do, rows, stats):
+    """q, k, v and dO, then ``rows`` [B, H, Sq, D] operands in q's dtype
+    and ``stats`` f32 [B, H, Sq] row statistics."""
     b, h, sq, d = q.shape
     kv_shape = (b, h, k.shape[2], d)
     L.check("blocked_flash", what,
             [(q, q.shape, q.dtype), (k, kv_shape, q.dtype),
-             (v, kv_shape, q.dtype), (o, q.shape, q.dtype),
-             (do, q.shape, q.dtype), (lse, (b, h, sq), torch.float32)])
+             (v, kv_shape, q.dtype), (do, q.shape, q.dtype)]
+            + [(t, q.shape, q.dtype) for t in rows]
+            + [(t, (b, h, sq), torch.float32) for t in stats])
     L.same_layout("blocked_flash", what, (k, v))
 
 
@@ -188,25 +193,28 @@ def blocked_flash_fwd_cuda(q, k, v, sm_scale, causal):
 
 
 def blocked_flash_bwd_dq_cuda(q, k, v, o, lse, do, sm_scale, causal):
-    """Launches the dq kernel. Returns dq, a [B, H, Sq, D] view of a
-    [B, S, H, D] buffer."""
-    _check_bwd("backward dq", q, k, v, o, lse, do)
+    """Launches the dq kernel. Returns (dq, delta): dq a [B, H, Sq, D] view
+    of a [B, S, H, D] buffer, delta = rowsum(dO * O) f32 [B, H, Sq], which
+    the dk/dv kernel reads."""
+    _check_bwd("backward dq", q, k, v, do, (o,), (lse,))
     _require_causal_square(q.shape[2], k.shape[2], causal)
     dq = L.empty_bshd(*q.shape, q)
-    _launch("backward dq", "bf_bwd_dq", (q, k, v, o, lse, do, dq),
+    delta = L.empty_lse(*q.shape[:3], q)
+    _launch("backward dq", "bf_bwd_dq", (q, k, v, o, lse, do, dq, delta),
             (q, k, o, do, dq), sm_scale, causal)
     LAUNCHES["blocked_flash_bwd_dq"] += 1
-    return dq
+    return dq, delta
 
 
-def blocked_flash_bwd_dkv_cuda(q, k, v, o, lse, do, sm_scale, causal):
-    """Launches the dk/dv kernel. Returns (dk, dv), each a [B, H, Skv, D]
-    view of a [B, S, H, D] buffer."""
-    _check_bwd("backward dkv", q, k, v, o, lse, do)
+def blocked_flash_bwd_dkv_cuda(q, k, v, lse, delta, do, sm_scale, causal):
+    """Launches the dk/dv kernel from the forward's lse and the dq kernel's
+    delta. Returns (dk, dv), each a [B, H, Skv, D] view of a [B, S, H, D]
+    buffer."""
+    _check_bwd("backward dkv", q, k, v, do, (), (lse, delta))
     _require_causal_square(q.shape[2], k.shape[2], causal)
     dk, dv = (L.empty_bshd(*k.shape, k) for _ in range(2))
-    _launch("backward dkv", "bf_bwd_dkv", (q, k, v, o, lse, do, dk, dv),
-            (q, k, o, do, dk), sm_scale, causal)
+    _launch("backward dkv", "bf_bwd_dkv", (q, k, v, lse, delta, do, dk, dv),
+            (q, k, do, dk), sm_scale, causal)
     LAUNCHES["blocked_flash_bwd_dkv"] += 1
     return dk, dv
 
@@ -240,8 +248,9 @@ def _attention_op(q, k, v, sm_scale, causal, block_q, block_kv):
            "float sm_scale, bool causal) -> (Tensor, Tensor, Tensor)")
 def _attention_bwd_op(q, k, v, o, lse, do, sm_scale, causal):
     if q.device.type == "cuda":
-        dq = blocked_flash_bwd_dq_cuda(q, k, v, o, lse, do, sm_scale, causal)
-        return (dq, *blocked_flash_bwd_dkv_cuda(q, k, v, o, lse, do,
+        dq, delta = blocked_flash_bwd_dq_cuda(q, k, v, o, lse, do, sm_scale,
+                                              causal)
+        return (dq, *blocked_flash_bwd_dkv_cuda(q, k, v, lse, delta, do,
                                                 sm_scale, causal))
     if q.device.type == "cpu":
         return lse_backward.bwd_reference(q, k, v, o, lse, do, sm_scale,

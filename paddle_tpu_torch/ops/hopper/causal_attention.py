@@ -105,7 +105,7 @@ def causal_attention_bwd_reference(q, k, v, o, lse, do, sm_scale):
 _SIGNATURES = {
     "ca_fwd": [L.INT, L.INT] + [L.VP] * 5
               + [L.STRIDES, L.INT, L.INT, L.INT, L.FLOAT, L.VP],
-    "ca_bwd": [L.INT, L.INT] + [L.VP] * 9
+    "ca_bwd": [L.INT, L.INT] + [L.VP] * 10
               + [L.STRIDES, L.INT, L.INT, L.INT, L.FLOAT, L.VP],
 }
 
@@ -133,8 +133,9 @@ def causal_attention_fwd_cuda(q, k, v, sm_scale):
 
 
 def causal_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale):
-    """Launches the backward pair (dq, then dk/dv) from the saved o and
-    lse. Returns (dq, dk, dv), each a [B, H, S, D] view of a [B, S, H, D]
+    """Launches the backward pair (dq, which also writes delta =
+    rowsum(dO * O) into f32 scratch, then dk/dv) from the saved o and lse.
+    Returns (dq, dk, dv), each a [B, H, S, D] view of a [B, S, H, D]
     buffer."""
     shape = tuple(q.shape)
     b, h, s, d = shape
@@ -143,10 +144,11 @@ def causal_attention_bwd_cuda(q, k, v, o, lse, do, sm_scale):
             + [(lse, (b, h, s), torch.float32)])
     L.same_layout("causal_attention", "backward", (k, v))
     dq, dk, dv = (L.empty_bshd(b, h, s, d, q) for _ in range(3))
+    delta = L.empty_lse(b, h, s, q)
     L.launch(_lib(), "ca", "causal_attention", "backward", q.device, "ca_bwd",
              L.DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(),
              v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
-             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
              L.layouts(q, k, o, do, dq, dk), b, h, s, float(sm_scale))
     LAUNCHES["causal_attention_bwd"] += 1
     return dq, dk, dv

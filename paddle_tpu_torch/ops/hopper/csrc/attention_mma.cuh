@@ -1,16 +1,18 @@
-// Tensor-core tile code for the two-pass attention forward and the recompute
-// backward, bf16 and f16, written for Hopper (sm_90a). simple_attention.cu
-// (simple_attention and qblock_attention) and causal_attention.cu (its
-// forward) include it.
+// Tensor-core tile code for every bf16 and f16 attention kernel of this
+// directory, written for Hopper (sm_90a): the two-pass forward and the
+// recompute backward (simple_attention.cu, which qblock_attention launches
+// too), causal_attention.cu's forward and lse backward, and blocked_flash.cu's
+// online forward and lse backward.
 //
 // What bounds these kernels on this card: operations. A forward needs 2
-// products of S x S x D per (batch, head) and a backward 5. At the paths'
-// shapes and the card's peaks those take 1.2-5x the time the HBM needs for
-// the bytes, but for the S=1024 forward, whose bytes take 1.15x its products;
-// and the products these kernels do (3 forward, 9 backward) put every one on
-// the side of operations. Their first versions (attention_tiles.cuh) did
-// every product as f32 FMA on the CUDA cores, fed from f32 tiles in shared
-// memory, at 1-2 % of the bound.
+// products of Sq x Skv x D per (batch, head) and a backward 5 (the lse
+// backward's dq launch 3, its dk/dv launch 4). At the paths' shapes and the
+// card's peaks those take 1.2-5x the time the HBM needs for the bytes, but
+// for the S=1024 forward, whose bytes take 1.15x its products; and the
+// products these kernels do put every one on the side of operations. Their
+// first versions (attention_tiles.cuh, lse_backward.cuh) did every product as
+// f32 FMA on the CUDA cores, fed from f32 tiles in shared memory, at 1-2 % of
+// the bound.
 //
 // What this design does about it:
 //   - Q, K, V and dO tiles stay in shared memory in the input dtype, at a row
@@ -30,28 +32,37 @@
 //     S^T = K Q^T and dP^T = V dO^T, so that P^T and dS^T are A operands.
 //   - Causal: kv tiles past the diagonal are skipped and only the tiles that
 //     straddle it are masked.
-//   - The dq launch makes two passes over the kv tiles, not three: the first
-//     finds m, l and delta together (delta summed against exp(s - m) with the
-//     running max, rescaled with it as l is), the second forms dS and dq.
+//   - Both backwards share their launches: the dq launch writes the row
+//     statistics lse and delta (f32 [B, H, Sq]) once per row, and the dk/dv
+//     launch rebuilds P^T = exp(S^T - lse) from them. The lse backward reads
+//     lse from the forward and sums delta = rowsum(dO * O) from the saved O,
+//     so its dq launch makes one pass over the kv tiles; the recompute
+//     backward's makes two: the first finds m, l and delta together (delta
+//     summed against exp(s - m) with the running max, rescaled with it as l
+//     is), the second forms dS and dq.
 //
 // The function, rounding point by rounding point. Scores are exact products
 // of input-dtype operands summed in f32, times scale, then the causal mask at
 // -1e30, as the references. Forward: p = exp(s - m) / l, rounded to the
 // input dtype before P V, which is the references' rounding
 // (paddle_tpu/ops/pallas/simple_attention.py:48) and what an mma operand
-// needs. Backward: P is recomputed in f32 and delta = rowsum(dP * P) in f32,
-// as the references; the operands of dV = P^T dO, dQ = dS K and dK = dS^T Q
-// are P and dS ROUNDED TO THE INPUT DTYPE, with f32 sums. That rounding is
-// the one point where these kernels differ from the references, which
-// multiply P and dS in f32; tests/test_torch_mma_rounding.py holds it against
-// the references on the CPU. exp is the fast hardware exp (ex2.approx), and
-// 1/l a reciprocal, which differ from expf and a division in the last f32
-// bits only.
+// needs; blocked_flash's online forward rounds its unnormalized p instead,
+// as its reference (blocked_flash.cu). Backward: P = exp(s - lse) in f32 and
+// delta in f32, as the references; the operands of dV = P^T dO, dQ = dS K
+// and dK = dS^T Q are P and dS ROUNDED TO THE INPUT DTYPE, with f32 sums.
+// That rounding is the one point where these kernels differ from the
+// references, which multiply P and dS in f32; tests/test_torch_mma_rounding.py
+// holds it against the references on the CPU, the recompute and the lse
+// backward alike. exp is the fast hardware exp (ex2.approx), and 1/l a
+// reciprocal, which differ from expf and a division in the last f32 bits
+// only; the recompute backward's P = exp(s - (m + log l)) differs from
+// exp(s - m) / l in the same bits.
 //
-// f32 inputs stay on the CUDA-core templates of attention_tiles.cuh: tensor
-// cores would need TF32, about three decimal digits, against the f32 checks'
-// 1e-4. The choice is made by dtype at compile time in the launchers below,
-// inside by_dtype's instantiations; it is never a path taken on error.
+// f32 inputs stay on the CUDA-core kernels of attention_tiles.cuh,
+// lse_backward.cuh and blocked_flash.cu: tensor cores would need TF32, about
+// three decimal digits, against the f32 checks' 1e-4. The choice is made by
+// dtype at compile time in the launchers, inside by_dtype's instantiations;
+// it is never a path taken on error.
 //
 // Tiles: forward and dq blocks own 64 q rows and stream kv tiles of 64 rows
 // (32 at D=256, for the registers of the 16 x 256 f32 accumulator). A dk/dv
@@ -59,7 +70,7 @@
 // (at D=128 a warp holds two 16 x 128 f32 accumulators; 64-row q tiles
 // spilled there and were 2.5 % slower on an H100); at D=256 two warps share
 // 16 kv rows, each with half of the dk/dv columns, so a block owns 32 kv
-// rows.
+// rows. Sequence lengths are multiples of 64.
 //
 // What it leaves for later: wgmma (a warpgroup's 64-row products with B read
 // from shared memory by the tensor cores themselves), TMA copies and
@@ -357,16 +368,42 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-// Backward launch A, one block per (q tile, head, batch): pass 1 finds the
-// row max m, sum l and delta = rowsum(dP * P) over the kv tiles; pass 2 forms
-// dS = P (dP - delta) scale and dq = dS K. Writes dq and m, l, delta (f32
-// [B, H, S]) for launch B.
+// delta[i] = rowsum(x * y) of rows lane / 4 + 8 i of a warp's 16 rows at x
+// and y (row strides xs, ys), in f32: each thread of a quad sums every
+// fourth 16-byte chunk of the row, then the quad adds its four sums.
 template <typename T, int D>
+__device__ __forceinline__ void quad_row_dots(float (&delta)[2], const T* x, long long xs,
+                                              const T* y, long long ys) {
+  constexpr int V = 16 / sizeof(T);
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const long long r = (lane >> 2) + 8 * i;
+    float part = 0.f;
+#pragma unroll
+    for (int j = 0; j < D / (4 * V); ++j) {
+      const int c = ((lane & 3) + 4 * j) * V;
+      const uint4 rx = *reinterpret_cast<const uint4*>(x + r * xs + c);
+      const uint4 ry = *reinterpret_cast<const uint4*>(y + r * ys + c);
+      const T* ex = reinterpret_cast<const T*>(&rx);
+      const T* ey = reinterpret_cast<const T*>(&ry);
+#pragma unroll
+      for (int e = 0; e < V; ++e) part += to_f32(ex[e]) * to_f32(ey[e]);
+    }
+    delta[i] = quad_sum(part);
+  }
+}
+
+// Backward launch A, one block per (q tile, head, batch), heaviest causal
+// tiles first: dS = P (dP - delta) scale with P = exp(s - lse), and
+// dq = dS K, over the kv tiles. LSE (the lse backward): lse is the
+// forward's and delta = rowsum(dO * O) from the saved O, one pass.
+// Otherwise (the recompute backward) a first pass finds m, l and
+// delta = rowsum(dP * P) together and gives lse = m + log l. Writes dq,
+// delta and, recomputing, lse, for launch B.
+template <typename T, int D, bool LSE>
 __global__ void __launch_bounds__(kMmaThreads)
-    mma_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                  const T* __restrict__ dout, T* __restrict__ dq, float* __restrict__ m_out,
-                  float* __restrict__ l_out, float* __restrict__ delta_out, Layout in, Layout g,
-                  Layout out, int S, float scale, int causal) {
+    mma_dq_kernel(BwdArgs a, T* __restrict__ dq, Layout ldq) {
   using C = MmaCfg<D>;
   constexpr int BM = C::BM, BN = C::BN, LD = C::LD;
   extern __shared__ __align__(16) unsigned char mma_smem[];
@@ -374,45 +411,58 @@ __global__ void __launch_bounds__(kMmaThreads)
   T* sDO = sQ + BM * LD;
   T* sK = sDO + BM * LD;     // two buffers of [BN][LD]
   T* sV = sK + 2 * BN * LD;  // two buffers of [BN][LD]
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int qt = S / BM - 1 - blockIdx.x;
+  const int qt = a.Sq / BM - 1 - blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * BM, r0 = warp * 16;
-  const long long base = b * in.sb + h * in.sh;
-  const int kend = causal ? (q0 + BM) / BN : S / BN;
+  const long long kvbase = b * a.lkv.sb + h * a.lkv.sh;
+  const long long row = (static_cast<long long>(b) * a.H + h) * a.Sq + q0 + r0 + (lane >> 2);
+  const int kend = a.causal ? (q0 + BM) / BN : a.Skv / BN;
+  const int pass = LSE ? 0 : kend;  // stages of the statistics pass
 
   auto prefetch = [&](int st) {
-    if (st < 2 * kend) {
-      const int kt = st < kend ? st : st - kend;
-      const long long off = base + static_cast<long long>(kt) * BN * in.ss;
-      copy_tile<T, D, BN>(sK + (st & 1) * BN * LD, k + off, in.ss);
-      copy_tile<T, D, BN>(sV + (st & 1) * BN * LD, v + off, in.ss);
+    if (st < pass + kend) {
+      const long long off = kvbase + static_cast<long long>(st < pass ? st : st - pass) * BN * a.lkv.ss;
+      copy_tile<T, D, BN>(sK + (st & 1) * BN * LD, k + off, a.lkv.ss);
+      copy_tile<T, D, BN>(sV + (st & 1) * BN * LD, v + off, a.lkv.ss);
     }
     cp_async_commit();
   };
-  copy_tile<T, D, BM>(sQ, q + base + static_cast<long long>(q0) * in.ss, in.ss);
-  copy_tile<T, D, BM>(sDO, dout + b * g.sb + h * g.sh + static_cast<long long>(q0) * g.ss, g.ss);
+  const T* g = static_cast<const T*>(a.dout) + b * a.lg.sb + h * a.lg.sh +
+               static_cast<long long>(q0) * a.lg.ss;
+  copy_tile<T, D, BM>(sQ, static_cast<const T*>(a.q) + b * a.lq.sb + h * a.lq.sh +
+                              static_cast<long long>(q0) * a.lq.ss, a.lq.ss);
+  copy_tile<T, D, BM>(sDO, g, a.lg.ss);
   prefetch(0);
 
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
-  float rl[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+  float lse[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
+  if constexpr (LSE) {
+    quad_row_dots<T, D>(delta, static_cast<const T*>(a.o) + b * a.lo.sb + h * a.lo.sh +
+                                   static_cast<long long>(q0 + r0) * a.lo.ss, a.lo.ss,
+                        g + r0 * a.lg.ss, a.lg.ss);
+    lse[0] = a.lse[row];
+    lse[1] = a.lse[row + 8];
+  }
   float acc[D / 8][4];
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
 
-  for (int st = 0; st < 2 * kend; ++st) {
+  for (int st = 0; st < pass + kend; ++st) {
     prefetch(st + 1);
     cp_async_wait<1>();
     __syncthreads();
-    const int k0 = (st < kend ? st : st - kend) * BN;
+    const int k0 = (st < pass ? st : st - pass) * BN;
     const int buf = (st & 1) * BN * LD;
     float s[BN / 8][4], dp[BN / 8][4];
     warp_abt<T, D, BN>(s, sQ + r0 * LD, sK + buf);
-    scale_mask<BN / 8, false>(s, scale, causal && k0 + BN - 1 > q0 + r0, q0 + r0, k0);
+    scale_mask<BN / 8, false>(s, a.scale, a.causal && k0 + BN - 1 > q0 + r0, q0 + r0, k0);
     warp_abt<T, D, BN>(dp, sDO + r0 * LD, sV + buf);
-    if (st < kend) {
+    if (st < pass) {
       // running m and l, and dd = sum dP exp(s - m) rescaled with them:
       // delta = dd / l once every tile is in.
 #pragma unroll
@@ -435,11 +485,11 @@ __global__ void __launch_bounds__(kMmaThreads)
         dd[i] = dd[i] * c + quad_sum(sd);
         m[i] = mn;
       }
-      if (st == kend - 1) {
+      if (st == pass - 1) {
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          rl[i] = 1.f / l[i];
-          delta[i] = dd[i] * rl[i];
+          lse[i] = m[i] + logf(l[i]);
+          delta[i] = dd[i] / l[i];
         }
       }
     } else {
@@ -448,41 +498,34 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = e >> 1;
-          const float p = __expf(s[j][e] - m[i]) * rl[i];
-          s[j][e] = p * (dp[j][e] - delta[i]) * scale;
+          s[j][e] = __expf(s[j][e] - lse[i]) * (dp[j][e] - delta[i]) * a.scale;
         }
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
-        uint32_t a[4];
-        a_frag<T>(a, s, kk);
-        warp_ab<T, LD, D>(acc, a, sK + buf + kk * 16 * LD);
+        uint32_t af[4];
+        a_frag<T>(af, s, kk);
+        warp_ab<T, LD, D>(acc, af, sK + buf + kk * 16 * LD);
       }
     }
     __syncthreads();
   }
-  store_rows<T, D>(dq + b * out.sb + h * out.sh, out.ss, acc, q0 + r0, 0);
+  store_rows<T, D>(dq + b * ldq.sb + h * ldq.sh, ldq.ss, acc, q0 + r0, 0);
   if ((lane & 3) == 0) {
-    const long long row = (static_cast<long long>(b) * gridDim.y + h) * S + q0 + r0 + (lane >> 2);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      m_out[row + 8 * i] = m[i];
-      l_out[row + 8 * i] = l[i];
-      delta_out[row + 8 * i] = delta[i];
+      if (!LSE) a.lse[row + 8 * i] = lse[i];
+      a.delta[row + 8 * i] = delta[i];
     }
   }
 }
 
 // Backward launch B, one block per (kv tile, head, batch), low kv tiles (the
 // most q tiles when causal) first: loops over the q tiles at and below the
-// diagonal, rebuilds P^T from m and l, and accumulates dv = P^T dO and
-// dk = dS^T Q in f32 registers.
+// diagonal, rebuilds P^T = exp(S^T - lse) and reads delta from launch A, and
+// accumulates dv = P^T dO and dk = dS^T Q in f32 registers.
 template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads)
-    mma_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                   const T* __restrict__ dout, T* __restrict__ dk, T* __restrict__ dv,
-                   const float* __restrict__ m_in, const float* __restrict__ l_in,
-                   const float* __restrict__ delta_in, Layout in, Layout g, Layout out, int S,
-                   float scale, int causal) {
+    mma_dkv_kernel(BwdArgs a, T* __restrict__ dk, T* __restrict__ dv, Layout ldkv) {
   using C = MmaCfg<D>;
   constexpr int KN = C::KN, BQ = C::BQ, LD = C::LD, DW = C::DW;
   extern __shared__ __align__(16) unsigned char mma_smem[];
@@ -490,32 +533,36 @@ __global__ void __launch_bounds__(kMmaThreads)
   T* sV = sK + KN * LD;
   T* sQ = sV + KN * LD;       // two buffers of [BQ][LD]
   T* sDO = sQ + 2 * BQ * LD;  // two buffers of [BQ][LD]
-  float* sStat = reinterpret_cast<float*>(sDO + 2 * BQ * LD);  // two buffers of m, l, delta [3][BQ]
+  float* sStat = reinterpret_cast<float*>(sDO + 2 * BQ * LD);  // two buffers of lse, delta [2][BQ]
+  const T* q = static_cast<const T*>(a.q);
+  const T* dout = static_cast<const T*>(a.dout);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int r0 = (warp / C::WD) * 16, c0 = (warp % C::WD) * DW;
   const int h = blockIdx.y, b = blockIdx.z;
   const int k0 = blockIdx.x * KN;
-  const long long base = b * in.sb + h * in.sh, gbase = b * g.sb + h * g.sh;
-  const long long row0 = (static_cast<long long>(b) * gridDim.y + h) * S;
-  const int qbeg = causal ? k0 / BQ : 0, stages = S / BQ - qbeg;
+  const long long qbase = b * a.lq.sb + h * a.lq.sh, gbase = b * a.lg.sb + h * a.lg.sh;
+  const long long kvbase = b * a.lkv.sb + h * a.lkv.sh;
+  const long long row0 = (static_cast<long long>(b) * a.H + h) * a.Sq;
+  const int qbeg = a.causal ? k0 / BQ : 0, stages = a.Sq / BQ - qbeg;
 
   auto prefetch = [&](int st) {
     if (st < stages) {
       const int q0 = (qbeg + st) * BQ;
-      copy_tile<T, D, BQ>(sQ + (st & 1) * BQ * LD, q + base + static_cast<long long>(q0) * in.ss,
-                          in.ss);
+      copy_tile<T, D, BQ>(sQ + (st & 1) * BQ * LD, q + qbase + static_cast<long long>(q0) * a.lq.ss,
+                          a.lq.ss);
       copy_tile<T, D, BQ>(sDO + (st & 1) * BQ * LD,
-                          dout + gbase + static_cast<long long>(q0) * g.ss, g.ss);
-      if (threadIdx.x < 3 * BQ / 4) {  // m, l, delta of the tile's rows: 16 bytes a thread
-        const int a = threadIdx.x / (BQ / 4), c = (threadIdx.x % (BQ / 4)) * 4;
-        const float* src = a == 0 ? m_in : a == 1 ? l_in : delta_in;
-        cp_async16(sStat + (st & 1) * 3 * BQ + a * BQ + c, src + row0 + q0 + c);
+                          dout + gbase + static_cast<long long>(q0) * a.lg.ss, a.lg.ss);
+      if (threadIdx.x < 2 * BQ / 4) {  // lse, delta of the tile's rows: 16 bytes a thread
+        const int w = threadIdx.x / (BQ / 4), c = (threadIdx.x % (BQ / 4)) * 4;
+        cp_async16(sStat + (st & 1) * 2 * BQ + w * BQ + c, (w == 0 ? a.lse : a.delta) + row0 + q0 + c);
       }
     }
     cp_async_commit();
   };
-  copy_tile<T, D, KN>(sK, k + base + static_cast<long long>(k0) * in.ss, in.ss);
-  copy_tile<T, D, KN>(sV, v + base + static_cast<long long>(k0) * in.ss, in.ss);
+  copy_tile<T, D, KN>(sK, static_cast<const T*>(a.k) + kvbase + static_cast<long long>(k0) * a.lkv.ss,
+                      a.lkv.ss);
+  copy_tile<T, D, KN>(sV, static_cast<const T*>(a.v) + kvbase + static_cast<long long>(k0) * a.lkv.ss,
+                      a.lkv.ss);
   prefetch(0);
 
   float acc_k[DW / 8][4], acc_v[DW / 8][4];
@@ -534,23 +581,20 @@ __global__ void __launch_bounds__(kMmaThreads)
     const int q0 = (qbeg + st) * BQ;
     const T* cQ = sQ + (st & 1) * BQ * LD;
     const T* cDO = sDO + (st & 1) * BQ * LD;
-    const float* sm = sStat + (st & 1) * 3 * BQ;
-    // P^T = exp(S^T - m) / l, S^T = K Q^T
+    const float* sm = sStat + (st & 1) * 2 * BQ;
+    // P^T = exp(S^T - lse), S^T = K Q^T
     float p[BQ / 8][4];
     warp_abt<T, D, BQ>(p, sK + r0 * LD, cQ);
-    scale_mask<BQ / 8, true>(p, scale, causal && q0 < k0 + r0 + 15, k0 + r0, q0);
+    scale_mask<BQ / 8, true>(p, a.scale, a.causal && q0 < k0 + r0 + 15, k0 + r0, q0);
 #pragma unroll
     for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = 8 * j + fc + (e & 1);
-        p[j][e] = __fdividef(__expf(p[j][e] - sm[qi]), sm[BQ + qi]);
-      }
+      for (int e = 0; e < 4; ++e) p[j][e] = __expf(p[j][e] - sm[8 * j + fc + (e & 1)]);
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t a[4];
-      a_frag<T>(a, p, kk);
-      warp_ab<T, LD, DW>(acc_v, a, cDO + kk * 16 * LD + c0);
+      uint32_t af[4];
+      a_frag<T>(af, p, kk);
+      warp_ab<T, LD, DW>(acc_v, af, cDO + kk * 16 * LD + c0);
     }
     // dS^T = P^T (dP^T - delta) scale, dP^T = V dO^T
     float ds[BQ / 8][4];
@@ -558,20 +602,18 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
     for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = 8 * j + fc + (e & 1);
-        ds[j][e] = p[j][e] * (ds[j][e] - sm[2 * BQ + qi]) * scale;
-      }
+      for (int e = 0; e < 4; ++e)
+        ds[j][e] = p[j][e] * (ds[j][e] - sm[BQ + 8 * j + fc + (e & 1)]) * a.scale;
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      uint32_t a[4];
-      a_frag<T>(a, ds, kk);
-      warp_ab<T, LD, DW>(acc_k, a, cQ + kk * 16 * LD + c0);
+      uint32_t af[4];
+      a_frag<T>(af, ds, kk);
+      warp_ab<T, LD, DW>(acc_k, af, cQ + kk * 16 * LD + c0);
     }
     __syncthreads();
   }
-  store_rows<T, DW>(dk + b * out.sb + h * out.sh, out.ss, acc_k, k0 + r0, c0);
-  store_rows<T, DW>(dv + b * out.sb + h * out.sh, out.ss, acc_v, k0 + r0, c0);
+  store_rows<T, DW>(dk + b * ldkv.sb + h * ldkv.sh, ldkv.ss, acc_k, k0 + r0, c0);
+  store_rows<T, DW>(dv + b * ldkv.sb + h * ldkv.sh, ldkv.ss, acc_v, k0 + r0, c0);
 }
 
 template <typename T, int D>
@@ -585,7 +627,7 @@ constexpr size_t mma_dq_smem() {
 template <typename T, int D>
 constexpr size_t mma_dkv_smem() {
   return (2 * MmaCfg<D>::KN + 4 * MmaCfg<D>::BQ) * MmaCfg<D>::LD * sizeof(T) +
-         2 * 3 * MmaCfg<D>::BQ * sizeof(float);
+         2 * 2 * MmaCfg<D>::BQ * sizeof(float);
 }
 
 // The two-pass forward of attention_tiles.cuh's function: tensor cores for
@@ -608,29 +650,32 @@ cudaError_t launch_two_pass_fwd(const void* q, const void* k, const void* v, voi
   }
 }
 
-// The recompute backward's two launches on tensor cores (bf16, f16).
-template <typename T, int D>
-cudaError_t launch_mma_bwd(const void* q, const void* k, const void* v, const void* dout,
-                           void* dq, void* dk, void* dv, float* m, float* l, float* delta,
-                           Layout in, Layout g, Layout out, int B, int H, int S, float scale,
-                           int causal, cudaStream_t st) {
+// Launch A on the tensor cores (bf16, f16): Sq a multiple of 64, Skv of
+// 64 (of 32 at D=256), causal only with Sq == Skv.
+template <typename T, int D, bool LSE>
+cudaError_t launch_mma_dq(const BwdArgs& a, void* dq, Layout ldq, cudaStream_t st) {
   using C = MmaCfg<D>;
-  if (S % C::BM != 0 || S % C::KN != 0) return cudaErrorInvalidValue;
-  constexpr size_t dq_bytes = mma_dq_smem<T, D>(), dkv_bytes = mma_dkv_smem<T, D>();
-  cudaError_t e = allow_smem(mma_dq_kernel<T, D>, dq_bytes);
+  if (a.Sq % C::BM != 0 || a.Skv % C::BN != 0 || (a.causal && a.Sq != a.Skv))
+    return cudaErrorInvalidValue;
+  constexpr size_t bytes = mma_dq_smem<T, D>();
+  cudaError_t e = allow_smem(mma_dq_kernel<T, D, LSE>, bytes);
   if (e != cudaSuccess) return e;
-  e = allow_smem(mma_dkv_kernel<T, D>, dkv_bytes);
+  mma_dq_kernel<T, D, LSE><<<dim3(a.Sq / C::BM, a.H, a.B), kMmaThreads, bytes, st>>>(
+      a, static_cast<T*>(dq), ldq);
+  return cudaGetLastError();
+}
+
+// Launch B on the tensor cores (bf16, f16), after launch A on one stream.
+template <typename T, int D>
+cudaError_t launch_mma_dkv(const BwdArgs& a, void* dk, void* dv, Layout ldkv, cudaStream_t st) {
+  using C = MmaCfg<D>;
+  if (a.Sq % C::BQ != 0 || a.Skv % C::KN != 0 || (a.causal && a.Sq != a.Skv))
+    return cudaErrorInvalidValue;
+  constexpr size_t bytes = mma_dkv_smem<T, D>();
+  cudaError_t e = allow_smem(mma_dkv_kernel<T, D>, bytes);
   if (e != cudaSuccess) return e;
-  mma_dq_kernel<T, D><<<dim3(S / C::BM, H, B), kMmaThreads, dq_bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<T*>(dq), m, l, delta, in, g, out, S, scale,
-      causal);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  mma_dkv_kernel<T, D><<<dim3(S / C::KN, H, B), kMmaThreads, dkv_bytes, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<T*>(dk), static_cast<T*>(dv), m, l, delta, in, g,
-      out, S, scale, causal);
+  mma_dkv_kernel<T, D><<<dim3(a.Skv / C::KN, a.H, a.B), kMmaThreads, bytes, st>>>(
+      a, static_cast<T*>(dk), static_cast<T*>(dv), ldkv);
   return cudaGetLastError();
 }
 

@@ -1,9 +1,8 @@
 // CUDA-core tile primitives shared by the attention kernels of this
 // directory, and the f32 two-pass softmax forward that simple_attention and
-// causal_attention share. Products here are f32 FMA: the lse backward
-// (lse_backward.cuh) and blocked_flash's online forward use them for every
-// dtype, the two-pass forward and the recompute backward for f32 only (bf16
-// and f16 run on the tensor cores, attention_mma.cuh).
+// causal_attention share. Products here are f32 FMA, for f32 inputs only:
+// every kernel of this directory runs bf16 and f16 on the tensor cores
+// (attention_mma.cuh).
 //
 // A block of 256 threads (16 x 16) owns one tile of BM rows. Tiles live in
 // shared memory as f32 with an odd row pitch, which keeps every access
@@ -45,6 +44,21 @@ struct Layout {
 
 // The i-th layout of a host array of (sb, sh, ss) triples.
 inline Layout layout_at(const long long* st, int i) { return {st[3 * i], st[3 * i + 1], st[3 * i + 2]}; }
+
+// What a backward launch reads besides its gradients' buffers: q [B, H, Sq,
+// D], k and v [B, H, Skv, D] (one layout), dO, and two f32 row statistics
+// [B, H, Sq] contiguous: lse (the forward's, or written by the recompute
+// backward's dq launch) and delta = rowsum(dO * O) (written by the dq launch,
+// read by the dk/dv launch). o, the saved output, is read by the lse
+// backward's dq launch only. Causal needs Sq == Skv (top-left).
+struct BwdArgs {
+  const void *q, *k, *v, *o, *dout;
+  float *lse, *delta;
+  Layout lq, lkv, lo, lg;
+  int B, H, Sq, Skv;
+  float scale;
+  int causal;
+};
 
 template <int D>
 struct Tile {

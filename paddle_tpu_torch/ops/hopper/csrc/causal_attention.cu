@@ -18,23 +18,23 @@
 // upper triangle. Here the same skip falls out of the tiling: every block owns
 // one 64-row q tile and loops over the kv tiles up to the diagonal, masking
 // only the tiles that straddle it. The forward is simple_attention's two-pass
-// kernel with the lse output switched on: for bf16 and f16 on the tensor
-// cores (mma.sync, ldmatrix, cp.async; attention_mma.cuh), for f32 as f32
-// FMA on the CUDA cores (attention_tiles.cuh), chosen by dtype at compile
-// time. The backward is the lse pair of lse_backward.cuh (dq, then dk/dv),
-// two launches without atomics, still on the CUDA cores. The strip count nq
-// of the reference only gates which shapes this tier takes (the Python
-// wrapper checks it).
+// kernel with the lse output switched on; the backward is the lse pair of
+// lse_backward.cuh, dq (which also writes delta = rowsum(dO * O), once per
+// row) then dk/dv, two launches without atomics. Both run bf16 and f16 on
+// the tensor cores (mma.sync, ldmatrix, cp.async; attention_mma.cuh) and f32
+// as f32 FMA on the CUDA cores, chosen by dtype at compile time. The
+// backward does 7 products where the function needs 5: the dk/dv launch
+// recomputes S and dP. The strip count nq of the reference only gates which
+// shapes this tier takes (the Python wrapper checks it).
 //
-// What it leaves for later: the lse backward on the tensor cores, then wgmma
-// with TMA and warp specialisation for both (attention_mma.cuh).
+// What it leaves for later: wgmma with TMA and warp specialisation for both
+// (attention_mma.cuh).
 //
 // Interface: plain C, pointers as void*, strides in elements as a host array
 // of (sb, sh, ss) triples; the head dim must be unit-stride, every row
 // 16-byte aligned and lse [B, H, S] f32 contiguous (the Python wrapper
 // checks). Each entry point returns cudaGetLastError() after its launches.
 
-#include "attention_mma.cuh"
 #include "lse_backward.cuh"
 
 extern "C" {
@@ -51,12 +51,15 @@ int ca_fwd(int dtype, int d, const void* q, const void* k, const void* v, void* 
   }));
 }
 
-// st: (sb, sh, ss) of q, kv, o, dO, dq, then dk/dv.
+// st: (sb, sh, ss) of q, kv, o, dO, dq, then dk/dv. delta: f32 [B, H, S]
+// scratch that the dq launch writes for the dk/dv launch.
 int ca_bwd(int dtype, int d, const void* q, const void* k, const void* v, const void* o,
-           const void* lse, const void* dout, void* dq, void* dk, void* dv, const long long* st,
-           int B, int H, int S, float scale, void* stream) {
+           const void* lse, const void* dout, void* dq, void* dk, void* dv, void* delta,
+           const long long* st, int B, int H, int S, float scale, void* stream) {
   auto cs = static_cast<cudaStream_t>(stream);
-  const LseArgs a = lse_args(q, k, v, o, lse, dout, st, B, H, S, S, scale, 1);
+  const BwdArgs a{q, k, v, o, dout, static_cast<float*>(const_cast<void*>(lse)),
+                  static_cast<float*>(delta), layout_at(st, 0), layout_at(st, 1),
+                  layout_at(st, 2), layout_at(st, 3), B, H, S, S, scale, 1};
   return static_cast<int>(by_dtype_and_d(dtype, d, [&](auto t, auto dc) {
     using T = decltype(t);
     constexpr int D = decltype(dc)::value;

@@ -1,19 +1,29 @@
 // The attention backward from a saved log-sum-exp, shared by
 // causal_attention.cu (its one backward) and blocked_flash.cu (its dq and
-// dk/dv launches). Same function as the references' backward kernels:
+// dk/dv launches); simple_attention.cu's recompute backward, whose dq
+// launch writes lse and delta, shares the dk/dv launch. Same function as
+// the references' backward kernels:
 // p = exp(s - lse) in f32, delta = rowsum(dO * O) with O the saved output,
 // dS = p (dP - delta) scale, dq = dS K, dk = dS^T Q, dv = P^T dO, every sum in
 // f32 and cast to the input dtype at the end.
 //
 //   dq   one block per (q tile, head, batch), kv tiles inner; delta is
-//        computed once for the tile. Causal: kv tiles past the diagonal are
-//        skipped, and only the diagonal tile is masked.
+//        computed once for each row and written (f32 [B, H, Sq]) for the
+//        dk/dv launch. Causal: kv tiles past the diagonal are skipped, and
+//        only the tiles that straddle it are masked.
 //   dkv  one block per (kv tile, head, batch), q tiles inner, starting at the
 //        diagonal when causal; dk and dv stay in f32 registers.
 // No atomics. Causal needs Sq == Skv (top-left alignment, as the references).
+//
+// bf16 and f16 run on the tensor cores: launches A (one pass, lse from the
+// forward) and B of attention_mma.cuh, whose header gives the design and its
+// one rounding point, P and dS rounded to the input dtype as mma operands.
+// f32 runs the CUDA-core kernels below (f32 FMA from f32 tiles in shared
+// memory, attention_tiles.cuh), chosen by dtype at compile time in
+// launch_lse_dq and launch_lse_dkv; never a path taken on error.
 #pragma once
 
-#include "attention_tiles.cuh"
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -41,20 +51,8 @@ __device__ __forceinline__ void row_delta(float (&delta)[Tile<D>::RM], const T* 
   }
 }
 
-// What both launches read: q [B, H, Sq, D], k and v [B, H, Skv, D] (one
-// layout), the saved o and lse ([B, H, Sq] f32 contiguous), and dO.
-struct LseArgs {
-  const void *q, *k, *v, *o;
-  const float* lse;
-  const void* dout;
-  Layout lq, lkv, lo, lg;
-  int B, H, Sq, Skv;
-  float scale;
-  int causal;
-};
-
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) lse_dq_kernel(LseArgs a, T* __restrict__ dq, Layout ldq) {
+__global__ void __launch_bounds__(kThreads) lse_dq_kernel(BwdArgs a, T* __restrict__ dq, Layout ldq) {
   using C = Tile<D>;
   extern __shared__ float smem[];
   float* sQ = smem;
@@ -80,7 +78,10 @@ __global__ void __launch_bounds__(kThreads) lse_dq_kernel(LseArgs a, T* __restri
   row_delta<T, D>(delta, static_cast<const T*>(a.o) + b * a.lo.sb + h * a.lo.sh + q0 * a.lo.ss,
                   a.lo.ss, g, a.lg.ss);
 #pragma unroll
-  for (int i = 0; i < C::RM; ++i) lse[i] = a.lse[row + ty + 16 * i];
+  for (int i = 0; i < C::RM; ++i) {
+    lse[i] = a.lse[row + ty + 16 * i];
+    if (tx == 0) a.delta[row + ty + 16 * i] = delta[i];
+  }
 
   float acc[C::RM][C::RD];
 #pragma unroll
@@ -113,7 +114,7 @@ __global__ void __launch_bounds__(kThreads) lse_dq_kernel(LseArgs a, T* __restri
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-    lse_dkv_kernel(LseArgs a, T* __restrict__ dk, T* __restrict__ dv, Layout ldkv) {
+    lse_dkv_kernel(BwdArgs a, T* __restrict__ dk, T* __restrict__ dv, Layout ldkv) {
   using C = Tile<D>;
   extern __shared__ float smem[];
   float* sK = smem;
@@ -125,7 +126,6 @@ __global__ void __launch_bounds__(kThreads)
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
-  const T* o = static_cast<const T*>(a.o);
   const T* dout = static_cast<const T*>(a.dout);
   const int kt = blockIdx.x;  // low kv tiles see the most q tiles: first
   const int h = blockIdx.y, b = blockIdx.z;
@@ -133,7 +133,6 @@ __global__ void __launch_bounds__(kThreads)
   const int k0 = kt * C::BM;
   const long long kvbase = b * a.lkv.sb + h * a.lkv.sh;
   const long long qbase = b * a.lq.sb + h * a.lq.sh;
-  const long long obase = b * a.lo.sb + h * a.lo.sh;
   const long long gbase = b * a.lg.sb + h * a.lg.sh;
   const long long row0 = (static_cast<long long>(b) * a.H + h) * a.Sq;
 
@@ -153,20 +152,17 @@ __global__ void __launch_bounds__(kThreads)
     load_tile<T, D>(sQ, q + qbase + q0 * a.lq.ss, a.lq.ss);
     load_tile<T, D>(sDO, dout + gbase + q0 * a.lg.ss, a.lg.ss);
     __syncthreads();
-    float delta[C::RM];
-    row_delta<T, D>(delta, o + obase + q0 * a.lo.ss, a.lo.ss, dout + gbase + q0 * a.lg.ss,
-                    a.lg.ss);
     float s[C::RM][C::RM], dp[C::RM][C::RM];
     scores<D>(s, sQ, sK, a.scale, a.causal && qt == kt, q0, k0);
     dot_rows<D>(dp, sDO, sV);
 #pragma unroll
     for (int i = 0; i < C::RM; ++i) {
-      const float lse = a.lse[row0 + q0 + ty + 16 * i];
+      const float lse = a.lse[row0 + q0 + ty + 16 * i], delta = a.delta[row0 + q0 + ty + 16 * i];
 #pragma unroll
       for (int j = 0; j < C::RM; ++j) {
         const float p = expf(s[i][j] - lse);
         sP[(ty + 16 * i) * C::LS + tx + 16 * j] = p;
-        sDS[(ty + 16 * i) * C::LS + tx + 16 * j] = p * (dp[i][j] - delta[i]) * a.scale;
+        sDS[(ty + 16 * i) * C::LS + tx + 16 * j] = p * (dp[i][j] - delta) * a.scale;
       }
     }
     __syncthreads();
@@ -195,38 +191,39 @@ constexpr size_t lse_dkv_smem() {
 }
 
 template <int D>
-bool lse_shapes_ok(const LseArgs& a) {
+bool lse_shapes_ok(const BwdArgs& a) {
   return a.Sq % Tile<D>::BM == 0 && a.Skv % Tile<D>::BM == 0 && (!a.causal || a.Sq == a.Skv);
 }
 
+// The dq launch (it also writes delta): the tensor cores for bf16 and f16,
+// the CUDA-core kernel for f32.
 template <typename T, int D>
-cudaError_t launch_lse_dq(const LseArgs& a, void* dq, Layout ldq, cudaStream_t st) {
-  if (!lse_shapes_ok<D>(a)) return cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(lse_dq_kernel<T, D>, lse_dq_smem<D>());
-  if (e != cudaSuccess) return e;
-  lse_dq_kernel<T, D><<<dim3(a.Sq / Tile<D>::BM, a.H, a.B), kThreads, lse_dq_smem<D>(), st>>>(
-      a, static_cast<T*>(dq), ldq);
-  return cudaGetLastError();
+cudaError_t launch_lse_dq(const BwdArgs& a, void* dq, Layout ldq, cudaStream_t st) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (!lse_shapes_ok<D>(a)) return cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(lse_dq_kernel<T, D>, lse_dq_smem<D>());
+    if (e != cudaSuccess) return e;
+    lse_dq_kernel<T, D><<<dim3(a.Sq / Tile<D>::BM, a.H, a.B), kThreads, lse_dq_smem<D>(), st>>>(
+        a, static_cast<T*>(dq), ldq);
+    return cudaGetLastError();
+  } else {
+    return launch_mma_dq<T, D, true>(a, dq, ldq, st);
+  }
 }
 
+// The dk/dv launch, after the dq launch on one stream (it reads delta).
 template <typename T, int D>
-cudaError_t launch_lse_dkv(const LseArgs& a, void* dk, void* dv, Layout ldkv, cudaStream_t st) {
-  if (!lse_shapes_ok<D>(a)) return cudaErrorInvalidValue;
-  cudaError_t e = allow_smem(lse_dkv_kernel<T, D>, lse_dkv_smem<D>());
-  if (e != cudaSuccess) return e;
-  lse_dkv_kernel<T, D><<<dim3(a.Skv / Tile<D>::BM, a.H, a.B), kThreads, lse_dkv_smem<D>(), st>>>(
-      a, static_cast<T*>(dk), static_cast<T*>(dv), ldkv);
-  return cudaGetLastError();
-}
-
-// The arguments of one backward call from the C interface's flat form:
-// strides st = (sb, sh, ss) of q, kv, o, dO in that order.
-inline LseArgs lse_args(const void* q, const void* k, const void* v, const void* o, const void* lse,
-                        const void* dout, const long long* st, int B, int H, int Sq, int Skv,
-                        float scale, int causal) {
-  return LseArgs{q, k, v, o, static_cast<const float*>(lse), dout, layout_at(st, 0),
-                 layout_at(st, 1), layout_at(st, 2), layout_at(st, 3), B, H, Sq, Skv, scale,
-                 causal};
+cudaError_t launch_lse_dkv(const BwdArgs& a, void* dk, void* dv, Layout ldkv, cudaStream_t st) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (!lse_shapes_ok<D>(a)) return cudaErrorInvalidValue;
+    cudaError_t e = allow_smem(lse_dkv_kernel<T, D>, lse_dkv_smem<D>());
+    if (e != cudaSuccess) return e;
+    lse_dkv_kernel<T, D><<<dim3(a.Skv / Tile<D>::BM, a.H, a.B), kThreads, lse_dkv_smem<D>(),
+                           st>>>(a, static_cast<T*>(dk), static_cast<T*>(dv), ldkv);
+    return cudaGetLastError();
+  } else {
+    return launch_mma_dkv<T, D>(a, dk, dv, ldkv, st);
+  }
 }
 
 }  // namespace

@@ -72,7 +72,7 @@ def simple_attention_bwd_reference(q, k, v, do, sm_scale, causal=True):
 _SIGNATURES = {
     "sa_fwd": [L.INT, L.INT] + [L.VP] * 4 + [L.LL] * 6
               + [L.INT, L.INT, L.INT, L.FLOAT, L.INT, L.VP],
-    "sa_bwd": [L.INT, L.INT] + [L.VP] * 10 + [L.LL] * 9
+    "sa_bwd": [L.INT, L.INT] + [L.VP] * 9 + [L.LL] * 9
               + [L.INT, L.INT, L.INT, L.FLOAT, L.INT, L.VP],
 }
 
@@ -110,12 +110,12 @@ def launch_bwd(kernel, q, k, v, do, sm_scale, causal):
     _check(kernel, "backward", (q, k, v, do), shape, q.dtype)
     b, h, s, d = shape
     dq, dk, dv = (L.empty_bshd(b, h, s, d, q) for _ in range(3))
-    stats = torch.empty(3, b, h, s, dtype=torch.float32, device=q.device)
+    lse, delta = (L.empty_lse(b, h, s, q) for _ in range(2))
     L.launch(_lib(), "sa", kernel, "backward", q.device, "sa_bwd",
              L.DTYPE_CODE[q.dtype], d, q.data_ptr(), k.data_ptr(),
              v.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-             dv.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
-             stats[2].data_ptr(), *L.strides(q), *L.strides(do),
+             dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             *L.strides(q), *L.strides(do),
              *L.strides(dq), b, h, s, float(sm_scale), int(causal))
     return dq, dk, dv
 

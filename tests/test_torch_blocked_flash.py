@@ -200,4 +200,4 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tbf.blocked_flash_bwd_dq_cuda(q, q, q, q, lse, q, 0.125, True)
     with pytest.raises(ValueError, match="CUDA"):
-        tbf.blocked_flash_bwd_dkv_cuda(q, q, q, q, lse, q, 0.125, True)
+        tbf.blocked_flash_bwd_dkv_cuda(q, q, q, lse, lse, q, 0.125, True)

@@ -145,6 +145,11 @@ def test_causal_attention_kernels_match_plain_versions(d, bhs, dtype, tol):
         assert _rel_err(g, w) < tol
 
 
+# The online forward and the lse backward (tensor cores for bf16/f16):
+# causal at S=384 (six 64-row tiles, not a power of two; the plain
+# version's blocks need multiples of 128), not causal, and cross-attention
+# with Sq < Skv and Sq > Skv. The dq launch's delta = rowsum(dO * O) is held
+# to f32 accuracy.
 @pytest.mark.parametrize("dtype,tol", _DTYPES)
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_blocked_flash_kernels_match_plain_versions(d, dtype, tol):
@@ -152,7 +157,7 @@ def test_blocked_flash_kernels_match_plain_versions(d, dtype, tol):
     gen = torch.Generator(device="cuda").manual_seed(d + 2)
     scale = 1.0 / np.sqrt(d)
     for causal, sq, skv in ((True, 384, 384), (False, 256, 256),
-                            (False, 128, 384)):
+                            (False, 128, 384), (False, 384, 128)):
         q = _randn(gen, dtype, 2, 4, sq, d)
         k, v = (_randn(gen, dtype, 2, 4, skv, d) for _ in range(2))
         do = _randn(gen, dtype, 2, 4, sq, d)
@@ -161,11 +166,12 @@ def test_blocked_flash_kernels_match_plain_versions(d, dtype, tol):
                                                        causal)
         assert _rel_err(o, want_o) < tol, (causal, sq, skv)
         assert _rel_err(lse, want_lse) < 1e-5, (causal, sq, skv)
-        dq = tbf.blocked_flash_bwd_dq_cuda(q, k, v, want_o, want_lse, do,
-                                           scale, causal)
+        dq, delta = tbf.blocked_flash_bwd_dq_cuda(q, k, v, want_o, want_lse,
+                                                  do, scale, causal)
         assert _rel_err(dq, tbf.blocked_flash_bwd_dq_reference(
             q, k, v, want_o, want_lse, do, scale, causal)) < tol
-        gots = tbf.blocked_flash_bwd_dkv_cuda(q, k, v, want_o, want_lse, do,
+        assert _rel_err(delta, (do.float() * want_o.float()).sum(-1)) < 1e-5
+        gots = tbf.blocked_flash_bwd_dkv_cuda(q, k, v, want_lse, delta, do,
                                               scale, causal)
         wants = tbf.blocked_flash_bwd_dkv_reference(q, k, v, want_o,
                                                     want_lse, do, scale,
@@ -232,9 +238,10 @@ def test_lse_backward_kernels_match_autograd_of_the_plain_forward(module):
         plain = tca.causal_attention_reference
     else:
         o, lse = tbf.blocked_flash_fwd_cuda(q, k, v, 0.125, True)
-        res = (q, k, v, o, lse, do, 0.125, True)
-        got = (tbf.blocked_flash_bwd_dq_cuda(*res),
-               *tbf.blocked_flash_bwd_dkv_cuda(*res))
+        dq, delta = tbf.blocked_flash_bwd_dq_cuda(q, k, v, o, lse, do, 0.125,
+                                                  True)
+        got = (dq, *tbf.blocked_flash_bwd_dkv_cuda(q, k, v, lse, delta, do,
+                                                   0.125, True))
 
         def plain(*a):
             return tbf.blocked_flash_reference(*a, True)
