@@ -44,13 +44,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
      never the winner, every ported tier finite and library_flash None (no
      Hopper kernel); the persisted table, reloaded, must give the same
      winner, decide() too, and one flash_attention_maybe call must then
-     launch the winner's kernel.
-The whole run keeps the autotuner's table in a fresh temporary
+     launch the winner's kernel;
+  7. the eager Paddle API (``import paddle_tpu_torch as paddle``), on a fresh
+     empty autotune table: (a) the eager ``flash_attn`` op, causal bf16
+     forward and ``.backward()`` on leaves from ``paddle.randn``, at each
+     path's attention shape, where it must dispatch the path's tier once,
+     launch each of its kernels once and no other, and agree with that
+     tier's plain versions (phase 2's tolerances); (b) the GPT-1.3B forward
+     and backward at full width and depth written in eager ops
+     (``eager_gpt_loss``: indexing, mean/var/rsqrt LayerNorm, matmul,
+     flash_attn, tanh-GELU, tied head with logsumexp and take_along_axis),
+     on ``models/gpt_hybrid.init_params`` (seed 0), against the port's
+     gpt_hybrid forward (remat off, plain CE) on the same params and
+     batch: the step-0 loss in [10, 11.5] and within 1e-2 relative, the
+     gradients of wte, block 0's qkv and block 23's fc2 weights within 5e-2
+     of each leaf's scale, 24 launches each of simple_attention's forward
+     and backward and of no other attention kernel; prints both
+     forward+backward times (median of 5 windows and spread), the idle
+     share of one profiled eager step and the peak memory.
+Phases 2-6 keep the autotuner's table in a fresh temporary
 PADDLE_TPU_CACHE_DIR, empty until phase 6, with FLAGS_attn_autotune at its
-default: phases 2-5 run the configuration a user gets on a new checkout.
+default: phases 2-5 (and 7, on a table of its own) run the configuration a
+user gets on a new checkout.
 Prints the card line, then one {"kernels": [...]} line (each row with its
 design), then as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
+Importing this module runs nothing: ``eager_gpt_loss`` is the tests' too.
 """
 from __future__ import annotations
 
@@ -601,6 +620,248 @@ def check_autotune(run, mods, fa, at, torch):
     return tuned
 
 
+# ---------------------------------------------------------------- phase 7
+# The plain versions of each tier's kernels, causal: o and (dq, dk, dv).
+TIER_SOURCE = {"simple": "simple_attention", "causal_skip": "causal_attention",
+               "blocked": "blocked_flash", "qblock": "simple_attention2"}
+
+
+def plain_attention(mods, tier, q, k, v, do, scale):
+    """o and (dq, dk, dv) of ``tier``'s plain forward and backward (causal,
+    [B, H, S, D]), the backward from the plain forward's own o and lse."""
+    sa, ca, bf, sa2 = mods
+    if tier == "simple":
+        return (sa.simple_attention_reference(q, k, v, scale, True),
+                sa.simple_attention_bwd_reference(q, k, v, do, scale, True))
+    if tier == "qblock":
+        return (sa2.qblock_attention_reference(q, k, v, scale, True),
+                sa2.qblock_attention_bwd_reference(q, k, v, do, scale, True))
+    if tier == "causal_skip":
+        o, lse = ca.causal_attention_reference(q, k, v, scale)
+        return o, ca.causal_attention_bwd_reference(q, k, v, o, lse, do,
+                                                    scale)
+    o, lse = bf.blocked_flash_reference(q, k, v, scale, True)
+    res = (q, k, v, o, lse, do, scale, True)
+    return o, (bf.blocked_flash_bwd_dq_reference(*res),
+               *bf.blocked_flash_bwd_dkv_reference(*res))
+
+
+def check_eager_attention(run, paddle, mods, fa, torch):
+    """Phase 7a: the eager flash_attn at each path's attention shape."""
+    for label, _, _, _, tier, kernels, *_ in PATHS:
+        b, h, s, d = attention_shape(label)
+        tag = f"eager flash_attn [{b}, {s}, {h}, {d}] bf16 causal"
+        paddle.seed(4)
+        q, k, v = (paddle.randn([b, s, h, d], dtype="bfloat16")
+                   for _ in range(3))
+        for t in (q, k, v):
+            t.stop_gradient = False
+        for mod in mods:
+            mod.reset_launch_counts()
+        fa.reset_dispatch_counts()
+        out = paddle.ops.extra.flash_attn(q, k, v, causal=True)
+        out.backward()
+        torch.cuda.synchronize()
+        launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
+        dispatch = dict(fa.DISPATCH_COUNTS)
+        run.check(dispatch == {("attn.dispatch", tier): 1}
+                  and launches == {n: int(n in kernels) for n in launches},
+                  f"{tag}: dispatches {tier} once and launches each of "
+                  f"{list(kernels)} once (launches {launches})")
+        qt, kt, vt = (t._data.detach().transpose(1, 2) for t in (q, k, v))
+        o, grads = plain_attention(mods, tier, qt, kt, vt,
+                                   torch.ones_like(qt), 1.0 / math.sqrt(d))
+        got = [out._data.transpose(1, 2)] + [t.grad._data.transpose(1, 2)
+                                            for t in (q, k, v)]
+        for name, g, w in zip(("o", "dq", "dk", "dv"), got, (o, *grads)):
+            a, r = max_err(g, w)
+            run.check(r <= TOL["bfloat16"],
+                      f"{tag}: {name} against {tier}'s plain version, max abs "
+                      f"err {a:.3e} rel {r:.3e} (tolerance rel "
+                      f"{TOL['bfloat16']})")
+
+
+def eager_gpt_loss(paddle, params, ids, cfg):
+    """The GPT causal-LM loss of models/gpt_hybrid.py written in the eager
+    Paddle API of ``paddle`` (the port, or the reference package): the
+    computation of gpt_hybrid's forward with remat off and the plain
+    (unfused) cross-entropy, in the parameters' dtype. ``params`` is
+    gpt_hybrid's tree of eager Tensors (blocks stacked [L, ...]), ``ids``
+    an integer Tensor [B, S]; the labels are the ids themselves."""
+    b, s = ids.shape
+    h, nh = cfg.hidden_size, cfg.num_heads
+    d = h // nh
+    wte = params["wte"]
+
+    def layer_norm(x, g, bias):
+        # statistics in f32, cast back before the affine (gpt_hybrid)
+        xf = x.astype("float32")
+        mu = paddle.mean(xf, axis=-1, keepdim=True)
+        var = paddle.var(xf, axis=-1, unbiased=False, keepdim=True)
+        return ((xf - mu) * paddle.rsqrt(var + 1e-5)).astype(x.dtype) * g \
+            + bias
+
+    def heads(t):
+        return t.reshape([b, s, nh, d])
+
+    x = wte[ids] + params["wpe"][:s]
+    names = sorted(params["blocks"])
+    for lp in zip(*(paddle.unbind(params["blocks"][n], 0) for n in names)):
+        lp = dict(zip(names, lp))
+        hx = layer_norm(x, lp["ln1_g"], lp["ln1_b"])
+        qkv = paddle.matmul(hx, lp["qkv_w"]) + lp["qkv_b"]
+        attn = paddle.ops.extra.flash_attn(
+            heads(qkv[:, :, :h]), heads(qkv[:, :, h:2 * h]),
+            heads(qkv[:, :, 2 * h:]), causal=True).reshape([b, s, h])
+        x = x + (paddle.matmul(attn, lp["proj_w"]) + lp["proj_b"])
+        hx = layer_norm(x, lp["ln2_g"], lp["ln2_b"])
+        f1 = paddle.matmul(hx, lp["fc1_w"]) + lp["fc1_b"]
+        gelu = 0.5 * f1 * (1.0 + paddle.tanh(
+            0.7978845608028654 * (f1 + 0.044715 * paddle.pow(f1, 3))))
+        x = x + (paddle.matmul(gelu, lp["fc2_w"]) + lp["fc2_b"])
+    x = layer_norm(x, params["lnf_g"], params["lnf_b"])
+    logits = paddle.matmul(x, wte, transpose_y=True)[:, :-1]
+    logits = logits.astype("float32")
+    logz = paddle.logsumexp(logits, axis=-1)
+    picked = paddle.take_along_axis(logits, paddle.unsqueeze(ids[:, 1:], -1),
+                                    axis=-1)
+    return paddle.mean(logz - paddle.squeeze(picked, -1))
+
+
+def drive_eager_gpt(run, paddle, TH, GPTConfig, mods, fa, torch):
+    """Phase 7b: the flagship's forward and backward in eager ops against
+    gpt_hybrid's, with every count zeroed just before the eager run."""
+    label, fields, batch, seq, tier, kernels, *_ = PATHS[0]
+    cfg = GPTConfig(**fields)
+    L = cfg.num_layers
+    pcfg = TH.ParallelConfig(remat=False, fused_ce=False,
+                             param_dtype=torch.bfloat16,
+                             compute_dtype=torch.bfloat16)
+    tparams = TH.init_params(cfg, pcfg,
+                             torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+    # trainable eager Tensors sharing gpt_hybrid's storage
+    params = TH.eager_params_from_jax(tparams, device="cuda")
+    leaves = [params["wte"], params["blocks"]["qkv_w"],
+              params["blocks"]["fc2_w"]]
+    ids_np = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                              (batch, seq))
+    ids = paddle.to_tensor(ids_np)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods:
+        mod.reset_launch_counts()
+    fa.reset_dispatch_counts()
+    loss = eager_gpt_loss(paddle, params, ids, cfg)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
+    dispatch = dict(fa.DISPATCH_COUNTS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    eager_loss = float(loss)
+    eager_grads = (leaves[0].grad._data, leaves[1].grad._data[0],
+                   leaves[2].grad._data[L - 1])
+
+    hp = {k: ({kk: vv.detach().requires_grad_(True) for kk, vv in v.items()}
+              if isinstance(v, dict) else v.detach().requires_grad_(True))
+          for k, v in tparams.items()}
+    ids_t = torch.from_numpy(ids_np).cuda()
+
+    def hybrid_fwd_bwd():
+        hloss = TH.loss_fn(hp, (ids_t, ids_t), cfg, pcfg)
+        return hloss, torch.autograd.grad(
+            hloss, [hp["wte"], hp["blocks"]["qkv_w"], hp["blocks"]["fc2_w"]])
+
+    hloss, (gw, gq, gf) = hybrid_fwd_bwd()
+    hybrid_loss = float(hloss)
+    print(f"eager gpt ({label}, bf16, remat off, plain CE): step-0 loss "
+          f"{eager_loss:.6f} eager, {hybrid_loss:.6f} gpt_hybrid; launches "
+          f"{launches}; dispatch {dispatch}; peak memory {peak_gb:.2f} GB",
+          flush=True)
+    run.check(10.0 <= eager_loss <= 11.5
+              and abs(eager_loss - hybrid_loss) <= 1e-2 * abs(hybrid_loss),
+              f"eager gpt: step-0 loss {eager_loss:.6f} in [10, 11.5] and "
+              f"within 1e-2 relative of gpt_hybrid's {hybrid_loss:.6f}")
+    for name, g, w in zip(("wte", "blocks.qkv_w[0]", f"blocks.fc2_w[{L - 1}]"),
+                          eager_grads, (gw, gq[0], gf[L - 1])):
+        a, r = max_err(g, w)
+        run.check(r <= 5e-2, f"eager gpt: grad of {name} against gpt_hybrid's,"
+                  f" max abs err {a:.3e}, {r:.3e} of the leaf's scale "
+                  "(tolerance 5e-2)")
+    run.check(launches == {n: L if n in kernels else 0 for n in launches}
+              and dispatch == {("attn.dispatch", tier): L},
+              f"eager gpt: {L} launches each of {list(kernels)}, no other "
+              f"attention kernel, {L} dispatches to {tier}")
+    del hloss, gw, gq, gf, eager_grads, loss
+
+    every = [v for k, v in params.items() if k != "blocks"] \
+        + list(params["blocks"].values())
+
+    def eager_fwd_bwd():
+        for t in every:
+            t.clear_grad()
+        eager_gpt_loss(paddle, params, ids, cfg).backward()
+
+    eager_ms, eager_spread = windows_ms(eager_fwd_bwd, reps=1)
+    hybrid_ms, hybrid_spread = windows_ms(hybrid_fwd_bwd, reps=1)
+
+    # what eager dispatch costs the host: the forward's ops and the host
+    # time that issuing them takes, beside gpt_hybrid's forward (each run
+    # alone, after the other's tensors are freed, so that neither waits
+    # for memory the other holds)
+    from paddle_tpu_torch.observability.metrics import REGISTRY
+    dispatches = REGISTRY.counter("eager.op_dispatches")
+
+    def issue_ms(forward):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = forward()
+        ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        del out
+        return ms
+
+    n0 = dispatches.value
+    eager_issue_ms = issue_ms(lambda: eager_gpt_loss(paddle, params, ids, cfg))
+    n_ops = int(dispatches.value - n0)
+    hybrid_issue_ms = issue_ms(
+        lambda: TH.loss_fn(hp, (ids_t, ids_t), cfg, pcfg))
+    print(f"eager gpt: the forward issues {n_ops} eager ops in "
+          f"{eager_issue_ms:.2f} ms of host time "
+          f"({eager_issue_ms / n_ops * 1e3:.1f} us an op); gpt_hybrid's "
+          f"forward {hybrid_issue_ms:.2f} ms", flush=True)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eager_fwd_bwd()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    idle = max(0.0, 1 - busy / wall_ms)
+    for key, ms, count in rows[:12]:
+        print(f"  {ms:9.3f} ms {count:6d}x  {key[:100]}")
+    print(f"eager gpt: forward+backward {eager_ms:.2f} ms (spread "
+          f"{eager_spread:.2f}) eager, {hybrid_ms:.2f} ms (spread "
+          f"{hybrid_spread:.2f}) gpt_hybrid, ratio {eager_ms / hybrid_ms:.3f};"
+          f" profiled eager step {wall_ms:.2f} ms wall, {busy:.2f} ms kernel "
+          f"time, idle share {idle:.3f}", flush=True)
+    return {"step0_loss": eager_loss, "gpt_hybrid_step0_loss": hybrid_loss,
+            "fwd_bwd_ms": eager_ms, "fwd_bwd_ms_spread": eager_spread,
+            "gpt_hybrid_fwd_bwd_ms": hybrid_ms,
+            "gpt_hybrid_fwd_bwd_ms_spread": hybrid_spread,
+            "profiled_ms": wall_ms, "kernel_ms": busy, "idle_share": idle,
+            "forward_ops": n_ops, "forward_issue_ms": eager_issue_ms,
+            "gpt_hybrid_forward_issue_ms": hybrid_issue_ms,
+            "peak_memory_gb": peak_gb, "launches": launches}
+
+
 def main():
     try:
         import torch
@@ -622,6 +883,7 @@ def main():
         from paddle_tpu_torch.ops.hopper import flash_attention as fa
         from paddle_tpu_torch.ops.hopper import simple_attention as sa
         from paddle_tpu_torch.ops.hopper import simple_attention2 as sa2
+        import paddle_tpu_torch as paddle
     except ImportError as e:
         print(f"chip_smoke: run from the root of the repository ({e})",
               file=sys.stderr)
@@ -664,6 +926,12 @@ def main():
         times = time_kernels(mods, torch)
         torch.cuda.synchronize()
         tuned = check_autotune(run, mods, fa, at, torch)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+        os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+        at._table = None
+        check_eager_attention(run, paddle, mods, fa, torch)
+        eager = drive_eager_gpt(run, paddle, TH, GPTConfig, mods, fa, torch)
 
     kernels = []
     for kern in KERNELS:
@@ -695,6 +963,7 @@ def main():
         label: {k: v for k, v in p.items() if k != "launches"}
         for label, p in paths.items()}}))
     print(json.dumps({"autotune": tuned}))
+    print(json.dumps({"eager": eager}))
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed",
               file=sys.stderr)

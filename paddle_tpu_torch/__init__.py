@@ -2,12 +2,109 @@
 
 It sits beside the JAX package ``paddle_tpu``, which stays the reference, and
 imports neither ``jax`` nor anything of ``paddle_tpu``. Entry points run on
-the CUDA device unless the caller passes ``device="cpu"``.
+the CUDA device unless the caller asks for the CPU (``device="cpu"``, or
+``set_device("cpu")`` for the eager API).
 
-What is ported so far is the GPT training step of
-``paddle_tpu.models.gpt_hybrid`` at dp=pp=tp=1 (``models/gpt_hybrid.py``),
-with its Pallas attention kernel as a Hopper kernel (``ops/hopper``).
+What is ported so far:
+
+- the GPT training step of ``paddle_tpu.models.gpt_hybrid`` at dp=pp=tp=1
+  (``models/gpt_hybrid.py``), with every Pallas attention kernel of the
+  reference as a Hopper kernel (``ops/hopper``) and the attention autotuner;
+- the eager Paddle API: ``Tensor`` over ``torch.Tensor``, dtypes, places,
+  the generator, the flag registry, eager dispatch, autograd on
+  ``torch.autograd`` (``backward``, ``grad``, ``PyLayer``, hooks), the core
+  op library (creation, math, manipulation, logic, search, linalg, random),
+  ``flash_attn`` (which reaches the Hopper kernels), and ``save``/``load``.
+
+Use it as ``import paddle_tpu_torch as paddle``. Names of later slices
+(``nn``, ``optimizer``, ``amp``, ``io``, ``jit``, ...) are not here.
 """
-from .device import resolve_device
+from __future__ import annotations
 
-__all__ = ["resolve_device"]
+from .device import resolve_device  # noqa: F401
+
+# ---- core -----------------------------------------------------------------
+from .core.tensor import Tensor, Parameter  # noqa: F401
+from .core.dtype import (  # noqa: F401
+    bool_ as bool, uint8, int8, int16, int32, int64, float16, bfloat16,
+    float32, float64, complex64, complex128, float8_e4m3fn, float8_e5m2,
+    set_default_dtype, get_default_dtype, finfo, iinfo, promote_types,
+    DType as dtype,
+)
+from .core.place import (  # noqa: F401
+    CPUPlace, CUDAPlace, CUDAPinnedPlace, Place, TPUPlace, get_device,
+    set_device, is_compiled_with_tpu,
+)
+from .core.generator import seed, default_generator  # noqa: F401
+from .core.flags import get_flags, set_flags, define_flag  # noqa: F401
+
+# ---- ops (flat namespace like paddle.*) -----------------------------------
+from . import ops  # noqa: F401  (patches Tensor methods)
+from .ops.creation import *  # noqa: F401,F403
+from .ops.math import *  # noqa: F401,F403
+from .ops.manipulation import *  # noqa: F401,F403
+from .ops.logic import *  # noqa: F401,F403
+from .ops.search import *  # noqa: F401,F403
+from .ops.linalg import (  # noqa: F401
+    matmul, mm, bmm, mv, dot, cross, multi_dot, norm, dist, cdist, cholesky,
+    cholesky_solve, inverse, solve, det, slogdet, t, einsum,
+)
+from .ops.random import (  # noqa: F401
+    rand, randn, randint, randint_like, randperm, uniform, normal,
+    standard_normal, bernoulli, bernoulli_, binomial, multinomial, poisson,
+    rand_like, randn_like, normal_, uniform_, exponential_,
+)
+from .ops import extra  # noqa: F401  (flash_attn)
+
+# ---- autograd, io ---------------------------------------------------------
+from . import autograd  # noqa: F401
+from .autograd import (  # noqa: F401
+    no_grad, enable_grad, set_grad_enabled, is_grad_enabled, grad,
+)
+from .framework.io import save, load  # noqa: F401
+
+# generated `<op>_` inplace variants over the out-of-place ops above
+from .ops.tensor_methods import build_inplace_variants as _biv
+globals().update(_biv(globals()))
+del _biv
+
+__version__ = "0.1.0"
+
+
+def is_tensor(x):
+    return isinstance(x, Tensor)
+
+
+def to_tensor(data, dtype=None, place=None, stop_gradient=True):
+    return Tensor(data, dtype=dtype, place=place, stop_gradient=stop_gradient)
+
+
+def get_flags_dict():
+    return get_flags()
+
+
+def device_count():
+    import torch
+    return torch.cuda.device_count()
+
+
+def synchronize():
+    """Block until all queued device work completes."""
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def in_dynamic_mode():
+    return True
+
+
+def disable_static(place=None):
+    pass
+
+
+# bind the rest of the reference Tensor-method surface: every method in the
+# reference tensor_method_func list whose op exists at module level
+from .ops.tensor_methods import patch_from_modules as _pfm  # noqa: E402
+_pfm()
+del _pfm

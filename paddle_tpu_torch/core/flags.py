@@ -1,18 +1,35 @@
-"""Runtime flag registry: the port's own copy of ``paddle_tpu/core/flags.py``
-(``define_flag``, ``get_flag``, ``set_flags``, with the ``FLAGS_*``
-environment override at definition time).
+"""Runtime flag registry: the port of ``paddle_tpu/core/flags.py``
+(``define_flag``, ``get_flag``, ``get_flags``, ``set_flags``,
+``on_flag_change``, the ``FLAGS_*`` environment override at definition
+time).
 
-Each module defines the flags it reads (``FLAGS_attn_autotune`` in
-``ops/hopper/autotune.py``). The reference's observers, which push a flag
-into jax's configuration when it is set, have no counterpart here.
+Only flags that something in the port reads are defined, each with the
+reference's name, default and meaning: the seven that eager dispatch reads
+(``core/dispatch.py``), the two print flags of ``Tensor.__repr__``, and
+``FLAGS_matmul_precision``/``FLAGS_deterministic``, which set torch's f32
+matmul precision when they change, as the reference sets jax's. A module
+that reads a flag of its own defines it (``FLAGS_attn_autotune`` in
+``ops/hopper/autotune.py``), so an unknown name is refused by ``set_flags``
+rather than accepted and ignored.
 """
 from __future__ import annotations
 
 import os
-from typing import Any, Dict
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List
 
-# name -> [value, type of the default]
-_REGISTRY: Dict[str, list] = {}
+
+@dataclass
+class _Flag:
+    name: str
+    default: Any
+    value: Any
+    help: str
+    type: type
+
+
+_REGISTRY: Dict[str, _Flag] = {}
+_OBSERVERS: Dict[str, List[Callable[[Any], None]]] = {}
 
 
 def _coerce(ty, raw):
@@ -24,22 +41,95 @@ def _coerce(ty, raw):
 
 
 def define_flag(name: str, default, help: str = ""):
-    """Registers ``name`` (``help`` documents it at the call site); the
-    environment variable of the same name overrides the default."""
+    """Registers ``name``; the environment variable of the same name
+    overrides the default."""
     ty = type(default)
     raw = os.environ.get(name)
     value = _coerce(ty, raw) if raw is not None else default
-    _REGISTRY[name] = [value, ty]
+    _REGISTRY[name] = _Flag(name, default, value, help, ty)
     return value
 
 
+def get_flags(names=None):
+    if names is None:
+        names = list(_REGISTRY)
+    if isinstance(names, str):
+        names = [names]
+    return {n: _REGISTRY[n].value for n in names}
+
+
 def get_flag(name: str):
-    return _REGISTRY[name][0]
+    return _REGISTRY[name].value
 
 
 def set_flags(flags: Dict[str, Any]):
     for name, v in flags.items():
         if name not in _REGISTRY:
             raise KeyError(f"unknown flag {name!r}")
-        entry = _REGISTRY[name]
-        entry[0] = _coerce(entry[1], v)
+        f = _REGISTRY[name]
+        f.value = _coerce(f.type, v)
+        for cb in _OBSERVERS.get(name, ()):
+            cb(f.value)
+
+
+def on_flag_change(name: str, cb: Callable[[Any], None]):
+    """Adds ``cb`` to the observers that ``set_flags`` calls with the new
+    value of ``name``; earlier observers stay."""
+    _OBSERVERS.setdefault(name, []).append(cb)
+
+
+define_flag("FLAGS_check_nan_inf", False,
+            "scan every op output for NaN/Inf (flags.cc:72 equivalent)")
+define_flag("FLAGS_check_nan_inf_level", 0,
+            "0: raise on nan/inf; 3: log only")
+define_flag("FLAGS_deterministic", False,
+            "deterministic mode: f32 matmul precision pinned to 'highest'")
+define_flag("FLAGS_matmul_precision", "",
+            "'default'|'high'|'highest' -> torch's f32 matmul precision "
+            "(applied on set)")
+define_flag("FLAGS_op_log", False,
+            "log every eager op dispatch with dtypes/shapes; see "
+            "FLAGS_op_log_filter")
+define_flag("FLAGS_op_log_filter", "",
+            "substring filter for FLAGS_op_log (empty = all ops)")
+define_flag("FLAGS_nan_inf_dump_dir", "",
+            "when FLAGS_check_nan_inf trips, dump the offending op's "
+            "inputs/outputs as npz here before raising")
+define_flag("FLAGS_retain_grad_for_all", False,
+            "keep .grad on non-leaf tensors after backward (debugging)")
+define_flag("FLAGS_call_stack_level", 1,
+            ">=2: eager op errors are wrapped with the op name and "
+            "input dtypes/shapes")
+define_flag("FLAGS_tensor_print_precision", 6,
+            "digits in Tensor repr (set_printoptions analog)")
+define_flag("FLAGS_tensor_print_threshold", 1000,
+            "summarize Tensor repr beyond this many elements")
+
+# FLAGS_matmul_precision's values in torch's terms: "default" lets f32
+# products run at reduced precision, as jax's default does.
+_TORCH_PRECISION = {"": "highest", "highest": "highest", "high": "high",
+                    "default": "medium"}
+
+
+def _apply_matmul_precision(v):
+    import torch
+    if get_flag("FLAGS_deterministic"):
+        return          # deterministic pin wins until it is disabled
+    torch.set_float32_matmul_precision(_TORCH_PRECISION[v])
+
+
+def _apply_deterministic(v):
+    import torch
+    torch.set_float32_matmul_precision(
+        "highest" if v
+        else _TORCH_PRECISION[get_flag("FLAGS_matmul_precision")])
+
+
+on_flag_change("FLAGS_matmul_precision", _apply_matmul_precision)
+on_flag_change("FLAGS_deterministic", _apply_deterministic)
+
+# env-set flags apply their side effects at import too
+if os.environ.get("FLAGS_matmul_precision"):
+    _apply_matmul_precision(get_flag("FLAGS_matmul_precision"))
+if os.environ.get("FLAGS_deterministic") and get_flag("FLAGS_deterministic"):
+    _apply_deterministic(True)

@@ -146,6 +146,24 @@ def params_from_jax(np_tree, device=None):
     return _to_torch(np_tree, dev)
 
 
+def eager_params_from_jax(tree, device=None, stop_gradient=False):
+    """A parameter dict as the port's eager Tensors on ``device``. Each leaf
+    is a numpy array or a torch tensor (``stop_gradient`` applies; a torch
+    tensor already on ``device`` is shared, not copied), or one of the
+    reference's eager Tensors (its ``.numpy()`` and its stop_gradient are
+    carried over)."""
+    from ..core.tensor import Tensor
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: eager_params_from_jax(v, dev, stop_gradient)
+                for k, v in tree.items()}
+    if hasattr(tree, "stop_gradient") and hasattr(tree, "numpy"):
+        stop_gradient, tree = tree.stop_gradient, tree.numpy()
+    arr = tree.to(dev) if isinstance(tree, torch.Tensor) else _to_torch(tree,
+                                                                        dev)
+    return Tensor(arr, place=dev, stop_gradient=stop_gradient)
+
+
 def _leaves(params):
     out = []
     for k in sorted(params):

@@ -13,8 +13,12 @@ then ``causal_attention`` (the causal S=2048 rung), ``qblock_attention``
 (S >= 4096), and last the library flash kernel. That last tier wraps JAX's
 own kernel in the reference and has no Hopper kernel: it is reached only by
 shapes that ``blocked_flash``'s gate refuses (a head dim such as 192, causal
-Sq != Skv), and ``flash_attention`` raises ``NotImplementedError`` naming
-the shape; the port never falls back to plain attention on the card there.
+Sq != Skv). A head dim above 128 that is not a multiple of 128 is refused by
+JAX's kernel itself while it traces, and the reference then counts the
+fallback and returns None; the port makes the same refusal without a kernel
+(``_library_refuses``). Every other shape of that tier makes
+``flash_attention`` raise ``NotImplementedError`` naming the shape; the port
+never falls back to plain attention on the card there.
 
 Errors propagate: a kernel that fails to build or launch raises.
 """
@@ -80,6 +84,14 @@ def flash_attention(q, k, v, causal=False, scale=None):
         "yet; ROADMAP queue 2 lists it")
 
 
+def _library_refuses(d):
+    """What JAX's library kernel refuses while it traces, before it looks
+    at the backend (``jax/experimental/pallas/ops/tpu/flash_attention.py``,
+    "head_dim ... should be a multiple of 128 if larger"): the reference
+    catches that error and returns None."""
+    return d > 128 and d % 128 != 0
+
+
 def flash_attention_maybe(q, k, v, causal=False, scale=None):
     """q/k/v: [B, S, H, D] -> [B, S, H, D] through a Hopper kernel, or None.
 
@@ -88,8 +100,9 @@ def flash_attention_maybe(q, k, v, causal=False, scale=None):
     rejects, counted on ``attn.dispatch_fallback{reason=}``. A CUDA shape
     that a ported tier's gate admits launches its kernels and ticks
     ``attn.dispatch{kernel=}`` ("simple", "causal_skip", "qblock",
-    "blocked", or the autotuner's winner, which is always a kernel); the
-    library tier raises."""
+    "blocked", or the autotuner's winner, which is always a kernel). The
+    library tier returns None, counted as the reference counts it, at the
+    head dims JAX's kernel refuses, and raises at every other shape."""
     if q.device.type != "cuda":
         return None
     return _dispatch(q, k, v, causal, scale)
@@ -125,4 +138,8 @@ def _dispatch(q, k, v, causal, scale):
         _count("attn.dispatch", "blocked")
         return bf.attention_bhsd(qt, kt, vt, causal=causal,
                                  scale=scale).transpose(1, 2)
+    if _library_refuses(q.shape[-1]):
+        _count("attn.dispatch", "library_flash")
+        _count("attn.dispatch_fallback", "error")
+        return None
     return flash_attention(q, k, v, causal=causal, scale=scale)

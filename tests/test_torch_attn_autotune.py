@@ -207,8 +207,8 @@ def test_decide_switches_off(monkeypatch, flag, entry):
     """The flag off (which bypasses the table), a winner that is plain
     attention, or an entry with no winner: the static chain."""
     monkeypatch.setattr(autotune, "_device_kind", lambda: "testchip")
-    monkeypatch.setitem(flags._REGISTRY, "FLAGS_attn_autotune",
-                        [flag, bool])
+    monkeypatch.setattr(flags._REGISTRY["FLAGS_attn_autotune"], "value",
+                        flag)
     assert flags.get_flag("FLAGS_attn_autotune") is flag
     autotune._load_table()["testchip|B2S512H8D128Skv512|float32|"
                           "causal=True"] = entry

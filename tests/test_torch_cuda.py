@@ -342,3 +342,49 @@ def test_dispatch_launches_a_kernel_when_plain_attention_is_fastest(
         assert kernel != tat.PLAIN
         assert sum(c for mod in _KERNEL_MODULES
                    for c in mod.LAUNCHES.values()) == 1
+
+
+# The eager API's flash_attn (chip_smoke.py phase 7a) at each path's
+# attention shape, [B, S, H, D] bf16 causal: one dispatch to the path's tier,
+# one launch of each of its kernels, forward and backward, and values against
+# f32 autograd of plain causal attention on the same bf16 inputs.
+@pytest.mark.parametrize("bshd,tier,kernels", [
+    ((4, 1024, 16, 128), "simple",
+     ("simple_attention_fwd", "simple_attention_bwd")),
+    ((4, 2048, 8, 128), "causal_skip",
+     ("causal_attention_fwd", "causal_attention_bwd")),
+    ((2, 4096, 8, 128), "blocked",
+     ("blocked_flash_fwd", "blocked_flash_bwd_dq", "blocked_flash_bwd_dkv")),
+    ((2, 4096, 16, 64), "qblock",
+     ("qblock_attention_fwd", "qblock_attention_bwd")),
+], ids=["simple", "causal_skip", "blocked", "qblock"])
+def test_eager_flash_attn_reaches_the_tier_kernels(bshd, tier, kernels):
+    _need_card()
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu:0")
+    paddle.seed(4)
+    q, k, v = (paddle.randn(list(bshd), dtype="bfloat16") for _ in range(3))
+    for t in (q, k, v):
+        t.stop_gradient = False
+    for mod in _KERNEL_MODULES:
+        mod.reset_launch_counts()
+    tfa.reset_dispatch_counts()
+    out = paddle.ops.extra.flash_attn(q, k, v, causal=True)
+    out.backward()
+    torch.cuda.synchronize()
+    launches = {n: c for mod in _KERNEL_MODULES
+                for n, c in mod.LAUNCHES.items()}
+    assert launches == {n: int(n in kernels) for n in launches}
+    assert tfa.DISPATCH_COUNTS == {("attn.dispatch", tier): 1}
+
+    qf, kf, vf = (t._data.detach().float().requires_grad_(True)
+                  for t in (q, k, v))
+    s = bshd[1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf) / np.sqrt(bshd[3])
+    mask = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+    p = torch.softmax(logits.masked_fill(~mask, -1e30), -1)
+    want = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    want.sum().backward()
+    for got, ref in ((out._data, want), (q.grad._data, qf.grad),
+                     (k.grad._data, kf.grad), (v.grad._data, vf.grad)):
+        assert _rel_err(got.detach(), ref.detach()) < 2e-2

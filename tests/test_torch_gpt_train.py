@@ -399,9 +399,48 @@ def test_dispatch_sends_the_rungs_to_their_kernels(shape, tier):
 
 
 # What the reference sends to JAX's own library kernel: a head dim that
-# blocked_flash's gate refuses, and causal attention with Sq != Skv.
-@pytest.mark.parametrize("q_shape,kv_len", [((1, 4096, 2, 192), 4096),
-                                            ((1, 2048, 2, 128), 4096)])
+# blocked_flash's gate refuses, and causal attention with Sq != Skv. JAX's
+# kernel refuses a head dim above 128 that is not a multiple of 128 while it
+# traces; the reference counts that and returns None (plain attention).
+@pytest.mark.parametrize("d", [192, 320])
+def test_dispatch_refuses_head_dims_the_library_kernel_refuses(d):
+    tfa.reset_dispatch_counts()
+    q = torch.empty(1, 4096, 2, d, dtype=torch.bfloat16, device="meta")
+    assert tfa._dispatch(q, q, q, True, None) is None
+    assert tfa.DISPATCH_COUNTS == {("attn.dispatch", "library_flash"): 1,
+                                   ("attn.dispatch_fallback", "error"): 1}
+
+
+def test_dispatch_refusal_matches_the_reference(monkeypatch):
+    """The reference at [1, 4096, 2, 192] bf16, as if on a TPU: the library
+    kernel refuses the head dim while tracing, before any backend check.
+    The autotuner is off, so the static chain decides, as in the port."""
+    from paddle_tpu.core import flags as jflags
+    from paddle_tpu.observability import metrics as jmet
+    from paddle_tpu.ops.pallas import autotune  # noqa: F401 (its flag)
+    monkeypatch.setattr(jflags._REGISTRY["FLAGS_attn_autotune"], "value",
+                        False)
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jmet, "_ENABLED", True)
+
+    def ticks():
+        return {(m["name"], v): m["value"] for m in jmet.REGISTRY.snapshot()
+                if m["name"] in ("attn.dispatch", "attn.dispatch_fallback")
+                for v in m["labels"].values()}
+
+    before = ticks()
+    x = jnp.zeros((1, 4096, 2, 192), jnp.bfloat16)
+    assert jfa.flash_attention_maybe(x, x, x, causal=True) is None
+    moved = {k: n - before.get(k, 0) for k, n in ticks().items()
+             if n != before.get(k, 0)}
+    assert moved == {("attn.dispatch", "library_flash"): 1,
+                     ("attn.dispatch_fallback", "error"): 1}
+
+
+# causal Sq != Skv; the id is the one this case has always had, so that runs
+# of the suite compare it by name
+@pytest.mark.parametrize("q_shape,kv_len", [((1, 2048, 2, 128), 4096)],
+                         ids=["q_shape1-4096"])
 def test_dispatch_raises_where_no_hopper_kernel_takes_the_shape(q_shape,
                                                                 kv_len):
     tfa.reset_dispatch_counts()

@@ -1,5 +1,7 @@
 """The PyTorch port stands alone: importing and running paddle_tpu_torch loads
-neither jax nor the JAX package, and its entry points default to CUDA."""
+neither jax nor the JAX package, and its entry points default to CUDA: the
+training step's, and the eager API's, whose tensors land on gpu:0 unless
+set_device("cpu") was called."""
 import os
 import subprocess
 import sys
@@ -20,6 +22,29 @@ from paddle_tpu_torch.core import flags
 from paddle_tpu_torch.ops.hopper import (_build, autotune, blocked_flash,
                                          causal_attention, flash_attention,
                                          simple_attention, simple_attention2)
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch import autograd, framework
+from paddle_tpu_torch.autograd import tape
+from paddle_tpu_torch.core import (dispatch, dtype, generator, place,
+                                   tensor)
+from paddle_tpu_torch.framework import io
+from paddle_tpu_torch.observability import metrics
+from paddle_tpu_torch.ops import (creation, extra, linalg, logic,
+                                  manipulation, math, random, search,
+                                  tensor_methods)
+
+if not torch.cuda.is_available():
+    try:
+        paddle.to_tensor([1.0])
+    except RuntimeError as e:
+        print("EAGER_NO_CUDA_RAISES", "CUDA" in str(e))
+paddle.set_device("cpu")
+x = paddle.to_tensor([[1.0, 2.0], [3.0, 4.0]], stop_gradient=False)
+y = paddle.ops.extra.flash_attn(x.reshape([1, 2, 1, 2]),
+                                x.reshape([1, 2, 1, 2]),
+                                x.reshape([1, 2, 1, 2]), causal=True)
+(paddle.matmul(x, x).sum() + y.sum()).backward()
+assert x.grad.shape == [2, 2]
 
 cfg = GPTConfig.tiny()
 pcfg = TH.ParallelConfig(remat=True, remat_policy="names")
@@ -52,4 +77,5 @@ def test_port_imports_and_runs_without_jax_or_the_jax_package():
     assert out.returncode == 0, out.stderr
     assert "FOREIGN []" in out.stdout, out.stdout
     if not torch.cuda.is_available():
-        assert "NO_CUDA_RAISES True" in out.stdout, out.stdout
+        assert "\nNO_CUDA_RAISES True" in out.stdout, out.stdout
+        assert "EAGER_NO_CUDA_RAISES True" in out.stdout, out.stdout
