@@ -17,7 +17,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      causal; its dq launch's delta too);
      qblock_attention at the GPT-3 Medium layout's (B2 H16 S4096 D64: bf16
      causal and not, f16, f32) and at the S=2048 rung's, non-causal (the
-     non-causal middle tier);
+     non-causal middle tier); the library tier (flash_attention's op over
+     blocked_flash.cu's kernels) at the Layer GPT-1.3B's shape (B4 H16 S1024
+     D128, bf16 and f32, causal);
   3. a small model on the card (kernels) against the same model on the CPU
      (plain path): the loss and gradients agree;
   4. the paths, each through the port's setup() and step with random
@@ -33,7 +35,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      times and no other attention kernel, with dispatch only to that tier,
      a finite loss near ln(vocab) at step 0 and a loss that falls. Prints
      ms/step, tokens/s, MFU, peak memory and where the time goes;
-  5. each kernel timed at its path's shape beside its plain version, its
+  5. each kernel timed at its path's shape (the library tier's at the
+     Layer GPT-1.3B's) beside its plain version, its
      bound on this card and one PyTorch library call that computes the same
      function (scaled_dot_product_attention, never used by the port), each
      as the median of 5 windows of CUDA events, with their spread;
@@ -41,8 +44,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      causal) autotune.measure times every candidate's forward+backward (the
      median of 5 windows, and their spread); the winner must be the
      fastest Hopper kernel, plain attention ("xla") timed beside them but
-     never the winner, every ported tier finite and library_flash None (no
-     Hopper kernel); the persisted table, reloaded, must give the same
+     never the winner, every candidate finite (library_flash included); the
+     persisted table, reloaded, must give the same
      winner, decide() too, and one flash_attention_maybe call must then
      launch the winner's kernel;
   7. the eager Paddle API (``import paddle_tpu_torch as paddle``), on a fresh
@@ -61,11 +64,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
      of each leaf's scale, 24 launches each of simple_attention's forward
      and backward and of no other attention kernel; prints both
      forward+backward times (median of 5 windows and spread), the idle
-     share of one profiled eager step and the peak memory.
+     share of one profiled eager step and the peak memory;
+  8. the Layer API and paddle.optimizer (``paddle.nn``, ``paddle.optimizer``,
+     ``models/gpt.GPTForCausalLM``), on a fresh empty autotune table: (a) a
+     small Layer GPT (h256, 2 layers, 4 heads of 64, vocab 512) at B2 S256
+     on the card (the library tier) against the same state_dict on the CPU
+     (plain attention), in f32 and after ``.bfloat16()``: the loss, every
+     gradient, and one ``AdamW(multi_precision=True)`` step given the CPU's
+     gradients; and the library op alone at [1, 8, Sq, Skv, 128], bf16 and
+     f32, causal, (Sq, Skv) = (1024, 4096) and (4096, 1024), against its
+     plain version, with dk and dv exactly zero past Sq; (b) the Layer
+     GPT-1.3B (``GPTConfig.gpt3_1p3b()``: h2048, 24 layers, 16 heads of 128,
+     vocab 50304, wpe 2048; seed 0, then ``.bfloat16()``) trained with
+     ``AdamW(learning_rate=1e-4, multi_precision=True)`` at B4 S1024 for 6
+     steps: every step dispatches scaled_dot_product_attention to the
+     library op 24 times and launches its three kernels 24 times each and
+     no other attention kernel; a finite step-0 loss and a last loss below
+     it; prints ms/step (median of steps 2-6, spread), tokens/s, the
+     forward+backward and optimizer split, the idle share of one profiled
+     step with its top device rows, and the peak memory.
 Phases 2-6 keep the autotuner's table in a fresh temporary
 PADDLE_TPU_CACHE_DIR, empty until phase 6, with FLAGS_attn_autotune at its
-default: phases 2-5 (and 7, on a table of its own) run the configuration a
-user gets on a new checkout.
+default: phases 2-5 (and 7 and 8, each on a table of its own) run the
+configuration a user gets on a new checkout.
 Prints the card line, then one {"kernels": [...]} line (each row with its
 design), then as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -118,7 +139,8 @@ PATHS = (
 #  function)
 # simple_attention2's kernels are simple_attention.cu's; that file's header
 # says why.
-CUDA_SOURCE = {"simple_attention2": "simple_attention"}
+CUDA_SOURCE = {"simple_attention2": "simple_attention",
+               "flash_attention": "blocked_flash"}
 
 # Every kernel runs its bf16 and f16 products on the tensor cores
 # (csrc/attention_mma.cuh); f32 runs as f32 FMA on the CUDA cores. The rows
@@ -144,7 +166,22 @@ KERNELS = (
      ("o",), 2, 4, 0, "fwd"),
     ("qblock_attention_bwd", "simple_attention2", 151, "train_s4096_d64",
      ("dq", "dk", "dv"), 5, 7, 0, "bwd"),
+    # the library tier: flash_attention.py:53 reaches JAX's own Pallas TPU
+    # flash kernel, whose pallas_calls for the forward, dk/dv and dq sit at
+    # jax/experimental/pallas/ops/tpu/flash_attention.py:758, :1121, :1456
+    ("library_flash_fwd", "flash_attention", 53, "layer_gpt", ("o", "lse"),
+     2, 4, 1, "fwd"),
+    ("library_flash_bwd_dq", "flash_attention", 53, "layer_gpt",
+     ("dq", "delta"), 3, 6, 2, "bwd"),
+    ("library_flash_bwd_dkv", "flash_attention", 53, "layer_gpt",
+     ("dk", "dv"), 4, 6, 2, "bwd"),
 )
+
+# The Layer GPT-1.3B of phase 8b (GPTConfig.gpt3_1p3b() at B4 S1024): the
+# shape at which the library tier's kernels are held and timed.
+LAYER_GPT = dict(vocab_size=50304, hidden_size=2048, num_layers=24,
+                 num_heads=16, max_seq_len=2048)
+LAYER_GPT_BATCH, LAYER_GPT_SEQ, LAYER_GPT_STEPS = 4, 1024, 6
 
 # Phase 2's cases: (source stem, path of the shape, Sq (None: the path's S),
 # dtype name, causal). The first bf16 causal case of each source at its
@@ -169,6 +206,8 @@ CHECKS = (
     ("simple_attention2", "train_s4096_d64", None, "float16", True),
     ("simple_attention2", "train_s4096_d64", None, "float32", True),
     ("simple_attention2", "train_s2048", None, "bfloat16", False),
+    ("flash_attention", "layer_gpt", None, "bfloat16", True),
+    ("flash_attention", "layer_gpt", None, "float32", True),
 )
 
 
@@ -226,8 +265,11 @@ def ptxas_rows(log):
 
 
 def attention_shape(label):
-    """B, H, S, D of a path's attention."""
-    _, fields, batch, seq, *_ = next(p for p in PATHS if p[0] == label)
+    """B, H, S, D of a path's attention ("layer_gpt": phase 8b's)."""
+    if label == "layer_gpt":
+        fields, batch, seq = LAYER_GPT, LAYER_GPT_BATCH, LAYER_GPT_SEQ
+    else:
+        _, fields, batch, seq, *_ = next(p for p in PATHS if p[0] == label)
     heads = fields["num_heads"]
     return batch, heads, seq, fields["hidden_size"] // heads
 
@@ -289,7 +331,23 @@ def kernel_calls(mods, source, q, k, v, do, scale, causal):
     """{kernel: (launch, plain version)} of one source's kernels on these
     inputs. A backward takes the forward kernel's own o and lse, as the
     step hands them over."""
-    sa, ca, bf, sa2 = mods
+    sa, ca, bf, sa2, fa = mods
+    if source == "flash_attention":
+        o, lse = fa.library_flash_fwd_cuda(q, k, v, scale, causal)
+        res = (q, k, v, o, lse, do, scale, causal)
+        _, delta = fa.library_flash_bwd_dq_cuda(*res)
+        return {
+            "library_flash_fwd": (
+                lambda: fa.library_flash_fwd_cuda(q, k, v, scale, causal),
+                lambda: fa.library_flash_reference(q, k, v, scale, causal)),
+            "library_flash_bwd_dq": (
+                lambda: fa.library_flash_bwd_dq_cuda(*res),
+                lambda: (bf.lse_backward.dq_reference(*res),
+                         (do.float() * o.float()).sum(-1))),
+            "library_flash_bwd_dkv": (
+                lambda: fa.library_flash_bwd_dkv_cuda(q, k, v, lse, delta,
+                                                      do, scale, causal),
+                lambda: bf.lse_backward.dkv_reference(*res))}
     if source == "simple_attention2":
         return {
             "qblock_attention_fwd": (
@@ -558,7 +616,8 @@ def time_kernels(mods, torch):
 # The forward kernel that each autotune winner launches.
 WINNER_KERNEL = {"simple": "simple_attention_fwd",
                  "causal_skip": "causal_attention_fwd",
-                 "qblock": "qblock_attention_fwd"}
+                 "qblock": "qblock_attention_fwd",
+                 "library_flash": "library_flash_fwd"}
 
 
 def check_autotune(run, mods, fa, at, torch):
@@ -589,11 +648,10 @@ def check_autotune(run, mods, fa, at, torch):
               " than the winner", flush=True)
         run.check(winner == ranked[0],
                   f"{tag}: the winner is the fastest Hopper kernel")
-        run.check(all(t is not None for n, t in ms.items()
-                      if n != "library_flash")
-                  and ms.get("library_flash", "absent") is None,
-                  f"{tag}: every ported tier and plain attention timed, "
-                  "library_flash None (no Hopper kernel)")
+        run.check(all(t is not None for t in ms.values())
+                  and "library_flash" in ms,
+                  f"{tag}: every tier (library_flash too) and plain "
+                  "attention timed")
         with open(at._cache_path()) as f:
             disk = json.load(f).get(key, {}).get("winner")
         at._table = None
@@ -629,7 +687,7 @@ TIER_SOURCE = {"simple": "simple_attention", "causal_skip": "causal_attention",
 def plain_attention(mods, tier, q, k, v, do, scale):
     """o and (dq, dk, dv) of ``tier``'s plain forward and backward (causal,
     [B, H, S, D]), the backward from the plain forward's own o and lse."""
-    sa, ca, bf, sa2 = mods
+    sa, ca, bf, sa2, _ = mods
     if tier == "simple":
         return (sa.simple_attention_reference(q, k, v, scale, True),
                 sa.simple_attention_bwd_reference(q, k, v, do, scale, True))
@@ -862,6 +920,228 @@ def drive_eager_gpt(run, paddle, TH, GPTConfig, mods, fa, torch):
             "peak_memory_gb": peak_gb, "launches": launches}
 
 
+# ---------------------------------------------------------------- phase 8
+# The small Layer GPT of 8a: D=64, S=256 (the library gate's head dims and
+# multiples of 128).
+SMALL_LAYER_GPT = dict(vocab_size=512, hidden_size=256, num_layers=2,
+                       num_heads=4, max_seq_len=256)
+# (loss relative, gradient and parameter, each of its leaf's scale): f32 the
+# same arithmetic in another order; bf16 a few of bf16's steps, where the
+# card's kernels and the CPU's plain path round at other points.
+LAYER_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 5e-2)}
+
+
+def _leaf_err(got, want):
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def check_small_layer_gpt(run, paddle, GPTConfig, GPTForCausalLM, fa, mods,
+                          torch):
+    """Phase 8a: the small Layer GPT on the card (the library tier) against
+    the CPU (plain attention), from one state_dict, in f32 and bf16."""
+    cfg = GPTConfig(**SMALL_LAYER_GPT)
+    ids = np.random.RandomState(8).randint(0, cfg.vocab_size, (2, 256))
+    paddle.seed(0)
+    paddle.set_device("cpu")
+    state = {k: v.numpy() for k, v in GPTForCausalLM(cfg).state_dict()
+             .items()}
+    for dname, (loss_tol, leaf_tol) in LAYER_TOL.items():
+        out = {}
+        for dev in ("cpu", "gpu:0"):
+            paddle.set_device(dev)
+            model = GPTForCausalLM(cfg)
+            model.set_state_dict(state)
+            if dname == "bfloat16":
+                model.bfloat16()
+            for mod in mods:
+                mod.reset_launch_counts()
+            fa.reset_dispatch_counts()
+            t = paddle.to_tensor(ids)
+            loss = model(t, t)
+            loss.backward()
+            launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
+            dispatch = dict(fa.DISPATCH_COUNTS)
+            params = dict(model.named_parameters())
+            out[dev] = (float(loss), {n: p.grad.numpy()
+                                      for n, p in params.items()})
+            # one AdamW step, every device from the CPU's gradients: Adam's
+            # first step is lr * g / (|g| + eps), which turns round-off in
+            # a gradient near zero (the k bias's is zero exactly) into a
+            # whole step, so it is held on equal inputs
+            for n, p in params.items():
+                p.grad = paddle.to_tensor(out["cpu"][1][n]).astype(p.dtype)
+            opt = paddle.optimizer.AdamW(learning_rate=1e-3,
+                                         parameters=model.parameters(),
+                                         multi_precision=True)
+            opt.step()
+            out[dev] += ({n: p.numpy() for n, p in params.items()},)
+        L = cfg.num_layers
+        tag = f"layer gpt small ({dname}, B2 S256 D64)"
+        run.check(launches == {n: L if n in fa.LAUNCHES else 0
+                               for n in launches}
+                  and dispatch == {("nn.sdpa", "library_flash"): L},
+                  f"{tag}: {L} launches of each library kernel on the card "
+                  f"and no other (launches {launches}, dispatch {dispatch})")
+        (lc, gc, pc), (lg, gg, pg) = out["cpu"], out["gpu:0"]
+        grad_err = max(_leaf_err(gg[n], gc[n]) for n in gc)
+        param_err = max(_leaf_err(pg[n], pc[n]) for n in pc)
+        run.check(abs(lg - lc) <= loss_tol * abs(lc),
+                  f"{tag}: loss {lg:.7f} card vs {lc:.7f} cpu (tolerance "
+                  f"rel {loss_tol})")
+        run.check(grad_err <= leaf_tol,
+                  f"{tag}: worst gradient {grad_err:.3e} of its leaf's "
+                  f"scale (tolerance {leaf_tol})")
+        run.check(param_err <= leaf_tol,
+                  f"{tag}: after one AdamW(multi_precision) step, worst "
+                  f"parameter {param_err:.3e} of its scale (tolerance "
+                  f"{leaf_tol})")
+    paddle.set_device("gpu:0")
+
+
+def check_library_cross(run, fa, torch):
+    """Phase 8a: the library op alone, causal Sq != Skv, against autograd
+    of its plain version; dk and dv exactly zero past Sq."""
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    for dname in ("bfloat16", "float32"):
+        dtype = getattr(torch, dname)
+        for sq, skv in ((1024, 4096), (4096, 1024)):
+            def randn(s):
+                return torch.randn(1, s, 8, 128, generator=gen,
+                                   device="cuda").to(dtype)
+            q, k, v, do = randn(sq), randn(skv), randn(skv), randn(sq)
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            got = fa.flash_attention(*leaves, causal=True)
+            got = (got, *torch.autograd.grad(got, leaves, do))
+            plain = [x.float().transpose(1, 2).requires_grad_(True)
+                     for x in (q, k, v)]
+            o, _ = fa.library_flash_reference(*plain, 128 ** -0.5, True)
+            want = (o.transpose(1, 2),
+                    *(g.transpose(1, 2) for g in torch.autograd.grad(
+                        o, plain, do.float().transpose(1, 2))))
+            torch.cuda.synchronize()
+            tag = (f"library op [1, 8, {sq}, {skv}, 128] {dname} causal "
+                   "(top-left)")
+            for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+                a, r = max_err(g, w)
+                run.check(r <= TOL[dname], f"{tag}: {name} max abs err "
+                          f"{a:.3e} rel {r:.3e} (tolerance rel {TOL[dname]})")
+            if sq < skv:
+                past = int(got[2][:, sq:].count_nonzero()
+                           + got[3][:, sq:].count_nonzero())
+                run.check(past == 0, f"{tag}: dk and dv past Sq exactly zero "
+                          f"({past} nonzero)")
+
+
+def drive_layer_gpt(run, paddle, GPTConfig, GPTForCausalLM, fa, mods, torch):
+    """Phase 8b: the Layer GPT-1.3B trained with paddle.optimizer.AdamW,
+    every count zeroed just before each step and read just after."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = GPTConfig.gpt3_1p3b()
+    b, s, steps = LAYER_GPT_BATCH, LAYER_GPT_SEQ, LAYER_GPT_STEPS
+    L = cfg.num_layers
+    paddle.set_device("gpu:0")
+    paddle.seed(0)
+    model = GPTForCausalLM(cfg)
+    model.bfloat16()
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters(),
+                                 multi_precision=True)
+    n_params = sum(p._data.numel() for p in model.parameters())
+    ids = paddle.to_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (b, s)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        loss = model(ids, ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    losses, times, per_step = [], [], []
+    for _ in range(steps):
+        for mod in mods:
+            mod.reset_launch_counts()
+        fa.reset_dispatch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step()
+        end.record()
+        torch.cuda.synchronize()
+        times.append((start.elapsed_time(end),
+                      (time.perf_counter() - t0) * 1e3))
+        per_step.append(({n: c for mod in mods
+                          for n, c in mod.LAUNCHES.items()},
+                         dict(fa.DISPATCH_COUNTS)))
+        losses.append(float(loss))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {n: L if n in fa.LAUNCHES else 0 for n in per_step[0][0]}
+    run.check(all(launches == want
+                  and dispatch == {("nn.sdpa", "library_flash"): L}
+                  for launches, dispatch in per_step),
+              f"layer gpt-1.3b: every step dispatches scaled_dot_product_"
+              f"attention to the library op {L} times and launches each of "
+              f"its kernels {L} times, no other attention kernel (step 0: "
+              f"{per_step[0]})")
+    run.check(math.isfinite(losses[0]) and all(map(math.isfinite, losses)),
+              f"layer gpt-1.3b: losses finite {[round(x, 4) for x in losses]}")
+    run.check(losses[-1] < losses[0],
+              f"layer gpt-1.3b: loss falls, {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}")
+    timed = [t[0] for t in times[1:]]
+    ms = float(np.median(timed))
+    tok_s = b * s / (ms / 1e3)
+
+    def fwd_bwd():
+        model(ids, ids).backward()
+
+    fb_ms = windows_ms(fwd_bwd, reps=1, windows=3)
+    opt_ms = windows_ms(opt.step, reps=1, windows=3)
+    opt.clear_grad()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    idle = max(0.0, 1 - busy / wall_ms)
+    print(f"layer gpt-1.3b (GPTConfig.gpt3_1p3b(), {n_params} parameters, "
+          f"bf16 + AdamW multi_precision, B{b} S{s}): losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    print(f"layer gpt-1.3b: {ms:.2f} ms/step (device events, median of steps "
+          f"2-{steps}, spread {max(timed) - min(timed):.2f}; host clock "
+          f"{[round(t[1], 2) for t in times]}), {tok_s:.1f} tokens/s, peak "
+          f"memory {peak_gb:.2f} GB", flush=True)
+    print(f"layer gpt-1.3b: forward+backward {fb_ms[0]:.2f} ms (spread "
+          f"{fb_ms[1]:.2f}), optimizer {opt_ms[0]:.2f} ms (spread "
+          f"{opt_ms[1]:.2f}) (device events); profiled step {wall_ms:.2f} ms "
+          f"wall, {busy:.2f} ms kernel time, idle share {idle:.3f}",
+          flush=True)
+    for key, kms, count in rows[:12]:
+        print(f"  {kms:9.3f} ms {count:6d}x  {key[:100]}")
+    return {"losses": losses, "ms_per_step": ms,
+            "ms_per_step_spread": max(timed) - min(timed),
+            "step_ms": [t[0] for t in times], "tokens_per_s": tok_s,
+            "fwd_bwd_ms": fb_ms[0], "fwd_bwd_ms_spread": fb_ms[1],
+            "optimizer_ms": opt_ms[0], "optimizer_ms_spread": opt_ms[1],
+            "profiled_ms": wall_ms, "kernel_ms": busy, "idle_share": idle,
+            "peak_memory_gb": peak_gb, "parameters": n_params,
+            "launches": {n: sum(st[0][n] for st in per_step)
+                         for n in per_step[0][0]},
+            "steps": steps}
+
+
 def main():
     try:
         import torch
@@ -875,7 +1155,7 @@ def main():
     try:
         from paddle_tpu_torch.cost_model import cost_model
         from paddle_tpu_torch.models import gpt_hybrid as TH
-        from paddle_tpu_torch.models.gpt import GPTConfig
+        from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
         from paddle_tpu_torch.ops.hopper import _build
         from paddle_tpu_torch.ops.hopper import autotune as at
         from paddle_tpu_torch.ops.hopper import blocked_flash as bf
@@ -912,7 +1192,7 @@ def main():
     cache_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               ".cache")
     os.makedirs(cache_root, exist_ok=True)
-    mods = (sa, ca, bf, sa2)
+    mods = (sa, ca, bf, sa2, fa)
     with tempfile.TemporaryDirectory(dir=cache_root) as cache:
         os.environ["PADDLE_TPU_CACHE_DIR"] = cache
         at._table = None
@@ -932,6 +1212,17 @@ def main():
         at._table = None
         check_eager_attention(run, paddle, mods, fa, torch)
         eager = drive_eager_gpt(run, paddle, TH, GPTConfig, mods, fa, torch)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+        os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+        at._table = None
+        check_small_layer_gpt(run, paddle, GPTConfig, GPTForCausalLM, fa,
+                              mods, torch)
+        check_library_cross(run, fa, torch)
+        torch.cuda.empty_cache()
+        layer = drive_layer_gpt(run, paddle, GPTConfig, GPTForCausalLM, fa,
+                                mods, torch)
+    paths["layer_gpt"] = layer
 
     kernels = []
     for kern in KERNELS:
@@ -961,7 +1252,9 @@ def main():
               f"{lib_spread:.3f})")
     print(json.dumps({"paths": {
         label: {k: v for k, v in p.items() if k != "launches"}
-        for label, p in paths.items()}}))
+        for label, p in paths.items() if label != "layer_gpt"}}))
+    print(json.dumps({"layer_gpt": {k: v for k, v in layer.items()
+                                    if k != "launches"}}))
     print(json.dumps({"autotune": tuned}))
     print(json.dumps({"eager": eager}))
     if run.failures:

@@ -14,10 +14,15 @@ What is ported so far:
   the generator, the flag registry, eager dispatch, autograd on
   ``torch.autograd`` (``backward``, ``grad``, ``PyLayer``, hooks), the core
   op library (creation, math, manipulation, logic, search, linalg, random),
-  ``flash_attn`` (which reaches the Hopper kernels), and ``save``/``load``.
+  ``flash_attn`` (which reaches the Hopper kernels), and ``save``/``load``;
+- the Layer API and the optimizers: ``nn`` (``Layer``, the layers, the
+  functionals, initializers, clipping, ``nn.utils``; its
+  ``scaled_dot_product_attention`` reaches the library attention tier's
+  Hopper kernels) and ``optimizer`` (the 14 optimizers, ``lr``,
+  ``GradientMergeOptimizer``), and the Layer GPT (``models/gpt.py``).
 
 Use it as ``import paddle_tpu_torch as paddle``. Names of later slices
-(``nn``, ``optimizer``, ``amp``, ``io``, ``jit``, ...) are not here.
+(``amp``, ``io``, ``jit``, ``nn``'s rnn/extended/quant, ...) are not here.
 """
 from __future__ import annotations
 
@@ -62,6 +67,11 @@ from .autograd import (  # noqa: F401
     no_grad, enable_grad, set_grad_enabled, is_grad_enabled, grad,
 )
 from .framework.io import save, load  # noqa: F401
+
+# ---- the Layer API and the optimizers -------------------------------------
+from . import nn  # noqa: F401
+from . import optimizer  # noqa: F401
+from .nn.layer.layers import ParamAttr  # noqa: F401
 
 # generated `<op>_` inplace variants over the out-of-place ops above
 from .ops.tensor_methods import build_inplace_variants as _biv

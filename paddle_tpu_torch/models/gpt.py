@@ -1,8 +1,22 @@
-"""GPT configuration: the port's own copy of ``paddle_tpu.models.gpt.GPTConfig``
-(same fields and defaults, same named configurations)."""
+"""GPT decoder-only LM: the port of ``paddle_tpu/models/gpt.py`` (the
+flagship; BASELINE.json config 3: GPT-3 1.3B), built from the port's
+``nn`` layers.
+
+``GPTConfig`` is the port's own copy (same fields and defaults, same named
+configurations). Attention goes through ``F.scaled_dot_product_attention``
+(causal), which takes the library tier's Hopper kernels on the card. The
+reference's tensor-parallel layers (``use_tensor_parallel``) and its decode
+path (the ``cache`` arguments, ``init_cache``, ``forward_with_cache``,
+``generate``) wait for later slices of the port (ROADMAP queue 1) and
+raise ``NotImplementedError``.
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import paddle_tpu_torch as paddle
+from paddle_tpu_torch import nn
+from paddle_tpu_torch.nn import functional as F
 
 
 @dataclass
@@ -26,3 +40,107 @@ class GPTConfig:
     def tiny():
         return GPTConfig(vocab_size=256, hidden_size=64, num_layers=2,
                          num_heads=4, max_seq_len=64)
+
+
+def _later(what):
+    return NotImplementedError(
+        f"GPT {what} waits for a later slice of the port (ROADMAP queue 1)")
+
+
+class GPTAttention(nn.Layer):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        if cfg.use_tensor_parallel:
+            raise _later("tensor parallelism")
+        self.cfg = cfg
+        h = cfg.hidden_size
+        self.qkv = nn.Linear(h, 3 * h)
+        self.proj = nn.Linear(h, h)
+        self.drop = nn.Dropout(cfg.dropout)
+
+    def forward(self, x, cache=None):
+        if cache is not None:
+            raise _later("decoding with a cache")
+        b, s, h = x.shape
+        nh = self.cfg.num_heads
+        qkv = self.qkv(x).reshape([b, s, 3, nh, h // nh])
+        q, k, v = qkv.unbind(axis=2)
+        out = F.scaled_dot_product_attention(
+            q, k, v, is_causal=True,
+            dropout_p=self.cfg.dropout, training=self.training)
+        out = out.reshape([b, s, h])
+        return self.drop(self.proj(out))
+
+
+class GPTMLP(nn.Layer):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        h, m = cfg.hidden_size, cfg.hidden_size * cfg.ffn_mult
+        self.fc1 = nn.Linear(h, m)
+        self.fc2 = nn.Linear(m, h)
+        self.drop = nn.Dropout(cfg.dropout)
+
+    def forward(self, x):
+        return self.drop(self.fc2(F.gelu(self.fc1(x), approximate=True)))
+
+
+class GPTBlock(nn.Layer):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.ln1 = nn.LayerNorm(cfg.hidden_size)
+        self.attn = GPTAttention(cfg)
+        self.ln2 = nn.LayerNorm(cfg.hidden_size)
+        self.mlp = GPTMLP(cfg)
+
+    def forward(self, x, cache=None):
+        if cache is not None:
+            raise _later("decoding with a cache")
+        x = x + self.attn(self.ln1(x))
+        x = x + self.mlp(self.ln2(x))
+        return x
+
+
+class GPTModel(nn.Layer):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        if cfg.use_tensor_parallel:
+            raise _later("tensor parallelism")
+        self.cfg = cfg
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size)
+        self.drop = nn.Dropout(cfg.dropout)
+        self.blocks = nn.LayerList([GPTBlock(cfg)
+                                    for _ in range(cfg.num_layers)])
+        self.ln_f = nn.LayerNorm(cfg.hidden_size)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size,
+                                     bias_attr=False)
+
+    def forward(self, input_ids, caches=None):
+        if caches is not None:
+            raise _later("decoding with a cache")
+        b, s = input_ids.shape
+        pos = paddle.arange(s, dtype="int64").unsqueeze(0)
+        x = self.wte(input_ids) + self.wpe(pos)
+        x = self.drop(x)
+        for blk in self.blocks:
+            x = blk(x)
+        x = self.ln_f(x)
+        if self.cfg.tie_embeddings:
+            return paddle.matmul(x, self.wte.weight, transpose_y=True)
+        return self.lm_head(x)
+
+
+class GPTForCausalLM(nn.Layer):
+    def __init__(self, cfg: GPTConfig):
+        super().__init__()
+        self.gpt = GPTModel(cfg)
+        self.loss_fn = nn.CrossEntropyLoss()
+
+    def forward(self, input_ids, labels=None):
+        logits = self.gpt(input_ids)
+        if labels is None:
+            return logits
+        return self.loss_fn(
+            logits[:, :-1].reshape([-1, logits.shape[-1]]),
+            labels[:, 1:].reshape([-1]))

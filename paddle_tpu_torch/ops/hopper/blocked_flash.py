@@ -139,10 +139,12 @@ def blocked_flash_bwd_dkv_reference(q, k, v, o, lse, do, sm_scale,
 
 # --------------------------------- kernels ----------------------------------
 _TAIL = [L.STRIDES, L.INT, L.INT, L.INT, L.INT, L.FLOAT, L.INT, L.VP]
+# bf_*: blocked_flash's launches; lf_*: the same kernels for the library
+# tier (flash_attention.py), which admit causal Sq != Skv (top-left).
 _SIGNATURES = {
-    "bf_fwd": [L.INT, L.INT] + [L.VP] * 5 + _TAIL,
-    "bf_bwd_dq": [L.INT, L.INT] + [L.VP] * 8 + _TAIL,
-    "bf_bwd_dkv": [L.INT, L.INT] + [L.VP] * 8 + _TAIL,
+    f"{prefix}_{what}": [L.INT, L.INT] + [L.VP] * n + _TAIL
+    for prefix in ("bf", "lf")
+    for what, n in (("fwd", 5), ("bwd_dq", 8), ("bwd_dkv", 8))
 }
 
 
@@ -174,49 +176,70 @@ def _check_bwd(what, q, k, v, do, rows, stats):
     L.same_layout("blocked_flash", what, (k, v))
 
 
-def blocked_flash_fwd_cuda(q, k, v, sm_scale, causal):
-    """Launches the forward kernel: q [B, H, Sq, D], k/v [B, H, Skv, D]
-    CUDA views (k and v sharing one layout) -> (o [B, H, Sq, D] view of a
-    [B, S, H, D] buffer, lse [B, H, Sq] f32)."""
+def fwd_launch(prefix, q, k, v, sm_scale, causal):
+    """Launches the forward kernel through entry point ``<prefix>_fwd``:
+    q [B, H, Sq, D], k/v [B, H, Skv, D] CUDA views (k and v sharing one
+    layout) -> (o [B, H, Sq, D] view of a [B, S, H, D] buffer, lse
+    [B, H, Sq] f32)."""
     b, h, sq, d = q.shape
     kv_shape = (b, h, k.shape[2], d)
     L.check("blocked_flash", "forward",
             [(q, q.shape, q.dtype), (k, kv_shape, q.dtype),
              (v, kv_shape, q.dtype)])
     L.same_layout("blocked_flash", "forward", (k, v))
-    _require_causal_square(sq, k.shape[2], causal)
     o, lse = L.empty_bshd(b, h, sq, d, q), L.empty_lse(b, h, sq, q)
-    _launch("forward", "bf_fwd", (q, k, v, o, lse), (q, k, o), sm_scale,
-            causal)
-    LAUNCHES["blocked_flash_fwd"] += 1
+    _launch("forward", f"{prefix}_fwd", (q, k, v, o, lse), (q, k, o),
+            sm_scale, causal)
     return o, lse
 
 
-def blocked_flash_bwd_dq_cuda(q, k, v, o, lse, do, sm_scale, causal):
-    """Launches the dq kernel. Returns (dq, delta): dq a [B, H, Sq, D] view
-    of a [B, S, H, D] buffer, delta = rowsum(dO * O) f32 [B, H, Sq], which
-    the dk/dv kernel reads."""
+def dq_launch(prefix, q, k, v, o, lse, do, sm_scale, causal):
+    """Launches the dq kernel through ``<prefix>_bwd_dq``. Returns (dq,
+    delta): dq a [B, H, Sq, D] view of a [B, S, H, D] buffer, delta =
+    rowsum(dO * O) f32 [B, H, Sq], which the dk/dv kernel reads."""
     _check_bwd("backward dq", q, k, v, do, (o,), (lse,))
-    _require_causal_square(q.shape[2], k.shape[2], causal)
     dq = L.empty_bshd(*q.shape, q)
     delta = L.empty_lse(*q.shape[:3], q)
-    _launch("backward dq", "bf_bwd_dq", (q, k, v, o, lse, do, dq, delta),
-            (q, k, o, do, dq), sm_scale, causal)
-    LAUNCHES["blocked_flash_bwd_dq"] += 1
+    _launch("backward dq", f"{prefix}_bwd_dq",
+            (q, k, v, o, lse, do, dq, delta), (q, k, o, do, dq), sm_scale,
+            causal)
     return dq, delta
 
 
-def blocked_flash_bwd_dkv_cuda(q, k, v, lse, delta, do, sm_scale, causal):
-    """Launches the dk/dv kernel from the forward's lse and the dq kernel's
-    delta. Returns (dk, dv), each a [B, H, Skv, D] view of a [B, S, H, D]
-    buffer."""
+def dkv_launch(prefix, q, k, v, lse, delta, do, sm_scale, causal):
+    """Launches the dk/dv kernel through ``<prefix>_bwd_dkv`` from the
+    forward's lse and the dq kernel's delta. Returns (dk, dv), each a
+    [B, H, Skv, D] view of a [B, S, H, D] buffer."""
     _check_bwd("backward dkv", q, k, v, do, (), (lse, delta))
-    _require_causal_square(q.shape[2], k.shape[2], causal)
     dk, dv = (L.empty_bshd(*k.shape, k) for _ in range(2))
-    _launch("backward dkv", "bf_bwd_dkv", (q, k, v, lse, delta, do, dk, dv),
-            (q, k, do, dk), sm_scale, causal)
-    LAUNCHES["blocked_flash_bwd_dkv"] += 1
+    _launch("backward dkv", f"{prefix}_bwd_dkv",
+            (q, k, v, lse, delta, do, dk, dv), (q, k, do, dk), sm_scale,
+            causal)
     return dk, dv
+
+
+def blocked_flash_fwd_cuda(q, k, v, sm_scale, causal):
+    """The forward kernel (``fwd_launch``); causal needs Sq == Skv."""
+    _require_causal_square(q.shape[2], k.shape[2], causal)
+    out = fwd_launch("bf", q, k, v, sm_scale, causal)
+    LAUNCHES["blocked_flash_fwd"] += 1
+    return out
+
+
+def blocked_flash_bwd_dq_cuda(q, k, v, o, lse, do, sm_scale, causal):
+    """The dq kernel (``dq_launch``): (dq, delta)."""
+    _require_causal_square(q.shape[2], k.shape[2], causal)
+    out = dq_launch("bf", q, k, v, o, lse, do, sm_scale, causal)
+    LAUNCHES["blocked_flash_bwd_dq"] += 1
+    return out
+
+
+def blocked_flash_bwd_dkv_cuda(q, k, v, lse, delta, do, sm_scale, causal):
+    """The dk/dv kernel (``dkv_launch``): (dk, dv)."""
+    _require_causal_square(q.shape[2], k.shape[2], causal)
+    out = dkv_launch("bf", q, k, v, lse, delta, do, sm_scale, causal)
+    LAUNCHES["blocked_flash_bwd_dkv"] += 1
+    return out
 
 
 # ------------------------------ the registered ops --------------------------

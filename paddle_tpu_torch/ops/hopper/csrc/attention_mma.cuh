@@ -419,7 +419,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int q0 = qt * BM, r0 = warp * 16;
   const long long kvbase = b * a.lkv.sb + h * a.lkv.sh;
   const long long row = (static_cast<long long>(b) * a.H + h) * a.Sq + q0 + r0 + (lane >> 2);
-  const int kend = a.causal ? (q0 + BM) / BN : a.Skv / BN;
+  const int kend = a.causal && (q0 + BM) / BN < a.Skv / BN ? (q0 + BM) / BN : a.Skv / BN;
   const int pass = LSE ? 0 : kend;  // stages of the statistics pass
 
   auto prefetch = [&](int st) {
@@ -544,6 +544,15 @@ __global__ void __launch_bounds__(kMmaThreads)
   const long long kvbase = b * a.lkv.sb + h * a.lkv.sh;
   const long long row0 = (static_cast<long long>(b) * a.H + h) * a.Sq;
   const int qbeg = a.causal ? k0 / BQ : 0, stages = a.Sq / BQ - qbeg;
+  if (stages <= 0) {
+    // causal, Sq < Skv (the library tier): this kv tile lies wholly past the
+    // last q row, no q row sees it, and its dk and dv are zero. Store them
+    // and leave before any copy is started.
+    const float zero[DW / 8][4] = {};
+    store_rows<T, DW>(dk + b * ldkv.sb + h * ldkv.sh, ldkv.ss, zero, k0 + r0, c0);
+    store_rows<T, DW>(dv + b * ldkv.sb + h * ldkv.sh, ldkv.ss, zero, k0 + r0, c0);
+    return;
+  }
 
   auto prefetch = [&](int st) {
     if (st < stages) {
@@ -651,11 +660,13 @@ cudaError_t launch_two_pass_fwd(const void* q, const void* k, const void* v, voi
 }
 
 // Launch A on the tensor cores (bf16, f16): Sq a multiple of 64, Skv of
-// 64 (of 32 at D=256), causal only with Sq == Skv.
+// 64 (of 32 at D=256), causal only with Sq == Skv unless cross_causal (the
+// library tier: top-left, any Sq and Skv).
 template <typename T, int D, bool LSE>
-cudaError_t launch_mma_dq(const BwdArgs& a, void* dq, Layout ldq, cudaStream_t st) {
+cudaError_t launch_mma_dq(const BwdArgs& a, void* dq, Layout ldq, cudaStream_t st,
+                          bool cross_causal = false) {
   using C = MmaCfg<D>;
-  if (a.Sq % C::BM != 0 || a.Skv % C::BN != 0 || (a.causal && a.Sq != a.Skv))
+  if (a.Sq % C::BM != 0 || a.Skv % C::BN != 0 || (a.causal && a.Sq != a.Skv && !cross_causal))
     return cudaErrorInvalidValue;
   constexpr size_t bytes = mma_dq_smem<T, D>();
   cudaError_t e = allow_smem(mma_dq_kernel<T, D, LSE>, bytes);
@@ -667,9 +678,10 @@ cudaError_t launch_mma_dq(const BwdArgs& a, void* dq, Layout ldq, cudaStream_t s
 
 // Launch B on the tensor cores (bf16, f16), after launch A on one stream.
 template <typename T, int D>
-cudaError_t launch_mma_dkv(const BwdArgs& a, void* dk, void* dv, Layout ldkv, cudaStream_t st) {
+cudaError_t launch_mma_dkv(const BwdArgs& a, void* dk, void* dv, Layout ldkv, cudaStream_t st,
+                           bool cross_causal = false) {
   using C = MmaCfg<D>;
-  if (a.Sq % C::BQ != 0 || a.Skv % C::KN != 0 || (a.causal && a.Sq != a.Skv))
+  if (a.Sq % C::BQ != 0 || a.Skv % C::KN != 0 || (a.causal && a.Sq != a.Skv && !cross_causal))
     return cudaErrorInvalidValue;
   constexpr size_t bytes = mma_dkv_smem<T, D>();
   cudaError_t e = allow_smem(mma_dkv_kernel<T, D>, bytes);

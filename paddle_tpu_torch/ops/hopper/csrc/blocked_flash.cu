@@ -42,6 +42,20 @@
 // three launches (attention_mma.cuh); the dk/dv launch recomputes S and dP,
 // so the backward does 7 products where the function needs 5.
 //
+// The library tier: the lf_* entry points launch the same three kernels for
+// paddle_tpu/ops/pallas/flash_attention.py's `flash_attention`, which wraps
+// JAX's own Pallas TPU flash kernel (jax/experimental/pallas/ops/tpu/
+// flash_attention.py: its forward, dk/dv and dq pallas_calls). That kernel
+// computes the same function with the unnormalized p rounded to v's dtype,
+// and masks causal attention top-left (col <= row) for any Sq and Skv. So the
+// lf_* entry points admit causal Sq != Skv: a q tile past Skv sees every kv
+// tile (the kv range is capped at Skv), and a kv tile wholly past the last q
+// row gets dk = dv = 0. The bf_* entry points keep blocked_flash's refusal of
+// causal Sq != Skv. At the Layer GPT-1.3B's shape (B4 H16 S1024 D128, bf16,
+// causal) the forward and dq launches are bound by bytes (~67 and ~101 MB
+// against ~17 and ~26 GFLOP) and dk/dv by operations (~34 GFLOP); the design
+// is the one above, tiles and all.
+//
 // Interface: plain C, pointers as void*, strides in elements as a host array
 // of (sb, sh, ss) triples; the head dim must be unit-stride, every row
 // 16-byte aligned and lse, delta [B, H, Sq] f32 contiguous (the Python
@@ -69,7 +83,8 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
   const int q0 = qt * C::BM;
   const long long kvbase = b * lkv.sb + h * lkv.sh;
-  const int kend = causal ? qt + 1 : Skv / C::BM;
+  // causal is top-left: with Sq > Skv the rows past Skv see every kv tile
+  const int kend = causal && qt + 1 < Skv / C::BM ? qt + 1 : Skv / C::BM;
 
   load_tile<T, D>(sQ, q + b * lq.sb + h * lq.sh + q0 * lq.ss, lq.ss);
   float m[C::RM], l[C::RM], acc[C::RM][C::RD];
@@ -143,7 +158,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = qt * BM, r0 = warp * 16;
   const long long kvbase = b * lkv.sb + h * lkv.sh;
-  const int kend = causal ? (q0 + BM) / BN : Skv / BN;
+  const int kend = causal && (q0 + BM) / BN < Skv / BN ? (q0 + BM) / BN : Skv / BN;
 
   auto prefetch = [&](int kt) {
     if (kt < kend) {
@@ -217,12 +232,13 @@ __global__ void __launch_bounds__(kMmaThreads)
 }
 
 // The online forward: tensor cores for bf16 and f16, the CUDA-core kernel
-// above for f32 (by dtype, at compile time).
+// above for f32 (by dtype, at compile time). Causal with Sq != Skv (top-left)
+// only when cross_causal: the library tier's entry points.
 template <typename T, int D>
 cudaError_t launch_online_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                               const long long* st, int B, int H, int Sq, int Skv, float scale,
-                              int causal, cudaStream_t cs) {
-  if (causal && Sq != Skv) return cudaErrorInvalidValue;
+                              int causal, bool cross_causal, cudaStream_t cs) {
+  if (causal && Sq != Skv && !cross_causal) return cudaErrorInvalidValue;
   const Layout lq = layout_at(st, 0), lkv = layout_at(st, 1), lo = layout_at(st, 2);
   if constexpr (std::is_same<T, float>::value) {
     using C = Tile<D>;
@@ -245,20 +261,57 @@ cudaError_t launch_online_fwd(const void* q, const void* k, const void* v, void*
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-// st: (sb, sh, ss) of q, kv, then o.
-int bf_fwd(int dtype, int d, const void* q, const void* k, const void* v, void* o, void* lse,
-           const long long* st, int B, int H, int Sq, int Skv, float scale, int causal,
-           void* stream) {
+// The three launches behind each pair of entry points below; cross_causal
+// admits causal attention with Sq != Skv (top-left, col <= row).
+int fwd_entry(int dtype, int d, const void* q, const void* k, const void* v, void* o, void* lse,
+              const long long* st, int B, int H, int Sq, int Skv, float scale, int causal,
+              bool cross_causal, void* stream) {
   auto cs = static_cast<cudaStream_t>(stream);
   return static_cast<int>(by_dtype_and_d(dtype, d, [&](auto t, auto dc) {
     using T = decltype(t);
     return launch_online_fwd<T, decltype(dc)::value>(q, k, v, o, static_cast<float*>(lse), st, B,
-                                                       H, Sq, Skv, scale, causal, cs);
+                                                       H, Sq, Skv, scale, causal, cross_causal,
+                                                       cs);
   }));
+}
+
+int dq_entry(int dtype, int d, const void* q, const void* k, const void* v, const void* o,
+             const void* lse, const void* dout, void* dq, void* delta, const long long* st, int B,
+             int H, int Sq, int Skv, float scale, int causal, bool cross_causal, void* stream) {
+  auto cs = static_cast<cudaStream_t>(stream);
+  const BwdArgs a{q, k, v, o, dout, static_cast<float*>(const_cast<void*>(lse)),
+                  static_cast<float*>(delta), layout_at(st, 0), layout_at(st, 1),
+                  layout_at(st, 2), layout_at(st, 3), B, H, Sq, Skv, scale, causal};
+  return static_cast<int>(by_dtype_and_d(dtype, d, [&](auto t, auto dc) {
+    return launch_lse_dq<decltype(t), decltype(dc)::value>(a, dq, layout_at(st, 4), cs,
+                                                           cross_causal);
+  }));
+}
+
+int dkv_entry(int dtype, int d, const void* q, const void* k, const void* v, const void* lse,
+              const void* delta, const void* dout, void* dk, void* dv, const long long* st, int B,
+              int H, int Sq, int Skv, float scale, int causal, bool cross_causal, void* stream) {
+  auto cs = static_cast<cudaStream_t>(stream);
+  const Layout lq = layout_at(st, 0);
+  const BwdArgs a{q, k, v, nullptr, dout, static_cast<float*>(const_cast<void*>(lse)),
+                  static_cast<float*>(const_cast<void*>(delta)), lq, layout_at(st, 1), lq,
+                  layout_at(st, 2), B, H, Sq, Skv, scale, causal};
+  return static_cast<int>(by_dtype_and_d(dtype, d, [&](auto t, auto dc) {
+    return launch_lse_dkv<decltype(t), decltype(dc)::value>(a, dk, dv, layout_at(st, 3), cs,
+                                                            cross_causal);
+  }));
+}
+
+}  // namespace
+
+extern "C" {
+
+// blocked_flash's launches (causal needs Sq == Skv). st: (sb, sh, ss) of q,
+// kv, then o.
+int bf_fwd(int dtype, int d, const void* q, const void* k, const void* v, void* o, void* lse,
+           const long long* st, int B, int H, int Sq, int Skv, float scale, int causal,
+           void* stream) {
+  return fwd_entry(dtype, d, q, k, v, o, lse, st, B, H, Sq, Skv, scale, causal, false, stream);
 }
 
 // st: (sb, sh, ss) of q, kv, o, dO, then dq. Writes dq and delta (f32
@@ -266,13 +319,8 @@ int bf_fwd(int dtype, int d, const void* q, const void* k, const void* v, void* 
 int bf_bwd_dq(int dtype, int d, const void* q, const void* k, const void* v, const void* o,
               const void* lse, const void* dout, void* dq, void* delta, const long long* st, int B,
               int H, int Sq, int Skv, float scale, int causal, void* stream) {
-  auto cs = static_cast<cudaStream_t>(stream);
-  const BwdArgs a{q, k, v, o, dout, static_cast<float*>(const_cast<void*>(lse)),
-                  static_cast<float*>(delta), layout_at(st, 0), layout_at(st, 1),
-                  layout_at(st, 2), layout_at(st, 3), B, H, Sq, Skv, scale, causal};
-  return static_cast<int>(by_dtype_and_d(dtype, d, [&](auto t, auto dc) {
-    return launch_lse_dq<decltype(t), decltype(dc)::value>(a, dq, layout_at(st, 4), cs);
-  }));
+  return dq_entry(dtype, d, q, k, v, o, lse, dout, dq, delta, st, B, H, Sq, Skv, scale, causal,
+                  false, stream);
 }
 
 // st: (sb, sh, ss) of q, kv, dO, then dk/dv. lse and delta: f32 [B, H, Sq],
@@ -280,14 +328,31 @@ int bf_bwd_dq(int dtype, int d, const void* q, const void* k, const void* v, con
 int bf_bwd_dkv(int dtype, int d, const void* q, const void* k, const void* v, const void* lse,
                const void* delta, const void* dout, void* dk, void* dv, const long long* st,
                int B, int H, int Sq, int Skv, float scale, int causal, void* stream) {
-  auto cs = static_cast<cudaStream_t>(stream);
-  const Layout lq = layout_at(st, 0);
-  const BwdArgs a{q, k, v, nullptr, dout, static_cast<float*>(const_cast<void*>(lse)),
-                  static_cast<float*>(const_cast<void*>(delta)), lq, layout_at(st, 1), lq,
-                  layout_at(st, 2), B, H, Sq, Skv, scale, causal};
-  return static_cast<int>(by_dtype_and_d(dtype, d, [&](auto t, auto dc) {
-    return launch_lse_dkv<decltype(t), decltype(dc)::value>(a, dk, dv, layout_at(st, 3), cs);
-  }));
+  return dkv_entry(dtype, d, q, k, v, lse, delta, dout, dk, dv, st, B, H, Sq, Skv, scale, causal,
+                   false, stream);
+}
+
+// The library tier's launches (ops/hopper/flash_attention.py): the same
+// kernels and arguments, causal with any Sq and Skv, top-left as JAX's
+// library kernel masks (col <= row).
+int lf_fwd(int dtype, int d, const void* q, const void* k, const void* v, void* o, void* lse,
+           const long long* st, int B, int H, int Sq, int Skv, float scale, int causal,
+           void* stream) {
+  return fwd_entry(dtype, d, q, k, v, o, lse, st, B, H, Sq, Skv, scale, causal, true, stream);
+}
+
+int lf_bwd_dq(int dtype, int d, const void* q, const void* k, const void* v, const void* o,
+              const void* lse, const void* dout, void* dq, void* delta, const long long* st, int B,
+              int H, int Sq, int Skv, float scale, int causal, void* stream) {
+  return dq_entry(dtype, d, q, k, v, o, lse, dout, dq, delta, st, B, H, Sq, Skv, scale, causal,
+                  true, stream);
+}
+
+int lf_bwd_dkv(int dtype, int d, const void* q, const void* k, const void* v, const void* lse,
+               const void* delta, const void* dout, void* dk, void* dv, const long long* st,
+               int B, int H, int Sq, int Skv, float scale, int causal, void* stream) {
+  return dkv_entry(dtype, d, q, k, v, lse, delta, dout, dk, dv, st, B, H, Sq, Skv, scale, causal,
+                   true, stream);
 }
 
 const char* bf_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -13,7 +13,11 @@
 //        only the tiles that straddle it are masked.
 //   dkv  one block per (kv tile, head, batch), q tiles inner, starting at the
 //        diagonal when causal; dk and dv stay in f32 registers.
-// No atomics. Causal needs Sq == Skv (top-left alignment, as the references).
+// No atomics. Causal is top-left (col <= row, q and kv tiles counted from one
+// origin, as the references); causal Sq != Skv only when the launcher is
+// asked for it (cross_causal, the library tier): a q tile past Skv then sees
+// every kv tile, and a kv tile wholly past the last q row sees no q tile and
+// writes dk = dv = 0.
 //
 // bf16 and f16 run on the tensor cores: launches A (one pass, lse from the
 // forward) and B of attention_mma.cuh, whose header gives the design and its
@@ -69,7 +73,7 @@ __global__ void __launch_bounds__(kThreads) lse_dq_kernel(BwdArgs a, T* __restri
   const int q0 = qt * C::BM;
   const long long kvbase = b * a.lkv.sb + h * a.lkv.sh;
   const long long row = (static_cast<long long>(b) * a.H + h) * a.Sq + q0;
-  const int kend = a.causal ? qt + 1 : a.Skv / C::BM;
+  const int kend = a.causal && qt + 1 < a.Skv / C::BM ? qt + 1 : a.Skv / C::BM;
   const T* g = static_cast<const T*>(a.dout) + b * a.lg.sb + h * a.lg.sh + q0 * a.lg.ss;
 
   load_tile<T, D>(sQ, q + b * a.lq.sb + h * a.lq.sh + q0 * a.lq.ss, a.lq.ss);
@@ -146,6 +150,8 @@ __global__ void __launch_bounds__(kThreads)
       acc_k[i][j] = 0.f;
       acc_v[i][j] = 0.f;
     }
+  // causal, Sq < Skv: a kv tile at or past Sq has no q tile at or below its
+  // diagonal; the loop is empty and the zeros below are its dk and dv
   for (int qt = a.causal ? kt : 0; qt < a.Sq / C::BM; ++qt) {
     const int q0 = qt * C::BM;
     __syncthreads();
@@ -191,38 +197,41 @@ constexpr size_t lse_dkv_smem() {
 }
 
 template <int D>
-bool lse_shapes_ok(const BwdArgs& a) {
-  return a.Sq % Tile<D>::BM == 0 && a.Skv % Tile<D>::BM == 0 && (!a.causal || a.Sq == a.Skv);
+bool lse_shapes_ok(const BwdArgs& a, bool cross_causal) {
+  return a.Sq % Tile<D>::BM == 0 && a.Skv % Tile<D>::BM == 0 &&
+         (!a.causal || a.Sq == a.Skv || cross_causal);
 }
 
 // The dq launch (it also writes delta): the tensor cores for bf16 and f16,
 // the CUDA-core kernel for f32.
 template <typename T, int D>
-cudaError_t launch_lse_dq(const BwdArgs& a, void* dq, Layout ldq, cudaStream_t st) {
+cudaError_t launch_lse_dq(const BwdArgs& a, void* dq, Layout ldq, cudaStream_t st,
+                          bool cross_causal = false) {
   if constexpr (std::is_same<T, float>::value) {
-    if (!lse_shapes_ok<D>(a)) return cudaErrorInvalidValue;
+    if (!lse_shapes_ok<D>(a, cross_causal)) return cudaErrorInvalidValue;
     cudaError_t e = allow_smem(lse_dq_kernel<T, D>, lse_dq_smem<D>());
     if (e != cudaSuccess) return e;
     lse_dq_kernel<T, D><<<dim3(a.Sq / Tile<D>::BM, a.H, a.B), kThreads, lse_dq_smem<D>(), st>>>(
         a, static_cast<T*>(dq), ldq);
     return cudaGetLastError();
   } else {
-    return launch_mma_dq<T, D, true>(a, dq, ldq, st);
+    return launch_mma_dq<T, D, true>(a, dq, ldq, st, cross_causal);
   }
 }
 
 // The dk/dv launch, after the dq launch on one stream (it reads delta).
 template <typename T, int D>
-cudaError_t launch_lse_dkv(const BwdArgs& a, void* dk, void* dv, Layout ldkv, cudaStream_t st) {
+cudaError_t launch_lse_dkv(const BwdArgs& a, void* dk, void* dv, Layout ldkv, cudaStream_t st,
+                           bool cross_causal = false) {
   if constexpr (std::is_same<T, float>::value) {
-    if (!lse_shapes_ok<D>(a)) return cudaErrorInvalidValue;
+    if (!lse_shapes_ok<D>(a, cross_causal)) return cudaErrorInvalidValue;
     cudaError_t e = allow_smem(lse_dkv_kernel<T, D>, lse_dkv_smem<D>());
     if (e != cudaSuccess) return e;
     lse_dkv_kernel<T, D><<<dim3(a.Skv / Tile<D>::BM, a.H, a.B), kThreads, lse_dkv_smem<D>(),
                            st>>>(a, static_cast<T*>(dk), static_cast<T*>(dv), ldkv);
     return cudaGetLastError();
   } else {
-    return launch_mma_dkv<T, D>(a, dk, dv, ldkv, st);
+    return launch_mma_dkv<T, D>(a, dk, dv, ldkv, st, cross_causal);
   }
 }
 

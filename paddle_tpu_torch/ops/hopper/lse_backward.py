@@ -6,8 +6,9 @@ every product summed in f32 and cast to the input dtype at the end.
 ``causal_attention``'s backward and ``blocked_flash``'s dq and dk/dv
 launches compute this function (``_bwd_kernel`` of
 ``paddle_tpu/ops/pallas/causal_attention.py``, ``_bwd_dq_kernel`` and
-``_bwd_dkv_kernel`` of ``blocked_flash.py``). Causal is top-left and needs
-Sq == Skv."""
+``_bwd_dkv_kernel`` of ``blocked_flash.py``), and so does the library
+tier's backward (``flash_attention.py``). Causal is top-left (col <= row),
+for any Sq and Skv."""
 from __future__ import annotations
 
 import torch
@@ -17,7 +18,7 @@ NEG_INF = -1e30
 
 def scores(q, k, sm_scale, causal):
     """Scaled f32 scores [B, H, Sq, Skv], masked at -1e30 above the
-    diagonal when causal: dot, times scale, then the mask."""
+    top-left diagonal when causal: dot, times scale, then the mask."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * sm_scale
     if causal:
         sq, skv = s.shape[-2:]

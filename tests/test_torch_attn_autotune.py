@@ -162,7 +162,8 @@ def test_plain_attention_is_timed_but_never_the_winner(monkeypatch):
     q = _on_card(shape, torch.bfloat16)
     assert autotune.decide(q, q, True) is None
     assert _measure(shape, 4096, torch.bfloat16, True) == "qblock"
-    # a shape no Hopper kernel takes has no winner to record
+    # a shape no Hopper kernel takes has no winner to record: D=80 is
+    # outside {64, 128, 256}, so not even the library tier is a candidate
     with pytest.raises(NotImplementedError, match="no Hopper kernel"):
         _measure((2, 512, 8, 80), 512, torch.float32, True)
 
@@ -242,10 +243,19 @@ def test_time_candidate_loses_only_for_unported_tiers(monkeypatch):
     monkeypatch.setattr(autotune, "_resolve", lambda name: broken)
     with pytest.raises(RuntimeError, match="failed to launch"):
         autotune._time_candidate("simple", q, q, q, True, None)
-    # the library tier's runner is the dispatch's own: it raises
+    # the library tier's runner is the dispatch's own: it runs the
+    # library op (here on the CPU, its plain version), and raises only
+    # where JAX's library kernel refuses the shape (S=640: its 512-row
+    # blocks do not divide it), which times as a loss
     monkeypatch.undo()
+    out = autotune._resolve("library_flash")(q, q, q, True, None)
+    assert out.shape == q.shape and out.dtype == q.dtype
+    refused = torch.zeros(1, 640, 2, 64)
     with pytest.raises(NotImplementedError, match="library_flash"):
-        autotune._resolve("library_flash")(q, q, q, True, None)
+        autotune._resolve("library_flash")(refused, refused, refused, True,
+                                           None)
+    assert autotune._time_candidate("library_flash", refused, refused,
+                                    refused, True, None) == [float("inf")]
 
 
 def test_blocked_candidate_name_roundtrip():

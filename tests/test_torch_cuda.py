@@ -188,6 +188,123 @@ def test_new_kernel_wrappers_refuse_causal_cross_attention():
         tbf.blocked_flash_fwd_cuda(q, k, k, 0.125, True)
 
 
+# The library tier's kernels (blocked_flash.cu through its lf_* entry
+# points) against its plain version: causal with Sq == Skv, Sq < Skv and
+# Sq > Skv (top-left), and not causal. Where Sq < Skv the kv rows past Sq
+# see no q row: their dk and dv are exactly zero.
+@pytest.mark.parametrize("dtype,tol", _DTYPES)
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_library_flash_kernels_match_plain_versions(d, dtype, tol):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(d + 7)
+    scale = 1.0 / np.sqrt(d)
+    for causal, sq, skv in ((True, 384, 384), (True, 256, 512),
+                            (True, 512, 256), (False, 256, 512)):
+        q = _randn(gen, dtype, 2, 4, sq, d)
+        k, v = (_randn(gen, dtype, 2, 4, skv, d) for _ in range(2))
+        do = _randn(gen, dtype, 2, 4, sq, d)
+        case = (causal, sq, skv)
+        o, lse = tfa.library_flash_fwd_cuda(q, k, v, scale, causal)
+        want_o, want_lse = tfa.library_flash_reference(q, k, v, scale,
+                                                       causal)
+        assert _rel_err(o, want_o) < tol, case
+        assert _rel_err(lse, want_lse) < 1e-5, case
+        dq, delta = tfa.library_flash_bwd_dq_cuda(q, k, v, want_o, want_lse,
+                                                  do, scale, causal)
+        want = tbf.lse_backward.bwd_reference(q, k, v, want_o, want_lse, do,
+                                              scale, causal)
+        assert _rel_err(dq, want[0]) < tol, case
+        assert _rel_err(delta, (do.float() * want_o.float()).sum(-1)) < 1e-5
+        dk, dv = tfa.library_flash_bwd_dkv_cuda(q, k, v, want_lse, delta, do,
+                                                scale, causal)
+        for g, w in zip((dk, dv), want[1:]):
+            assert _rel_err(g, w) < tol, case
+        if causal and sq < skv:
+            assert not dk[:, :, sq:].any() and not dv[:, :, sq:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sq,skv", [(1024, 4096), (4096, 1024)])
+def test_library_flash_op_causal_cross_attention(sq, skv, dtype):
+    """The op under autograd at [1, 8, Sq, Skv, 128], causal: o and every
+    gradient against autograd of the plain version, and zeros in dk and dv
+    past Sq."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(sq)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    q = _randn(gen, dtype, 1, sq, 8, 128)
+    k, v = (_randn(gen, dtype, 1, skv, 8, 128) for _ in range(2))
+    do = _randn(gen, dtype, 1, sq, 8, 128)
+    tfa.reset_launch_counts()
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = tfa.flash_attention(*leaves, causal=True)
+    got = (out, *torch.autograd.grad(out, leaves, do))
+    assert tfa.LAUNCHES == {"library_flash_fwd": 1, "library_flash_bwd_dq": 1,
+                            "library_flash_bwd_dkv": 1}
+    plain = [x.float().transpose(1, 2).requires_grad_(True)
+             for x in (q, k, v)]
+    o, _ = tfa.library_flash_reference(*plain, 1.0 / np.sqrt(128), True)
+    want = (o.transpose(1, 2), *(g.transpose(1, 2) for g in
+                                 torch.autograd.grad(
+                                     o, plain, do.float().transpose(1, 2))))
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) < tol
+    if sq < skv:
+        assert not got[2][:, sq:].any() and not got[3][:, sq:].any()
+
+
+def test_blocked_flash_keeps_refusing_causal_cross_attention():
+    _need_card()
+    q = torch.zeros(1, 2, 128, 64, device="cuda", dtype=torch.bfloat16)
+    k = torch.zeros(1, 2, 256, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="Sq == Skv"):
+        tbf.blocked_flash_bwd_dq_cuda(q, k, k, q, q[..., 0].float(), q, 0.125,
+                                      True)
+    assert not tbf.supported((1, 2, 128, 64), 256, torch.bfloat16, True)
+
+
+def test_layer_gpt_trains_through_the_library_kernels():
+    """A small Layer GPT (D=64, S=256) in f32 on the card: its loss and
+    gradients against the same model on the CPU, and each step launches
+    the library tier's three kernels once a layer and no other attention
+    kernel."""
+    _need_card()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    cfg = GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                    num_heads=4, max_seq_len=256)
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 256))
+    out = {}
+    paddle.seed(0)
+    paddle.set_device("cpu")
+    state = {k: v.numpy() for k, v in GPTForCausalLM(cfg).state_dict()
+             .items()}
+    for dev in ("cpu", "gpu:0"):
+        paddle.set_device(dev)
+        model = GPTForCausalLM(cfg)
+        model.set_state_dict(state)
+        for mod in _KERNEL_MODULES + (tfa,):
+            mod.reset_launch_counts()
+        tfa.reset_dispatch_counts()
+        t = paddle.to_tensor(ids)
+        loss = model(t, t)
+        loss.backward()
+        out[dev] = (float(loss), {n: p.grad.numpy()
+                                  for n, p in model.named_parameters()})
+        if dev != "cpu":
+            L = cfg.num_layers
+            assert tfa.LAUNCHES == {n: L for n in tfa.LAUNCHES}
+            assert not any(n for mod in _KERNEL_MODULES
+                           for n in mod.LAUNCHES.values())
+            assert dict(tfa.DISPATCH_COUNTS) == {
+                ("nn.sdpa", "library_flash"): L}
+    paddle.set_device("cpu")
+    (lc, gc), (lg, gg) = out["cpu"], out["gpu:0"]
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for n, w in gc.items():
+        assert np.abs(gg[n] - w).max() <= 1e-4 * np.abs(w).max(), n
+
+
 # The rungs' tiers at a tiny width: S=2048 at D=64 takes causal_skip (nq=4),
 # S=4096 at D=128 takes blocked (qblock's gate refuses it there), and
 # S=1408 at D=64 takes qblock (the monolithic gate refuses it and
@@ -285,9 +402,9 @@ def test_autotune_measures_on_the_card_and_persists():
     assert entry["winner"] == winner
     times, spread = entry["timings_ms"], entry["spread_ms"]
     assert set(times) == set(spread) == set(names)
-    assert times["library_flash"] is None
-    assert all(t > 0 and spread[n] >= 0 for n, t in times.items()
-               if n != "library_flash")
+    # every candidate has a kernel now, the library tier too
+    assert all(t is not None and t > 0 and spread[n] >= 0
+               for n, t in times.items())
     tat._table = None
     assert tat.lookup(bshd, 512, torch.bfloat16, True) == winner
 

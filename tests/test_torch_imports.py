@@ -57,6 +57,19 @@ assert flags.get_flag("FLAGS_attn_autotune") in (True, False)
 assert autotune.candidates((2, 4096, 16, 64), 4096, torch.bfloat16,
                            True)[0] == "qblock"
 
+# the Layer API, the optimizers and the Layer GPT
+from paddle_tpu_torch import nn, optimizer
+from paddle_tpu_torch.nn import functional, initializer, utils
+from paddle_tpu_torch.nn.layer import (activation, common, conv, layers,
+                                       loss, norm, pooling, transformer)
+from paddle_tpu_torch.optimizer import gradient_merge, lr, optimizers
+from paddle_tpu_torch.models.gpt import GPTForCausalLM
+model = GPTForCausalLM(GPTConfig.tiny())
+opt = optimizer.AdamW(learning_rate=1e-3, parameters=model.parameters())
+ids_t = paddle.to_tensor(ids[:, :16].numpy())
+model(ids_t, ids_t).backward()
+opt.step()
+
 def foreign(name):
     return (name in ("jax", "jaxlib", "paddle_tpu")
             or name.startswith(("jax.", "jaxlib.", "paddle_tpu.")))
