@@ -83,12 +83,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
      it; prints ms/step (median of steps 2-6, spread), tokens/s, the
      forward+backward and optimizer split, the idle share of one profiled
      step with its top device rows, and the peak memory.
+  9. serving (``inference.decode``, ``models/llama.py``): (a) tiny Llama
+     (GQA: 4 heads, 2 kv) and tiny GPT in f32 from one state_dict each:
+     DecodeSession's greedy ids on the card equal the CPU's plain path, and
+     a ContinuousBatchingSession with overlapping lifetimes (the requests
+     of tests/test_continuous_batching.py:31, 2 slots) equals isolated
+     DecodeSession runs on the card, but where the isolated run's top-2
+     logit margin is under 1e-4 of the logit scale (printed); (b)
+     Llama-2-7B (``LlamaConfig.llama2_7b()``: vocab 32000, hidden 4096,
+     ffn 11008, 32 layers, 32 heads of 128, 32 kv heads; Touvron et al.
+     2023, Table 1), random weights from seed 0 built on the card, bf16,
+     f32 caches: the no-cache scoring forward (eval) at B4 S1024 launches
+     the library forward kernel 32 times a forward, counts
+     nn.sdpa{library_flash} 32 times and launches no other attention
+     kernel; DecodeSession(max_length=2048) on B8 prompts of 512 tokens
+     (seed 0), 128 greedy tokens, whose first token equals the scoring
+     forward's argmax (S512, same prompts) wherever its top-2 margin
+     exceeds the printed bf16 bound, at a peak memory of one cache; and a
+     ContinuousBatchingSession(max_slots=8, max_length=2048) on 24
+     requests (prompts 64-1024, budgets 16-128, seed 0) submitted at once,
+     each finishing once with its budget of in-vocab tokens, within 1 +
+     the buckets used of programs. Prints the scoring forward's ms,
+     prefill ms, decode ms/token (median, spread), tokens/s, the
+     continuous session's tokens/s and time-to-first-token p50/p99 (its
+     serving.* histogram), peak memory, the idle share of one profiled
+     decode step and the step's bytes bound with its share.
 Phases 2-6 keep the autotuner's table in a fresh temporary
 PADDLE_TPU_CACHE_DIR, empty until phase 6, with FLAGS_attn_autotune at its
 default: phases 2-5 (and 7 and 8, each on a table of its own) run the
 configuration a user gets on a new checkout.
-Prints the card line, then one {"kernels": [...]} line (each row with its
-design), then as the last line
+Prints a {"serving": {...}} line, the card line, then one {"kernels":
+[...]} line (each row with its design), then as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 Importing this module runs nothing: ``eager_gpt_loss`` is the tests' too.
 """
@@ -480,7 +505,7 @@ def drive(run, path, TH, GPTConfig, mods, fa, cost_model, torch):
 
     for mod in mods:
         mod.reset_launch_counts()
-    fa.reset_dispatch_counts()
+    ticks0 = fa.dispatch_counts()
     losses = []
     for _ in range(warm):
         params, opt_state, loss = step(params, opt_state, (ids, ids))
@@ -498,7 +523,7 @@ def drive(run, path, TH, GPTConfig, mods, fa, cost_model, torch):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: n for mod in mods for name, n in mod.LAUNCHES.items()}
-    dispatch = dict(fa.DISPATCH_COUNTS)
+    dispatch = fa.dispatch_counts(ticks0)
     losses += [float(x) for x in timed]
 
     steps = warm + timed_steps
@@ -664,14 +689,14 @@ def check_autotune(run, mods, fa, at, torch):
         q, k, v, _ = path_inputs(gen, dt, torch, (b, h, s, d))
         for mod in mods:
             mod.reset_launch_counts()
-        fa.reset_dispatch_counts()
+        ticks0 = fa.dispatch_counts()
         out = fa.flash_attention_maybe(*(x.transpose(1, 2) for x in (q, k, v)),
                                        causal=True)
         torch.cuda.synchronize()
         launched = {n: c for mod in mods for n, c in mod.LAUNCHES.items() if c}
         want = {"blocked_flash_fwd" if winner.startswith("blocked_")
                 else WINNER_KERNEL[winner]: 1}
-        run.check(dict(fa.DISPATCH_COUNTS) == {("attn.dispatch", winner): 1}
+        run.check(fa.dispatch_counts(ticks0) == {("attn.dispatch", winner): 1}
                   and launched == want and out is not None,
                   f"{tag}: one flash_attention_maybe call dispatches "
                   f"{winner}, launches {launched}")
@@ -716,12 +741,12 @@ def check_eager_attention(run, paddle, mods, fa, torch):
             t.stop_gradient = False
         for mod in mods:
             mod.reset_launch_counts()
-        fa.reset_dispatch_counts()
+        ticks0 = fa.dispatch_counts()
         out = paddle.ops.extra.flash_attn(q, k, v, causal=True)
         out.backward()
         torch.cuda.synchronize()
         launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
-        dispatch = dict(fa.DISPATCH_COUNTS)
+        dispatch = fa.dispatch_counts(ticks0)
         run.check(dispatch == {("attn.dispatch", tier): 1}
                   and launches == {n: int(n in kernels) for n in launches},
                   f"{tag}: dispatches {tier} once and launches each of "
@@ -809,12 +834,12 @@ def drive_eager_gpt(run, paddle, TH, GPTConfig, mods, fa, torch):
     torch.cuda.reset_peak_memory_stats()
     for mod in mods:
         mod.reset_launch_counts()
-    fa.reset_dispatch_counts()
+    ticks0 = fa.dispatch_counts()
     loss = eager_gpt_loss(paddle, params, ids, cfg)
     loss.backward()
     torch.cuda.synchronize()
     launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
-    dispatch = dict(fa.DISPATCH_COUNTS)
+    dispatch = fa.dispatch_counts(ticks0)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     eager_loss = float(loss)
     eager_grads = (leaves[0].grad._data, leaves[1].grad._data[0],
@@ -955,12 +980,12 @@ def check_small_layer_gpt(run, paddle, GPTConfig, GPTForCausalLM, fa, mods,
                 model.bfloat16()
             for mod in mods:
                 mod.reset_launch_counts()
-            fa.reset_dispatch_counts()
+            ticks0 = fa.dispatch_counts()
             t = paddle.to_tensor(ids)
             loss = model(t, t)
             loss.backward()
             launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
-            dispatch = dict(fa.DISPATCH_COUNTS)
+            dispatch = fa.dispatch_counts(ticks0)
             params = dict(model.named_parameters())
             out[dev] = (float(loss), {n: p.grad.numpy()
                                       for n, p in params.items()})
@@ -1064,7 +1089,7 @@ def drive_layer_gpt(run, paddle, GPTConfig, GPTForCausalLM, fa, mods, torch):
     for _ in range(steps):
         for mod in mods:
             mod.reset_launch_counts()
-        fa.reset_dispatch_counts()
+        ticks0 = fa.dispatch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         start = torch.cuda.Event(enable_timing=True)
@@ -1077,7 +1102,7 @@ def drive_layer_gpt(run, paddle, GPTConfig, GPTForCausalLM, fa, mods, torch):
                       (time.perf_counter() - t0) * 1e3))
         per_step.append(({n: c for mod in mods
                           for n, c in mod.LAUNCHES.items()},
-                         dict(fa.DISPATCH_COUNTS)))
+                         fa.dispatch_counts(ticks0)))
         losses.append(float(loss))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want = {n: L if n in fa.LAUNCHES else 0 for n in per_step[0][0]}
@@ -1140,6 +1165,347 @@ def drive_layer_gpt(run, paddle, GPTConfig, GPTForCausalLM, fa, mods, torch):
             "launches": {n: sum(st[0][n] for st in per_step)
                          for n in per_step[0][0]},
             "steps": steps}
+
+
+# ---------------------------------------------------------------- phase 9
+# 9a: the requests of tests/test_continuous_batching.py:31 (prompt length,
+# budget; prompts from RandomState(3)) through two slots of a 64-token cache.
+SERVING_SMALL_REQUESTS = ((5, 12), (3, 4), (9, 6))
+# 9a: a continuous-batching token may differ from the isolated run's only
+# at a step whose top-2 logit margin is under this share of the logit scale.
+NEAR_TIE = 1e-4
+# 9b: LlamaConfig.llama2_7b() (Touvron et al. 2023, Llama 2, Table 1: 7B),
+# bf16 weights, the caches at the reference's f32 default.
+SCORING_BATCH, SCORING_SEQ = 4, 1024
+SERVING_BATCH, SERVING_PROMPT, SERVING_NEW = 8, 512, 128
+SERVING_CAPACITY = 2048
+CB_SLOTS, CB_REQUESTS = 8, 24
+CB_PROMPT, CB_BUDGET = (64, 1024), (16, 128)     # inclusive ranges
+# The first decoded token must be the scoring forward's argmax wherever
+# that forward's top-2 margin exceeds this many bf16 steps (2^-8) of the
+# logit scale: the two paths round the attention differently (the library
+# kernel's bf16 P against the cache einsum's f32), and 32 layers carry it.
+BF16_STEPS = 8
+# the decode step profiled for the idle share (one of SERVING_NEW - 1)
+PROFILED_DECODE_STEP = 64
+
+
+def greedy_margins(paddle, model, seqs, plen, torch):
+    """Top-2 logit margins of a greedy continuation, recomputed by the
+    no-cache forward over prompt + generated tokens: [B, n] margins at the
+    n positions that chose a generated token, and the logit scale (the
+    largest |logit| there)."""
+    with paddle.no_grad():
+        logits = model(paddle.to_tensor(seqs[:, :-1]))._data.float()
+    picked = logits[:, plen - 1:]
+    top2 = torch.topk(picked, 2, dim=-1).values
+    return ((top2[..., 0] - top2[..., 1]).cpu().numpy(),
+            float(picked.abs().max()))
+
+
+def check_small_serving(run, paddle, torch):
+    """Phase 9a: tiny Llama (GQA: 4 heads, 2 kv) and tiny GPT in f32, from
+    one state_dict each: DecodeSession's greedy ids on the card against the
+    CPU's plain path, and a ContinuousBatchingSession with overlapping
+    lifetimes on the card against isolated DecodeSession runs there. Returns
+    the smallest margins seen, as shares of the logit scale."""
+    from paddle_tpu_torch.inference.decode import (ContinuousBatchingSession,
+                                                   DecodeSession)
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    rng = np.random.RandomState(3)
+    reqs = [(rng.randint(0, 256, (n,)).astype(np.int32), budget)
+            for n, budget in SERVING_SMALL_REQUESTS]
+    ids = np.random.RandomState(4).randint(0, 256, (2, 8)).astype(np.int32)
+    models = (("llama", lambda: LlamaForCausalLM(LlamaConfig.tiny())),
+              ("gpt", lambda: GPTForCausalLM(GPTConfig.tiny())))
+    out = {}
+    for name, build in models:
+        paddle.set_device("cpu")
+        paddle.seed(0)
+        state = {k: v.numpy() for k, v in build().state_dict().items()}
+        got = {}
+        for dev in ("cpu", "gpu:0"):
+            paddle.set_device(dev)
+            model = build()
+            model.set_state_dict(state)
+            got[dev] = (model, DecodeSession(model, 64).generate(
+                ids, max_new_tokens=12).numpy())
+        model, card_ids = got["gpu:0"]
+        margins, scale = greedy_margins(paddle, model, card_ids, 8, torch)
+        tag = f"serving small {name} (f32)"
+        run.check(np.array_equal(card_ids, got["cpu"][1]),
+                  f"{tag}: DecodeSession greedy ids on the card equal the "
+                  f"CPU's (B2, prompt 8, 12 new; smallest top-2 margin "
+                  f"{margins.min() / scale:.3e} of the logit scale)")
+        sess = ContinuousBatchingSession(model, max_slots=2, max_length=64)
+        rids = [sess.submit(p, b) for p, b in reqs]
+        completed = []
+        while sess._queue or sess._running or sess._pending:
+            completed.extend(sess.step())
+        res = sess.run()
+        counts = sess.executable_counts()
+        sess.close()
+        run.check(completed.index(rids[1]) < completed.index(rids[0]),
+                  f"{tag}: continuous batching, 3 requests through 2 slots: "
+                  f"request 1 retires before request 0 (order {completed})")
+        worst = math.inf
+        for rid, (prompt, budget) in zip(rids, reqs):
+            iso = DecodeSession(model, 64).generate(
+                prompt[None], max_new_tokens=budget).numpy()
+            m, sc = greedy_margins(paddle, model, iso, len(prompt), torch)
+            worst = min(worst, float(m.min()) / sc)
+            diff = np.flatnonzero(res[rid][len(prompt):] !=
+                                  iso[0, len(prompt):])
+            first = int(diff[0]) if diff.size else None
+            run.check(first is None or m[0, first] < NEAR_TIE * sc,
+                      f"{tag}: continuous batching request {rid} equals "
+                      f"its isolated DecodeSession run on the card"
+                      + ("" if first is None else
+                         f" up to step {first}, where the isolated run's "
+                         f"top-2 margin is {m[0, first] / sc:.3e} of the "
+                         f"logit scale (allowed under {NEAR_TIE})"))
+        print(f"{tag}: continuous batching smallest top-2 margin "
+              f"{worst:.3e} of the logit scale; programs (admit, decode) "
+              f"{counts}", flush=True)
+        out[name] = {"decode_min_margin": float(margins.min()) / scale,
+                     "cb_min_margin": worst, "cb_programs": list(counts)}
+    paddle.set_device("gpu:0")
+    return out
+
+
+def _event_timed(torch, fn, log, profile_at=None, profiled=None):
+    """fn wrapped to record CUDA events around each call into ``log``; the
+    call numbered ``profile_at`` instead runs alone under torch.profiler
+    (synchronized before and after), its (profiler, wall ms) in
+    ``profiled``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def wrapped(*args, **kwargs):
+        if profile_at is not None and len(log) + len(profiled) == profile_at:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                r = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                profiled.append((prof, (time.perf_counter() - t0) * 1e3))
+            return r
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        r = fn(*args, **kwargs)
+        end.record()
+        log.append((start, end))
+        return r
+    return wrapped
+
+
+def _device_rows(prof):
+    from torch.autograd import DeviceType
+    return sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+
+
+def drive_serving(run, paddle, fa, mods, torch):
+    """Phase 9b: Llama-2-7B (LlamaConfig.llama2_7b(), random weights from
+    seed 0, bf16) built on the card: the no-cache scoring forward through
+    the library kernel, a DecodeSession, and a ContinuousBatchingSession,
+    every count zeroed just before the forward it checks."""
+    from paddle_tpu_torch.inference.decode import (ContinuousBatchingSession,
+                                                   DecodeSession)
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.observability import metrics as met
+    cfg = LlamaConfig.llama2_7b()
+    L, V = cfg.num_layers, cfg.vocab_size
+    paddle.set_device("gpu:0")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paddle.seed(0)
+    model = LlamaForCausalLM(cfg)
+    model.bfloat16()
+    model.eval()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    params = model.parameters()
+    n_params = sum(p._data.numel() for p in params)
+    weight_bytes = sum(p._data.numel() * p._data.element_size()
+                       for p in params)
+    print(f"serving llama-2-7b (LlamaConfig.llama2_7b(), {n_params} "
+          f"parameters, bf16): built on the card in {build_s:.1f} s",
+          flush=True)
+
+    # the no-cache scoring forward at B4 S1024 (eval), through the library
+    # forward kernel; counted over one forward, then over the timed ones
+    def score(t):
+        with paddle.no_grad():
+            return model(t)
+
+    t_score = paddle.to_tensor(np.random.RandomState(1).randint(
+        0, V, (SCORING_BATCH, SCORING_SEQ)))
+    want = {n: L if n == "library_flash_fwd" else 0
+            for mod in mods for n in mod.LAUNCHES}
+    for calls, what in ((1, "one forward"), (4, "the timed forwards")):
+        for mod in mods:
+            mod.reset_launch_counts()
+        ticks0 = fa.dispatch_counts()
+        if calls == 1:
+            logits = score(t_score)._data
+            torch.cuda.synchronize()
+            finite = bool(torch.isfinite(logits).all())
+            del logits
+        else:
+            score_ms = windows_ms(lambda: score(t_score), reps=1, windows=3)
+        launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
+        dispatch = fa.dispatch_counts(ticks0)
+        run.check(launches == {n: c * calls for n, c in want.items()}
+                  and dispatch == {("nn.sdpa", "library_flash"): L * calls},
+                  f"serving llama-2-7b scoring forward (B{SCORING_BATCH} "
+                  f"S{SCORING_SEQ}), {what}: {L} launches of the library "
+                  f"forward kernel a forward, nn.sdpa{{library_flash}} {L} "
+                  f"times, no other attention kernel (launches {launches}, "
+                  f"dispatch {dispatch})")
+    run.check(finite, "serving llama-2-7b scoring forward: finite logits")
+
+    # the scoring forward on the DecodeSession's prompts: its argmax at the
+    # last prompt position, and what the cached forward gives there
+    prompts = np.random.RandomState(0).randint(
+        0, V, (SERVING_BATCH, SERVING_PROMPT)).astype(np.int32)
+    last = score(paddle.to_tensor(prompts))._data[:, -1].float()
+    top2 = torch.topk(last, 2, dim=-1)
+    argmax = top2.indices[:, 0].cpu().numpy()
+    margin = (top2.values[:, 0] - top2.values[:, 1]).cpu().numpy()
+    scale = float(last.abs().max())
+    tie_bound = BF16_STEPS * 2.0 ** -8 * scale
+    with paddle.no_grad():
+        cached, _ = model.forward_with_cache(
+            paddle.to_tensor(prompts),
+            model.init_cache(SERVING_BATCH, max_length=SERVING_PROMPT))
+    path_diff = float((cached._data[:, -1].float() - last).abs().max())
+    del cached, last
+    torch.cuda.empty_cache()
+
+    # DecodeSession: B8 prompts of 512, 128 greedy tokens, capacity 2048
+    sess = DecodeSession(model, max_length=SERVING_CAPACITY)
+    pre_log, dec_log, profiled = [], [], []
+    sess._prefill = _event_timed(torch, sess._prefill, pre_log)
+    sess._decode = _event_timed(torch, sess._decode, dec_log,
+                                PROFILED_DECODE_STEP, profiled)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = sess.generate(prompts, max_new_tokens=SERVING_NEW).numpy()
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prefill_ms = pre_log[0][0].elapsed_time(pre_log[0][1])
+    step_ms = [s.elapsed_time(e) for s, e in dec_log]
+    decode_ms = float(np.median(step_ms))
+    prof, prof_wall = profiled[0]
+    rows = _device_rows(prof)
+    busy = sum(r[1] for r in rows)
+    idle = max(0.0, 1 - busy / prof_wall)
+    first = gen[:, SERVING_PROMPT]
+    decided = margin > tie_bound
+    run.check(gen.shape == (SERVING_BATCH, SERVING_PROMPT + SERVING_NEW)
+              and bool(((gen >= 0) & (gen < V)).all()),
+              f"serving llama-2-7b DecodeSession: {gen.shape} in-vocab ids")
+    run.check(bool((first[decided] == argmax[decided]).all()),
+              f"serving llama-2-7b: the first decoded token equals the "
+              f"scoring forward's argmax for every sequence whose top-2 "
+              f"margin exceeds the bf16 bound {tie_bound:.4f} ({BF16_STEPS} "
+              f"bf16 steps of the logit scale {scale:.4f}): "
+              f"{int(decided.sum())} of {SERVING_BATCH} decided, first "
+              f"tokens {first.tolist()}, argmax {argmax.tolist()}, margins "
+              f"{[round(float(m), 4) for m in margin]}; the cached forward's "
+              f"last-position logits differ from the scoring forward's by "
+              f"at most {path_diff:.4f}")
+    d = cfg.hidden_size // cfg.num_heads
+    cache_bytes = 2 * L * SERVING_BATCH * SERVING_CAPACITY \
+        * cfg.num_kv_heads * d * 4
+    emb = model.llama.embed_tokens.weight._data
+    step_weight_bytes = weight_bytes - emb.numel() * emb.element_size() \
+        + SERVING_BATCH * cfg.hidden_size * emb.element_size()
+    bound_ms = (step_weight_bytes + cache_bytes) / PEAK_HBM_BYTES * 1e3
+    run.check(peak_gb * 1e9 < weight_bytes + 1.5 * cache_bytes,
+              f"serving llama-2-7b DecodeSession: peak memory {peak_gb:.2f}"
+              f" GB holds one cache ({cache_bytes / 1e9:.2f} GB) beside the "
+              f"weights ({weight_bytes / 1e9:.2f} GB), not two")
+    tok_s = SERVING_BATCH * SERVING_NEW / gen_s
+    print(f"serving llama-2-7b scoring forward B{SCORING_BATCH} "
+          f"S{SCORING_SEQ}: {score_ms[0]:.2f} ms (device events, median of "
+          f"3, spread {score_ms[1]:.2f})", flush=True)
+    print(f"serving llama-2-7b DecodeSession B{SERVING_BATCH} prompt "
+          f"{SERVING_PROMPT}, {SERVING_NEW} new, capacity "
+          f"{SERVING_CAPACITY}: prefill {prefill_ms:.2f} ms; decode "
+          f"{decode_ms:.2f} ms/token (median of {len(step_ms)} steps, "
+          f"spread {max(step_ms) - min(step_ms):.2f}); generate "
+          f"{gen_s:.2f} s wall, {tok_s:.1f} decoded tokens/s; peak memory "
+          f"{peak_gb:.2f} GB", flush=True)
+    print(f"serving llama-2-7b decode step {PROFILED_DECODE_STEP} profiled: "
+          f"{prof_wall:.2f} ms wall, {busy:.2f} ms kernel time, idle share "
+          f"{idle:.3f}; bytes bound {bound_ms:.3f} ms "
+          f"({step_weight_bytes / 1e9:.2f} GB of bf16 weights + "
+          f"{cache_bytes / 1e9:.2f} GB of f32 "
+          f"k/v over the whole capacity, at 3.35 TB/s), the step at "
+          f"{bound_ms / decode_ms:.3f} of it", flush=True)
+    for key, kms, count in rows[:8]:
+        print(f"  {kms:9.3f} ms {count:6d}x  {key[:100]}")
+    del sess, gen
+    torch.cuda.empty_cache()
+
+    # ContinuousBatchingSession: 24 requests submitted at once, 8 slots
+    rng = np.random.RandomState(0)
+    plens = rng.randint(CB_PROMPT[0], CB_PROMPT[1] + 1, CB_REQUESTS)
+    budgets = rng.randint(CB_BUDGET[0], CB_BUDGET[1] + 1, CB_REQUESTS)
+    reqs = [rng.randint(0, V, (n,)).astype(np.int32) for n in plens]
+    met.REGISTRY.reset()
+    sess = ContinuousBatchingSession(model, max_slots=CB_SLOTS,
+                                     max_length=SERVING_CAPACITY)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [sess.submit(p, int(b)) for p, b in zip(reqs, budgets)]
+    res = sess.results()
+    cb_s = time.perf_counter() - t0
+    counts = sess.executable_counts()
+    used = {next(b for b in sess._buckets if b >= n) for n in plens}
+    sess.close()
+    run.check(sorted(res) == sorted(rids) and all(
+        res[r].ok and len(res[r].ids) == n + b
+        and bool(((res[r].ids[n:] >= 0) & (res[r].ids[n:] < V)).all())
+        for r, n, b in zip(rids, plens, budgets)),
+        f"serving llama-2-7b ContinuousBatchingSession: all {CB_REQUESTS} "
+        f"requests (prompts {int(plens.min())}-{int(plens.max())}, budgets "
+        f"{int(budgets.min())}-{int(budgets.max())}) finish once, DONE, "
+        f"with their budget of in-vocab tokens")
+    run.check(sum(counts) <= 1 + len(used),
+              f"serving llama-2-7b ContinuousBatchingSession: programs "
+              f"(admit, decode) {counts} within 1 + {len(used)} buckets used")
+    ttft = met.REGISTRY.histogram("serving.time_to_first_token_s")
+    ttft_p50, ttft_p99 = ttft.percentile(0.5), ttft.percentile(0.99)
+    cb_tok_s = int(budgets.sum()) / cb_s
+    print(f"serving llama-2-7b ContinuousBatchingSession ({CB_SLOTS} slots, "
+          f"capacity {SERVING_CAPACITY}, {CB_REQUESTS} requests, "
+          f"{int(budgets.sum())} tokens): {cb_s:.2f} s wall, {cb_tok_s:.1f} "
+          f"tokens/s; time to first token p50 {ttft_p50:.3f} s, p99 "
+          f"{ttft_p99:.3f} s (serving.time_to_first_token_s); programs "
+          f"{counts}", flush=True)
+    return {"parameters": n_params, "build_s": build_s,
+            "scoring_ms": score_ms[0], "scoring_ms_spread": score_ms[1],
+            "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+            "decode_ms_spread": max(step_ms) - min(step_ms),
+            "decode_tokens_per_s": tok_s, "generate_s": gen_s,
+            "peak_memory_gb": peak_gb, "cache_gb": cache_bytes / 1e9,
+            "decode_idle_share": idle, "decode_profiled_ms": prof_wall,
+            "decode_kernel_ms": busy, "decode_bound_ms": bound_ms,
+            "decode_bound_share": bound_ms / decode_ms,
+            "first_token_decided": int(decided.sum()),
+            "tie_bound": tie_bound, "path_diff": path_diff,
+            "cb_s": cb_s, "cb_tokens_per_s": cb_tok_s,
+            "cb_ttft_p50_s": ttft_p50, "cb_ttft_p99_s": ttft_p99,
+            "cb_programs": list(counts), "cb_buckets_used": len(used)}
 
 
 def main():
@@ -1223,6 +1589,13 @@ def main():
         layer = drive_layer_gpt(run, paddle, GPTConfig, GPTForCausalLM, fa,
                                 mods, torch)
     paths["layer_gpt"] = layer
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    small_serving = check_small_serving(run, paddle, torch)
+    serving = drive_serving(run, paddle, fa, mods, torch)
+    serving["small"] = small_serving
+    serving["phase_s"] = time.perf_counter() - t0
+    print(f"serving phase: {serving['phase_s']:.1f} s", flush=True)
 
     kernels = []
     for kern in KERNELS:
@@ -1257,6 +1630,7 @@ def main():
                                     if k != "launches"}}))
     print(json.dumps({"autotune": tuned}))
     print(json.dumps({"eager": eager}))
+    print(json.dumps({"serving": serving}))
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed",
               file=sys.stderr)

@@ -19,7 +19,13 @@ What is ported so far:
   functionals, initializers, clipping, ``nn.utils``; its
   ``scaled_dot_product_attention`` reaches the library attention tier's
   Hopper kernels) and ``optimizer`` (the 14 optimizers, ``lr``,
-  ``GradientMergeOptimizer``), and the Layer GPT (``models/gpt.py``).
+  ``GradientMergeOptimizer``), and the Layer GPT (``models/gpt.py``);
+- serving: ``inference`` (the fixed-capacity KV cache, ``DecodeSession``,
+  ``ContinuousBatchingSession``, admission control), the Llama model
+  (``models/llama.py``) and the GPT's cache path, ``incubate``'s
+  ``masked_multihead_attention``, and ``observability`` (the registry, its
+  exporters, snapshots and the scrape endpoint) with the fault-injection
+  hooks of ``_chaos``.
 
 Use it as ``import paddle_tpu_torch as paddle``. Names of later slices
 (``amp``, ``io``, ``jit``, ``nn``'s rnn/extended/quant, ...) are not here.

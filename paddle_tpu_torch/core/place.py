@@ -8,6 +8,8 @@ raises, as ``device.resolve_device`` does. This build has no TPU:
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..device import resolve_device
@@ -131,6 +133,21 @@ def default_device() -> torch.device:
     if _CURRENT_DEVICE is not None:
         return _CURRENT_DEVICE
     return _current_place().torch_device()
+
+
+@contextlib.contextmanager
+def device_guard(device):
+    """Within the block the default place is ``device`` (a torch.device):
+    the serving sessions run a model and allocate its caches on the device
+    of its parameters, whatever ``set_device`` said."""
+    global _CURRENT_PLACE, _CURRENT_DEVICE
+    saved = _CURRENT_PLACE, _CURRENT_DEVICE
+    dev = torch.device(device)
+    _CURRENT_PLACE, _CURRENT_DEVICE = place_of(dev), dev
+    try:
+        yield
+    finally:
+        _CURRENT_PLACE, _CURRENT_DEVICE = saved
 
 
 def place_of(dev: torch.device) -> Place:

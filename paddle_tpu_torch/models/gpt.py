@@ -5,10 +5,12 @@ flagship; BASELINE.json config 3: GPT-3 1.3B), built from the port's
 ``GPTConfig`` is the port's own copy (same fields and defaults, same named
 configurations). Attention goes through ``F.scaled_dot_product_attention``
 (causal), which takes the library tier's Hopper kernels on the card. The
-reference's tensor-parallel layers (``use_tensor_parallel``) and its decode
-path (the ``cache`` arguments, ``init_cache``, ``forward_with_cache``,
-``generate``) wait for later slices of the port (ROADMAP queue 1) and
-raise ``NotImplementedError``.
+decode path (the ``caches`` argument, ``init_cache``,
+``forward_with_cache``, ``generate``) is the reference's: learned positions
+continue from the cache lengths and ``inference.decode.cache_attention``
+writes k/v into the fixed-capacity cache in place. The reference's
+tensor-parallel layers (``use_tensor_parallel``) wait for the distributed
+slice of the port (ROADMAP queue 1) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -59,12 +61,17 @@ class GPTAttention(nn.Layer):
         self.drop = nn.Dropout(cfg.dropout)
 
     def forward(self, x, cache=None):
-        if cache is not None:
-            raise _later("decoding with a cache")
         b, s, h = x.shape
         nh = self.cfg.num_heads
         qkv = self.qkv(x).reshape([b, s, 3, nh, h // nh])
         q, k, v = qkv.unbind(axis=2)
+        if cache is not None:
+            # fixed-capacity decode path (inference/decode.py): write
+            # k/v at the cache lengths, attend with the length mask
+            from paddle_tpu_torch.inference.decode import cache_attention
+            out, cache = cache_attention(q, k, v, cache)
+            out = out.reshape([b, s, h])
+            return self.drop(self.proj(out)), cache
         out = F.scaled_dot_product_attention(
             q, k, v, is_causal=True,
             dropout_p=self.cfg.dropout, training=self.training)
@@ -94,7 +101,10 @@ class GPTBlock(nn.Layer):
 
     def forward(self, x, cache=None):
         if cache is not None:
-            raise _later("decoding with a cache")
+            a, cache = self.attn(self.ln1(x), cache)
+            x = x + a
+            x = x + self.mlp(self.ln2(x))
+            return x, cache
         x = x + self.attn(self.ln1(x))
         x = x + self.mlp(self.ln2(x))
         return x
@@ -117,18 +127,43 @@ class GPTModel(nn.Layer):
                                      bias_attr=False)
 
     def forward(self, input_ids, caches=None):
-        if caches is not None:
-            raise _later("decoding with a cache")
         b, s = input_ids.shape
-        pos = paddle.arange(s, dtype="int64").unsqueeze(0)
+        if caches is not None:
+            # learned positions continue from the per-sequence cache
+            # lengths (all layer caches share one length counter). A slot
+            # the continuous-batching step masks may sit at the capacity:
+            # its discarded row stays inside the table, where the
+            # reference's gather reads NaN (jnp.take's "fill"), which its
+            # dead k/v then carry into the slot's next request.
+            pos = (caches[0].length.unsqueeze(1) +
+                   paddle.arange(s, dtype="int64").unsqueeze(0)).clip(
+                       max=self.cfg.max_seq_len - 1)
+        else:
+            pos = paddle.arange(s, dtype="int64").unsqueeze(0)
         x = self.wte(input_ids) + self.wpe(pos)
         x = self.drop(x)
-        for blk in self.blocks:
-            x = blk(x)
+        if caches is not None:
+            new_caches = []
+            for blk, c in zip(self.blocks, caches):
+                x, c = blk(x, c)
+                new_caches.append(c)
+            caches = new_caches
+        else:
+            for blk in self.blocks:
+                x = blk(x)
         x = self.ln_f(x)
         if self.cfg.tie_embeddings:
-            return paddle.matmul(x, self.wte.weight, transpose_y=True)
-        return self.lm_head(x)
+            logits = paddle.matmul(x, self.wte.weight, transpose_y=True)
+        else:
+            logits = self.lm_head(x)
+        return logits if caches is None else (logits, caches)
+
+    def init_cache(self, batch_size, max_length):
+        from paddle_tpu_torch.inference.decode import init_static_cache
+        d = self.cfg.hidden_size // self.cfg.num_heads
+        return [init_static_cache(batch_size, max_length,
+                                  self.cfg.num_heads, d)
+                for _ in range(self.cfg.num_layers)]
 
 
 class GPTForCausalLM(nn.Layer):
@@ -144,3 +179,27 @@ class GPTForCausalLM(nn.Layer):
         return self.loss_fn(
             logits[:, :-1].reshape([-1, logits.shape[-1]]),
             labels[:, 1:].reshape([-1]))
+
+    def init_cache(self, batch_size, max_length=None):
+        return self.gpt.init_cache(batch_size, max_length or
+                                   self.gpt.cfg.max_seq_len)
+
+    def forward_with_cache(self, input_ids, caches):
+        """DecodeSession contract: (ids, caches) -> (logits, caches)."""
+        return self.gpt(input_ids, caches)
+
+    @paddle.no_grad()
+    def generate(self, input_ids, max_new_tokens=16, temperature=0.0,
+                 top_p=None, seed=None, max_length=None,
+                 decode_block=None):
+        """Static-shape generation over the fixed-capacity KV cache (see
+        inference/decode.py)."""
+        from paddle_tpu_torch.inference.decode import cached_generate
+        self.eval()
+        # learned wpe table: positions past max_seq_len are a hard error
+        return cached_generate(self, input_ids, max_new_tokens,
+                               temperature=temperature, top_p=top_p,
+                               seed=seed, max_length=max_length,
+                               decode_block=decode_block,
+                               seq_ceiling=self.gpt.cfg.max_seq_len,
+                               hard_limit=True)

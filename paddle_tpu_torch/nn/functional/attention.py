@@ -14,9 +14,10 @@ library kernel would refuse the shape, the gate refuses it beforehand
 CPU, masks, dropout, other shapes) it runs the plain ``_xla_attention``,
 whose causal mask is bottom-right aligned, as the reference's is.
 
-Each call ticks ``ops.hopper.flash_attention.DISPATCH_COUNTS`` under
-``nn.sdpa`` with the route it took on the card ("library_flash" or
-"plain"), so that a run can show where its attention went.
+Each call on the card ticks ``nn.sdpa{route=}`` on observability's
+``REGISTRY`` with the route it took ("library_flash" or "plain"), so that
+a run can show where its attention went
+(``ops.hopper.flash_attention.dispatch_counts``).
 """
 from __future__ import annotations
 

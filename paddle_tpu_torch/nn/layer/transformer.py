@@ -3,10 +3,11 @@
 TransformerEncoder :786).
 
 Attention goes through ``F.scaled_dot_product_attention``, which takes the
-library tier's Hopper kernels on the card. The decode caches (the
-reference's ``gen_cache`` and the ``cache`` arguments, which reach
-``paddle_tpu.inference.decode``) wait for the serving slice: they raise
-``NotImplementedError``.
+library tier's Hopper kernels on the card. The decode caches are the
+reference's: ``gen_cache`` gives the growing concat ``Cache``, the
+projected ``StaticCache`` of cross-attention, or with ``max_length`` the
+fixed-capacity cache of ``inference.decode``, whose k/v
+``cache_attention`` writes in place.
 """
 from __future__ import annotations
 
@@ -20,12 +21,6 @@ from .. import functional as F
 from .common import Dropout, Linear
 from .layers import Layer, LayerList
 from .norm import LayerNorm
-
-
-def _no_cache():
-    return NotImplementedError(
-        "MultiHeadAttention's decode caches wait for the serving slice of "
-        "the port (ROADMAP queue 1, item 3)")
 
 
 class MultiHeadAttention(Layer):
@@ -53,22 +48,62 @@ class MultiHeadAttention(Layer):
         return x.reshape([b, s, self.num_heads, self.head_dim])
 
     def gen_cache(self, key, value=None, type=None, max_length=None):
-        raise _no_cache()
+        """max_length=None keeps the reference's growing concat Cache
+        (every decode step is a new shape). max_length=C returns the
+        fixed-capacity decode cache of ``inference.decode`` (k/v written
+        in place, a length mask; one static shape for every step)."""
+        if type == MultiHeadAttention.StaticCache:
+            k = self._split_heads(self.k_proj(key))
+            v = self._split_heads(self.v_proj(value if value is not None
+                                              else key))
+            return self.StaticCache(k, v)
+        b = key.shape[0]
+        if max_length is not None:
+            from ...inference.decode import init_static_cache
+            return init_static_cache(b, max_length, self.num_heads,
+                                     self.head_dim, dtype=key.dtype)
+        k = Tensor._wrap(torch.zeros(b, 0, self.num_heads, self.head_dim,
+                                     dtype=key._data.dtype,
+                                     device=key._data.device))
+        return self.Cache(k, k)
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):
-        if cache is not None:
-            raise _no_cache()
+        from ...inference.decode import (StaticCache as _DecodeCache,
+                                         cache_attention)
         key = query if key is None else key
         value = key if value is None else value
         q = self._split_heads(self.q_proj(query))
-        k = self._split_heads(self.k_proj(key))
-        v = self._split_heads(self.v_proj(value))
+        if isinstance(cache, _DecodeCache):
+            # fixed-capacity decode path (causality enforced by the
+            # cache length mask; attn_mask is not consulted here)
+            k = self._split_heads(self.k_proj(key))
+            v = self._split_heads(self.v_proj(value))
+            out, new_cache = cache_attention(q, k, v, cache)
+            b, s = out.shape[0], out.shape[1]
+            out = self.out_proj(out.reshape([b, s, self.embed_dim]))
+            return out, new_cache
+        if isinstance(cache, self.StaticCache):
+            k, v = cache.k, cache.v
+            new_cache = cache
+        else:
+            k = self._split_heads(self.k_proj(key))
+            v = self._split_heads(self.v_proj(value))
+            if isinstance(cache, self.Cache):
+                from ...ops.manipulation import concat
+                k = concat([cache.k, k], axis=1)
+                v = concat([cache.v, v], axis=1)
+                new_cache = self.Cache(k, v)
+            else:
+                new_cache = None
         out = F.scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
             training=self.training)
         b, s = out.shape[0], out.shape[1]
-        return self.out_proj(out.reshape([b, s, self.embed_dim]))
+        out = self.out_proj(out.reshape([b, s, self.embed_dim]))
+        if cache is not None and new_cache is not None:
+            return out, new_cache
+        return out
 
 
 class TransformerEncoderLayer(Layer):

@@ -3,8 +3,9 @@
 The port's own copy of ``paddle_tpu/observability/metrics.py`` (pure
 Python), because eager dispatch reads it: the same classes, registry,
 label-cardinality cap and ``PADDLE_TPU_METRICS=off|on`` switch, with
-``enabled()`` / ``enable()`` / ``disable()``. The JSONL and Prometheus
-exporters are not here yet; ``Registry.snapshot()`` is.
+``enabled()`` / ``enable()`` / ``disable()``, ``Registry.snapshot()`` and
+the JSON-lines and Prometheus-text exporters (``to_jsonl``,
+``to_prometheus``, which the scrape endpoint of ``server.py`` serves).
 
 Every mutate method opens with one branch on the module-global
 ``_ENABLED``, and hot paths guard with the same branch, so the disabled
@@ -12,8 +13,10 @@ cost is one attribute load.
 """
 from __future__ import annotations
 
+import json
 import os
 import threading
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 #: module-global fast-path switch; hot paths read this directly
@@ -194,7 +197,7 @@ class Histogram:
         if s:
             # count >= 1 implies a non-empty reservoir today, but the
             # percentile keys stay OPTIONAL in the export contract
-            # (consumers guard on presence)
+            # (to_prometheus / consumers already guard on presence)
             def pct(q):
                 return s[min(max(int(q * len(s)), 0), len(s) - 1)]
             out.update(p50=pct(0.50), p90=pct(0.90), p99=pct(0.99))
@@ -308,11 +311,71 @@ class Registry:
             out.append(d)
         return out
 
+    def to_jsonl(self) -> str:
+        """One JSON object per line, one line per metric."""
+        ts = time.time()
+        return "\n".join(
+            json.dumps({"ts": ts, **d}, sort_keys=True)
+            for d in self.snapshot())
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition; histograms as summaries."""
+        lines = []
+        seen_type = set()
+        for d in self.snapshot():
+            pname = _prom_name(d["name"])
+            if pname not in seen_type:
+                kind = {"counter": "counter", "gauge": "gauge",
+                        "histogram": "summary"}[d["type"]]
+                lines.append(f"# TYPE {pname} {kind}")
+                seen_type.add(pname)
+            if d["type"] == "histogram":
+                lines.append(
+                    f"{pname}_count{_prom_labels(d['labels'])} "
+                    f"{d['count']}")
+                lines.append(
+                    f"{pname}_sum{_prom_labels(d['labels'])} "
+                    f"{_prom_num(d['sum'])}")
+                for q in ("p50", "p90", "p99"):
+                    if q in d:
+                        lab = dict(d["labels"])
+                        lab["quantile"] = f"0.{q[1:]}"
+                        lines.append(
+                            f"{pname}{_prom_labels(lab)} "
+                            f"{_prom_num(d[q])}")
+            else:
+                lines.append(
+                    f"{pname}{_prom_labels(d['labels'])} "
+                    f"{_prom_num(d['value'])}")
+        return "\n".join(lines) + ("\n" if lines else "")
+
     def reset(self) -> None:
         """Zero every metric (tests); registrations survive."""
         with self._lock:
             for m in self._metrics.values():
                 m._reset()
+
+
+def _prom_name(name: str) -> str:
+    out = "".join(c if (c.isalnum() or c == "_") else "_" for c in name)
+    if out and out[0].isdigit():
+        out = "_" + out
+    return "paddle_tpu_" + out
+
+
+def _prom_labels(labels: dict) -> str:
+    if not labels:
+        return ""
+    def esc(v):
+        return str(v).replace("\\", "\\\\").replace('"', '\\"')
+    inner = ",".join(f'{k}="{esc(v)}"'
+                     for k, v in sorted(labels.items()))
+    return "{" + inner + "}"
+
+
+def _prom_num(v) -> str:
+    f = float(v)
+    return repr(int(f)) if f == int(f) and abs(f) < 1e15 else repr(f)
 
 
 #: the process-global registry every framework layer records into

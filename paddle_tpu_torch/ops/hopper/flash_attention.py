@@ -32,10 +32,10 @@ Errors propagate: a kernel that fails to build or launch raises.
 from __future__ import annotations
 
 import math
-from collections import Counter
 
 import torch
 
+from ...observability import metrics as _met
 from . import _launch as L
 from . import autotune
 from . import blocked_flash as bf
@@ -44,17 +44,32 @@ from . import lse_backward
 from . import simple_attention as sa
 from . import simple_attention2 as sa2
 
-# attn.dispatch{kernel=} and attn.dispatch_fallback{reason=} ticks since the
-# last reset_dispatch_counts(), keyed (metric, label value).
-DISPATCH_COUNTS: Counter = Counter()
-
-
-def reset_dispatch_counts():
-    DISPATCH_COUNTS.clear()
+# The dispatch counters on observability's REGISTRY, as the reference ticks
+# them, each with its label key: attn.dispatch{kernel=},
+# attn.dispatch_fallback{reason=}, and nn.sdpa{route=} (ticked by
+# nn.functional.scaled_dot_product_attention).
+DISPATCH_LABELS = {"attn.dispatch": "kernel",
+                   "attn.dispatch_fallback": "reason", "nn.sdpa": "route"}
 
 
 def _count(metric, value):
-    DISPATCH_COUNTS[(metric, value)] += 1
+    if _met._ENABLED:
+        _met.REGISTRY.counter(metric, **{DISPATCH_LABELS[metric]: value}).inc()
+
+
+def dispatch_counts(since=None):
+    """{(metric, label value): count} of the dispatch counters on the
+    registry; with ``since`` (an earlier return of this function), the ticks
+    after it, the series that did not move left out."""
+    now = {}
+    for d in _met.REGISTRY.snapshot():
+        key = DISPATCH_LABELS.get(d["name"])
+        if key is not None and key in d["labels"]:
+            now[(d["name"], d["labels"][key])] = int(d["value"])
+    if since is None:
+        return now
+    moved = {k: n - since.get(k, 0) for k, n in now.items()}
+    return {k: n for k, n in moved.items() if n}
 
 
 def supported_shape(bshd, skv, dtype) -> bool:

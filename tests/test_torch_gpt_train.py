@@ -331,10 +331,10 @@ def test_slice_step0_loss_and_grads_through_the_rung_kernels(monkeypatch,
 
 
 def test_dispatch_on_cpu_returns_none_and_counts_nothing():
-    tfa.reset_dispatch_counts()
+    before = tfa.dispatch_counts()
     q = torch.zeros(1, 128, 2, 64)
     assert tfa.flash_attention_maybe(q, q, q, causal=True) is None
-    assert not tfa.DISPATCH_COUNTS
+    assert not tfa.dispatch_counts(before)
 
 
 @pytest.mark.parametrize("shape,dtype,reason", [
@@ -344,18 +344,19 @@ def test_dispatch_on_cpu_returns_none_and_counts_nothing():
 ])
 def test_dispatch_gate_rejects_count_fallback(shape, dtype, reason):
     # meta tensors stand for device tensors: dispatch reads only shapes
-    tfa.reset_dispatch_counts()
+    before = tfa.dispatch_counts()
     q = torch.empty(shape, dtype=dtype, device="meta")
     assert tfa._dispatch(q, q, q, True, None) is None
-    assert tfa.DISPATCH_COUNTS == {("attn.dispatch_fallback", reason): 1}
+    assert tfa.dispatch_counts(before) == {
+        ("attn.dispatch_fallback", reason): 1}
 
 
 def test_dispatch_picks_simple_and_never_falls_back():
-    tfa.reset_dispatch_counts()
+    before = tfa.dispatch_counts()
     q = torch.empty(1, 1024, 2, 128, dtype=torch.bfloat16, device="meta")
     out = tfa._dispatch(q, q, q, True, None)
     assert out.shape == q.shape and out.dtype == q.dtype
-    assert tfa.DISPATCH_COUNTS == {("attn.dispatch", "simple"): 1}
+    assert tfa.dispatch_counts(before) == {("attn.dispatch", "simple"): 1}
 
 
 # The middle tier, [B, S, H, D]: non-causal S=2048 at D=128, and the
@@ -363,11 +364,11 @@ def test_dispatch_picks_simple_and_never_falls_back():
 @pytest.mark.parametrize("shape,causal", [((1, 2048, 2, 128), False),
                                           ((2, 4096, 16, 64), True)])
 def test_dispatch_sends_the_middle_tier_to_qblock(shape, causal):
-    tfa.reset_dispatch_counts()
+    before = tfa.dispatch_counts()
     q = torch.empty(shape, dtype=torch.bfloat16, device="meta")
     out = tfa._dispatch(q, q, q, causal, None)
     assert out.shape == q.shape and out.dtype == q.dtype
-    assert tfa.DISPATCH_COUNTS == {("attn.dispatch", "qblock"): 1}
+    assert tfa.dispatch_counts(before) == {("attn.dispatch", "qblock"): 1}
 
 
 # A winner in the autotuner's table takes precedence over the static chain
@@ -380,22 +381,22 @@ def test_dispatch_follows_the_autotune_table(winner, tier):
     shape = (2, 4096, 16, 64) if winner != "simple" else (2, 1024, 16, 64)
     tat._load_table()[tat._key(shape, shape[1], torch.bfloat16, True)] = \
         {"winner": winner}
-    tfa.reset_dispatch_counts()
+    before = tfa.dispatch_counts()
     q = torch.empty(shape, dtype=torch.bfloat16, device="meta")
     out = tfa._dispatch(q, q, q, True, None)
     assert out.shape == q.shape and out.dtype == q.dtype
-    assert tfa.DISPATCH_COUNTS == {("attn.dispatch", tier): 1}
+    assert tfa.dispatch_counts(before) == {("attn.dispatch", tier): 1}
 
 
 # The rungs' attention shapes, [B, S, H, D]: train_s2048 and train_s4096.
 @pytest.mark.parametrize("shape,tier", [((4, 2048, 8, 128), "causal_skip"),
                                         ((2, 4096, 8, 128), "blocked")])
 def test_dispatch_sends_the_rungs_to_their_kernels(shape, tier):
-    tfa.reset_dispatch_counts()
+    before = tfa.dispatch_counts()
     q = torch.empty(shape, dtype=torch.bfloat16, device="meta")
     out = tfa._dispatch(q, q, q, True, None)
     assert out.shape == q.shape and out.dtype == q.dtype
-    assert tfa.DISPATCH_COUNTS == {("attn.dispatch", tier): 1}
+    assert tfa.dispatch_counts(before) == {("attn.dispatch", tier): 1}
 
 
 # What the reference sends to JAX's own library kernel: a head dim that
@@ -404,11 +405,12 @@ def test_dispatch_sends_the_rungs_to_their_kernels(shape, tier):
 # traces; the reference counts that and returns None (plain attention).
 @pytest.mark.parametrize("d", [192, 320])
 def test_dispatch_refuses_head_dims_the_library_kernel_refuses(d):
-    tfa.reset_dispatch_counts()
+    before = tfa.dispatch_counts()
     q = torch.empty(1, 4096, 2, d, dtype=torch.bfloat16, device="meta")
     assert tfa._dispatch(q, q, q, True, None) is None
-    assert tfa.DISPATCH_COUNTS == {("attn.dispatch", "library_flash"): 1,
-                                   ("attn.dispatch_fallback", "error"): 1}
+    assert tfa.dispatch_counts(before) == {
+        ("attn.dispatch", "library_flash"): 1,
+        ("attn.dispatch_fallback", "error"): 1}
 
 
 def test_dispatch_refusal_matches_the_reference(monkeypatch):
@@ -446,11 +448,12 @@ def test_dispatch_refusal_matches_the_reference(monkeypatch):
                          ids=["q_shape1-4096"])
 def test_dispatch_raises_where_no_hopper_kernel_takes_the_shape(q_shape,
                                                                 kv_len):
-    tfa.reset_dispatch_counts()
+    before = tfa.dispatch_counts()
     q = torch.empty(q_shape, dtype=torch.bfloat16, device="meta")
     k = torch.empty(q_shape[0], kv_len, *q_shape[2:], dtype=torch.bfloat16,
                     device="meta")
     assert not tbf.supported((1, 2, 2048, 128), kv_len, torch.bfloat16, True)
     out = tfa._dispatch(q, k, k, True, None)
     assert out.shape == q.shape and out.dtype == q.dtype
-    assert tfa.DISPATCH_COUNTS == {("attn.dispatch", "library_flash"): 1}
+    assert tfa.dispatch_counts(before) == {
+        ("attn.dispatch", "library_flash"): 1}

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: importing and running paddle_tpu_torch loads
-neither jax nor the JAX package, and its entry points default to CUDA: the
-training step's, and the eager API's, whose tensors land on gpu:0 unless
+neither jax nor the JAX package (the training step, the eager and Layer
+APIs, and serving: ``inference``, ``models.llama``, ``observability``'s
+server, ``_chaos``), and its entry points default to CUDA: the training
+step's, and the eager API's, whose tensors land on gpu:0 unless
 set_device("cpu") was called."""
 import os
 import subprocess
@@ -69,6 +71,17 @@ opt = optimizer.AdamW(learning_rate=1e-3, parameters=model.parameters())
 ids_t = paddle.to_tensor(ids[:, :16].numpy())
 model(ids_t, ids_t).backward()
 opt.step()
+
+# serving: the sessions, Llama, the scrape endpoint, fault injection
+from paddle_tpu_torch import _chaos, inference, observability
+from paddle_tpu_torch.incubate.nn import functional as incubate_functional
+from paddle_tpu_torch.inference import admission, decode
+from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.observability import catalog, server, snapshots
+llama = LlamaForCausalLM(LlamaConfig.tiny())
+assert llama.generate(ids_t[:1, :8], max_new_tokens=3).shape == [1, 11]
+assert inference.DecodeSession is decode.DecodeSession
+assert server.shared_server() is None and not _chaos.active()
 
 def foreign(name):
     return (name in ("jax", "jaxlib", "paddle_tpu")

@@ -596,12 +596,28 @@ def test_attention_layers_with_a_mask(layer, mask_kind):
 
 
 def test_decode_caches_wait_for_the_serving_slice():
-    mha = T.nn.MultiHeadAttention(16, 4)
-    x = T.to_tensor(_x(1, 3, 16))
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        mha.gen_cache(x)
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        mha(x, cache=object())
+    """The serving slice brought MultiHeadAttention's decode caches: the
+    growing concat Cache and the fixed-capacity one of gen_cache(...,
+    max_length=) give the reference's outputs over four decode steps
+    (within 1e-5 of scale), and the fixed cache keeps its capacity."""
+    ref, port = _layer_pair(lambda nn: nn.MultiHeadAttention(16, 4))
+    x = _x(2, 4, 16, seed=8)
+    for kw in ({}, {"max_length": 8}):
+        outs = {}
+        for pkg, mha in ((P, ref), (T, port)):
+            mha.eval()
+            t = pkg.to_tensor(x)
+            cache = mha.gen_cache(t, **kw)
+            got = []
+            with pkg.no_grad():
+                for i in range(4):
+                    step = t[:, i:i + 1]
+                    o, cache = mha(step, step, step, None, cache)
+                    got.append(o.numpy())
+            outs[pkg] = got
+        for r, t in zip(outs[P], outs[T]):
+            assert _rel(t, r) <= 1e-5
+    assert cache.k.shape[1] == 8 and int(cache.length.numpy()[0]) == 4
 
 
 # ------------------------------------------------- dtype, device and hooks
