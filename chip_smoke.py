@@ -108,17 +108,55 @@ Phases, each of which fails the run (non-zero exit, no result line):
      continuous session's tokens/s and time-to-first-token p50/p99 (its
      serving.* histogram), peak memory, the idle share of one profiled
      decode step and the step's bytes bound with its share.
+ 10. the MoE GPT (``models/gpt_hybrid`` with ``num_experts``), on a fresh
+     empty autotune table: (a) a small config with 2 experts (h128, 2
+     layers, 2 heads of 64, B4 S128, f32, remat "names") on the card
+     (kernels) against the same params on the CPU (plain path): the loss
+     and every gradient, the gate's and the experts' included, and
+     ``build_accum_steps`` with k=2 then one apply gives the same
+     parameters; (b) the full config of benchmarks/workloads/moe_ep.py at
+     one device (vocab 50304, h1024, 24 layers, 8 heads of 128, 2 experts,
+     B4 S1024, remat "names", bf16, zero1) through setup() and its step, 1
+     warm-up and 3 timed steps, as a phase 4 path: 24 launches a step of
+     each of simple_attention's kernels and no other attention kernel,
+     dispatch only to "simple", the step-0 loss in [10, 11.5] and a loss
+     that falls; prints ms/step, tokens/s, MFU with the FLOPs the dense
+     dispatch issues (2 x the FFN) and with the top-1 count, the
+     forward+backward/optimizer split, the idle share and the peak memory;
+ 11. BERT-base MLM under AMP O2 (``amp``, ``models/bert.py``), on a fresh
+     empty autotune table: (a) a small BERT (h256, 2 layers, 4 heads of
+     64, vocab 512) at B2 S128 in eval mode without a mask, f32, on the
+     card (the library tier) and on the CPU (plain) from one state_dict:
+     the logits, the loss and every gradient, and the library forward
+     alone at BERT-base's attention (B32 H12 S128 D64 bf16, non-causal)
+     against its plain version, timed beside it and beside one
+     scaled_dot_product_attention call, with its bound; (b)
+     ``BertForMaskedLM(BertConfig.base())`` as
+     benchmarks/workloads/bert_mlm_amp.py runs it in full mode
+     (AdamW(5e-5, multi_precision=True), decorate O2 bf16,
+     GradScaler(2^10), B32 S128, 15 % of ids set to 0, labels = ids, fresh
+     batches from RandomState(0), 10 steps): finite losses, the last below
+     the first; bf16 params, f32 master weights and moments; found_inf
+     false and the scale 2^10 on every step; every training step (dropout
+     0.1) sends attention to the plain route and launches no attention
+     kernel; then one eval scoring forward under auto_cast O2 (no mask)
+     launches the library forward 12 times and no other attention kernel.
+     Prints ms/step (median of steps 2-10, spread), sequences/s,
+     tokens/s, the forward+backward/scaler+optimizer split, the idle share
+     of one profiled step with its top device rows, and the peak memory.
 Phases 2-6 keep the autotuner's table in a fresh temporary
 PADDLE_TPU_CACHE_DIR, empty until phase 6, with FLAGS_attn_autotune at its
-default: phases 2-5 (and 7 and 8, each on a table of its own) run the
-configuration a user gets on a new checkout.
-Prints a {"serving": {...}} line, the card line, then one {"kernels":
-[...]} line (each row with its design), then as the last line
+default: phases 2-5 (and 7, 8, 10 and 11, each on a table of its own) run
+the configuration a user gets on a new checkout.
+Prints {"serving": {...}}, {"moe_gpt": {...}} and {"bert": {...}} lines, the
+card line, then one {"kernels": [...]} line (each row with its design),
+then as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
 Importing this module runs nothing: ``eager_gpt_loss`` is the tests' too.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -489,14 +527,16 @@ def check_small_model(run, TH, GPTConfig, torch):
               f"worst grad leaf rel err {worst:.3e} (tolerance 1e-4)")
 
 
-def drive(run, path, TH, GPTConfig, mods, fa, cost_model, torch):
-    """Phase 4, one path: the training step through setup() and its step,
-    with every count zeroed just before and read just after."""
+def drive(run, path, TH, GPTConfig, mods, fa, cost_model, torch, experts=0):
+    """Phase 4 (and 10b, with ``experts``), one path: the training step
+    through setup() and its step, with every count zeroed just before and
+    read just after."""
     label, fields, batch, seq, tier, kernels, warm, timed_steps = path
     cfg = GPTConfig(**fields)
     pcfg = TH.ParallelConfig(remat=True, remat_policy="names", fused_ce=True,
                              param_dtype=torch.bfloat16,
-                             compute_dtype=torch.bfloat16, moment_dtype=None)
+                             compute_dtype=torch.bfloat16, moment_dtype=None,
+                             num_experts=experts, zero1=True)
     params, opt_state, step = TH.setup(cfg, pcfg, seed=0)
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (batch, seq))).cuda()
@@ -530,17 +570,27 @@ def drive(run, path, TH, GPTConfig, mods, fa, cost_model, torch):
     L = cfg.num_layers
     ms = start.elapsed_time(end) / timed_steps
     tok_s = batch * seq / (ms / 1e3)
-    fpt = cost_model.gpt_flops_per_token(cfg, seq)
+    fpt = moe_flops_per_token(cfg, seq, experts, experts, cost_model) \
+        if experts else cost_model.gpt_flops_per_token(cfg, seq)
     mfu = cost_model.mfu(tok_s, fpt, "H100")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"{label}: h{cfg.hidden_size}, {L} layers, {cfg.num_heads} heads "
           f"of {cfg.hidden_size // cfg.num_heads}, vocab {cfg.vocab_size}, "
-          f"B{batch} S{seq}; losses {[round(x, 4) for x in losses]}",
-          flush=True)
+          f"{experts} experts, B{batch} S{seq}; losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
     print(f"{label}: {ms:.2f} ms/step (device events), "
           f"{wall / timed_steps * 1e3:.2f} ms/step (host clock), "
           f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} at {fpt:.4e} FLOP/token, "
           f"peak memory {peak_gb:.2f} GB", flush=True)
+    extra = {}
+    if experts:
+        # what a top-1 router needs: the routed expert's FFN alone
+        fpt1 = moe_flops_per_token(cfg, seq, 1, experts, cost_model)
+        extra = {"flops_per_token": fpt, "flops_per_token_top1": fpt1,
+                 "mfu_top1": cost_model.mfu(tok_s, fpt1, "H100")}
+        print(f"{label}: MFU {mfu:.4f} with the FLOPs the dense dispatch "
+              f"issues ({experts} x the FFN), {extra['mfu_top1']:.4f} with "
+              f"the top-1 count ({fpt1:.4e} FLOP/token)", flush=True)
     ticks = ", ".join(f"{m}{{{v}}}: {n}" for (m, v), n in dispatch.items())
     print(f"{label}: launches {launches}, dispatch {ticks}", flush=True)
     run.check(all(math.isfinite(x) for x in losses),
@@ -561,7 +611,18 @@ def drive(run, path, TH, GPTConfig, mods, fa, cost_model, torch):
     split = step_breakdown(TH, cfg, pcfg, params, opt_state, ids, torch)
     return {"launches": launches, "steps": steps, "ms_per_step": ms,
             "tokens_per_s": tok_s, "mfu": mfu, "peak_memory_gb": peak_gb,
-            "step0_loss": losses[0], "last_loss": losses[-1], **split}
+            "step0_loss": losses[0], "last_loss": losses[-1], **extra,
+            **split}
+
+
+def moe_flops_per_token(cfg, seq, experts_run, experts, cost_model):
+    """Training FLOPs a token of the MoE GPT: the dense count with each
+    layer's FFN (8h^2 of its 12h^2) run by ``experts_run`` experts (the
+    dense dispatch runs all of them over every token; a top-1 router needs
+    one), plus the gate's h x E product."""
+    h, L = cfg.hidden_size, cfg.num_layers
+    return cost_model.gpt_flops_per_token(cfg, seq) \
+        + 6 * L * ((experts_run - 1) * 8 * h * h + h * experts)
 
 
 def step_breakdown(TH, cfg, pcfg, params, opt_state, ids, torch):
@@ -607,7 +668,8 @@ def step_breakdown(TH, cfg, pcfg, params, opt_state, ids, torch):
     for key, ms, count in rows[:12]:
         print(f"  {ms:9.3f} ms {count:6d}x  {key[:100]}")
     return {"fwd_bwd_ms": fb_ms, "optimizer_ms": opt_ms,
-            "profiled_step_ms": wall_ms, "kernel_ms": busy}
+            "profiled_step_ms": wall_ms, "kernel_ms": busy,
+            "idle_share": max(0.0, 1 - busy / wall_ms)}
 
 
 def time_kernels(mods, torch):
@@ -1507,6 +1569,373 @@ def drive_serving(run, paddle, fa, mods, torch):
             "cb_ttft_p50_s": ttft_p50, "cb_ttft_p99_s": ttft_p99,
             "cb_programs": list(counts), "cb_buckets_used": len(used)}
 
+# --------------------------------------------------------------- phase 10
+# 10b: the MoE GPT of benchmarks/workloads/moe_ep.py:29-37 at one device
+# (the 350M-class width: h1024, 24 layers, 8 heads of 128, vocab 50304;
+# 2 experts, B4 S1024), through setup() and its step like phase 4's paths.
+MOE_EXPERTS = 2
+MOE_PATH = ("moe_gpt", dict(vocab_size=50304, hidden_size=1024,
+                            num_layers=24, num_heads=8, max_seq_len=1024),
+            4, 1024, "simple", ("simple_attention_fwd",
+                                "simple_attention_bwd"), 1, 3)
+# Adam's step is lr * m / (sqrt(v) + eps): round-off in a gradient that is
+# zero in exact arithmetic (the key bias's) becomes a step of up to 0.1 lr,
+# other on each device; parameters are held to that beside 1e-4 of each
+# leaf's scale.
+ADAM_NOISE = 0.1 * 3e-4
+
+
+def check_small_moe(run, TH, GPTConfig, mods, torch):
+    """Phase 10a: a small gpt_hybrid with 2 experts (h128, 2 layers, 2 heads
+    of 64, B4 S128, f32, remat "names"): kernels on the card against the
+    plain path on the CPU from the same params. The loss and every gradient
+    (the gate's and the experts' included) agree, and two chunks through
+    build_accum_steps then one apply give the same parameters; on the card
+    every attention goes through simple_attention's kernels."""
+    cfg = GPTConfig(vocab_size=256, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=128)
+    pcfg = TH.ParallelConfig(num_experts=MOE_EXPERTS, remat=True,
+                             remat_policy="names",
+                             param_dtype=torch.float32,
+                             compute_dtype=torch.float32)
+    cpu_params = TH.init_params(cfg, pcfg, torch.Generator().manual_seed(10),
+                                device="cpu")
+    ids = torch.from_numpy(np.random.RandomState(10).randint(
+        0, cfg.vocab_size, (4, 128)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        # copies: the apply below writes into the params in place
+        params = {k: ({kk: vv.to(dev, copy=True) for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.to(dev, copy=True))
+                  for k, v in cpu_params.items()}
+        batch = ids.to(dev)
+        for mod in mods:
+            mod.reset_launch_counts()
+        loss, grads = TH._value_and_grad(params, (batch, batch), cfg, pcfg)
+        grad_step, apply_step = TH.build_accum_steps(cfg, pcfg)
+        acc = TH.init_grad_accum(params)
+        opt_state = TH.adamw_init(params, pcfg)
+        for chunk in batch.chunk(2):
+            grad_step(params, acc, (chunk, chunk))
+        apply_step(params, opt_state, acc, 2)
+        launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
+        out[dev] = (float(loss), [g.cpu() for g in grads],
+                    [p.cpu() for p in TH._leaves(params)], launches)
+    torch.cuda.synchronize()
+    (lc, gc, pc, _), (lg, gg, pg, launches) = out["cpu"], out["cuda"]
+    names = [n for n, _ in _named_leaves(cpu_params)]
+    grad_err = {n: _leaf_err(a.numpy(), b.numpy())
+                for n, a, b in zip(names, gg, gc)}
+    param_err = max(float((a - b).abs().max())
+                    - 1e-4 * float(b.abs().max()) for a, b in zip(pg, pc))
+    tag = f"moe gpt small ({MOE_EXPERTS} experts, f32, B4 S128 D64)"
+    run.check(abs(lg - lc) <= 1e-5 * abs(lc),
+              f"{tag}: loss {lg:.7f} card vs {lc:.7f} cpu (tolerance rel "
+              "1e-5)")
+    run.check(max(grad_err.values()) <= 1e-4,
+              f"{tag}: worst gradient {max(grad_err.values()):.3e} of its "
+              f"leaf's scale (tolerance 1e-4); MoE leaves "
+              + ", ".join(f"{n} {grad_err[n]:.1e}" for n in names
+                          if n.split(".")[-1] in ("gate_w", "fc1_w", "fc2_w")))
+    run.check(param_err <= ADAM_NOISE,
+              f"{tag}: build_accum_steps k=2 then apply, parameters within "
+              f"1e-4 of each leaf's scale + {ADAM_NOISE:.0e} (worst excess "
+              f"{param_err:.3e})")
+    # value_and_grad, then two chunks: each a forward and a backward of
+    # every layer ("names" saves attention's output, so no recompute)
+    L = cfg.num_layers
+    run.check(launches == {n: 3 * L if n.startswith("simple_attention")
+                           else 0 for n in launches},
+              f"{tag}: {3 * L} launches of each of simple_attention's "
+              f"kernels on the card and no other ({launches})")
+
+
+def _named_leaves(tree, prefix=""):
+    """(dotted name, leaf) in gpt_hybrid's _leaves order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _named_leaves(tree[k], prefix + k + ".")]
+    return [(prefix[:-1], tree)]
+
+
+# --------------------------------------------------------------- phase 11
+# 11a: a small BERT (h256, 2 layers, 4 heads of 64, vocab 512) at B2 S128,
+# eval, no mask, f32. 11b: BertConfig.base() as
+# benchmarks/workloads/bert_mlm_amp.py runs it in full mode.
+SMALL_BERT = dict(vocab_size=512, hidden_size=256, num_layers=2, num_heads=4,
+                  intermediate_size=1024, max_seq_len=128)
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 128, 10
+BERT_SCALE = 2.0 ** 10
+
+
+def _bert_grad_errs(got, want):
+    """Each gradient's max error over its leaf's scale; the key bias's,
+    zero in exact arithmetic (softmax ignores a shift shared by all keys),
+    over the largest gradient of the model."""
+    top = max(float(np.abs(w).max()) for w in want.values() if w is not None)
+    return {n: float(np.abs(got[n] - w).max())
+            / (top if n.endswith("k_proj.bias")
+               else max(float(np.abs(w).max()), 1e-30))
+            for n, w in want.items() if w is not None}
+
+
+def check_small_bert(run, paddle, fa, mods, torch):
+    """Phase 11a: the small BERT MLM in eval mode without a mask, in f32,
+    on the card (the library tier) and on the CPU (plain attention) from
+    one state_dict: the logits, the loss and every gradient agree, and the
+    card launches the library kernels once a layer a pass and no other
+    attention kernel."""
+    from paddle_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    cfg = BertConfig(**SMALL_BERT)
+    ids = np.random.RandomState(11).randint(0, cfg.vocab_size, (2, 128))
+    paddle.seed(0)
+    paddle.set_device("cpu")
+    state = {k: v.numpy() for k, v in BertForMaskedLM(cfg).state_dict()
+             .items()}
+    out = {}
+    for dev in ("cpu", "gpu:0"):
+        paddle.set_device(dev)
+        model = BertForMaskedLM(cfg)
+        model.set_state_dict(state)
+        model.eval()
+        for mod in mods:
+            mod.reset_launch_counts()
+        ticks0 = fa.dispatch_counts()
+        t = paddle.to_tensor(ids)
+        logits = model(t)
+        loss = model(t, labels=t)
+        loss.backward()
+        launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
+        dispatch = fa.dispatch_counts(ticks0)
+        out[dev] = (logits.numpy(), float(loss),
+                    {n: None if p.grad is None else p.grad.numpy()
+                     for n, p in model.named_parameters()})
+    paddle.set_device("gpu:0")
+    L = cfg.num_layers
+    tag = "bert small (f32, eval, no mask, B2 S128 D64)"
+    want = {"library_flash_fwd": 2 * L, "library_flash_bwd_dq": L,
+            "library_flash_bwd_dkv": L}
+    run.check(launches == {n: want.get(n, 0) for n in launches}
+              and dispatch == {("nn.sdpa", "library_flash"): 2 * L},
+              f"{tag}: the library kernels on the card, forward {2 * L} "
+              f"(two forwards), each backward {L}, no other (launches "
+              f"{launches}, dispatch {dispatch})")
+    (xc, lc, gc), (xg, lg, gg) = out["cpu"], out["gpu:0"]
+    errs = _bert_grad_errs(gg, gc)
+    run.check(_leaf_err(xg, xc) <= 1e-4 and abs(lg - lc) <= 1e-5 * abs(lc),
+              f"{tag}: logits {_leaf_err(xg, xc):.3e} of their scale "
+              f"(tolerance 1e-4), loss {lg:.7f} card vs {lc:.7f} cpu "
+              "(tolerance rel 1e-5)")
+    run.check([n for n in gc if gc[n] is None]
+              == [n for n in gg if gg[n] is None]
+              and max(errs.values()) <= 1e-4,
+              f"{tag}: worst gradient {max(errs.values()):.3e} of its leaf's "
+              f"scale (tolerance 1e-4) over {len(errs)} leaves")
+
+
+def time_library_at_bert(run, fa, torch):
+    """Phase 11: the library forward at BERT-base's attention (B32 H12 S128
+    D64, bf16, non-causal, as its eval forward hands it over) against its
+    plain version, its time beside the plain version's and one
+    scaled_dot_product_attention call's (median of 5 windows, spread), and
+    its bound: 2 products of 2 * S * S * D per head against q, k, v and o
+    in bf16 and the f32 lse."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.models.bert import BertConfig
+    cfg = BertConfig.base()
+    b, h, s = BERT_BATCH, cfg.num_heads, BERT_SEQ
+    d = cfg.hidden_size // h
+    gen = torch.Generator(device="cuda").manual_seed(111)
+    q, k, v, _ = path_inputs(gen, torch.bfloat16, torch, (b, h, s, d))
+    scale = 1.0 / math.sqrt(d)
+    got = fa.library_flash_fwd_cuda(q, k, v, scale, False)
+    want = fa.library_flash_reference(q, k, v, scale, False)
+    torch.cuda.synchronize()
+    err, rel = max_err(got[0], want[0])
+    run.check(rel <= TOL["bfloat16"],
+              f"library_flash_fwd at bert-base (B{b} H{h} S{s} D{d} bf16, "
+              f"non-causal): max abs err {err:.3e} rel {rel:.3e} (tolerance "
+              f"rel {TOL['bfloat16']})")
+    ms = windows_ms(lambda: fa.library_flash_fwd_cuda(q, k, v, scale, False),
+                    reps=20)
+    plain_ms = windows_ms(
+        lambda: fa.library_flash_reference(q, k, v, scale, False), reps=5)
+    lib_ms = windows_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                        reps=20)
+    ops_ms = 2 * 2 * b * h * s * s * d / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = (4 * b * h * s * d * 2 + b * h * s * 4) / PEAK_HBM_BYTES * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    row = {"shape": [b, h, s, d], "causal": False, "ms": ms[0],
+           "ms_spread": ms[1], "plain_ms": plain_ms[0],
+           "plain_ms_spread": plain_ms[1], "library_ms": lib_ms[0],
+           "library_ms_spread": lib_ms[1], "bound_ms": bound_ms,
+           "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+           "max_abs_err": err}
+    print(f"library_flash_fwd at bert-base (B{b} H{h} S{s} D{d}, bf16, "
+          f"non-causal): {ms[0]:.4f} ms (spread {ms[1]:.4f}), bound "
+          f"{bound_ms:.4f} ms ({row['bound_by']}), plain {plain_ms[0]:.4f} "
+          f"ms, scaled_dot_product_attention {lib_ms[0]:.4f} ms", flush=True)
+    return row
+
+
+def drive_bert(run, paddle, fa, mods, torch):
+    """Phase 11b: BertForMaskedLM(BertConfig.base()) trained under AMP O2 as
+    benchmarks/workloads/bert_mlm_amp.py runs it in full mode, every count
+    zeroed just before each step and read just after; then one eval scoring
+    forward through the library kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+    cfg = BertConfig.base()
+    L, V = cfg.num_layers, cfg.vocab_size
+    b, s, steps = BERT_BATCH, BERT_SEQ, BERT_STEPS
+    paddle.set_device("gpu:0")
+    paddle.seed(0)
+    model = BertForMaskedLM(cfg)
+    opt = paddle.optimizer.AdamW(learning_rate=5e-5,
+                                 parameters=model.parameters(),
+                                 multi_precision=True)
+    model, opt = paddle.amp.decorate(models=model, optimizers=opt,
+                                     level="O2", dtype="bfloat16")
+    scaler = paddle.amp.GradScaler(init_loss_scaling=BERT_SCALE)
+    lossf = paddle.nn.CrossEntropyLoss()
+    n_params = sum(p._data.numel() for p in model.parameters())
+    # the workload's batches (fresh ids, 15 % set to 0, labels = ids), made
+    # in its order from RandomState(0), all before the first step
+    rng = np.random.RandomState(0)
+    batches = []
+    for _ in range(steps):
+        ids = rng.randint(0, V, (b, s))
+        labels = ids.copy()
+        ids[rng.rand(b, s) < 0.15] = 0
+        batches.append((paddle.to_tensor(ids), paddle.to_tensor(labels)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def forward_backward(xb, yb):
+        with paddle.amp.auto_cast(level="O2", dtype="bfloat16"):
+            logits = model(xb)
+            loss = lossf(logits.reshape([-1, V]), yb.reshape([-1]))
+        opt.clear_grad()
+        scaler.scale(loss).backward()
+        return loss
+
+    def scaler_step():
+        scaler.step(opt)
+        scaler.update()
+
+    losses, times, per_step, amp_state = [], [], [], []
+    for xb, yb in batches:
+        for mod in mods:
+            mod.reset_launch_counts()
+        ticks0 = fa.dispatch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = forward_backward(xb, yb)
+        scaler_step()
+        end.record()
+        torch.cuda.synchronize()
+        times.append((start.elapsed_time(end),
+                      (time.perf_counter() - t0) * 1e3))
+        per_step.append(({n: c for mod in mods
+                          for n, c in mod.LAUNCHES.items()},
+                         fa.dispatch_counts(ticks0)))
+        amp_state.append((scaler.found_inf,
+                          float(scaler.get_loss_scaling())))
+        losses.append(float(loss))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tag = "bert-base mlm amp O2"
+    run.check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+              f"{tag}: losses finite and the last below the first "
+              f"{[round(x, 4) for x in losses]}")
+    masters = list(opt._master_weights.values())
+    accs = [t for d in opt._accumulators.values() for t in d.values()]
+    trained = {id(p) for p in model.parameters() if p.grad is not None}
+    run.check(all(p.dtype == paddle.bfloat16 for p in model.parameters())
+              and set(opt._master_weights) == trained
+              and all(m.dtype == paddle.float32 for m in masters + accs),
+              f"{tag}: params bf16; {len(masters)} master weights (one for "
+              f"each of the {len(trained)} trained params) and {len(accs)} "
+              "accumulators (moments, beta powers) f32")
+    run.check(all(st == (False, BERT_SCALE) for st in amp_state),
+              f"{tag}: found_inf false and the scale {BERT_SCALE:.0f} on "
+              f"every step ({amp_state[0]} ... {amp_state[-1]})")
+    run.check(all(not any(launches.values())
+                  and dispatch == {("nn.sdpa", "plain"): L}
+                  for launches, dispatch in per_step),
+              f"{tag}: training steps (dropout 0.1) send attention to the "
+              f"plain route {L} times a step and launch no attention kernel "
+              f"(step 0: {per_step[0]})")
+
+    # one eval scoring forward, no mask, dropout off: the library forward
+    model.eval()
+    for mod in mods:
+        mod.reset_launch_counts()
+    ticks0 = fa.dispatch_counts()
+    with paddle.no_grad(), paddle.amp.auto_cast(level="O2",
+                                                dtype="bfloat16"):
+        scores = model(batches[0][0])
+    torch.cuda.synchronize()
+    launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
+    dispatch = fa.dispatch_counts(ticks0)
+    model.train()
+    run.check(launches == {n: L if n == "library_flash_fwd" else 0
+                           for n in launches}
+              and dispatch == {("nn.sdpa", "library_flash"): L}
+              and list(scores.shape) == [b, s, V]
+              and bool(paddle.isfinite(scores.astype("float32")).all()),
+              f"{tag}: the eval scoring forward (B{b} S{s}, no mask) "
+              f"launches the library forward {L} times and no other "
+              f"attention kernel, finite [{b}, {s}, {V}] scores (launches "
+              f"{launches}, dispatch {dispatch})")
+
+    timed = [t[0] for t in times[1:]]
+    ms = float(np.median(timed))
+    xb, yb = batches[0]
+    fb_ms = windows_ms(lambda: forward_backward(xb, yb), reps=1, windows=3)
+    opt_ms = windows_ms(scaler_step, reps=1, windows=3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        forward_backward(xb, yb)
+        scaler_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(prof)
+    busy = sum(r[1] for r in rows)
+    idle = max(0.0, 1 - busy / wall_ms)
+    print(f"{tag} (BertConfig.base(), {n_params} parameters, AdamW(5e-5, "
+          f"multi_precision), GradScaler(2^10), B{b} S{s}): losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    print(f"{tag}: {ms:.2f} ms/step (device events, median of steps "
+          f"2-{steps}, spread {max(timed) - min(timed):.2f}; host clock "
+          f"{[round(t[1], 2) for t in times]}), {b / (ms / 1e3):.1f} "
+          f"sequences/s, {b * s / (ms / 1e3):.1f} tokens/s, peak memory "
+          f"{peak_gb:.2f} GB", flush=True)
+    print(f"{tag}: forward+backward {fb_ms[0]:.2f} ms (spread "
+          f"{fb_ms[1]:.2f}), scaler+optimizer {opt_ms[0]:.2f} ms (spread "
+          f"{opt_ms[1]:.2f}) (device events); profiled step {wall_ms:.2f} ms "
+          f"wall, {busy:.2f} ms kernel time, idle share {idle:.3f}",
+          flush=True)
+    for key, kms, count in rows[:12]:
+        print(f"  {kms:9.3f} ms {count:6d}x  {key[:100]}")
+    return {"losses": losses, "ms_per_step": ms,
+            "ms_per_step_spread": max(timed) - min(timed),
+            "step_ms": [t[0] for t in times],
+            "host_step_ms": [t[1] for t in times],
+            "sequences_per_s": b / (ms / 1e3),
+            "tokens_per_s": b * s / (ms / 1e3),
+            "fwd_bwd_ms": fb_ms[0], "fwd_bwd_ms_spread": fb_ms[1],
+            "scaler_optimizer_ms": opt_ms[0],
+            "scaler_optimizer_ms_spread": opt_ms[1],
+            "profiled_ms": wall_ms, "kernel_ms": busy, "idle_share": idle,
+            "top_rows": [[k[:80], round(t, 4), c] for k, t, c in rows[:8]],
+            "peak_memory_gb": peak_gb, "parameters": n_params,
+            "eval_library_fwd_launches": launches["library_flash_fwd"]}
+
 
 def main():
     try:
@@ -1596,6 +2025,32 @@ def main():
     serving["small"] = small_serving
     serving["phase_s"] = time.perf_counter() - t0
     print(f"serving phase: {serving['phase_s']:.1f} s", flush=True)
+    # phase 9's 7B model is left to the cycle collector: without this the
+    # next phase's peak memory read 13.48 GB (its weights) higher
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+        os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+        at._table = None
+        t0 = time.perf_counter()
+        check_small_moe(run, TH, GPTConfig, mods, torch)
+        torch.cuda.empty_cache()
+        moe = drive(run, MOE_PATH, TH, GPTConfig, mods, fa, cost_model,
+                    torch, experts=MOE_EXPERTS)
+        moe["phase_s"] = time.perf_counter() - t0
+        print(f"moe phase: {moe['phase_s']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+        os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+        at._table = None
+        t0 = time.perf_counter()
+        check_small_bert(run, paddle, fa, mods, torch)
+        bert_attn = time_library_at_bert(run, fa, torch)
+        torch.cuda.empty_cache()
+        bert = drive_bert(run, paddle, fa, mods, torch)
+        bert["library_fwd_at_bert"] = bert_attn
+        bert["phase_s"] = time.perf_counter() - t0
+        print(f"bert phase: {bert['phase_s']:.1f} s", flush=True)
 
     kernels = []
     for kern in KERNELS:
@@ -1631,6 +2086,9 @@ def main():
     print(json.dumps({"autotune": tuned}))
     print(json.dumps({"eager": eager}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"moe_gpt": {k: v for k, v in moe.items()
+                                  if k != "launches"}}))
+    print(json.dumps({"bert": bert}))
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed",
               file=sys.stderr)

@@ -25,10 +25,15 @@ What is ported so far:
   (``models/llama.py``) and the GPT's cache path, ``incubate``'s
   ``masked_multihead_attention``, and ``observability`` (the registry, its
   exporters, snapshots and the scrape endpoint) with the fault-injection
-  hooks of ``_chaos``.
+  hooks of ``_chaos``;
+- ``amp`` (``auto_cast``, ``decorate``, ``GradScaler``, ``debugging``),
+  the BERT models (``models/bert.py``), the MoE layers (``models/moe.py``)
+  and ``models/gpt_hybrid``'s single-device MoE step and split gradient
+  accumulation.
 
 Use it as ``import paddle_tpu_torch as paddle``. Names of later slices
-(``amp``, ``io``, ``jit``, ``nn``'s rnn/extended/quant, ...) are not here.
+(``io``, ``jit``, ``vision``, ``nn``'s rnn/extended/quant, ...) are not
+here.
 """
 from __future__ import annotations
 
@@ -77,6 +82,7 @@ from .framework.io import save, load  # noqa: F401
 # ---- the Layer API and the optimizers -------------------------------------
 from . import nn  # noqa: F401
 from . import optimizer  # noqa: F401
+from . import amp  # noqa: F401
 from .nn.layer.layers import ParamAttr  # noqa: F401
 
 # generated `<op>_` inplace variants over the out-of-place ops above

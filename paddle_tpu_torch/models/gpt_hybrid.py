@@ -11,12 +11,19 @@ runs its single-device case (dp=pp=tp=1) eagerly on one CUDA card:
   350M-class rungs, ``qblock_attention`` at S=4096 with 64-wide heads, or
   the attention autotuner's measured winner), with the reference's plain
   einsum where dispatch returns None;
+- ``num_experts`` > 0 makes each block's MLP the reference's GShard
+  dense-dispatch switch MoE (``_moe_ffn``: top-1 routing, every expert
+  run over the dispatched [E, T, H] tokens);
 - remat is ``torch.utils.checkpoint`` per block; the ``"names"`` and
   ``"dots"`` policies are selective-checkpoint policies over aten ops and
   the attention op;
 - the LM head and loss are ``ops/fused_ce.FusedLMCE`` or plain logits;
 - AdamW is the reference's per-leaf update, written out in f32, applied in
-  place (the reference donates params and state to its step).
+  place (the reference donates params and state to its step);
+- ``build_accum_steps`` is the reference's split gradient accumulation:
+  ``grad_step`` adds one chunk's gradients into the accumulator in place,
+  ``apply_step`` averages them, updates and zeroes the accumulator in place
+  (the reference donates the accumulator to both programs).
 """
 from __future__ import annotations
 
@@ -39,9 +46,10 @@ from .gpt import GPTConfig
 @dataclass
 class ParallelConfig:
     """The reference's ParallelConfig, field for field. One device only:
-    ``dp``/``pp``/``tp`` > 1, ``sp``, ``num_experts`` > 0 and
-    ``collective_matmul`` raise NotImplementedError in ``setup`` and
-    ``build_train_step``; ``microbatches``, ``pp_schedule`` and
+    ``dp``/``pp``/``tp`` > 1, ``sp`` and ``collective_matmul`` raise
+    NotImplementedError in ``setup``, ``build_train_step`` and
+    ``build_accum_steps``, and so does ``num_experts`` > 0 beside any of
+    them (expert parallelism); ``microbatches``, ``pp_schedule`` and
     ``vpp_chunks`` only matter at pp > 1. ``zero1`` (shard the moments over
     dp) and ``scan_unroll`` (lax.scan unrolling) have no effect on one
     device in eager PyTorch."""
@@ -74,10 +82,10 @@ def _validate(pcfg: ParallelConfig):
              if getattr(pcfg, n) > 1]
     if pcfg.sp:
         multi.append("sp=True")
-    if pcfg.num_experts > 0:
-        multi.append(f"num_experts={pcfg.num_experts}")
     if pcfg.collective_matmul:
         multi.append("collective_matmul=True")
+    if multi and pcfg.num_experts > 0:
+        multi.append(f"num_experts={pcfg.num_experts}")
     if multi:
         raise NotImplementedError(
             "paddle_tpu_torch runs the single-device step only; "
@@ -90,7 +98,8 @@ def _validate(pcfg: ParallelConfig):
 def init_params(cfg: GPTConfig, pcfg: ParallelConfig,
                 generator: torch.Generator, device=None) -> Dict:
     """The reference's parameters and distributions (normal, std 0.02,
-    residual projections scaled by 1/sqrt(2L)), drawn from ``generator``
+    residual projections scaled by 1/sqrt(2L); with experts, the gate
+    [L, h, E] and the FFN leaves stacked [L, E, ...]), drawn from ``generator``
     (which must live on ``device``). torch draws other numbers than
     jax.random from the same seed; ``params_from_jax`` brings the
     reference's own draws over."""
@@ -116,11 +125,23 @@ def init_params(cfg: GPTConfig, pcfg: ParallelConfig,
         "proj_w": normal((L, h, h), std / math.sqrt(2 * L)),
         "proj_b": const((L, h), 0.0),
         "ln2_g": const((L, h), 1.0), "ln2_b": const((L, h), 0.0),
-        "fc1_w": normal((L, h, m), std),
-        "fc1_b": const((L, m), 0.0),
-        "fc2_w": normal((L, m, h), std / math.sqrt(2 * L)),
-        "fc2_b": const((L, h), 0.0),
     }
+    if pcfg.num_experts > 0:
+        e = pcfg.num_experts
+        blocks.update({
+            "gate_w": normal((L, h, e), std),
+            "fc1_w": normal((L, e, h, m), std),
+            "fc1_b": const((L, e, m), 0.0),
+            "fc2_w": normal((L, e, m, h), std / math.sqrt(2 * L)),
+            "fc2_b": const((L, e, h), 0.0),
+        })
+    else:
+        blocks.update({
+            "fc1_w": normal((L, h, m), std),
+            "fc1_b": const((L, m), 0.0),
+            "fc2_w": normal((L, m, h), std / math.sqrt(2 * L)),
+            "fc2_b": const((L, h), 0.0),
+        })
     return {
         "wte": normal((cfg.vocab_size, h), std),
         "wpe": normal((cfg.max_seq_len, h), std),
@@ -206,7 +227,34 @@ def _linear(x, w, b):
         .reshape(x.shape[:-1] + (w.shape[-1],))
 
 
-def _block(x, lp, cfg):
+def _moe_ffn(x, lp, pcfg):
+    """GShard-style dense-dispatch switch MoE: top-1 routing, each expert
+    run over the [E, T, H] dispatched tokens, scaled by the gate
+    probability. Issues no addmm (see _policy).
+
+    The reference's dispatch and combine einsums ("te,th->eth",
+    "te,eth->th") are written as broadcast products (and a sum over E):
+    with a one-hot dispatch every output is one product, or one product
+    plus exact zeros, so the values are the einsums'; torch would issue
+    the first as a batched GEMM of T (E x 1) @ (1 x H) products."""
+    b, s, h = x.shape
+    e = pcfg.num_experts
+    tokens = x.reshape(b * s, h)
+    gate_logits = tokens.float() @ lp["gate_w"].float()
+    probs = torch.softmax(gate_logits, -1)
+    top = probs.argmax(-1)
+    gate = probs.max(-1).values.to(x.dtype)
+    disp = F.one_hot(top, e).to(x.dtype).t()[:, :, None]  # [E, T, 1]
+    xin = disp * tokens                                   # dispatch
+    hmid = F.gelu(torch.einsum("eth,ehm->etm", xin, lp["fc1_w"])
+                  + lp["fc1_b"][:, None, :], approximate="tanh")
+    hout = torch.einsum("etm,emh->eth", hmid, lp["fc2_w"]) \
+        + lp["fc2_b"][:, None, :]
+    combined = (disp * hout).sum(0) * gate[:, None]
+    return combined.reshape(b, s, h)
+
+
+def _block(x, lp, cfg, pcfg):
     hres = x
     hx = _layer_norm(x, lp["ln1_g"], lp["ln1_b"])
     qkv = _linear(hx, lp["qkv_w"], lp["qkv_b"])                  # "qkv"
@@ -216,29 +264,41 @@ def _block(x, lp, cfg):
     x = hres + _linear(attn, lp["proj_w"], lp["proj_b"])         # "proj"
     hres = x
     hx = _layer_norm(x, lp["ln2_g"], lp["ln2_b"])
+    if pcfg.num_experts > 0:
+        return hres + _moe_ffn(hx, lp, pcfg)
     ff = F.gelu(_linear(hx, lp["fc1_w"], lp["fc1_b"]),            # "ffn1"
                 approximate="tanh")
     return hres + _linear(ff, lp["fc2_w"], lp["fc2_b"])          # "ffn2"
 
 
-# The order in which _block issues its four addmm ops.
+# The order in which _block issues its addmm ops: four, or with experts the
+# first two (_moe_ffn issues none; the reference names nothing inside it).
 _LINEAR_NAMES = ("qkv", "proj", "ffn1", "ffn2")
 _DOTS = (torch.ops.aten.addmm.default, torch.ops.aten.mm.default,
          torch.ops.aten.bmm.default)
 
 
 def _policy_context(pcfg):
-    """Selective-checkpoint contexts for one block call.
+    """Selective-checkpoint contexts for one block call (``_policy``)."""
+    return create_selective_checkpoint_contexts(_policy(pcfg))
+
+
+def _policy(pcfg):
+    """The selective-checkpoint policy of one block call.
 
     "dots": save every matmul output (jax's dots_saveable), recompute the
     rest, the attention op included. "names": save the outputs named in
     remat_save_names, recognised by op: "attn_out" is any of the Hopper
     attention ops (all their outputs: o, and the lse that the
     causal_attention and blocked_flash backwards read), and
-    "qkv"/"proj"/"ffn1"/"ffn2" are _block's addmm calls in order.
+    "qkv"/"proj"/"ffn1"/"ffn2" are _block's addmm calls in order (with
+    experts only "qkv" and "proj"; the MoE FFN's products are saved under
+    "dots" and never under "names", as in the reference).
     Where attention takes the plain path (CPU), "attn_out" names no op and
     is recomputed; values are the same either way."""
     names = set(pcfg.remat_save_names)
+    linear_names = _LINEAR_NAMES[:2] if pcfg.num_experts > 0 \
+        else _LINEAR_NAMES
     seen = {False: 0, True: 0}     # addmm calls so far, forward / recompute
 
     def policy(ctx, func, *args, **kwargs):
@@ -249,13 +309,13 @@ def _policy_context(pcfg):
         elif func == torch.ops.aten.addmm.default:
             i = seen[ctx.is_recompute]
             seen[ctx.is_recompute] = i + 1
-            save = _LINEAR_NAMES[i] in names
+            save = linear_names[i] in names
         else:
             save = False
         return (CheckpointPolicy.MUST_SAVE if save
                 else CheckpointPolicy.PREFER_RECOMPUTE)
 
-    return create_selective_checkpoint_contexts(policy)
+    return policy
 
 
 def _stack_apply(blocks, x, cfg, pcfg):
@@ -267,11 +327,11 @@ def _stack_apply(blocks, x, cfg, pcfg):
     for leaves in per_layer:
         lp = dict(zip(names, leaves))
         if not pcfg.remat:
-            x = _block(x, lp, cfg)
+            x = _block(x, lp, cfg, pcfg)
         elif pcfg.remat_policy == "full":
-            x = checkpoint(_block, x, lp, cfg, use_reentrant=False)
+            x = checkpoint(_block, x, lp, cfg, pcfg, use_reentrant=False)
         else:
-            x = checkpoint(_block, x, lp, cfg, use_reentrant=False,
+            x = checkpoint(_block, x, lp, cfg, pcfg, use_reentrant=False,
                            context_fn=lambda: _policy_context(pcfg))
     return x
 
@@ -370,39 +430,81 @@ def build_train_step(cfg: GPTConfig, pcfg: ParallelConfig, lr=3e-4):
     _validate(pcfg)
     k = pcfg.gradient_merge_steps
 
-    def grads_of(leaves, params, batch):
-        loss = loss_fn(params, batch, cfg, pcfg)
-        return loss, torch.autograd.grad(loss, leaves)
-
     def train_step(params, opt_state, batch):
-        leaves = _leaves(params)
-        for p in leaves:
-            p.requires_grad_(True)
-        try:
-            if k > 1:
-                b0 = batch[0].shape[0]
-                if b0 % k:
-                    raise ValueError(
-                        f"global batch {b0} is not divisible by "
-                        f"gradient_merge_steps={k}")
-                acc = [torch.zeros_like(p) for p in leaves]
-                lsum = 0.0
-                for chunk in zip(*(x.chunk(k) for x in batch)):
-                    loss, grads = grads_of(leaves, params, chunk)
-                    acc = [a + g for a, g in zip(acc, grads)]
-                    lsum = lsum + loss.detach()
-                grads = [a / k for a in acc]
-                loss = lsum / k
-            else:
-                loss, grads = grads_of(leaves, params, batch)
-                loss = loss.detach()
-        finally:
-            for p in leaves:
-                p.requires_grad_(False)
+        if k > 1:
+            b0 = batch[0].shape[0]
+            if b0 % k:
+                raise ValueError(
+                    f"global batch {b0} is not divisible by "
+                    f"gradient_merge_steps={k}")
+            acc = [torch.zeros_like(p) for p in _leaves(params)]
+            lsum = 0.0
+            for chunk in zip(*(x.chunk(k) for x in batch)):
+                loss, grads = _value_and_grad(params, chunk, cfg, pcfg)
+                acc = [a + g for a, g in zip(acc, grads)]
+                lsum = lsum + loss
+            grads = [a / k for a in acc]
+            loss = lsum / k
+        else:
+            loss, grads = _value_and_grad(params, batch, cfg, pcfg)
         adamw_update(params, grads, opt_state, lr=lr)
         return params, opt_state, loss
 
     return train_step
+
+
+def _value_and_grad(params, batch, cfg, pcfg):
+    """(the loss, detached; its gradients in ``_leaves`` order)."""
+    leaves = _leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss = loss_fn(params, batch, cfg, pcfg)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+
+
+def build_accum_steps(cfg: GPTConfig, pcfg: ParallelConfig, lr=3e-4):
+    """The reference's split gradient accumulation, as two functions:
+
+    ``grad_step(params, acc, batch) -> (acc, loss)`` runs one chunk's
+    forward and backward and adds its gradients into ``acc`` (a tree like
+    params, from ``init_grad_accum``) in place, in the accumulator's dtype;
+    ``apply_step(params, opt_state, acc, k) -> (params, opt_state, acc)``
+    divides the sum by k, runs ``adamw_update`` (in place) and zeroes
+    ``acc`` in place. The reference donates ``acc`` to both programs and
+    returns new trees; the port writes into the ones it is given."""
+    _validate(pcfg)
+
+    @torch.no_grad()
+    def add_into(acc, grads):
+        for a, g in zip(_leaves(acc), grads):
+            a.add_(g.to(a.dtype))
+
+    def grad_step(params, acc, batch):
+        loss, grads = _value_and_grad(params, batch, cfg, pcfg)
+        add_into(acc, grads)
+        return acc, loss
+
+    def apply_step(params, opt_state, acc, k):
+        acc_leaves = _leaves(acc)
+        adamw_update(params, [a / k for a in acc_leaves], opt_state, lr=lr)
+        for a in acc_leaves:
+            a.zero_()
+        return params, opt_state, acc
+
+    return grad_step, apply_step
+
+
+def init_grad_accum(params):
+    """A zeroed gradient accumulator like the param tree, in the params'
+    dtypes (as the reference's: bf16 accumulation over a few chunks is well
+    within tolerance and halves the accumulator's memory)."""
+    if isinstance(params, dict):
+        return {k: init_grad_accum(v) for k, v in params.items()}
+    return torch.zeros_like(params)
 
 
 def setup(cfg: GPTConfig, pcfg: ParallelConfig, seed=0, device=None):

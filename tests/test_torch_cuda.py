@@ -560,3 +560,31 @@ def test_cache_writes_at_the_capacity_clamp_on_the_card(s):
     for got, want in zip(out["cuda"][1:], out["cpu"][1:]):
         assert torch.equal(got, want)
     assert torch.equal(out["cpu"][1][:, c - s:], kn)
+
+
+def test_small_moe_gpt_on_the_card():
+    """chip_smoke.py phase 10a: a small gpt_hybrid with 2 experts on the
+    card (simple_attention's kernels) against the same params on the CPU:
+    the loss, every gradient (the MoE leaves included), and the parameters
+    after build_accum_steps with k=2 and one apply."""
+    _need_card()
+    cs = _chip_smoke()
+    run = cs.Run()
+    cs.check_small_moe(run, TH, GPTConfig, _KERNEL_MODULES + (tfa,), torch)
+    assert not run.failures, run.failures
+
+
+def test_small_bert_eval_forward_on_the_card():
+    """chip_smoke.py phase 11a: a small BERT MLM in eval mode without a
+    mask, f32, on the card (the library tier's kernels) against the CPU
+    from one state_dict: the logits, the loss and every gradient."""
+    _need_card()
+    import paddle_tpu_torch as paddle
+    cs = _chip_smoke()
+    run = cs.Run()
+    try:
+        cs.check_small_bert(run, paddle, tfa, _KERNEL_MODULES + (tfa,),
+                            torch)
+    finally:
+        paddle.set_device("cpu")
+    assert not run.failures, run.failures

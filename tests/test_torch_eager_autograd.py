@@ -354,12 +354,14 @@ def test_flags_registry_is_the_references():
     import paddle_tpu.ops.pallas.autotune  # noqa: F401  (defines its flag)
     import paddle_tpu_torch.ops.hopper.autotune  # noqa: F401
     import paddle_tpu_torch.inference.decode  # noqa: F401  (defines its flag)
+    import paddle_tpu_torch.amp  # noqa: F401  (defines its flag)
     from paddle_tpu.core import flags as jflags
     from paddle_tpu_torch.core import flags as tflags
     port = {n: f.default for n, f in tflags._REGISTRY.items()
             if not n.startswith("FLAGS_test_")}
-    # the 11 eager ones, FLAGS_attn_autotune and FLAGS_kv_capacity_check
-    assert len(port) == 13
+    # the 11 eager ones, FLAGS_attn_autotune, FLAGS_kv_capacity_check and
+    # FLAGS_low_precision_op_list
+    assert len(port) == 14
     assert port == {n: jflags._REGISTRY[n].default for n in port}
     assert set(tflags.get_flags()) >= set(port)
     with pytest.raises(KeyError, match="FLAGS_benchmark"):

@@ -235,7 +235,7 @@ def test_setup_on_cpu_runs_and_learns():
 
 
 @pytest.mark.parametrize("bad", [dict(dp=2), dict(tp=2), dict(pp=2),
-                                 dict(sp=True), dict(num_experts=4),
+                                 dict(sp=True), dict(dp=2, num_experts=4),
                                  dict(collective_matmul=True)])
 def test_multi_device_configs_raise(bad):
     _, tp = _pcfgs(**bad)

@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: importing and running paddle_tpu_torch loads
 neither jax nor the JAX package (the training step, the eager and Layer
-APIs, and serving: ``inference``, ``models.llama``, ``observability``'s
-server, ``_chaos``), and its entry points default to CUDA: the training
-step's, and the eager API's, whose tensors land on gpu:0 unless
-set_device("cpu") was called."""
+APIs, serving: ``inference``, ``models.llama``, ``observability``'s
+server, ``_chaos``, and ``amp``, ``models.bert``, ``models.moe`` and the
+MoE step of ``models.gpt_hybrid``), and its entry points default to CUDA:
+the training step's, and the eager API's, whose tensors land on gpu:0
+unless set_device("cpu") was called."""
 import os
 import subprocess
 import sys
@@ -82,6 +83,34 @@ llama = LlamaForCausalLM(LlamaConfig.tiny())
 assert llama.generate(ids_t[:1, :8], max_new_tokens=3).shape == [1, 11]
 assert inference.DecodeSession is decode.DecodeSession
 assert server.shared_server() is None and not _chaos.active()
+
+# amp, BERT under AMP O2, the MoE layers and the MoE GPT step
+from paddle_tpu_torch import amp, models
+from paddle_tpu_torch.amp import debugging as amp_debugging, grad_scaler
+from paddle_tpu_torch.models import bert, moe
+from paddle_tpu_torch.models.bert import BertConfig, BertForMaskedLM
+assert paddle.amp is amp and models.bert is bert and models.moe is moe
+mlm = BertForMaskedLM(BertConfig.tiny())
+mlm_opt = optimizer.AdamW(1e-3, parameters=mlm.parameters(),
+                          multi_precision=True)
+mlm, mlm_opt = amp.decorate(mlm, mlm_opt, level="O2", dtype="bfloat16")
+scaler = amp.GradScaler(init_loss_scaling=2.0 ** 10)
+with amp.auto_cast(level="O2", dtype="bfloat16"):
+    mlm_loss = mlm(ids_t[:, :16], labels=ids_t[:, :16])
+scaler.scale(mlm_loss).backward()
+scaler.step(mlm_opt)
+scaler.update()
+assert not scaler.found_inf and mlm.bert.pooler.weight.dtype == paddle.bfloat16
+moe_layer = moe.MoELayer(16, 32, num_experts=2)
+assert moe_layer(paddle.randn([2, 4, 16])).shape == [2, 4, 16]
+moe_pcfg = TH.ParallelConfig(num_experts=2, remat=True, remat_policy="names")
+moe_params, moe_opt, moe_step = TH.setup(cfg, moe_pcfg, seed=0, device="cpu")
+assert moe_params["blocks"]["fc1_w"].shape[:2] == (cfg.num_layers, 2)
+grad_step, apply_step = TH.build_accum_steps(cfg, moe_pcfg)
+acc, moe_loss = grad_step(moe_params, TH.init_grad_accum(moe_params),
+                          (ids, ids))
+apply_step(moe_params, moe_opt, acc, 1)
+assert float(moe_loss) == float(moe_loss)
 
 def foreign(name):
     return (name in ("jax", "jaxlib", "paddle_tpu")

@@ -1,10 +1,11 @@
 """The reference's own serving tests, run against the port.
 
-Each file in FILES imports the reference only through the serving modules
-of ``PORTED`` (``import paddle_tpu as paddle``, ``from paddle_tpu import
-nn, _chaos``, ``paddle_tpu.inference.decode``, ``.inference.admission``,
-``.observability``, ``.observability.server``, ``._chaos``,
-``.models.llama``, ``.models.gpt``, ``.incubate.nn``'s ``functional``),
+Each file in FILES imports the reference only through the serving and
+model modules of ``PORTED`` (``import paddle_tpu as paddle``, ``from
+paddle_tpu import nn, _chaos``, ``paddle_tpu.inference.decode``,
+``.inference.admission``, ``.observability``, ``.observability.server``,
+``._chaos``, ``.models.llama``, ``.models.gpt``, ``.models.bert``,
+``.models.moe``, ``.amp``, ``.incubate.nn``'s ``functional``),
 at the top of the file or inside a test body. This module reads each
 file's source, blanks the tests that are left out (below), rewrites those
 imports to the same names of ``paddle_tpu_torch``, refuses any other
@@ -28,11 +29,11 @@ Left out, each with the slice that brings what it needs:
   0.044-0.059 s, so the request may finish first.
   ``test_torch_serving.py`` states the test again with the deadline
   passing while the request decodes, whatever the speed;
-- ``test_models.py``: all but ``test_gpt_tiny_trains``,
-  ``test_llama_tiny_trains_and_generates`` and
-  ``test_llama_gqa_kv_cache_matches_full_forward``; the others need
-  ``models/bert.py`` and ``models/moe.py`` (the next slice), ``amp``,
-  ``io`` and ``vision`` (later slices).
+- ``test_models.py::test_resnet18_fakedata_trains``,
+  ``::test_vision_model_shapes`` and ``::test_transforms_pipeline``: they
+  need ``vision`` and ``io``, which the ResNet-50 CIFAR-10 slice brings.
+  Its other six tests (GPT, Llama, BERT MLM, BERT under AMP O2, the MoE
+  layer) are bound.
 
 The two files' autouse ``_metrics_on`` fixtures (test_metrics_server.py's
 and test_serving_robustness.py's) share a name, so neither is bound: the
@@ -59,9 +60,7 @@ FILES = {
     "test_serving_robustness.py": (
         "test_total_deadline_times_out_within_a_step",),
     "test_metrics_server.py": (),
-    "test_models.py": ("test_bert_mlm_trains", "test_bert_amp_o2",
-                       "test_moe_layer_trains",
-                       "test_resnet18_fakedata_trains",
+    "test_models.py": ("test_resnet18_fakedata_trains",
                        "test_vision_model_shapes",
                        "test_transforms_pipeline"),
 }
@@ -69,7 +68,7 @@ FILES = {
 # and the names "from paddle_tpu import ..." may take
 PORTED = ("inference.decode", "inference.admission", "observability",
           "observability.server", "_chaos", "models.llama", "models.gpt",
-          "incubate.nn")
+          "models.bert", "models.moe", "amp", "incubate.nn")
 PORTED_NAMES = {"nn", "_chaos"}
 AUTOUSE = {"_metrics_on"}
 IMPORT = re.compile(r"^(\s*)(from|import)\s+paddle_tpu(\.[\w.]+)?(\s.*)$")
@@ -160,7 +159,7 @@ def test_every_reference_test_is_bound():
     assert N_BOUND == {"test_decode.py": 13,
                        "test_continuous_batching.py": 7,
                        "test_serving_robustness.py": 18,
-                       "test_metrics_server.py": 4, "test_models.py": 3}
+                       "test_metrics_server.py": 4, "test_models.py": 6}
 
 
 def test_the_rewrite_refuses_other_reference_imports(tmp_path):
