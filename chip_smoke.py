@@ -144,11 +144,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
      Prints ms/step (median of steps 2-10, spread), sequences/s,
      tokens/s, the forward+backward/scaler+optimizer split, the idle share
      of one profiled step with its top device rows, and the peak memory.
+ 12. ResNet on CIFAR-10-shaped data (``io``, ``vision``; no Hopper kernel:
+     convolutions, BatchNorm and pooling are torch's, as they are XLA's ops
+     in the reference): (a) resnet18(num_classes=10) at B4 32x32 f32 on the
+     card and on the CPU from one state_dict: a train-mode forward at B1
+     (layer4's BatchNorms see one value a channel), then the logits, loss,
+     every gradient, and the parameters and BatchNorm buffers after one
+     Momentum(0.1, 0.9, weight_decay=5e-4) step; (b)
+     benchmarks/workloads/resnet50_cifar10.py in full mode (resnet50, that
+     Momentum, CrossEntropyLoss, Cifar10 or else FakeData(256) at
+     3x32x32, DataLoader(batch_size=256, shuffle=True) iterated again when
+     it runs out, its eager train_step): 3 warm-up and 20 timed steps,
+     finite losses whose last is below the first; prints ms/step (each
+     step timed alone on the host clock, median and spread), images/s, the
+     data wait (the host's time in next()), forward+backward and optimizer
+     ms (CUDA events), the idle share and top device rows of one profiled
+     step, the peak memory, the FLOPs from the model's conv and linear
+     shapes with the share of the f32 peak, then 1 + 5 steps under
+     FLAGS_matmul_precision="default" (TF32 convolutions) beside them; (c)
+     that loader, seeded, with 4 workers forked after CUDA is initialised:
+     20 batches on the card equal bit for bit to the single-process
+     loader's, both timed.
+The script sets FLAGS_matmul_precision to "highest", which the flag's
+default gives a user: f32 products and convolutions run in f32.
 Phases 2-6 keep the autotuner's table in a fresh temporary
 PADDLE_TPU_CACHE_DIR, empty until phase 6, with FLAGS_attn_autotune at its
 default: phases 2-5 (and 7, 8, 10 and 11, each on a table of its own) run
 the configuration a user gets on a new checkout.
-Prints {"serving": {...}}, {"moe_gpt": {...}} and {"bert": {...}} lines, the
+Prints {"serving": {...}}, {"moe_gpt": {...}}, {"bert": {...}} and
+{"resnet50": {...}} lines, the
 card line, then one {"kernels": [...]} line (each row with its design),
 then as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -1937,6 +1961,311 @@ def drive_bert(run, paddle, fa, mods, torch):
             "eval_library_fwd_launches": launches["library_flash_fwd"]}
 
 
+# --------------------------------------------------------------- phase 12
+# 12a: resnet18(num_classes=10) at B4 32x32 f32 on the card against the CPU
+# from one state_dict; values (logits, loss, BatchNorm's running buffers)
+# within 1e-4 and gradients within 1e-3 of each leaf's scale, and so the
+# parameters after the step too: a BatchNorm bias starts at 0, so after one
+# step it is -lr x its gradient (cuDNN's and the CPU's f32 convolutions sum
+# in other orders, and train-mode BatchNorm over few values amplifies the
+# difference).
+# 12b: benchmarks/workloads/resnet50_cifar10.py:29-41 in full mode: 3
+# warm-up and 20 timed steps, then 5 under FLAGS_matmul_precision="default"
+# (TF32 convolutions). 12c: its loader with 4 forked workers after CUDA is
+# initialised, 20 batches, against the single-process loader.
+RESNET_SMALL_BATCH = 4
+RESNET_TOL = {"values": 1e-4, "gradients": 1e-3}
+RESNET_BATCH, RESNET_WARMUP, RESNET_STEPS, RESNET_TF32_STEPS = 256, 3, 20, 5
+LOADER_WORKERS, LOADER_BATCHES = 4, 20
+PEAK_F32_FLOPS = 67e12       # H100 SXM, f32 on the CUDA cores
+PEAK_TF32_FLOPS = 495e12     # H100 SXM, dense TF32 tensor cores
+
+
+def _resnet_step(paddle, model, x, y):
+    """One train-mode step of the workload's (Momentum(0.1, 0.9,
+    weight_decay=5e-4)): the logits, loss, gradients, and the parameters
+    and BatchNorm buffers after it, as numpy."""
+    opt = paddle.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                    parameters=model.parameters(),
+                                    weight_decay=5e-4)
+    logits = model(paddle.to_tensor(x))
+    loss = paddle.nn.CrossEntropyLoss()(logits, paddle.to_tensor(y))
+    loss.backward()
+    grads = {n: p.grad.numpy() for n, p in model.named_parameters()}
+    opt.step()
+    return (logits.numpy(), float(loss), grads,
+            {k: v.numpy() for k, v in model.state_dict().items()})
+
+
+def check_small_resnet(run, paddle, torch):
+    """Phase 12a: resnet18 on the card against the CPU from one state_dict:
+    a train-mode forward at B1, where layer4's BatchNorms see one value a
+    channel, then one step at B4."""
+    from paddle_tpu_torch.vision.datasets import FakeData
+    from paddle_tpu_torch.vision.models import resnet18
+    items = [FakeData(size=RESNET_SMALL_BATCH)[i]
+             for i in range(RESNET_SMALL_BATCH)]
+    x = np.stack([img for img, _ in items])
+    y = np.asarray([label for _, label in items])
+    out = {}
+    try:
+        paddle.set_device("cpu")
+        paddle.seed(0)
+        state0 = {k: v.numpy()
+                  for k, v in resnet18(num_classes=10).state_dict().items()}
+        for dev in ("cpu", "gpu:0"):
+            paddle.set_device(dev)
+            model = resnet18(num_classes=10)
+            model.set_state_dict(state0)
+            model.train()
+            one = model(paddle.to_tensor(x[:1])).numpy()
+            out[dev] = (one,) + _resnet_step(paddle, model, x, y)
+    finally:
+        paddle.set_device("gpu:0")
+    (one, logits, loss, grads, state), want = out["gpu:0"], out["cpu"]
+    buffers = [k for k in state if k.endswith(("._mean", "._variance"))]
+    err1 = _leaf_err(one, want[0])
+    run.check(one.shape == (1, 10) and bool(np.isfinite(one).all())
+              and err1 <= RESNET_TOL["values"],
+              "resnet18 train-mode forward at B1 on the card (one value a "
+              f"channel in layer4's BatchNorms): finite [1, 10] logits, "
+              f"{err1:.3g} from the CPU's")
+    tag = f"resnet18 B{RESNET_SMALL_BATCH} 32x32 f32, card against CPU"
+    errs = {"logits": _leaf_err(logits, want[1]),
+            "loss": abs(loss - want[2]) / abs(want[2]),
+            "gradients": max(_leaf_err(g, want[3][n])
+                             for n, g in grads.items()),
+            "parameters": max(_leaf_err(v, want[4][k])
+                              for k, v in state.items() if k not in buffers),
+            "buffers": max(_leaf_err(state[k], want[4][k])
+                           for k in buffers)}
+    worst = max(grads, key=lambda n: _leaf_err(grads[n], want[3][n]))
+    print(f"{tag}: loss {loss:.6f} (CPU {want[2]:.6f}); largest errors "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (gradient of {worst})", flush=True)
+    run.check(set(grads) == set(want[3]) and set(state) == set(want[4])
+              and max(errs["gradients"], errs["parameters"])
+              <= RESNET_TOL["gradients"]
+              and max(errs["logits"], errs["loss"], errs["buffers"])
+              <= RESNET_TOL["values"],
+              f"{tag}: logits, loss and the {len(buffers)} BatchNorm "
+              f"buffers within {RESNET_TOL['values']}, the {len(grads)} "
+              "gradients and the parameters after one Momentum step within "
+              f"{RESNET_TOL['gradients']}")
+    return {"errors": errs, "b1_error": err1}
+
+
+def resnet_flops(model, x, torch):
+    """Multiply-adds x 2 of one forward, from the shapes the model's Conv2D
+    and Linear layers see: 2 * output elements * (in channels / groups *
+    kernel area) for a convolution, 2 * rows * in * out for a product."""
+    from paddle_tpu_torch import nn
+    total = [0]
+
+    def conv(layer, inputs, out):
+        k = layer.weight.shape
+        total[0] += 2 * int(np.prod(out.shape)) * k[1] * k[2] * k[3]
+
+    def linear(layer, inputs, out):
+        total[0] += 2 * int(np.prod(out.shape)) * layer.weight.shape[0]
+
+    hooks = [layer.register_forward_post_hook(
+        conv if isinstance(layer, nn.Conv2D) else linear)
+        for layer in model.sublayers()
+        if isinstance(layer, (nn.Conv2D, nn.Linear))]
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def drive_resnet50(run, paddle, torch):
+    """Phase 12b: the workload's full mode, its eager train_step timed step
+    by step (the data wait on the host, forward+backward and optimizer by
+    CUDA events), one profiled step, then TF32 steps."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.vision.datasets import Cifar10, FakeData
+    from paddle_tpu_torch.vision.models import resnet50
+    paddle.set_device("gpu:0")
+    paddle.seed(0)
+    np.random.seed(0)
+    model = resnet50(num_classes=10)
+    opt = paddle.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                    parameters=model.parameters(),
+                                    weight_decay=5e-4)
+    lossf = nn.CrossEntropyLoss()
+    try:
+        ds = Cifar10(mode="train")
+    except FileNotFoundError:
+        ds = FakeData(size=256, image_shape=(3, 32, 32), num_classes=10)
+    dl = DataLoader(ds, batch_size=RESNET_BATCH, shuffle=True)
+    model.train()
+    events = []
+
+    def train_step(xb, yb):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss = lossf(model(xb), yb)
+        opt.clear_grad()
+        loss.backward()
+        ev[1].record()
+        opt.step()
+        ev[2].record()
+        events.append(ev)
+        return loss
+
+    it = iter(dl)
+
+    def batch():
+        nonlocal it
+        try:
+            return next(it)
+        except StopIteration:
+            it = iter(dl)
+            return next(it)
+
+    def steps(n):
+        rows = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xb, yb = batch()
+            t1 = time.perf_counter()
+            loss = float(train_step(xb, yb))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            fb, op = (events[-1][0].elapsed_time(events[-1][1]),
+                      events[-1][1].elapsed_time(events[-1][2]))
+            rows.append({"ms": (t2 - t0) * 1e3, "data_ms": (t1 - t0) * 1e3,
+                         "fwd_bwd_ms": fb, "optimizer_ms": op,
+                         "loss": loss})
+        return rows
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm = steps(RESNET_WARMUP)
+    timed = steps(RESNET_STEPS)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    xb, yb = batch()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(train_step(xb, yb))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(prof)
+    busy = sum(r[1] for r in rows)
+    idle = max(0.0, 1 - busy / wall_ms)
+    paddle.set_flags({"FLAGS_matmul_precision": "default"})
+    try:
+        tf32_ok = torch.backends.cudnn.allow_tf32
+        tf32 = steps(1 + RESNET_TF32_STEPS)    # cuDNN picks TF32 kernels
+    finally:
+        paddle.set_flags({"FLAGS_matmul_precision": "highest"})
+    losses = [r["loss"] for r in warm + timed + tf32]
+    tf32 = tf32[1:]
+    flops = 3 * resnet_flops(model, xb, torch)
+
+    def stats(rs, key):
+        v = [r[key] for r in rs]
+        return float(np.median(v)), max(v) - min(v)
+
+    ms, spread = stats(timed, "ms")
+    data_ms, data_spread = stats(timed, "data_ms")
+    tf32_ms, tf32_spread = stats(tf32, "ms")
+    out = {"ms_per_step": ms, "ms_per_step_spread": spread,
+           "step_ms": [r["ms"] for r in timed],
+           "images_per_s": RESNET_BATCH / (ms / 1e3),
+           "data_wait_ms": data_ms, "data_wait_ms_spread": data_spread,
+           "fwd_bwd_ms": stats(timed, "fwd_bwd_ms")[0],
+           "optimizer_ms": stats(timed, "optimizer_ms")[0],
+           "profiled_ms": wall_ms, "kernel_ms": busy, "idle_share": idle,
+           "top_rows": [[k[:80], round(t, 4), c] for k, t, c in rows[:8]],
+           "peak_memory_gb": peak_gb, "losses": losses,
+           "train_flops_per_step": flops,
+           "tflops": flops / (ms / 1e3) / 1e12,
+           "f32_peak_share": flops / (ms / 1e3) / PEAK_F32_FLOPS,
+           "tf32_ms_per_step": tf32_ms, "tf32_ms_per_step_spread": tf32_spread,
+           "tf32_images_per_s": RESNET_BATCH / (tf32_ms / 1e3),
+           "tf32_fwd_bwd_ms": stats(tf32, "fwd_bwd_ms")[0],
+           "tf32_peak_share": flops / (tf32_ms / 1e3) / PEAK_TF32_FLOPS,
+           "dataset": type(ds).__name__}
+    tag = "resnet50 cifar10 full mode"
+    print(f"{tag} ({type(ds).__name__}, B{RESNET_BATCH} 32x32, f32, "
+          f"Momentum(0.1, 0.9, weight_decay=5e-4)): losses "
+          f"{[round(x, 4) for x in losses]}", flush=True)
+    print(f"{tag}: {ms:.2f} ms/step (host clock, each step timed alone, "
+          f"median of {RESNET_STEPS}, spread {spread:.2f}), "
+          f"{out['images_per_s']:.1f} images/s, data wait "
+          f"{out['data_wait_ms']:.2f} ms/step, forward+backward "
+          f"{out['fwd_bwd_ms']:.2f} ms, optimizer {out['optimizer_ms']:.2f} "
+          f"ms (device events), peak memory {peak_gb:.2f} GB", flush=True)
+    print(f"{tag}: {flops / 1e9:.1f} GFLOP a step (3x the forward's "
+          f"convolutions and product), {out['tflops']:.2f} TFLOP/s, "
+          f"{out['f32_peak_share']:.4f} of the f32 peak (67 TFLOP/s); "
+          f"profiled step {wall_ms:.2f} ms wall, {busy:.2f} ms kernel time, "
+          f"idle share {idle:.3f}", flush=True)
+    for key, kms, count in rows[:8]:
+        print(f"  {kms:9.3f} ms {count:6d}x  {key[:100]}")
+    print(f"{tag} under FLAGS_matmul_precision='default' (TF32 "
+          f"convolutions): {tf32_ms:.2f} ms/step (median of "
+          f"{RESNET_TF32_STEPS} after one warm-up, spread "
+          f"{tf32_spread:.2f}), "
+          f"{out['tf32_images_per_s']:.1f} images/s, forward+backward "
+          f"{out['tf32_fwd_bwd_ms']:.2f} ms, {out['tf32_peak_share']:.4f} of "
+          "the TF32 peak (495 TFLOP/s)", flush=True)
+    run.check(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+              f"{tag}: losses finite and the last below the first "
+              f"({losses[0]:.4f} -> {losses[-1]:.4f})")
+    run.check(tf32_ok and not torch.backends.cudnn.allow_tf32,
+              f"{tag}: the flag turned TF32 convolutions on for its steps "
+              "and off after them")
+    return out
+
+
+def check_forked_loader(run, paddle, torch):
+    """Phase 12c: phase 12b's loader, seeded, with forked workers after
+    CUDA is initialised: its batches land on the card and equal the
+    single-process loader's bit for bit."""
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.vision.datasets import FakeData
+    paddle.set_device("gpu:0")
+    ds = FakeData(size=256, image_shape=(3, 32, 32), num_classes=10)
+    got, host_ms = {}, {}
+    for workers in (0, LOADER_WORKERS):
+        dl = DataLoader(ds, batch_size=RESNET_BATCH, shuffle=True, seed=0,
+                        num_workers=workers)
+        batches = []
+        t0 = time.perf_counter()
+        while len(batches) < LOADER_BATCHES:
+            for xb, yb in dl:
+                batches.append((xb, yb))
+                if len(batches) == LOADER_BATCHES:
+                    break
+        torch.cuda.synchronize()
+        host_ms[workers] = (time.perf_counter() - t0) * 1e3 / LOADER_BATCHES
+        got[workers] = batches
+    same = all(torch.equal(a._data, b._data)
+               for sp, mp in zip(got[0], got[LOADER_WORKERS])
+               for a, b in zip(sp, mp))
+    on_card = all(t._data.is_cuda for b in got[LOADER_WORKERS] for t in b)
+    print(f"loader: {host_ms[0]:.2f} ms a batch in one process, "
+          f"{host_ms[LOADER_WORKERS]:.2f} ms with {LOADER_WORKERS} forked "
+          f"workers (host clock, {LOADER_BATCHES} batches of "
+          f"{RESNET_BATCH})", flush=True)
+    run.check(same and on_card and len(got[LOADER_WORKERS]) == LOADER_BATCHES,
+              f"loader with {LOADER_WORKERS} workers forked after CUDA was "
+              f"initialised: {LOADER_BATCHES} batches on the card, equal bit "
+              "for bit to the single-process loader's (seed 0)")
+    return {"ms_per_batch_single_process": host_ms[0],
+            "ms_per_batch_workers": host_ms[LOADER_WORKERS],
+            "workers": LOADER_WORKERS}
+
+
 def main():
     try:
         import torch
@@ -1963,8 +2292,10 @@ def main():
         print(f"chip_smoke: run from the root of the repository ({e})",
               file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False   # f32 products in f32
-    torch.backends.cudnn.allow_tf32 = False
+    # f32 products and convolutions in f32: what FLAGS_matmul_precision's
+    # default gives a user (the port sets torch's and cuDNN's precision
+    # from it); phase 12b also runs TF32 steps under "default"
+    paddle.set_flags({"FLAGS_matmul_precision": "highest"})
     run = Run()
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}",
@@ -2051,6 +2382,15 @@ def main():
         bert["library_fwd_at_bert"] = bert_attn
         bert["phase_s"] = time.perf_counter() - t0
         print(f"bert phase: {bert['phase_s']:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    small_resnet = check_small_resnet(run, paddle, torch)
+    resnet = drive_resnet50(run, paddle, torch)
+    resnet["small"] = small_resnet
+    resnet["loader"] = check_forked_loader(run, paddle, torch)
+    resnet["phase_12_s"] = time.perf_counter() - t0
+    print(f"resnet phase: {resnet['phase_12_s']:.1f} s", flush=True)
 
     kernels = []
     for kern in KERNELS:
@@ -2089,6 +2429,7 @@ def main():
     print(json.dumps({"moe_gpt": {k: v for k, v in moe.items()
                                   if k != "launches"}}))
     print(json.dumps({"bert": bert}))
+    print(json.dumps({"resnet50": resnet}))
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed",
               file=sys.stderr)

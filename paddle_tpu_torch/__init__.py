@@ -29,11 +29,13 @@ What is ported so far:
 - ``amp`` (``auto_cast``, ``decorate``, ``GradScaler``, ``debugging``),
   the BERT models (``models/bert.py``), the MoE layers (``models/moe.py``)
   and ``models/gpt_hybrid``'s single-device MoE step and split gradient
-  accumulation.
+  accumulation;
+- ``io`` (datasets, samplers, the DataLoader with its worker processes and
+  resumable position) and ``vision`` (transforms, datasets, the model zoo:
+  ResNet and the others; ``models.resnet`` is ``vision.models.resnet``).
 
 Use it as ``import paddle_tpu_torch as paddle``. Names of later slices
-(``io``, ``jit``, ``vision``, ``nn``'s rnn/extended/quant, ...) are not
-here.
+(``jit``, ``vision.ops``, ``nn``'s rnn/extended/quant, ...) are not here.
 """
 from __future__ import annotations
 
@@ -78,6 +80,7 @@ from .autograd import (  # noqa: F401
     no_grad, enable_grad, set_grad_enabled, is_grad_enabled, grad,
 )
 from .framework.io import save, load  # noqa: F401
+from . import io  # noqa: F401
 
 # ---- the Layer API and the optimizers -------------------------------------
 from . import nn  # noqa: F401
@@ -91,6 +94,14 @@ globals().update(_biv(globals()))
 del _biv
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """``vision`` loads on first use, as the reference's does."""
+    if name == "vision":
+        import importlib
+        return importlib.import_module(f"{__name__}.vision")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def is_tensor(x):

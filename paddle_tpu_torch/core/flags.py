@@ -7,7 +7,8 @@ Only flags that something in the port reads are defined, each with the
 reference's name, default and meaning: the seven that eager dispatch reads
 (``core/dispatch.py``), the two print flags of ``Tensor.__repr__``, and
 ``FLAGS_matmul_precision``/``FLAGS_deterministic``, which set torch's f32
-matmul precision when they change, as the reference sets jax's. A module
+matmul precision and cuDNN's f32 convolution precision at import and when
+they change, as the reference sets jax's. A module
 that reads a flag of its own defines it (``FLAGS_attn_autotune`` in
 ``ops/hopper/autotune.py``), so an unknown name is refused by ``set_flags``
 rather than accepted and ignored.
@@ -83,10 +84,12 @@ define_flag("FLAGS_check_nan_inf", False,
 define_flag("FLAGS_check_nan_inf_level", 0,
             "0: raise on nan/inf; 3: log only")
 define_flag("FLAGS_deterministic", False,
-            "deterministic mode: f32 matmul precision pinned to 'highest'")
+            "deterministic mode: f32 matmul and convolution precision "
+            "pinned to 'highest'")
 define_flag("FLAGS_matmul_precision", "",
-            "'default'|'high'|'highest' -> torch's f32 matmul precision "
-            "(applied on set)")
+            "'default'|'high'|'highest' -> torch's f32 matmul precision; "
+            "cuDNN's f32 convolutions run in TF32 unless 'highest' "
+            "(applied at import and on set)")
 define_flag("FLAGS_op_log", False,
             "log every eager op dispatch with dtypes/shapes; see "
             "FLAGS_op_log_filter")
@@ -111,25 +114,22 @@ _TORCH_PRECISION = {"": "highest", "highest": "highest", "high": "high",
                     "default": "medium"}
 
 
-def _apply_matmul_precision(v):
+def _apply_precision(_value=None):
+    """Observer of both flags: torch's f32 matmul precision and cuDNN's f32
+    convolutions from their values, as jax_default_matmul_precision governs
+    both dot_general and conv_general_dilated. Convolutions run in TF32
+    exactly when the matmul precision is not "highest" (FLAGS_deterministic
+    pins "highest"). cuDNN is set through ``allow_tf32`` alone, which sets
+    its conv and rnn precisions together."""
     import torch
-    if get_flag("FLAGS_deterministic"):
-        return          # deterministic pin wins until it is disabled
-    torch.set_float32_matmul_precision(_TORCH_PRECISION[v])
+    precision = ("highest" if get_flag("FLAGS_deterministic")
+                 else _TORCH_PRECISION[get_flag("FLAGS_matmul_precision")])
+    torch.set_float32_matmul_precision(precision)
+    torch.backends.cudnn.allow_tf32 = precision != "highest"
 
 
-def _apply_deterministic(v):
-    import torch
-    torch.set_float32_matmul_precision(
-        "highest" if v
-        else _TORCH_PRECISION[get_flag("FLAGS_matmul_precision")])
+on_flag_change("FLAGS_matmul_precision", _apply_precision)
+on_flag_change("FLAGS_deterministic", _apply_precision)
 
-
-on_flag_change("FLAGS_matmul_precision", _apply_matmul_precision)
-on_flag_change("FLAGS_deterministic", _apply_deterministic)
-
-# env-set flags apply their side effects at import too
-if os.environ.get("FLAGS_matmul_precision"):
-    _apply_matmul_precision(get_flag("FLAGS_matmul_precision"))
-if os.environ.get("FLAGS_deterministic") and get_flag("FLAGS_deterministic"):
-    _apply_deterministic(True)
+# the flags' values (defaults or FLAGS_* from the environment) apply at import
+_apply_precision()

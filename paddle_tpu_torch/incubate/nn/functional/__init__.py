@@ -2,7 +2,7 @@
 ``paddle_tpu/incubate/nn/functional/__init__.py``'s
 ``masked_multihead_attention`` (:177), with its refusals, over
 ``inference.decode.masked_multihead_attention_impl``. The module's other
-names wait for a later slice (ROADMAP queue 1, item 8).
+names wait for a later slice (ROADMAP queue 1, item 7).
 """
 from __future__ import annotations
 

@@ -5,7 +5,8 @@ input.py).
 
 Paddle's layouts are kept: ``linear``'s weight is [in, out] and
 ``linear(x, W, b) = x @ W + b``, one ``addmm`` on that layout (torch's own
-``linear`` would need Wᵀ). Dropout masks come from the port's generator.
+``linear`` would need Wᵀ), its operands promoted to their common dtype as
+jnp's product promotes them. Dropout masks come from the port's generator.
 """
 from __future__ import annotations
 
@@ -17,10 +18,12 @@ from ...core import dtype as dtype_mod
 from ...core.dispatch import run_op
 from ...core.generator import generator_for
 from ...core.tensor import Tensor
+from ...ops.linalg import promoted
 
 
 def _matmul_bias(a, w, b):
     """x @ W + b as one addmm over the rows of x (any leading dims)."""
+    a, w, b = promoted(a, w, b)
     if a.dim() < 2:
         return torch.matmul(a, w) + b
     out = torch.addmm(b, a.reshape(-1, a.shape[-1]), w)
@@ -30,7 +33,8 @@ def _matmul_bias(a, w, b):
 def linear(x, weight, bias=None, name=None):
     """y = x @ W + b with paddle weight layout [in, out]."""
     if bias is None:
-        return run_op("linear", torch.matmul, x, weight)
+        return run_op("linear", lambda a, w: torch.matmul(*promoted(a, w)),
+                      x, weight)
     return run_op("linear", _matmul_bias, x, weight, bias)
 
 

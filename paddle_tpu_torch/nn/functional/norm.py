@@ -9,7 +9,9 @@ norms) in float32 where the reference computes them in the input dtype
 (``norm.py:72-90``), so bf16 outputs agree to bf16's rounding, not bit for
 bit; and BatchNorm's running statistics follow Paddle's convention
 ``running = m * running + (1 - m) * batch`` (m = 0.9, the unbiased batch
-variance), which is torch's update with momentum 1 - m. The running
+variance), which is torch's update with momentum 1 - m. Where each channel
+has one value in training (a batch of one at 1x1), which torch refuses, the
+reference's function is computed in torch ops instead. The running
 statistics are updated on copies that are then rebound onto the buffers,
 so no tensor that autograd or a caller holds is written in place.
 """
@@ -26,6 +28,27 @@ def _channels_last(data_format):
         "NCHW", "NCL", "NCDHW")
 
 
+def _one_value_per_channel(a, rm, rv, w, b, momentum, epsilon):
+    """Train-mode batch norm of [N, C, ...] with one value per channel,
+    which torch's call refuses: the reference's function
+    (``paddle_tpu/nn/functional/norm.py:22-40``). The biased batch variance
+    is 0, so the output is the bias (zeros without one); the running mean
+    moves toward the value and the running variance toward 0 (the unbiased
+    correction n / max(n - 1, 1) is 1)."""
+    shape = [1, a.shape[1]] + [1] * (a.dim() - 2)
+    m = a.reshape(shape)
+    out = (a - m) * epsilon ** -0.5
+    if w is not None:
+        out = out * w.reshape(shape)
+    if b is not None:
+        out = out + b.reshape(shape)
+    if rm is not None:
+        rm.copy_(momentum * rm + (1 - momentum) * m.detach().reshape(-1))
+    if rv is not None:
+        rv.mul_(momentum)
+    return out
+
+
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-05,
                data_format="NCHW", use_global_stats=None, name=None):
@@ -37,8 +60,11 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
         b = wb[-1] if bias is not None else None
         if last:
             a = a.movedim(-1, 1)
-        out = tF.batch_norm(a, rm, rv, w, b, training=use_batch_stats,
-                            momentum=1.0 - momentum, eps=epsilon)
+        if use_batch_stats and a.numel() == a.shape[1]:
+            out = _one_value_per_channel(a, rm, rv, w, b, momentum, epsilon)
+        else:
+            out = tF.batch_norm(a, rm, rv, w, b, training=use_batch_stats,
+                                momentum=1.0 - momentum, eps=epsilon)
         return out.movedim(1, -1) if last else out
 
     extras = [t for t in (weight, bias) if t is not None]

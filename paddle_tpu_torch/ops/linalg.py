@@ -10,13 +10,26 @@ from ..core.dispatch import run_op
 from ..core.tensor import Tensor
 
 
+def promoted(*arrays):
+    """The operands cast to their common dtype: jnp's products promote mixed
+    dtypes (f32 x bf16 is f32), where torch's refuse them."""
+    dt = arrays[0].dtype
+    for a in arrays[1:]:
+        dt = torch.promote_types(dt, a.dtype)
+    return [a if a.dtype == dt else a.to(dt) for a in arrays]
+
+
+def _matmul(a, b):
+    return torch.matmul(*promoted(a, b))
+
+
 def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
     def f(a, b):
         if transpose_x and a.dim() > 1:
             a = a.transpose(-1, -2)
         if transpose_y and b.dim() > 1:
             b = b.transpose(-1, -2)
-        return torch.matmul(a, b)
+        return _matmul(a, b)
     return run_op("matmul", f, x, y)
 
 
@@ -25,11 +38,11 @@ def mm(input, mat2, name=None):
 
 
 def bmm(x, y, name=None):
-    return run_op("bmm", torch.matmul, x, y)
+    return run_op("bmm", _matmul, x, y)
 
 
 def mv(x, vec, name=None):
-    return run_op("mv", torch.matmul, x, vec)
+    return run_op("mv", _matmul, x, vec)
 
 
 def dot(x, y, name=None):
@@ -275,7 +288,8 @@ def pca_lowrank(x, q=None, center=True, niter=2, name=None):
 def einsum(equation, *operands):
     ops_list = list(operands[0]) if len(operands) == 1 and \
         isinstance(operands[0], (list, tuple)) else list(operands)
-    return run_op("einsum", lambda *xs: torch.einsum(equation, *xs),
+    return run_op("einsum",
+                  lambda *xs: torch.einsum(equation, *promoted(*xs)),
                   *ops_list)
 
 

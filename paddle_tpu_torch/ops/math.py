@@ -15,6 +15,7 @@ import torch
 from ..core import dtype as dtype_mod
 from ..core.dispatch import _as_array, run_op, run_op_inplace
 from ..core.tensor import Tensor
+from .linalg import promoted
 
 
 def _is_scalar(v):
@@ -251,7 +252,8 @@ def nan_to_num(x, nan=0.0, posinf=None, neginf=None, name=None):
 
 def addmm(input, x, y, beta=1.0, alpha=1.0, name=None):
     return run_op("addmm",
-                  lambda i, a, b: beta * i + alpha * torch.matmul(a, b),
+                  lambda i, a, b: beta * i + alpha * torch.matmul(
+                      *promoted(a, b)),
                   input, x, y)
 
 

@@ -588,3 +588,103 @@ def test_small_bert_eval_forward_on_the_card():
     finally:
         paddle.set_device("cpu")
     assert not run.failures, run.failures
+
+
+def test_f32_convolution_follows_the_precision_flag():
+    """FLAGS_matmul_precision governs cuDNN's f32 convolutions: under
+    "highest" an f32 Conv2D on the card is within 1e-5 of the CPU's (of the
+    output's scale); under "default" (TF32) it is further off, which shows
+    that the switch acts."""
+    _need_card()
+    import paddle_tpu_torch as paddle
+    rng = np.random.RandomState(0)
+    x = rng.randn(8, 64, 32, 32).astype(np.float32)
+    w = rng.randn(64, 64, 3, 3).astype(np.float32)
+    saved = paddle.get_flags(["FLAGS_matmul_precision"])
+    out = {}
+    try:
+        for prec, dev in (("highest", "cpu"), ("highest", "gpu:0"),
+                          ("default", "gpu:0")):
+            paddle.set_flags({"FLAGS_matmul_precision": prec})
+            paddle.set_device(dev)
+            conv = paddle.nn.Conv2D(64, 64, 3, padding=1, bias_attr=False)
+            conv.weight.set_value(w)
+            out[prec, dev] = conv(paddle.to_tensor(x))._data.detach().cpu()
+    finally:
+        paddle.set_flags(saved)
+        paddle.set_device("cpu")
+    want = out["highest", "cpu"]
+    f32 = _rel_err(out["highest", "gpu:0"], want)
+    tf32 = _rel_err(out["default", "gpu:0"], want)
+    assert f32 < 1e-5, f32
+    assert tf32 > 10 * f32, (tf32, f32)
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 1, 1), (1, 4)])
+def test_batch_norm_with_one_value_per_channel_on_the_card(shape):
+    """Train-mode BatchNorm with one value a channel (torch's own call
+    refuses it) on the card equals the CPU: the output (the bias), the
+    input's gradient and both running buffers."""
+    _need_card()
+    import paddle_tpu_torch as paddle
+    x = np.random.RandomState(1).randn(*shape).astype(np.float32)
+    out = {}
+    try:
+        for dev in ("cpu", "gpu:0"):
+            paddle.set_device(dev)
+            bn = (paddle.nn.BatchNorm2D if len(shape) == 4
+                  else paddle.nn.BatchNorm1D)(4)
+            bn.bias.set_value(np.linspace(-1, 1, 4).astype(np.float32))
+            xt = paddle.to_tensor(x, stop_gradient=False)
+            y = bn(xt)
+            (y * paddle.to_tensor(np.arange(4, dtype=np.float32).reshape(
+                (1, 4) + (1,) * (len(shape) - 2)))).sum().backward()
+            out[dev] = [t.numpy() for t in (y, xt.grad, bn._mean,
+                                            bn._variance)]
+    finally:
+        paddle.set_device("cpu")
+    for got, want in zip(out["gpu:0"], out["cpu"]):
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    assert np.allclose(out["cpu"][3], 0.9)
+
+
+def test_small_resnet_on_the_card():
+    """chip_smoke.py phase 12a: resnet18 at B4 32x32 f32 on the card
+    against the CPU from one state_dict (a train-mode B1 forward, then the
+    logits, loss, every gradient and one Momentum step's parameters and
+    BatchNorm buffers)."""
+    _need_card()
+    import paddle_tpu_torch as paddle
+    cs = _chip_smoke()
+    run = cs.Run()
+    try:
+        cs.check_small_resnet(run, paddle, torch)
+    finally:
+        paddle.set_device("cpu")
+    assert not run.failures, run.failures
+
+
+def test_forked_loader_workers_after_cuda_init():
+    """Workers forked after the parent initialised CUDA build on the CPU;
+    their batches land on the card and equal the single-process loader's
+    (seeded shuffle), Tensor samples from ToTensor included."""
+    _need_card()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.vision import transforms
+    from paddle_tpu_torch.vision.datasets import FakeData
+    torch.zeros(1, device="cuda")
+    ds = FakeData(size=24, image_shape=(8, 8, 3),
+                  transform=transforms.ToTensor())
+    try:
+        paddle.set_device("gpu:0")
+        sp = list(DataLoader(ds, batch_size=5, shuffle=True, seed=1))
+        mp = list(DataLoader(ds, batch_size=5, shuffle=True, seed=1,
+                             num_workers=2))
+    finally:
+        paddle.set_device("cpu")
+    assert len(mp) == len(sp) == 5
+    for a, b in zip(mp, sp):
+        for x, y in zip(a, b):
+            assert x._data.is_cuda and y._data.is_cuda
+            assert torch.equal(x._data, y._data)

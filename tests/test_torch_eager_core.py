@@ -1,6 +1,11 @@
 """The eager API's core modules of paddle_tpu_torch (core/dtype.py,
 core/place.py, core/generator.py) against the reference where both define
-the behaviour, on the CPU."""
+the behaviour, on the CPU; and core/flags.py's precision flags, which set
+torch's f32 matmul and cuDNN's f32 convolution precision."""
+import os
+import subprocess
+import sys
+
 import ml_dtypes
 import numpy as np
 import pytest
@@ -9,6 +14,7 @@ import torch
 import paddle_tpu as P
 import paddle_tpu_torch as T
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAMES = ["bool", "uint8", "int8", "int16", "int32", "int64", "float16",
          "bfloat16", "float32", "float64", "complex64", "complex128"]
 
@@ -107,3 +113,44 @@ def test_generator_state_round_trip():
     assert g.get_state()["offset"] == state["offset"] + 2
     assert T.uniform([3], seed=5).numpy().tolist() == \
         T.uniform([3], seed=5).numpy().tolist()
+
+
+@pytest.mark.parametrize("precision,deterministic,torch_precision,tf32", [
+    ("", False, "highest", False), ("highest", False, "highest", False),
+    ("high", False, "high", True), ("default", False, "medium", True),
+    ("default", True, "highest", False), ("high", True, "highest", False)])
+def test_precision_flags_govern_cudnn_f32_convolutions(
+        precision, deterministic, torch_precision, tf32):
+    """FLAGS_matmul_precision and FLAGS_deterministic set cuDNN's f32
+    convolutions as jax's matmul precision governs conv_general_dilated:
+    TF32 exactly when torch's matmul precision is not "highest"."""
+    saved = T.get_flags(["FLAGS_matmul_precision", "FLAGS_deterministic"])
+    try:
+        T.set_flags({"FLAGS_deterministic": not deterministic})
+        T.set_flags({"FLAGS_matmul_precision": precision})
+        T.set_flags({"FLAGS_deterministic": deterministic})
+        assert torch.get_float32_matmul_precision() == torch_precision
+        assert torch.backends.cudnn.allow_tf32 is tf32
+        T.set_flags({"FLAGS_deterministic": False})
+        assert torch.backends.cudnn.allow_tf32 is (
+            precision in ("high", "default"))
+    finally:
+        T.set_flags(saved)
+    assert torch.backends.cudnn.allow_tf32 is (
+        saved["FLAGS_matmul_precision"] in ("high", "default")
+        and not saved["FLAGS_deterministic"])
+
+
+def test_precision_flags_apply_at_import():
+    """The flags' defaults set cuDNN's f32 convolutions to full f32 when the
+    port is imported, where torch's own default allows TF32."""
+    probe = ("import torch\n"
+             "assert torch.backends.cudnn.allow_tf32\n"
+             "import paddle_tpu_torch\n"
+             "print(torch.backends.cudnn.allow_tf32,"
+             " torch.get_float32_matmul_precision())\n")
+    env = {k: v for k, v in os.environ.items() if not k.startswith("FLAGS_")}
+    out = subprocess.run([sys.executable, "-c", probe], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "highest"]

@@ -735,3 +735,51 @@ def test_random_dtypes_and_shapes_match_reference():
         assert got.shape == want.shape
         assert got.dtype.name.rstrip("0123456789") == \
             want.dtype.name.rstrip("0123456789")
+
+
+# ---------------------------------------------------- mixed-dtype products
+MIXED_DTYPES = [("float32", "bfloat16"), ("bfloat16", "float32"),
+                ("float16", "float32")]
+MIXED = [
+    ("linear", lambda p, x, w, b: p.nn.functional.linear(x, w)),
+    ("linear_bias", lambda p, x, w, b: p.nn.functional.linear(x, w, b)),
+    ("matmul", lambda p, x, w, b: p.matmul(x, w)),
+    ("matmul_t", lambda p, x, w, b: p.matmul(x.T, w, transpose_x=True)),
+    ("mm", lambda p, x, w, b: p.mm(x, w)),
+    ("bmm", lambda p, x, w, b: p.bmm(x.unsqueeze(0), w.unsqueeze(0))),
+    ("addmm", lambda p, x, w, b: p.addmm(b, x, w, beta=0.5, alpha=2.0)),
+    ("einsum", lambda p, x, w, b: p.einsum("ij,jk->ik", x, w)),
+]
+
+
+@pytest.mark.parametrize("dx,dw", MIXED_DTYPES)
+@pytest.mark.parametrize("name,fn", MIXED, ids=[c[0] for c in MIXED])
+def test_mixed_dtype_products_promote(name, fn, dx, dw):
+    """Products of two float dtypes promote as jnp's do (f32 x bf16 is f32)
+    where torch's refuse them; the bias takes the weight's dtype. Values,
+    dtype and the gradient of every input (in its own dtype)."""
+    r = _rng(zlib.crc32(f"{name}{dx}{dw}".encode()))
+    arrays = [r.randn(2, 4), r.randn(4, 3), r.randn(3)]
+    outs = {}
+    for pd in (P, T):
+        xs = [pd.to_tensor(a.astype(np.float32)).astype(d)
+              for a, d in zip(arrays, (dx, dw, dw))]
+        for t in xs:
+            t.stop_gradient = False
+        out = fn(pd, *xs)
+        (out.astype("float32") * pd.to_tensor(
+            np.linspace(-1, 1, 6, dtype=np.float32).reshape(2, 3))
+         ).sum().backward()
+        outs[pd] = (str(out.dtype), out.astype("float32").numpy(),
+                    [None if t.grad is None else
+                     (str(t.grad.dtype), t.grad.astype("float32").numpy())
+                     for t in xs])
+    (want_dt, want, want_g), (got_dt, got, got_g) = outs[P], outs[T]
+    assert got_dt == want_dt == "float32"
+    _close(got, want, F32_TOL, name)
+    for k, (g, w) in enumerate(zip(got_g, want_g)):
+        assert (g is None) == (w is None), k
+        if w is not None:
+            assert g[0] == w[0], (k, g[0], w[0])
+            _close(g[1], w[1], BF16_TOL if "float32" not in w[0]
+                   else F32_TOL, f"{name} grad {k}")

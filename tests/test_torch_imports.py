@@ -2,7 +2,8 @@
 neither jax nor the JAX package (the training step, the eager and Layer
 APIs, serving: ``inference``, ``models.llama``, ``observability``'s
 server, ``_chaos``, and ``amp``, ``models.bert``, ``models.moe`` and the
-MoE step of ``models.gpt_hybrid``), and its entry points default to CUDA:
+MoE step of ``models.gpt_hybrid``, and ``io`` and ``vision`` with their
+DataLoader workers), and its entry points default to CUDA:
 the training step's, and the eager API's, whose tensors land on gpu:0
 unless set_device("cpu") was called."""
 import os
@@ -111,6 +112,20 @@ acc, moe_loss = grad_step(moe_params, TH.init_grad_accum(moe_params),
                           (ids, ids))
 apply_step(moe_params, moe_opt, acc, 1)
 assert float(moe_loss) == float(moe_loss)
+
+# io and vision: the DataLoader (workers too), transforms, datasets, the zoo
+import numpy as np
+from paddle_tpu_torch import io as pio, vision
+from paddle_tpu_torch.vision import datasets as vdatasets, transforms
+from paddle_tpu_torch.vision.models import resnet18
+assert models.resnet.resnet50 is vision.models.resnet50
+fake = vdatasets.FakeData(size=4, image_shape=(3, 32, 32),
+                          transform=transforms.Compose([
+                              transforms.Transpose((1, 2, 0)),
+                              transforms.Resize(16), transforms.ToTensor()]))
+batches = list(pio.DataLoader(fake, batch_size=2, num_workers=2))
+assert batches[0][0].shape == [2, 3, 16, 16]
+assert resnet18(num_classes=10)(batches[0][0]).shape == [2, 10]
 
 def foreign(name):
     return (name in ("jax", "jaxlib", "paddle_tpu")

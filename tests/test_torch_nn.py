@@ -456,6 +456,16 @@ def test_bf16(name, fn, arrays):
 
 
 # ------------------------------------------------------------------ layers
+def _shifted(bn):
+    """A BatchNorm with a bias and running statistics away from their
+    initial values, so that its output and both buffers show them."""
+    c = bn.bias.shape[0]
+    bn.bias.set_value(np.linspace(-1, 1, c).astype(np.float32))
+    bn._mean.set_value(np.linspace(0.5, -0.5, c).astype(np.float32))
+    bn._variance.set_value(np.linspace(0.5, 2.0, c).astype(np.float32))
+    return bn
+
+
 def _layer_cases():
     return [
         ("Linear", lambda nn: nn.Linear(6, 4), [_x(3, 6)]),
@@ -472,6 +482,12 @@ def _layer_cases():
          [_x(2, 3, 6)]),
         ("BatchNorm2D", lambda nn: nn.BatchNorm2D(4), [IMG]),
         ("BatchNorm1D", lambda nn: nn.BatchNorm1D(6), [_x(8, 6)]),
+        # train mode with one value per channel (a batch of one at 1x1),
+        # which torch's own batch_norm refuses
+        ("BatchNorm2D_one_value", lambda nn: _shifted(nn.BatchNorm2D(4)),
+         [_x(1, 4, 1, 1)]),
+        ("BatchNorm1D_one_value", lambda nn: _shifted(nn.BatchNorm1D(6)),
+         [_x(1, 6)]),
         ("LayerNorm", lambda nn: nn.LayerNorm(6), [X]),
         ("RMSNorm", lambda nn: nn.RMSNorm(6), [X]),
         ("GroupNorm", lambda nn: nn.GroupNorm(2, 4), [IMG]),

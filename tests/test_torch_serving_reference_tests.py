@@ -5,7 +5,8 @@ model modules of ``PORTED`` (``import paddle_tpu as paddle``, ``from
 paddle_tpu import nn, _chaos``, ``paddle_tpu.inference.decode``,
 ``.inference.admission``, ``.observability``, ``.observability.server``,
 ``._chaos``, ``.models.llama``, ``.models.gpt``, ``.models.bert``,
-``.models.moe``, ``.amp``, ``.incubate.nn``'s ``functional``),
+``.models.moe``, ``.amp``, ``.incubate.nn``'s ``functional``, ``.io``,
+``.vision``, ``.vision.models``, ``.vision.datasets``),
 at the top of the file or inside a test body. This module reads each
 file's source, blanks the tests that are left out (below), rewrites those
 imports to the same names of ``paddle_tpu_torch``, refuses any other
@@ -28,12 +29,12 @@ Left out, each with the slice that brings what it needs:
   Intel Xeon host the reference takes ~0.51 s for them and the port
   0.044-0.059 s, so the request may finish first.
   ``test_torch_serving.py`` states the test again with the deadline
-  passing while the request decodes, whatever the speed;
-- ``test_models.py::test_resnet18_fakedata_trains``,
-  ``::test_vision_model_shapes`` and ``::test_transforms_pipeline``: they
-  need ``vision`` and ``io``, which the ResNet-50 CIFAR-10 slice brings.
-  Its other six tests (GPT, Llama, BERT MLM, BERT under AMP O2, the MoE
-  layer) are bound.
+  passing while the request decodes, whatever the speed.
+
+All nine tests of ``test_models.py`` are bound: GPT, Llama, BERT MLM,
+BERT under AMP O2, the MoE layer, and since the ResNet-50 CIFAR-10 slice
+``test_resnet18_fakedata_trains``, ``test_vision_model_shapes`` and
+``test_transforms_pipeline`` (``vision`` and ``io``).
 
 The two files' autouse ``_metrics_on`` fixtures (test_metrics_server.py's
 and test_serving_robustness.py's) share a name, so neither is bound: the
@@ -44,6 +45,7 @@ import os
 import re
 
 import pytest
+import torch
 
 import paddle_tpu_torch
 from paddle_tpu_torch import _chaos
@@ -60,15 +62,14 @@ FILES = {
     "test_serving_robustness.py": (
         "test_total_deadline_times_out_within_a_step",),
     "test_metrics_server.py": (),
-    "test_models.py": ("test_resnet18_fakedata_trains",
-                       "test_vision_model_shapes",
-                       "test_transforms_pipeline"),
+    "test_models.py": (),
 }
 # modules of paddle_tpu whose imports are rewritten to paddle_tpu_torch's,
 # and the names "from paddle_tpu import ..." may take
 PORTED = ("inference.decode", "inference.admission", "observability",
           "observability.server", "_chaos", "models.llama", "models.gpt",
-          "models.bert", "models.moe", "amp", "incubate.nn")
+          "models.bert", "models.moe", "amp", "incubate.nn", "io", "vision",
+          "vision.models", "vision.datasets")
 PORTED_NAMES = {"nn", "_chaos"}
 AUTOUSE = {"_metrics_on"}
 IMPORT = re.compile(r"^(\s*)(from|import)\s+paddle_tpu(\.[\w.]+)?(\s.*)$")
@@ -137,6 +138,25 @@ def _port_on_cpu():
     paddle_tpu_torch.set_device("cpu")
 
 
+# test_models.py's vision tests: convolutions in every layer
+CONV_HEAVY = {"test_resnet18_fakedata_trains", "test_vision_model_shapes",
+              "test_transforms_pipeline"}
+
+
+@pytest.fixture(autouse=True)
+def _share_the_cores(request):
+    """Under pytest-xdist each worker's torch would start an intra-op thread
+    a core, and OpenMP's barriers then wait on descheduled threads (the
+    resnet18 test ran ~60x slower beside five other workers): the
+    convolution-heavy tests take their worker's share of the cores."""
+    threads = torch.get_num_threads()
+    if request.node.name in CONV_HEAVY:
+        workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _serving_state():
     """For every bound test: the port's metrics on; after it, the scrape
@@ -159,7 +179,7 @@ def test_every_reference_test_is_bound():
     assert N_BOUND == {"test_decode.py": 13,
                        "test_continuous_batching.py": 7,
                        "test_serving_robustness.py": 18,
-                       "test_metrics_server.py": 4, "test_models.py": 6}
+                       "test_metrics_server.py": 4, "test_models.py": 9}
 
 
 def test_the_rewrite_refuses_other_reference_imports(tmp_path):

@@ -1,0 +1,397 @@
+"""paddle_tpu_torch.vision against paddle_tpu.vision, on the CPU.
+
+- ResNet: ``resnet18`` and ``resnet50`` at full width, 32x32, f32, from
+  one numpy seed, weights carried across by ``state_dict``. ``resnet18``:
+  the logits, the loss, every gradient, one ``Momentum(0.1, 0.9,
+  weight_decay=5e-4)`` step and the BatchNorm buffers, within 1e-4 of each
+  leaf's scale; ``resnet50``: the logits, the loss and the buffers of one
+  train-mode forward, within 1e-3 (its backward's first run in the
+  reference takes another ~25 s of per-op compilation on the CPU, so the
+  gradients are held at ``resnet18``'s depth). The batch is 8 images drawn
+  from N(0, 1): at 32x32 ``layer4`` is 1x1, so each of its train-mode
+  BatchNorms normalises B values a channel, and at B2 (or on [0, 1) images
+  at B8) the f32 step is chaotic: the port's own f32 gradients differ from
+  its f64 ones by 3e-2 (resnet18) to 11x (resnet50) of their scale. At B8
+  on N(0, 1) images that f32-against-f64 spread is 1.6e-5 (resnet18's
+  gradients) and 1.8e-4 (resnet50's logits), and the tolerances are a few
+  times it.
+- The rest of the zoo: every factory's state_dict keys and shapes equal the
+  reference's (taken with ``jax.eval_shape``, which builds no weights), and
+  ``LeNet``, ``mobilenet_v2`` and ``shufflenet_v2_x0_25`` give the
+  reference's logits in eval mode within 1e-5 of their scale.
+- ``transforms``: ``Resize`` against ``jax.image.resize`` up and down (f32
+  within 1e-5, uint8 within one level, since the reference truncates), the
+  other transforms on seeded inputs under one ``random`` seed (exact, or
+  one uint8 level where a resize is inside).
+- ``datasets``: ``FakeData`` bit for bit; ``Cifar10``, ``MNIST``,
+  ``DatasetFolder`` and ``Flowers`` read the same local files to the same
+  items; nothing is downloaded and an absent file raises.
+"""
+import gzip
+import io as _io
+import os
+import pickle
+import random
+import tarfile
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import paddle_tpu as P
+import paddle_tpu_torch as T
+from paddle_tpu.vision import datasets as pds
+from paddle_tpu.vision import transforms as ptr
+from paddle_tpu_torch.vision import datasets as tds
+from paddle_tpu_torch.vision import transforms as ttr
+
+F32_TOL = 1e-5
+RESNET_TOL = {"resnet18": 1e-4, "resnet50": 1e-3}
+BATCH = 8
+
+
+@pytest.fixture(autouse=True)
+def _port_on_cpu():
+    T.set_device("cpu")
+    yield
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _share_the_cores():
+    """Under pytest-xdist each worker's torch would start an intra-op thread
+    a core, and OpenMP's barriers then wait on descheduled threads (a
+    resnet18 step ran ~60x slower beside five other workers): this module
+    takes its worker's share of the cores."""
+    threads = torch.get_num_threads()
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(threads)
+
+
+def _rel(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _err(got, want):
+    """The largest error over a quantity's leaves, each of its own scale."""
+    if isinstance(want, dict):
+        assert list(got) == list(want)
+        return max(_rel(got[k], want[k]) for k in want)
+    return _rel(got, want)
+
+
+# ----------------------------------------------------------------- ResNet
+def _train_step(pkg, model, x, y, backward=True):
+    model.train()
+    logits = model(pkg.to_tensor(x))
+    loss = pkg.nn.CrossEntropyLoss()(logits, pkg.to_tensor(y))
+    out = {"logits": logits.numpy(), "loss": np.asarray(float(loss))}
+    if backward:
+        opt = pkg.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                     parameters=model.parameters(),
+                                     weight_decay=5e-4)
+        loss.backward()
+        out["grads"] = {n: p.grad.numpy()
+                        for n, p in model.named_parameters()}
+        opt.step()
+    # the parameters after the step and BatchNorm's _mean and _variance
+    out["state"] = {k: v.numpy() for k, v in model.state_dict().items()}
+    return out
+
+
+@pytest.mark.parametrize("depth,backward", [("resnet18", True),
+                                            ("resnet50", False)])
+def test_resnet_matches_the_reference(depth, backward):
+    P.seed(0)
+    ref = getattr(P.vision.models, depth)(num_classes=10)
+    port = getattr(T.vision.models, depth)(num_classes=10)
+    state = {k: v.numpy() for k, v in ref.state_dict().items()}
+    assert list(port.state_dict()) == list(state)
+    # BatchNorm's buffers under the reference's names at every depth
+    assert [k for k, _ in port.named_buffers()] == [
+        k for k in state if k.endswith(("._mean", "._variance"))]
+    port.set_state_dict(state)
+    assert all(np.array_equal(v.numpy(), state[k])
+               for k, v in port.state_dict().items())
+    r = np.random.RandomState(0)
+    x = r.randn(BATCH, 3, 32, 32).astype(np.float32)
+    y = r.randint(0, 10, (BATCH,)).astype(np.int64)
+    want = _train_step(P, ref, x, y, backward=backward)
+    got = _train_step(T, port, x, y, backward=backward)
+    assert list(got) == list(want)
+    for k in want:
+        assert _err(got[k], want[k]) <= RESNET_TOL[depth], k
+
+
+def test_batch_of_one_trains_at_one_by_one():
+    """At 32x32 layer4 is 1x1, so a trailing batch of one gives its
+    BatchNorms one value a channel in train mode."""
+    model = T.vision.models.resnet18(num_classes=10)
+    out = model(T.randn([1, 3, 32, 32]))
+    assert out.shape == [1, 10]
+    assert bool(T.isfinite(out).all())
+
+
+# ------------------------------------------------------------- the zoo
+ZOO = ["resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+       "resnext50_32x4d", "resnext50_64x4d", "resnext101_32x4d",
+       "resnext101_64x4d", "resnext152_32x4d", "resnext152_64x4d",
+       "wide_resnet50_2", "wide_resnet101_2", "LeNet", "vgg11", "vgg13",
+       "vgg16", "vgg19", "mobilenet_v1", "mobilenet_v2",
+       "mobilenet_v3_small", "mobilenet_v3_large", "alexnet",
+       "densenet121", "densenet161", "densenet169", "densenet201",
+       "densenet264", "squeezenet1_0", "squeezenet1_1", "googlenet",
+       "inception_v3", "shufflenet_v2_x0_25", "shufflenet_v2_x0_33",
+       "shufflenet_v2_x0_5", "shufflenet_v2_x1_0", "shufflenet_v2_x1_5",
+       "shufflenet_v2_x2_0", "shufflenet_v2_swish"]
+
+
+def test_the_zoo_exports_the_references_names():
+    def public(mod):
+        return {n for n in dir(mod) if not n.startswith("_")}
+    assert public(T.vision.models) == public(P.vision.models) >= set(ZOO)
+
+
+@pytest.mark.parametrize("name", ZOO)
+def test_zoo_state_dict_keys_and_shapes_match_the_reference(name):
+    keys = []
+
+    def build():
+        state = getattr(P.vision.models, name)().state_dict()
+        keys.extend(state)
+        return [v._data for v in state.values()]
+
+    shapes = jax.eval_shape(build)
+    got = getattr(T.vision.models, name)().state_dict()
+    assert list(got) == keys
+    assert [v.shape for v in got.values()] == [list(s.shape) for s in shapes]
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("LeNet", (2, 1, 28, 28)), ("mobilenet_v2", (2, 3, 32, 32)),
+    ("shufflenet_v2_x0_25", (2, 3, 32, 32))])
+def test_small_models_give_the_references_logits(name, shape):
+    kw = {} if name == "LeNet" else {"num_classes": 10}
+    P.seed(1)
+    ref = getattr(P.vision.models, name)(**kw)
+    port = getattr(T.vision.models, name)(**kw)
+    port.set_state_dict({k: v.numpy() for k, v in ref.state_dict().items()})
+    ref.eval()
+    port.eval()
+    x = np.random.RandomState(2).rand(*shape).astype(np.float32)
+    assert _rel(port(T.to_tensor(x)).numpy(),
+                ref(P.to_tensor(x)).numpy()) <= F32_TOL
+
+
+@pytest.mark.parametrize("name", ["resnet50", "mobilenet_v2",
+                                  "densenet121", "vgg11"])
+def test_pretrained_weights_are_refused(name):
+    """The reference returns random weights for pretrained=True (ROADMAP
+    queue 3); the port ships none and downloads nothing, so it raises."""
+    jax.eval_shape(lambda: len(getattr(P.vision.models, name)(
+        pretrained=True).state_dict()) + jnp.zeros(()))
+    with pytest.raises(NotImplementedError, match="pretrained"):
+        getattr(T.vision.models, name)(pretrained=True)
+
+
+def test_models_resnet_is_vision_models_resnet_and_vision_ops_waits():
+    from paddle_tpu_torch import models
+    from paddle_tpu_torch.vision.models import resnet
+    assert models.resnet is resnet and "resnet" in models.__all__
+    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
+        T.vision.ops
+    T.vision.set_image_backend("cv2")
+    assert T.vision.get_image_backend() == "cv2"
+    T.vision.set_image_backend("pil")
+    with pytest.raises(ValueError):
+        T.vision.set_image_backend("gif")
+
+
+# ------------------------------------------------------------ transforms
+@pytest.mark.parametrize("src,dst", [
+    ((48, 48, 3), (32, 32)), ((20, 30, 3), (45, 17)), ((32, 32), (40, 40)),
+    ((7, 9, 1), (3, 25)), ((16, 16, 3), (16, 16))])
+def test_resize_is_jax_image_resize(src, dst):
+    a = np.random.RandomState(sum(src)).rand(*src).astype(np.float32)
+    want = np.asarray(jax.image.resize(jnp.asarray(a), dst + src[2:],
+                                       "linear"))
+    got = ttr.Resize(dst)(a)
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert np.abs(got - want).max() <= F32_TOL
+    u = (a * 255).astype(np.uint8)
+    want_u = ptr.Resize(dst)(u)
+    got_u = ttr.Resize(dst)(u)
+    assert got_u.dtype == want_u.dtype == np.uint8
+    assert np.abs(got_u.astype(int) - want_u).max() <= 1
+
+
+def _img(kind):
+    r = np.random.RandomState(7)
+    if kind == "u8":
+        return (r.rand(20, 24, 3) * 255).astype(np.uint8)
+    return r.rand(20, 24, 3).astype(np.float32)
+
+
+# (id, fn(transforms module, pkg, img), input kind, absolute tolerance):
+# exact but where a resize of uint8 truncates, which may differ by one
+# level (carried through ToTensor and Normalize's 1 / 0.5 in the pipeline)
+ONE_LEVEL = 1 / 255 / 0.5
+TRANSFORMS = [
+    ("pipeline", lambda t, p, a: t.Compose([
+        t.Resize(28), t.RandomCrop(24, padding=2), t.RandomHorizontalFlip(),
+        t.ToTensor(), t.Normalize([0.5] * 3, [0.5] * 3)])(a), "u8",
+     ONE_LEVEL * (1 + F32_TOL)),
+    ("to_tensor_hwc", lambda t, p, a: t.to_tensor(a, "HWC"), "f32", 0),
+    ("normalize_hwc", lambda t, p, a: t.normalize(
+        a, [0.1, 0.2, 0.3], [0.5, 0.6, 0.7], "HWC"), "f32", 0),
+    ("center_crop", lambda t, p, a: t.CenterCrop(15)(a), "u8", 0),
+    ("flips", lambda t, p, a: t.RandomVerticalFlip(0.5)(
+        t.hflip(t.vflip(a))), "u8", 0),
+    ("pad_transpose", lambda t, p, a: t.Transpose()(t.Pad((1, 2))(a)),
+     "u8", 0),
+    ("functional_pads", lambda t, p, a: [
+        t.pad(a, (1, 2, 3, 4), padding_mode=m)
+        for m in ("constant", "edge", "reflect", "symmetric")], "u8", 0),
+    ("crops", lambda t, p, a: [t.crop(a, 2, 3, 10, 8),
+                               t.center_crop(a, 9)], "u8", 0),
+    ("affine", lambda t, p, a: t.affine(a, 20, (2, -1), 0.9, (5, 3)),
+     "u8", 0),
+    ("rotate_expand", lambda t, p, a: t.rotate(a, 33, expand=True, fill=9),
+     "f32", 0),
+    ("perspective", lambda t, p, a: t.perspective(
+        a, [(0, 0), (23, 0), (23, 19), (0, 19)],
+        [(2, 1), (21, 3), (20, 18), (1, 17)]), "u8", 0),
+    ("adjust", lambda t, p, a: [
+        t.adjust_brightness(a, 1.3), t.adjust_contrast(a, 0.7),
+        t.adjust_saturation(a, 1.4), t.adjust_hue(a, 0.2),
+        t.to_grayscale(a, 3)], "u8", 0),
+    ("erase_tensor", lambda t, p, a: t.erase(
+        p.to_tensor(a.transpose(2, 0, 1)), 2, 3, 5, 6,
+        np.asarray([1.0, 2.0, 3.0])), "f32", 0),
+    ("random_resized_crop", lambda t, p, a: t.RandomResizedCrop(12)(a),
+     "u8", 1),
+    ("color_jitter", lambda t, p, a: t.ColorJitter(0.4, 0.4, 0.4, 0.1)(a),
+     "u8", 0),
+    ("random_affine", lambda t, p, a: t.RandomAffine(
+        15, translate=(0.1, 0.1), scale=(0.9, 1.1), shear=(-5, 5, -3, 3))(a),
+     "u8", 0),
+    ("random_rotation", lambda t, p, a: t.RandomRotation(30)(a), "f32",
+     0),
+    ("random_perspective", lambda t, p, a: t.RandomPerspective(1.0)(a),
+     "u8", 0),
+    ("grayscale", lambda t, p, a: t.Grayscale(1)(a), "u8", 0),
+    ("random_erasing", lambda t, p, a: t.RandomErasing(1.0, value=3)(
+        t.ToTensor()(a)), "u8", 0),
+]
+
+
+def _as_np(out):
+    if isinstance(out, (list, tuple)):
+        return [_as_np(o) for o in out]
+    if isinstance(out, (P.Tensor, T.Tensor)):
+        return out.numpy()
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("name,fn,kind,atol", TRANSFORMS,
+                         ids=[c[0] for c in TRANSFORMS])
+def test_transform_matches_the_reference(name, fn, kind, atol):
+    outs = []
+    for t, p in ((ptr, P), (ttr, T)):
+        random.seed(11)
+        out = fn(t, p, _img(kind))
+        assert isinstance(out, (list, p.Tensor, np.ndarray)), type(out)
+        outs.append(_as_np(out))
+    want, got = outs
+    for g, w in zip(*(([got], [want]) if not isinstance(want, list)
+                      else (got, want))):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert np.abs(g.astype(np.float64) - w).max() <= atol
+
+
+def test_to_tensor_lands_on_the_default_place():
+    out = ttr.ToTensor()(_img("u8"))
+    assert out.place == T.CPUPlace() and out.dtype == T.float32
+    assert out.shape == [3, 20, 24]
+
+
+# --------------------------------------------------------------- datasets
+def test_fakedata_equals_the_reference_bit_for_bit():
+    ref = pds.FakeData(size=20, image_shape=(3, 32, 32), num_classes=10)
+    port = tds.FakeData(size=20, image_shape=(3, 32, 32), num_classes=10)
+    assert len(port) == len(ref) == 20
+    for i in (0, 7, 19):
+        (ri, rl), (ti, tl) = ref[i], port[i]
+        assert ti.dtype == ri.dtype and np.array_equal(ti, ri)
+        assert tl.dtype == rl.dtype and tl == rl
+    flip = tds.FakeData(size=4, transform=ttr.hflip)
+    assert np.array_equal(flip[3][0], ref[3][0][:, ::-1])
+
+
+def _write_cifar(path):
+    r = np.random.RandomState(0)
+    with tarfile.open(path, "w:gz") as tf:
+        for name in ("data_batch_1", "data_batch_2", "test_batch"):
+            blob = pickle.dumps({
+                b"data": (r.rand(3, 3072) * 255).astype(np.uint8),
+                b"labels": r.randint(0, 10, 3).tolist()})
+            info = tarfile.TarInfo(f"cifar-10-batches-py/{name}")
+            info.size = len(blob)
+            tf.addfile(info, _io.BytesIO(blob))
+
+
+def _write_idx(root, prefix, n):
+    r = np.random.RandomState(1)
+    with gzip.open(os.path.join(root, f"{prefix}-images-idx3-ubyte.gz"),
+                   "wb") as f:
+        f.write(bytes(16) + (r.rand(n, 28, 28) * 255).astype(
+            np.uint8).tobytes())
+    with gzip.open(os.path.join(root, f"{prefix}-labels-idx1-ubyte.gz"),
+                   "wb") as f:
+        f.write(bytes(8) + r.randint(0, 10, n).astype(np.uint8).tobytes())
+
+
+def _same_items(port, ref):
+    assert len(port) == len(ref)
+    for i in range(len(ref)):
+        for g, w in zip(port[i], ref[i]):
+            assert np.array_equal(np.asarray(g), np.asarray(w))
+
+
+def test_archive_readers_read_the_same_local_files(tmp_path):
+    data = str(tmp_path / "cifar-10-python.tar.gz")
+    _write_cifar(data)
+    for mode in ("train", "test"):
+        _same_items(tds.Cifar10(data, mode=mode),
+                    pds.Cifar10(data, mode=mode))
+    assert len(tds.Cifar10(data, mode="train")) == 6
+    _write_idx(str(tmp_path), "t10k", 5)
+    for cls in ("MNIST", "FashionMNIST"):
+        _same_items(getattr(tds, cls)(mode="test", root=str(tmp_path)),
+                    getattr(pds, cls)(mode="test", root=str(tmp_path)))
+    for c in ("cat", "dog"):
+        os.makedirs(tmp_path / "folder" / c)
+        for k in range(2):
+            np.save(tmp_path / "folder" / c / f"{k}.npy",
+                    np.full((2, 2, 3), k, np.uint8))
+    _same_items(tds.DatasetFolder(str(tmp_path / "folder")),
+                pds.DatasetFolder(str(tmp_path / "folder")))
+    _same_items(tds.Flowers(str(tmp_path / "folder" / "dog")),
+                pds.Flowers(str(tmp_path / "folder" / "dog")))
+
+
+def test_absent_archives_raise_and_nothing_is_downloaded(tmp_path,
+                                                         monkeypatch):
+    monkeypatch.setenv("PADDLE_TPU_CACHE_DIR", str(tmp_path))
+    for make in (lambda: tds.Cifar10(mode="train"), tds.MNIST,
+                 tds.FashionMNIST, tds.Flowers, tds.VOC2012):
+        with pytest.raises(FileNotFoundError, match=str(tmp_path)):
+            make()
+    assert os.listdir(tmp_path) == []
