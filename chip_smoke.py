@@ -165,14 +165,45 @@ Phases, each of which fails the run (non-zero exit, no result line):
      that loader, seeded, with 4 workers forked after CUDA is initialised:
      20 batches on the card equal bit for bit to the single-process
      loader's, both timed.
+ 13. training robustness (``hapi.Model.fit``, ``training``,
+     ``distributed.checkpoint``/``watchdog``, ``observability.training``),
+     on a fresh empty autotune table: (a) ``GPTConfig.tiny()`` through
+     ``Model.fit`` (Momentum, f32, B2 S64) for 2 steps with a committed
+     checkpoint, then a fresh Model, optimizer and loader resuming for 2
+     more, on the card and on the CPU from one state_dict: the 4 losses and
+     the parameters at phase 8a's f32 tolerance; (b) GPT-3 Medium's widths
+     (Brown et al. 2020, Table 2.1: h1024, 24 layers, 16 heads of 64;
+     vocab 50304, wpe 2048) as the Layer GPT, bf16, ``AdamW(1e-4,
+     multi_precision=True)``, B4 S2048 from a seeded ``DataLoader(
+     shuffle=True)`` over numpy token ids, with ``StepGuard(check_grads=
+     True)``, a ``TrainStepWatchdog(600 s)``,
+     ``FaultTolerantCheckpoint(every_n_steps=4)`` and
+     ``observability.training.configure(flops_per_token=2.7395e9)``: run A
+     trains 8 steps with committed checkpoints at steps 4 and 8; (c) run B
+     trains 4 steps, a real SIGTERM makes the callback flush a committed
+     checkpoint and stop fit, and a fresh Model, optimizer and loader
+     resume for 4 more: the 8 losses and every parameter, master weight and
+     moment bit-equal to run A's, each step dispatching
+     scaled_dot_product_attention to the library op 24 times and launching
+     each of its three kernels 24 times and no other attention kernel;
+     (d) a loss that is NaN at one step: the parameters bit-equal across
+     it, train.nan_steps ticks once, the next loss finite. Then the library
+     kernels at B4 H16 S2048 D64 against their plain versions, timed beside
+     them and SDPA, with their bounds. Prints ms/step (the host clock
+     around each train_batch with its float(loss), median of steps 2-8,
+     spread), tokens/s, MFU from the train.mfu gauge and from the clock,
+     forward+backward and optimizer ms (CUDA events), StepGuard.pre_step's
+     and the watchdog's cost a step, the checkpoint's bytes, save ms and
+     GB/s, the resume's load ms, the idle share of one profiled step, the
+     peak memory and the phase's seconds; a {"model_fit": {...}} line.
 The script sets FLAGS_matmul_precision to "highest", which the flag's
 default gives a user: f32 products and convolutions run in f32.
 Phases 2-6 keep the autotuner's table in a fresh temporary
 PADDLE_TPU_CACHE_DIR, empty until phase 6, with FLAGS_attn_autotune at its
 default: phases 2-5 (and 7, 8, 10 and 11, each on a table of its own) run
 the configuration a user gets on a new checkout.
-Prints {"serving": {...}}, {"moe_gpt": {...}}, {"bert": {...}} and
-{"resnet50": {...}} lines, the
+Prints {"serving": {...}}, {"moe_gpt": {...}}, {"bert": {...}},
+{"resnet50": {...}} and {"model_fit": {...}} lines, the
 card line, then one {"kernels": [...]} line (each row with its design),
 then as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -184,6 +215,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -352,9 +384,12 @@ def ptxas_rows(log):
 
 
 def attention_shape(label):
-    """B, H, S, D of a path's attention ("layer_gpt": phase 8b's)."""
+    """B, H, S, D of a path's attention ("layer_gpt": phase 8b's,
+    "model_fit": phase 13's)."""
     if label == "layer_gpt":
         fields, batch, seq = LAYER_GPT, LAYER_GPT_BATCH, LAYER_GPT_SEQ
+    elif label == "model_fit":
+        fields, batch, seq = MEDIUM, MEDIUM_BATCH, MEDIUM_SEQ
     else:
         _, fields, batch, seq, *_ = next(p for p in PATHS if p[0] == label)
     heads = fields["num_heads"]
@@ -2266,6 +2301,476 @@ def check_forked_loader(run, paddle, torch):
             "workers": LOADER_WORKERS}
 
 
+# --------------------------------------------------------------- phase 13
+# GPT-3 Medium's published widths (Brown et al. 2020, Table 2.1: d_model
+# 1024, 24 layers, 16 heads of 64) as the Layer GPT, trained through
+# Model.fit at B4 S2048 with the training-robustness machinery on.
+MEDIUM = dict(vocab_size=50304, hidden_size=1024, num_layers=24,
+              num_heads=16, max_seq_len=2048)
+MEDIUM_BATCH, MEDIUM_SEQ, MEDIUM_STEPS = 4, 2048, 8
+MEDIUM_FLOPS_PER_TOKEN = 2.7395e9     # PERF.md §2: 350M-class at S2048
+FIT_CKPT_EVERY = 4
+# 13a: (loss relative, parameter of its leaf's scale), phase 8a's f32 pair
+FIT_SMALL_TOL = LAYER_TOL["float32"]
+
+
+def _token_dataset(paddle, n, seq, vocab, seed):
+    """n seeded token sequences, each item (ids, ids): the labels are the
+    ids, shifted by the loss."""
+    ids = np.random.RandomState(seed).randint(0, vocab, (n, seq))
+
+    class Tokens(paddle.io.Dataset):
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            return ids[i], ids[i]
+    return Tokens()
+
+
+def _lm_loss(paddle, nan_at=None):
+    """The Layer GPT's own next-token loss over (logits, labels); the call
+    numbered ``nan_at`` (1-based) returns NaN (13d's poisoned batch)."""
+    ce = paddle.nn.CrossEntropyLoss()
+    calls = [0]
+
+    def loss(logits, labels):
+        calls[0] += 1
+        v = logits.shape[-1]
+        out = ce(logits[:, :-1].reshape([-1, v]),
+                 labels[:, 1:].reshape([-1]))
+        return out * float("nan") if calls[0] == nan_at else out
+    return loss
+
+
+def _fit_parts(paddle, cfg_fields, batch, n_seq, seed, root, optimizer,
+               every, watchdog, lr=1e-4, bf16=False, state=None):
+    """A fresh Layer GPT (seed ``seed``, or ``state``'s weights), its
+    optimizer, Model (with ``watchdog``), seeded DataLoader and
+    FaultTolerantCheckpoint under ``root``."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.training import StepGuard
+    cfg = GPTConfig(**cfg_fields)
+    paddle.seed(seed)
+    net = GPTForCausalLM(cfg)
+    if state is not None:
+        net.set_state_dict(state)
+    if bf16:
+        net.bfloat16()
+    if optimizer == "adamw":
+        opt = paddle.optimizer.AdamW(lr, parameters=net.parameters(),
+                                     multi_precision=True)
+    else:
+        opt = paddle.optimizer.Momentum(lr, 0.9,
+                                        parameters=net.parameters())
+    model = paddle.Model(net)
+    guard = StepGuard(check_grads=True)
+    model.prepare(opt, _lm_loss(paddle), step_guard=guard,
+                  watchdog=watchdog)
+    loader = paddle.io.DataLoader(
+        _token_dataset(paddle, n_seq, cfg.max_seq_len, cfg.vocab_size, 13),
+        batch_size=batch, shuffle=True, seed=13)
+    ftc = paddle.hapi.FaultTolerantCheckpoint(root, every_n_steps=every,
+                                              dataloader=loader)
+    return net, opt, model, guard, loader, ftc
+
+
+def _state_bits(net, opt, torch):
+    """Every parameter and optimizer tensor as raw bytes on the card."""
+    out = {f"model.{k}": v._data.detach().reshape(-1).view(torch.uint8)
+           for k, v in net.state_dict().items()}
+    for k, v in opt.state_dict().items():
+        if hasattr(v, "_data"):
+            out[f"opt.{k}"] = v._data.detach().reshape(-1).view(torch.uint8)
+    return out
+
+
+def check_small_fit(run, paddle, torch):
+    """Phase 13a: GPTConfig.tiny() through Model.fit, 2 steps with a
+    checkpoint, then a fresh Model, optimizer and loader resuming for 2
+    more, on the card and on the CPU from one seed: losses and parameters
+    at phase 8a's f32 tolerance. Momentum, not Adam: Adam turns round-off
+    in a gradient that is zero in exact arithmetic (the k bias's) into a
+    whole step, which phase 8a sidesteps by feeding both devices one set
+    of gradients and a fit cannot."""
+    from paddle_tpu_torch.distributed.watchdog import TrainStepWatchdog
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    fields = {k: getattr(GPTConfig.tiny(), k)
+              for k in ("vocab_size", "hidden_size", "num_layers",
+                        "num_heads", "max_seq_len")}
+    # one set of weights for both devices (each device's generator draws
+    # its own)
+    paddle.set_device("cpu")
+    paddle.seed(0)
+    state = {k: v.numpy() for k, v in
+             GPTForCausalLM(GPTConfig(**fields)).state_dict().items()}
+    out = {}
+    wd = TrainStepWatchdog(timeout_s=600.0)
+    for dev in ("cpu", "gpu:0"):
+        paddle.set_device(dev)
+        with tempfile.TemporaryDirectory() as root:
+            losses = []
+            for part in range(2):
+                net, opt, model, _, loader, ftc = _fit_parts(
+                    paddle, fields, 2, 8, 0, root, "momentum", 2, wd,
+                    lr=1e-2, state=state)
+                hist = model.fit(loader, epochs=1, verbose=0,
+                                 callbacks=[ftc],
+                                 num_iters=2 if part == 0 else None)
+                losses += hist["loss"]
+            resumed = ftc.resumed_from
+        out[dev] = (losses, {k: v.numpy() for k, v in
+                             net.state_dict().items()}, resumed)
+    wd.stop()
+    paddle.set_device("gpu:0")
+    (lc, pc, rc), (lg, pg, rg) = out["cpu"], out["gpu:0"]
+    loss_tol, leaf_tol = FIT_SMALL_TOL
+    tag = "model.fit small (GPTConfig.tiny(), B2 S64, Momentum, f32)"
+    run.check(len(lg) == len(lc) == 4 and rg is not None and rc is not None
+              and rg.endswith("step_00000002"),
+              f"{tag}: 2 steps, a checkpoint, a resume from it, 2 more "
+              f"(card {len(lg)} losses, resumed from {rg})")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    run.check(rel <= loss_tol, f"{tag}: losses {[round(x, 6) for x in lg]} "
+              f"card vs {[round(x, 6) for x in lc]} cpu, worst rel "
+              f"{rel:.2e} (tolerance {loss_tol})")
+    err = max(_leaf_err(pg[k], pc[k]) for k in pc)
+    run.check(err <= leaf_tol, f"{tag}: worst parameter {err:.3e} of its "
+              f"leaf's scale after the resumed run (tolerance {leaf_tol})")
+    return {"losses_card": lg, "losses_cpu": lc, "loss_rel": rel,
+            "param_err": err}
+
+
+def _fit_callback(**hooks):
+    """A hapi Callback whose hooks are the given functions."""
+    from paddle_tpu_torch.hapi import Callback
+    cb = Callback()
+    for name, fn in hooks.items():
+        setattr(cb, name, fn)
+    return cb
+
+
+class _Clock:
+    """Fit callbacks around the others: ``before`` times each train_batch
+    on the host clock (its float(loss) included) and reads the step's
+    kernel counts and the train.mfu gauge; ``after`` times the callbacks
+    between the two (the checkpoint flush, and on_train_begin's resume)."""
+
+    def __init__(self, mods, fa):
+        from paddle_tpu_torch import observability as obs
+        self.obs, self.mods, self.fa = obs, mods, fa
+        self.steps, self.after_ms, self.resume_ms = [], [], None
+        self.before = _fit_callback(
+            on_train_begin=self._train_begin,
+            on_train_batch_begin=self._batch_begin,
+            on_train_batch_end=self._batch_end)
+        self.after = _fit_callback(
+            on_train_begin=self._resumed,
+            on_train_batch_end=self._flushed)
+
+    def _train_begin(self, logs=None):
+        self.t_begin = time.perf_counter()
+
+    def _resumed(self, logs=None):
+        self.resume_ms = (time.perf_counter() - self.t_begin) * 1e3
+
+    def _batch_begin(self, step, logs=None):
+        for mod in self.mods:
+            mod.reset_launch_counts()
+        self.ticks0 = self.fa.dispatch_counts()
+        self.t0 = time.perf_counter()
+
+    def _batch_end(self, step, logs=None):
+        self.t1 = time.perf_counter()
+        self.steps.append({
+            "ms": (self.t1 - self.t0) * 1e3, "loss": logs["loss"],
+            "launches": {n: c for mod in self.mods
+                         for n, c in mod.LAUNCHES.items()},
+            "dispatch": self.fa.dispatch_counts(self.ticks0),
+            "mfu": self.obs.gauge("train.mfu").value})
+
+    def _flushed(self, step, logs=None):
+        self.after_ms.append((time.perf_counter() - self.t1) * 1e3)
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _sigterm_after(at):
+    """A fit callback that delivers a real SIGTERM after batch ``at``."""
+    import signal
+
+    def hook(step, logs=None):
+        if step == at:
+            os.kill(os.getpid(), signal.SIGTERM)
+    return _fit_callback(on_train_batch_end=hook)
+
+
+def time_library_at_medium(run, fa, mods, torch):
+    """The library tier's three kernels at this phase's attention shape
+    (B4 H16 S2048 D64, bf16 causal): held against their plain versions,
+    timed beside them and beside one scaled_dot_product_attention call
+    (forward; backward for dq and dk/dv together), with their bounds."""
+    import torch.nn.functional as F
+    shape = attention_shape("model_fit")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v, do = path_inputs(gen, torch.bfloat16, torch, shape)
+    calls = kernel_calls(mods, "flash_attention", q, k, v, do,
+                         1.0 / math.sqrt(shape[-1]), True)
+    outputs = {kk[0]: kk[4] for kk in KERNELS}
+    b, h, s, d = shape
+    out = {}
+    lib_fwd = windows_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        reps=10)
+    ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
+    o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_bwd = windows_ms(lambda: torch.autograd.grad(
+        o, (ql, kl, vl), do, retain_graph=True), reps=10)
+    for kern in KERNELS:
+        name = kern[0]
+        if name not in calls:
+            continue
+        launch, plain = calls[name]
+        worst = 0.0
+        for oname, g, w in zip(outputs[name], _tuple(launch()),
+                               _tuple(plain())):
+            tol = TOL["float32"] if oname in ("lse", "delta") \
+                else TOL["bfloat16"]
+            a, r = max_err(g, w)
+            worst = max(worst, a)
+            run.check(r <= tol, f"{name} {oname} at B{b} H{h} S{s} D{d} "
+                      f"bf16 causal: max abs err {a:.3e} rel {r:.3e} "
+                      f"(tolerance rel {tol})")
+        bound_ms, bound_by = bound(kern[:3] + ("model_fit",) + kern[4:])
+        ms, plain_ms = windows_ms(launch, reps=10), windows_ms(plain, reps=3)
+        library = lib_fwd if kern[-1] == "fwd" else lib_bwd
+        out[name] = {"ms": ms[0], "ms_spread": ms[1], "plain_ms": plain_ms[0],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": library[0],
+                     "library_ms_spread": library[1], "max_abs_err": worst}
+        print(f"{name} at B{b} H{h} S{s} D{d}: {ms[0]:.3f} ms (spread "
+              f"{ms[1]:.3f}), bound {out[name]['bound_ms']:.4f} ms "
+              f"({out[name]['bound_by']}), plain {plain_ms[0]:.3f} ms, "
+              f"library {library[0]:.3f} ms (spread {library[1]:.3f})",
+              flush=True)
+    return out
+
+
+def drive_model_fit(run, paddle, fa, mods, torch):
+    """Phase 13b-d: GPT-3 Medium through Model.fit. Run A: 8 steps with
+    checkpoints at steps 4 and 8. Run B: 4 steps, a SIGTERM that makes
+    FaultTolerantCheckpoint flush a committed checkpoint and stop fit,
+    then a fresh Model, optimizer and loader resuming for 4 steps: losses,
+    parameters and moments bit-equal to run A's, 24 launches of each
+    library kernel a step. Then a poisoned step (13d)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.distributed import checkpoint as dc
+    from paddle_tpu_torch.distributed.watchdog import TrainStepWatchdog
+    from paddle_tpu_torch.observability import training as otraining
+    t_phase = time.perf_counter()
+    b, s, steps = MEDIUM_BATCH, MEDIUM_SEQ, MEDIUM_STEPS
+    L = MEDIUM["num_layers"]
+    paddle.set_device("gpu:0")
+    obs.enable()
+    otraining.configure(flops_per_token=MEDIUM_FLOPS_PER_TOKEN)
+    cache_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              ".cache")
+    wd = TrainStepWatchdog(timeout_s=600.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(dir=cache_root) as tmp:
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        print(f"model.fit medium: {free_gb:.1f} GB free for checkpoints",
+              flush=True)
+        # ---- 13b: run A, uninterrupted
+        clock_a = _Clock(mods, fa)
+        net_a, opt_a, model_a, guard_a, loader_a, ftc_a = _fit_parts(
+            paddle, MEDIUM, b, b * steps, 0, os.path.join(tmp, "a"),
+            "adamw", FIT_CKPT_EVERY, wd, bf16=True)
+        n_params = sum(p._data.numel() for p in net_a.parameters())
+        hist_a = model_a.fit(loader_a, epochs=1, verbose=0, callbacks=[
+            clock_a.before, ftc_a, clock_a.after])
+        ckpts_a = sorted(os.listdir(os.path.join(tmp, "a")))
+        ck_path = os.path.join(tmp, "a", ckpts_a[-1])
+        ck_bytes = _dir_bytes(ck_path)
+        save_ms = [clock_a.after_ms[i] for i in range(steps)
+                   if (i + 1) % FIT_CKPT_EVERY == 0]
+        bits_a = _state_bits(net_a, opt_a, torch)
+        run.check(ckpts_a == ["step_00000004", "step_00000008"]
+                  and all(dc.is_committed(os.path.join(tmp, "a", c))
+                          for c in ckpts_a),
+                  f"model.fit medium run A: committed checkpoints {ckpts_a}")
+        shutil.rmtree(os.path.join(tmp, "a"), ignore_errors=True)
+        # ---- 13c: run B, 4 steps, a SIGTERM, a fresh resume for 4
+        clock_b = _Clock(mods, fa)
+        net_b, opt_b, model_b, _, loader_b, ftc_b = _fit_parts(
+            paddle, MEDIUM, b, b * steps, 0, os.path.join(tmp, "b"),
+            "adamw", FIT_CKPT_EVERY, wd, bf16=True)
+        hist_b1 = model_b.fit(loader_b, epochs=1, verbose=0, callbacks=[
+            _sigterm_after(steps // 2 - 1), clock_b.before, ftc_b,
+            clock_b.after])
+        run.check(ftc_b.preempted and len(hist_b1["loss"]) == steps // 2
+                  and dc.latest_committed(os.path.join(tmp, "b"))
+                  .endswith(f"step_{steps // 2:08d}"),
+                  f"model.fit medium run B: SIGTERM after step "
+                  f"{steps // 2} flushed a committed checkpoint and stopped "
+                  f"fit ({len(hist_b1['loss'])} steps, preempted "
+                  f"{ftc_b.preempted})")
+        del net_b, opt_b, model_b, loader_b
+        gc.collect()
+        torch.cuda.empty_cache()
+        clock_c = _Clock(mods, fa)
+        net_c, opt_c, model_c, guard_c, loader_c, ftc_c = _fit_parts(
+            paddle, MEDIUM, b, b * steps, 1, os.path.join(tmp, "b"),
+            "adamw", FIT_CKPT_EVERY, wd, bf16=True)
+        hist_b2 = model_c.fit(loader_c, epochs=1, verbose=0, callbacks=[
+            clock_c.before, ftc_c, clock_c.after])
+        load_ms = clock_c.resume_ms
+        losses_a = hist_a["loss"]
+        losses_b = hist_b1["loss"] + hist_b2["loss"]
+        bits_b = _state_bits(net_c, opt_c, torch)
+        differ = sorted(k for k in bits_a
+                        if k not in bits_b or not torch.equal(bits_a[k],
+                                                              bits_b[k]))
+        run.check(ftc_c.resumed_from is not None
+                  and ftc_c.resumed_from.endswith(f"step_{steps // 2:08d}")
+                  and len(losses_b) == steps,
+                  f"model.fit medium run B: a fresh Model, optimizer and "
+                  f"loader resumed from {ftc_c.resumed_from} for "
+                  f"{len(hist_b2['loss'])} steps")
+        run.check(np.array(losses_a).tobytes() == np.array(losses_b)
+                  .tobytes(), f"model.fit medium: losses 1-{steps} of run B "
+                  f"bit-equal to run A's ({losses_a} vs {losses_b})")
+        run.check(not differ and set(bits_a) == set(bits_b),
+                  f"model.fit medium: every parameter and optimizer tensor "
+                  f"({len(bits_a)}) bit-equal after run B (differ: "
+                  f"{differ[:8]}{'...' if len(differ) > 8 else ''})")
+        want = {n: L if n in fa.LAUNCHES else 0
+                for n in clock_a.steps[0]["launches"]}
+        every = clock_a.steps + clock_b.steps + clock_c.steps
+        run.check(len(every) == 2 * steps and all(
+            st["launches"] == want
+            and st["dispatch"] == {("nn.sdpa", "library_flash"): L}
+            for st in every),
+            f"model.fit medium: every step of runs A and B dispatches "
+            f"scaled_dot_product_attention to the library op {L} times and "
+            f"launches each of its kernels {L} times, no other attention "
+            f"kernel (step 1: {every[0]['launches']})")
+        run.check(all(map(math.isfinite, losses_a))
+                  and losses_a[-1] < losses_a[0],
+                  f"model.fit medium: losses finite and falling "
+                  f"{losses_a[0]:.4f} -> {losses_a[-1]:.4f}")
+        # ---- the costs around the step, on run B's resumed model
+        ids = paddle.to_tensor(np.random.RandomState(1).randint(
+            0, MEDIUM["vocab_size"], (b, s)))
+        loss_fn = _lm_loss(paddle)
+
+        def fwd_bwd():
+            loss = loss_fn(net_c(ids), ids)
+            loss.backward()
+            return loss
+
+        fb_ms = windows_ms(fwd_bwd, reps=1, windows=3)
+        loss = fwd_bwd()
+        torch.cuda.synchronize()
+        guard_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            guard_c.pre_step(loss, opt_c)
+            guard_ms.append((time.perf_counter() - t0) * 1e3)
+        opt_ms = windows_ms(opt_c.step, reps=1, windows=3)
+        opt_c.clear_grad()
+        t0 = time.perf_counter()
+        for i in range(1000):
+            wd.step_begin(i)
+            wd.step_end()
+        wd_us = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model_c.train_batch([ids], [ids])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and e.self_device_time_total > 0),
+                      key=lambda r: -r[1])
+        busy = sum(r[1] for r in rows)
+        idle = max(0.0, 1 - busy / wall_ms)
+        # ---- 13d: a poisoned step leaves the parameters bit-equal
+        nan0 = obs.counter("train.nan_steps").value
+        model_c._loss = _lm_loss(paddle, nan_at=2)
+        model_c.train_batch([ids], [ids])
+        before = {k: v.clone() for k, v in _state_bits(
+            net_c, opt_c, torch).items() if k.startswith("model.")}
+        bad = model_c.train_batch([ids], [ids])[0]
+        after = _state_bits(net_c, opt_c, torch)
+        same = all(torch.equal(v, after[k]) for k, v in before.items())
+        nxt = model_c.train_batch([ids], [ids])[0]
+        ticks = obs.counter("train.nan_steps").value - nan0
+        run.check(math.isnan(bad) and same,
+                  f"model.fit medium 13d: the NaN step ({bad}) left every "
+                  f"parameter bit-equal ({len(before)} tensors)")
+        run.check(ticks == 1 and guard_c.nan_steps == 1,
+                  f"model.fit medium 13d: train.nan_steps ticked once "
+                  f"({ticks}), the guard counted {guard_c.nan_steps}")
+        run.check(math.isfinite(nxt), f"model.fit medium 13d: the next "
+                  f"loss is finite ({nxt:.4f}) and the run went on")
+        wd.stop()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    timed = [st["ms"] for st in clock_a.steps[1:]]
+    ms = float(np.median(timed))
+    tok_s = b * s / (ms / 1e3)
+    mfu_gauge = float(np.median([st["mfu"] for st in clock_a.steps[1:]]))
+    mfu_clock = tok_s * MEDIUM_FLOPS_PER_TOKEN / PEAK_BF16_FLOPS
+    save_s = float(np.median(save_ms)) / 1e3
+    library = time_library_at_medium(run, fa, mods, torch)
+    phase_s = time.perf_counter() - t_phase
+    print(f"model.fit medium (GPT-3 Medium widths, {n_params} parameters, "
+          f"bf16 + AdamW multi_precision, B{b} S{s}): losses "
+          f"{[round(x, 4) for x in losses_a]}", flush=True)
+    print(f"model.fit medium: {ms:.2f} ms/step (host clock around "
+          f"train_batch with float(loss), median of steps 2-{steps}, spread "
+          f"{max(timed) - min(timed):.2f}), {tok_s:.1f} tokens/s, MFU "
+          f"{mfu_gauge:.4f} (train.mfu gauge) / {mfu_clock:.4f} (clock)",
+          flush=True)
+    print(f"model.fit medium: forward+backward {fb_ms[0]:.2f} ms (spread "
+          f"{fb_ms[1]:.2f}), optimizer {opt_ms[0]:.2f} ms (spread "
+          f"{opt_ms[1]:.2f}) (device events); StepGuard.pre_step with "
+          f"check_grads {np.median(guard_ms):.3f} ms (host, median of 5); "
+          f"watchdog arm+disarm {wd_us:.2f} us a step", flush=True)
+    print(f"model.fit medium: checkpoint {ck_bytes / 1e9:.3f} GB, save "
+          f"{save_s * 1e3:.1f} ms (median of {save_ms}), "
+          f"{ck_bytes / 1e9 / save_s:.3f} GB/s, resume load {load_ms:.1f} "
+          f"ms; profiled step {wall_ms:.2f} ms wall, {busy:.2f} ms kernel "
+          f"time, idle share {idle:.3f}; peak memory {peak_gb:.2f} GB; "
+          f"phase {phase_s:.1f} s", flush=True)
+    for key, kms, count in rows[:12]:
+        print(f"  {kms:9.3f} ms {count:6d}x  {key[:100]}")
+    return {
+        "losses": losses_a, "ms_per_step": ms,
+        "ms_per_step_spread": max(timed) - min(timed),
+        "step_ms": [st["ms"] for st in clock_a.steps],
+        "tokens_per_s": tok_s, "mfu_gauge": mfu_gauge, "mfu_clock": mfu_clock,
+        "fwd_bwd_ms": fb_ms[0], "fwd_bwd_ms_spread": fb_ms[1],
+        "optimizer_ms": opt_ms[0], "optimizer_ms_spread": opt_ms[1],
+        "pre_step_ms": float(np.median(guard_ms)),
+        "watchdog_us_per_step": wd_us, "checkpoint_bytes": ck_bytes,
+        "save_ms": save_ms, "save_gb_per_s": ck_bytes / 1e9 / save_s,
+        "resume_load_ms": load_ms, "profiled_ms": wall_ms,
+        "kernel_ms": busy, "idle_share": idle, "peak_memory_gb": peak_gb,
+        "parameters": n_params, "bitwise_resume": not differ
+        and np.array(losses_a).tobytes() == np.array(losses_b).tobytes(),
+        "library_at_d64_s2048": library, "phase_s": phase_s}
+
+
 def main():
     try:
         import torch
@@ -2391,6 +2896,17 @@ def main():
     resnet["loader"] = check_forked_loader(run, paddle, torch)
     resnet["phase_12_s"] = time.perf_counter() - t0
     print(f"resnet phase: {resnet['phase_12_s']:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+        os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+        at._table = None
+        t0 = time.perf_counter()
+        small_fit = check_small_fit(run, paddle, torch)
+        fit = drive_model_fit(run, paddle, fa, mods, torch)
+        fit["small"] = small_fit
+        fit["phase_13_s"] = time.perf_counter() - t0
+        print(f"model.fit phase: {fit['phase_13_s']:.1f} s", flush=True)
 
     kernels = []
     for kern in KERNELS:
@@ -2430,6 +2946,7 @@ def main():
                                   if k != "launches"}}))
     print(json.dumps({"bert": bert}))
     print(json.dumps({"resnet50": resnet}))
+    print(json.dumps({"model_fit": fit}))
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed",
               file=sys.stderr)

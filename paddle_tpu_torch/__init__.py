@@ -32,10 +32,17 @@ What is ported so far:
   accumulation;
 - ``io`` (datasets, samplers, the DataLoader with its worker processes and
   resumable position) and ``vision`` (transforms, datasets, the model zoo:
-  ResNet and the others; ``models.resnet`` is ``vision.models.resnet``).
+  ResNet and the others; ``models.resnet`` is ``vision.models.resnet``);
+- training robustness: ``hapi`` (``Model`` with ``fit``, the callbacks,
+  ``FaultTolerantCheckpoint``), ``metric``, ``callbacks``, ``training``
+  (``StepGuard``, ``PreemptionHandler``, the train checkpoints),
+  ``device`` (memory statistics), ``observability.training`` and the
+  part of ``distributed`` they use: ``checkpoint``, ``watchdog``,
+  ``elastic``.
 
 Use it as ``import paddle_tpu_torch as paddle``. Names of later slices
-(``jit``, ``vision.ops``, ``nn``'s rnn/extended/quant, ...) are not here.
+(``jit``, ``vision.ops``, ``nn``'s rnn/extended/quant, most of
+``distributed``, ...) are not here.
 """
 from __future__ import annotations
 
@@ -96,11 +103,18 @@ del _biv
 __version__ = "0.1.0"
 
 
+_LAZY = {"vision", "hapi", "metric", "callbacks", "training",
+         "distributed"}
+
+
 def __getattr__(name):
-    """``vision`` loads on first use, as the reference's does."""
-    if name == "vision":
+    """These modules load on first use, as the reference's do."""
+    if name in _LAZY:
         import importlib
-        return importlib.import_module(f"{__name__}.vision")
+        return importlib.import_module(f"{__name__}.{name}")
+    if name == "Model":
+        from .hapi import Model
+        return Model
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -126,6 +140,18 @@ def synchronize():
     import torch
     if torch.cuda.is_available():
         torch.cuda.synchronize()
+
+
+def summary(net, input_size=None, dtypes=None, input=None):
+    """The parameter counts of ``net``, as the reference's summary gives
+    them."""
+    total = trainable = 0
+    for _, p in net.named_parameters():
+        n = p.size
+        total += n
+        if not p.stop_gradient:
+            trainable += n
+    return {"total_params": total, "trainable_params": trainable}
 
 
 def in_dynamic_mode():

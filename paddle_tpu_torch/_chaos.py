@@ -5,9 +5,11 @@ The serving stack calls :func:`hit` at named sites:
 ``serving.cache_alloc`` (``inference.decode.init_static_cache``),
 ``serving.admit_step`` and ``serving.decode_step`` (the continuous-batching
 session's device calls, inside its retry envelope) and ``serving.drain``
-(its token fetch). The training sites of the reference (``train.step``,
-``train.data_fetch``, ``train.checkpoint_save``, ``train.preempt``) come
-with the training-robustness slice; ``hit`` takes any site name.
+(its token fetch). The training loop calls the training sites:
+``train.step`` (``hapi.Model.train_batch``), ``train.data_fetch`` (each
+batch of ``Model.fit``), ``train.checkpoint_save`` (the write of
+``distributed.checkpoint.save_state_dict``) and ``train.preempt``
+(``hapi.FaultTolerantCheckpoint`` at each step boundary).
 
 When the ``PADDLE_TPU_CHAOS`` env var is unset (the production default)
 ``hit`` is a single env check and nothing else runs. With it set,

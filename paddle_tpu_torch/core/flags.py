@@ -5,7 +5,8 @@ time).
 
 Only flags that something in the port reads are defined, each with the
 reference's name, default and meaning: the seven that eager dispatch reads
-(``core/dispatch.py``), the two print flags of ``Tensor.__repr__``, and
+(``core/dispatch.py``), the two print flags of ``Tensor.__repr__``, the six of the training
+robustness modules (``training``, ``distributed.watchdog``, ``device``), and
 ``FLAGS_matmul_precision``/``FLAGS_deterministic``, which set torch's f32
 matmul precision and cuDNN's f32 convolution precision at import and when
 they change, as the reference sets jax's. A module
@@ -103,6 +104,24 @@ define_flag("FLAGS_retain_grad_for_all", False,
 define_flag("FLAGS_call_stack_level", 1,
             ">=2: eager op errors are wrapped with the op name and "
             "input dtypes/shapes")
+define_flag("FLAGS_collective_timeout_s", 600.0,
+            "collective watchdog: seconds before a device probe counts "
+            "as hung")
+define_flag("FLAGS_watchdog_interval_s", 10.0,
+            "collective watchdog probe interval")
+define_flag("FLAGS_step_timeout_s", 1800.0,
+            "train-step stall watchdog timeout (TrainStepWatchdog "
+            "default): a step exceeding it is aborted with a "
+            "straggler report instead of hanging silently")
+define_flag("FLAGS_max_bad_steps", 5,
+            "consecutive non-finite/skipped train steps before the "
+            "StepGuard circuit breaker aborts the run")
+define_flag("FLAGS_watchdog_store_root", "",
+            "shared dir for cross-rank watchdog progress exchange; when "
+            "set, a timeout dump names the straggler rank(s)")
+define_flag("FLAGS_memory_stats_dump_path", "",
+            "paddle.device.dump_memory_stats() target; also dumped by "
+            "the watchdog on timeout when set")
 define_flag("FLAGS_tensor_print_precision", 6,
             "digits in Tensor repr (set_printoptions analog)")
 define_flag("FLAGS_tensor_print_threshold", 1000,

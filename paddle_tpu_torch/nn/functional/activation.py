@@ -12,6 +12,7 @@ import torch.nn.functional as tF
 from ...core import dtype as dtype_mod
 from ...core.dispatch import rebind_inplace, run_op, run_op_inplace
 from ...core.generator import generator_for
+from ...ops.math import jax_clip
 
 
 def relu(x, name=None):
@@ -27,8 +28,9 @@ def relu6(x, name=None):
 
 
 def leaky_relu(x, negative_slope=0.01, name=None):
+    # jax.nn.leaky_relu's select: the gradient at 0 is 1 (torch's slope)
     return run_op("leaky_relu",
-                  lambda a: tF.leaky_relu(a, negative_slope), x)
+                  lambda a: torch.where(a >= 0, a, negative_slope * a), x)
 
 
 def prelu(x, weight, data_format="NCHW", name=None):
@@ -88,16 +90,16 @@ def swish(x, name=None):
 
 def hardswish(x, name=None):
     return run_op("hardswish",
-                  lambda a: a * torch.clamp(a + 3.0, 0.0, 6.0) / 6.0, x)
+                  lambda a: a * jax_clip(a + 3.0, 0.0, 6.0) / 6.0, x)
 
 
 def hardsigmoid(x, slope=1.0 / 6.0, offset=0.5, name=None):
     return run_op("hardsigmoid",
-                  lambda a: torch.clamp(slope * a + offset, 0.0, 1.0), x)
+                  lambda a: jax_clip(slope * a + offset, 0.0, 1.0), x)
 
 
 def hardtanh(x, min=-1.0, max=1.0, name=None):
-    return run_op("hardtanh", lambda a: torch.clamp(a, min, max), x)
+    return run_op("hardtanh", lambda a: jax_clip(a, min, max), x)
 
 
 def hardshrink(x, threshold=0.5, name=None):

@@ -19,6 +19,7 @@ from ...core.dispatch import run_op
 from ...core.generator import generator_for
 from ...core.tensor import Tensor
 from ...ops.linalg import promoted
+from ...ops.math import jax_abs
 
 
 def _matmul_bias(a, w, b):
@@ -110,7 +111,7 @@ def one_hot(x, num_classes, name=None):
 
 def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
     def f(a):
-        nrm = torch.pow(torch.sum(torch.pow(torch.abs(a), p), dim=axis,
+        nrm = torch.pow(torch.sum(torch.pow(jax_abs(a), p), dim=axis,
                                   keepdim=True), 1.0 / p)
         return a / torch.clamp_min(nrm, epsilon)
     return run_op("normalize", f, x)

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as tF
 
 from ...core.dispatch import run_op
+from ...ops.math import jax_abs, jax_clip
 
 
 def _reduce(out, reduction):
@@ -150,7 +151,7 @@ def mse_loss(input, label, reduction="mean", name=None):
 
 def l1_loss(input, label, reduction="mean", name=None):
     return run_op("l1_loss",
-                  lambda a, b: _reduce(torch.abs(a - b), reduction),
+                  lambda a, b: _reduce(jax_abs(a - b), reduction),
                   input, label)
 
 
@@ -195,9 +196,10 @@ def binary_cross_entropy_with_logits(logit, label, weight=None,
             i += 1
         if pos_weight is not None:
             pw = extras_arr[i]
-        # stable: max(z,0) - z*y + log(1+exp(-|z|))
-        base = torch.clamp_min(z, 0) - z * y \
-            + torch.log1p(torch.exp(-torch.abs(z)))
+        # softplus(z) - z*y: the reference's max(z,0) - z*y +
+        # log1p(exp(-|z|)) in one smooth form, so the gradient at z = 0 is
+        # sigmoid(0) - y (the kinks of max and abs give -y in the reference)
+        base = tF.softplus(z) - z * y
         if pw is not None:
             base = -(pw * y * tF.logsigmoid(z) + (1 - y) * tF.logsigmoid(-z))
         if w is not None:
@@ -221,14 +223,14 @@ def kl_div(input, label, reduction="mean", log_target=False, name=None):
 def margin_ranking_loss(input, other, label, margin=0.0, reduction="mean",
                         name=None):
     def f(a, b, y):
-        return _reduce(torch.clamp_min(-y * (a - b) + margin, 0.0), reduction)
+        return _reduce(jax_clip(-y * (a - b) + margin, 0.0), reduction)
     return run_op("margin_ranking_loss", f, input, other, label)
 
 
 def hinge_embedding_loss(input, label, margin=1.0, reduction="mean",
                          name=None):
     def f(a, y):
-        loss = torch.where(y == 1, a, torch.clamp_min(margin - a, 0.0))
+        loss = torch.where(y == 1, a, jax_clip(margin - a, 0.0))
         return _reduce(loss, reduction)
     return run_op("hinge_embedding_loss", f, input, label)
 
@@ -293,8 +295,8 @@ def sigmoid_focal_loss(logit, label, normalizer=None, alpha=0.25, gamma=2.0,
                        reduction="sum", name=None):
     def f(z, y, *maybe_n):
         p = torch.sigmoid(z)
-        ce = torch.clamp_min(z, 0) - z * y \
-            + torch.log1p(torch.exp(-torch.abs(z)))
+        ce = tF.softplus(z) - z * y        # smooth at 0, as in bce
+
         p_t = p * y + (1 - p) * (1 - y)
         a_t = alpha * y + (1 - alpha) * (1 - y)
         loss = a_t * torch.pow(1 - p_t, gamma) * ce

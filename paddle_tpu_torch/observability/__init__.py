@@ -15,10 +15,12 @@ and latencies), with JSON-lines and Prometheus-text exporters, a one-call
 
 Off switch: ``PADDLE_TPU_METRICS=off`` (env) or ``obs.disable()``.
 
-Not here yet, each with the slice that brings its subject: the compile
-tracker (``count_compiles``, ``count_traces``, ``compile_report``) with
-``jit/``, and ``training`` with the training-robustness slice. Those names
-raise ``NotImplementedError``.
+``training`` holds the train loop's funnel (``record_step``, ``configure``:
+step time, samples/s, tokens/s and MFU against one H100's peak).
+
+Not here yet: the compile tracker (``count_compiles``, ``count_traces``,
+``compile_report``), which comes with ``jit/``. Those names raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import time as _time
 
 from . import catalog  # noqa: F401
 from . import server  # noqa: F401
+from . import training  # noqa: F401
 from .metrics import (  # noqa: F401
     REGISTRY, Counter, Gauge, Histogram, Registry,
     enable, disable, enabled,
@@ -39,7 +42,6 @@ from .snapshots import (  # noqa: F401
 _LATER = {
     "compile_tracker": "jit/", "count_compiles": "jit/",
     "count_traces": "jit/", "compile_report": "jit/",
-    "training": "the training-robustness slice",
 }
 
 

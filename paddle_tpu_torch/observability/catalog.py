@@ -10,8 +10,8 @@ scrape endpoint cannot drift from what the code emits. Each entry:
 ``kind`` (counter|gauge|histogram), ``help`` (one line), ``labels`` (the
 label keys a site may attach). Entries with ``internal=True`` are
 registered by the observability layer itself. Names of slices not ported
-yet (``train.*``, ``jit.*``, ``pipeline.*``, ...) are kept with the
-reference's meaning.
+yet (``jit.*``, ``pipeline.*``, ...) are kept with the reference's
+meaning.
 """
 from __future__ import annotations
 

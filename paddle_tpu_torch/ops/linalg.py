@@ -78,8 +78,12 @@ def norm(x, p=None, axis=None, keepdim=False, name=None):
         if p in (np.inf, -np.inf) and axis is None:
             amax = torch.amax if p > 0 else torch.amin
             return amax(torch.abs(a))
+        from .math import jax_abs       # math imports this module
         if axis is None:
-            return torch.pow(torch.sum(torch.pow(torch.abs(a), p)), 1.0 / p)
+            return torch.pow(torch.sum(torch.pow(jax_abs(a), p)), 1.0 / p)
+        if p == 1:
+            # jnp.linalg.norm's sum of abs: abs'(0) = 1, as jax's
+            return torch.sum(jax_abs(a), dim=_ax(axis), keepdim=keepdim)
         return torch.linalg.norm(a, p, dim=_ax(axis), keepdim=keepdim)
     return run_op("norm", f, x)
 
@@ -97,9 +101,13 @@ def matrix_norm(x, p="fro", axis=(-2, -1), keepdim=False, name=None):
 
 
 def dist(x, y, p=2, name=None):
-    return run_op("dist",
-                  lambda a, b: torch.linalg.vector_norm((a - b).reshape(-1),
-                                                        p), x, y)
+    def f(a, b):
+        d = (a - b).reshape(-1)
+        if p == 1:
+            from .math import jax_abs
+            return torch.sum(jax_abs(d))
+        return torch.linalg.vector_norm(d, p)
+    return run_op("dist", f, x, y)
 
 
 def cdist(x, y, p=2.0, compute_mode="use_mm_for_euclid_dist_if_necessary",

@@ -100,11 +100,23 @@ floor_mod = remainder
 fmod = _binop("fmod", torch.fmod)
 maximum = _binop("maximum", torch.maximum)
 minimum = _binop("minimum", torch.minimum)
-fmax = _binop("fmax", torch.fmax)
-fmin = _binop("fmin", torch.fmin)
+# fmax/fmin as jnp's selects: a tie passes the gradient to ``y`` (torch's
+# own split it between the two)
+fmax = _binop("fmax", lambda a, b: torch.where(torch.isnan(b) | (a > b), a, b))
+fmin = _binop("fmin", lambda a, b: torch.where(torch.isnan(b) | (a < b), a, b))
+# at the origin torch's gradient is 0 where jax's is NaN: not mirrored
 atan2 = _binop("atan2", torch.atan2)
 hypot = _binop("hypot", lambda a, b: torch.sqrt(a * a + b * b))
-heaviside = _binop("heaviside", torch.heaviside)
+
+
+def _heaviside(a, b):
+    """``jnp.heaviside``'s where: piecewise constant in ``x`` (a zero
+    gradient, as floor_divide's), ``y`` taken where ``x == 0``."""
+    a = _no_grad(a)
+    return torch.where(a < 0, 0.0, torch.where(a > 0, 1.0, b))
+
+
+heaviside = _binop("heaviside", _heaviside)
 gcd = _binop("gcd", torch.gcd)
 lcm = _binop("lcm", torch.lcm)
 nextafter = _binop("nextafter", torch.nextafter)
@@ -147,7 +159,30 @@ log1p = _float_unary("log1p", torch.log1p)
 sqrt = _float_unary("sqrt", torch.sqrt)
 rsqrt = _float_unary("rsqrt", torch.rsqrt)
 square = _unary("square", torch.square)
-abs = _unary("abs", torch.abs)
+def jax_abs(a):
+    """``abs`` with jax's derivative at 0, 1 (torch's is 0); the same
+    values: the ``+ 0.0`` turns the ``-0.0`` that the select keeps into 0."""
+    if a.is_complex() or not a.is_floating_point():
+        return torch.abs(a)
+    return torch.where(a >= 0, a, -a) + 0.0
+
+
+def jax_clip(a, lo=None, hi=None):
+    """``jnp.clip``: ``minimum(maximum(a, lo), hi)``, so a value at a bound
+    passes half its gradient, as jax splits a tie (torch's clamp passes
+    all of it). Non-float tensors keep torch's clamp."""
+    if not a.is_floating_point():
+        return torch.clamp(a, lo, hi)
+    if lo is not None:
+        a = torch.maximum(a, torch.full((), lo, dtype=a.dtype,
+                                        device=a.device))
+    if hi is not None:
+        a = torch.minimum(a, torch.full((), hi, dtype=a.dtype,
+                                        device=a.device))
+    return a
+
+
+abs = _unary("abs", jax_abs)
 sign = _unary("sign", torch.sign)
 floor = _unary("floor", torch.floor)
 ceil = _unary("ceil", torch.ceil)
@@ -189,7 +224,10 @@ def real(x, name=None):
 
 
 def imag(x, name=None):
-    return run_op("imag", lambda a: torch.imag(a).clone(), x)
+    """Zeros of a real input's dtype, with a zero gradient, as ``jnp.imag``
+    gives (torch refuses a real input)."""
+    return run_op("imag", lambda a: torch.imag(a).clone() if a.is_complex()
+                  else torch.zeros_like(_no_grad(a)), x)
 
 
 def stanh(x, scale_a=0.67, scale_b=1.7159, name=None):
@@ -223,7 +261,7 @@ def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
 def _clip_fn(lo, hi):
     if lo is None and hi is None:
         return lambda a: a
-    return lambda a: torch.clamp(a, lo, hi)
+    return lambda a: jax_clip(a, lo, hi)
 
 
 def clip(x, min=None, max=None, name=None):
@@ -324,8 +362,55 @@ def _cum_extreme(op_name, fn):
     return op
 
 
-cummax = _cum_extreme("cummax", torch.cummax)
-cummin = _cum_extreme("cummin", torch.cummin)
+def _interleave(a, b, axis):
+    """a[0], b[0], a[1], b[1], ... along ``axis`` (len(a) - len(b) in
+    {0, 1})."""
+    n = b.shape[axis]
+    pairs = torch.stack([a.narrow(axis, 0, n), b], axis + 1)
+    out = pairs.flatten(axis, axis + 1)
+    if a.shape[axis] > n:
+        out = torch.cat([out, a.narrow(axis, n, 1)], axis)
+    return out
+
+
+def _assoc_scan(fn, a, axis):
+    """``jax.lax.associative_scan``'s recursion (odd/even halving) in torch:
+    the same tree of ``fn`` calls, so ties split their gradient as the
+    reference's cummax/cummin split them."""
+    n = a.shape[axis]
+    if n < 2:
+        return a
+    ev = a.narrow(axis, 0, n - 1 if n % 2 else n)
+    odd_in = fn(_stride2(ev, axis, 0), _stride2(a, axis, 1))
+    odd = _assoc_scan(fn, odd_in, axis)
+    rest = _stride2(a, axis, 2)
+    if n % 2 == 0:
+        even = fn(odd.narrow(axis, 0, odd.shape[axis] - 1), rest)
+    else:
+        even = fn(odd, rest)
+    even = torch.cat([a.narrow(axis, 0, 1), even], axis)
+    return _interleave(even, odd, axis)
+
+
+def _stride2(a, axis, start):
+    idx = [slice(None)] * a.dim()
+    idx[axis] = slice(start, None, 2)
+    return a[tuple(idx)]
+
+
+def _scan_extreme(torch_fn, combine):
+    """Indices from torch's cummax/cummin, values from the reference's scan
+    (the same values; its gradient splits ties)."""
+    def fn(a, dim):
+        vals, idx = torch_fn(a, dim)
+        if a.is_floating_point() and a.dim():
+            vals = _assoc_scan(combine, a, dim % a.dim())
+        return vals, idx
+    return fn
+
+
+cummax = _cum_extreme("cummax", _scan_extreme(torch.cummax, torch.maximum))
+cummin = _cum_extreme("cummin", _scan_extreme(torch.cummin, torch.minimum))
 
 
 def logcumsumexp(x, axis=None, dtype=None, name=None):

@@ -688,3 +688,59 @@ def test_forked_loader_workers_after_cuda_init():
         for x, y in zip(a, b):
             assert x._data.is_cuda and y._data.is_cuda
             assert torch.equal(x._data, y._data)
+
+
+def test_async_checkpoint_snapshots_the_card_state_before_the_next_step(
+        tmp_path):
+    """A bf16 model with f32 masters and moments (AdamW multi_precision) on
+    the card, saved with async_save while the write is held back; the
+    optimizer then steps in place; the loaded tensors equal the pre-step
+    values bit for bit, on the card, in their own dtypes."""
+    _need_card()
+    import threading
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import checkpoint as dc
+    try:
+        paddle.set_device("gpu:0")
+        paddle.seed(0)
+        net = paddle.nn.Linear(256, 256)
+        net.bfloat16()
+        opt = paddle.optimizer.AdamW(1e-2, parameters=net.parameters(),
+                                     multi_precision=True)
+        x = paddle.randn([8, 256]).astype("bfloat16")
+
+        def step():
+            net(x).astype("float32").mean().backward()
+            opt.step()
+            opt.clear_grad()
+        step()
+        state = {"model": net.state_dict(), "opt": opt.state_dict()}
+        flat = {k: v for k, v in dc._flat(state).items()
+                if hasattr(v, "_data")}
+        dtypes = {v._data.dtype for v in flat.values()}
+        assert {torch.bfloat16, torch.float32} <= dtypes
+        before = {k: v._data.clone() for k, v in flat.items()}
+        gate = threading.Event()
+        real = dc.np.savez
+
+        def held_savez(*a, **kw):
+            gate.wait(30)
+            return real(*a, **kw)
+        dc.np.savez = held_savez
+        try:
+            th = dc.save_state_dict(state, str(tmp_path), async_save=True)
+            step()
+            torch.cuda.synchronize()
+            gate.set()
+            th.join()
+        finally:
+            dc.np.savez = real
+        assert any(not torch.equal(v._data, before[k])
+                   for k, v in flat.items())
+        dc.load_state_dict(state, str(tmp_path))
+        for k, v in flat.items():
+            assert v._data.is_cuda and v._data.dtype == before[k].dtype, k
+            assert torch.equal(v._data.view(-1).view(torch.uint8),
+                               before[k].view(-1).view(torch.uint8)), k
+    finally:
+        paddle.set_device("cpu")

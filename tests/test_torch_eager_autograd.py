@@ -359,9 +359,12 @@ def test_flags_registry_is_the_references():
     from paddle_tpu_torch.core import flags as tflags
     port = {n: f.default for n, f in tflags._REGISTRY.items()
             if not n.startswith("FLAGS_test_")}
-    # the 11 eager ones, FLAGS_attn_autotune, FLAGS_kv_capacity_check and
-    # FLAGS_low_precision_op_list
-    assert len(port) == 14
+    # the 11 eager ones, FLAGS_attn_autotune, FLAGS_kv_capacity_check,
+    # FLAGS_low_precision_op_list and the 6 of training robustness
+    # (FLAGS_max_bad_steps, FLAGS_step_timeout_s, FLAGS_watchdog_interval_s,
+    # FLAGS_watchdog_store_root, FLAGS_memory_stats_dump_path,
+    # FLAGS_collective_timeout_s)
+    assert len(port) == 20
     assert port == {n: jflags._REGISTRY[n].default for n in port}
     assert set(tflags.get_flags()) >= set(port)
     with pytest.raises(KeyError, match="FLAGS_benchmark"):
@@ -382,3 +385,87 @@ def test_second_flag_observer_keeps_dispatch_in_step():
         T.set_flags({"FLAGS_check_nan_inf": False})
         tflags._OBSERVERS["FLAGS_check_nan_inf"].remove(seen.append)
     assert seen == [True, False]
+
+
+# ---- gradients at kinks and ties (the reference's conventions) -------------
+def _F(paddle):
+    return paddle.nn.functional
+
+
+def _const(paddle, values):
+    return paddle.to_tensor(np.asarray(values, np.float32))
+
+
+# op -> (program over the inputs, the inputs): each row at the kink or tie
+# that ROADMAP's queue 3 logged, where torch's own subgradient differed
+KINKS = {
+    "clip": (lambda p, x: p.clip(x, 1.0, 2.0), [[1, 1.5, 2]]),
+    "abs": (lambda p, x: p.abs(x), [[0, -1, 1]]),
+    "hardtanh": (lambda p, x: _F(p).hardtanh(x), [[-1, 1, 0]]),
+    "leaky_relu": (lambda p, x: _F(p).leaky_relu(x, 0.1), [[0, -1, 1]]),
+    "rrelu_eval": (lambda p, x: _F(p).rrelu(x, training=False),
+                   [[0, -1, 1]]),
+    "hardsigmoid": (lambda p, x: _F(p).hardsigmoid(x), [[-3, 3, 0]]),
+    "hardswish": (lambda p, x: _F(p).hardswish(x), [[-3, 3, 0]]),
+    "l1_loss": (lambda p, x: _F(p).l1_loss(x, _const(p, [0, 1, 1])),
+                [[0, 1, 2]]),
+    "margin_ranking_loss": (
+        lambda p, x: _F(p).margin_ranking_loss(
+            x, p.zeros([3]), p.ones([3]), margin=1.0), [[1, -1, 0.5]]),
+    "hinge_embedding_loss": (
+        lambda p, x: _F(p).hinge_embedding_loss(
+            x, _const(p, [-1, -1, 1]), margin=1.0), [[1, -1, 0.5]]),
+    "fmax": (lambda p, x: p.fmax(x, p.ones([3])), [[1, 0, 2]]),
+    "fmin": (lambda p, x: p.fmin(x, p.ones([3])), [[1, 2, 0]]),
+    "cummax": (lambda p, x: p.cummax(x, axis=0)[0], [[1, 3, 2, 3]]),
+    "cummin": (lambda p, x: p.cummin(x, axis=0)[0], [[3, 1, 2, 1]]),
+    "cummax_odd_2d": (lambda p, x: p.cummax(x, axis=1)[0],
+                      [[[2, 2, 1, 2, 2], [0, 1, 1, 1, 0]]]),
+    "norm_p1": (lambda p, x: p.norm(x, p=1), [[0, -2, 3]]),
+    "norm_p1_axis": (lambda p, x: p.norm(x, p=1, axis=0), [[0, -2, 3]]),
+    "dist_p1": (lambda p, x: p.dist(x, p.zeros([3]), p=1), [[0, -2, 3]]),
+    "normalize_p1": (lambda p, x: _F(p).normalize(x, p=1, axis=0)[1],
+                     [[0, -2, 3]]),
+    # off the origin only: there the reference's gradient is NaN and the
+    # port keeps torch's 0 (a deliberate difference, ROADMAP)
+    "atan2": (lambda p, x, y: p.atan2(x, y), [[0, 1], [1, -1]]),
+}
+
+
+def _grads(paddle, program, inputs):
+    ts = [paddle.to_tensor(np.asarray(x, np.float32), stop_gradient=False)
+          for x in inputs]
+    out = program(paddle, *ts)
+    (out.sum() if out.ndim else out).backward()
+    return [t.grad.numpy() for t in ts]
+
+
+@pytest.mark.parametrize("name", sorted(KINKS))
+def test_gradients_at_kinks_and_ties_are_the_references(name):
+    program, inputs = KINKS[name]
+    for got, want in zip(_grads(T, program, inputs),
+                         _grads(P, program, inputs)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_atan2_at_the_origin_keeps_torchs_zero():
+    gx, gy = _grads(T, lambda p, x, y: p.atan2(x, y), [[0.0], [0.0]])
+    assert gx.tolist() == [0.0] and gy.tolist() == [0.0]
+    assert np.isnan(_grads(P, lambda p, x, y: p.atan2(x, y),
+                           [[0.0], [0.0]])[0]).all()
+
+
+def test_heaviside_gradients_are_jnp_heavisides():
+    x = [0.0, 1.0, -1.0, 0.0]
+    y = [0.5, 0.5, 0.5, 2.0]
+
+    def program(p, xt, yt):
+        return p.heaviside(xt, yt) * xt + p.heaviside(xt, yt) * yt
+
+    got, want = _grads(T, program, [x, y]), _grads(P, program, [x, y])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    # with a scalar y, as ROADMAP's input: x.grad = [0.5, 1, 0]
+    gx = _grads(T, lambda p, xt: p.heaviside(
+        xt, p.to_tensor(np.float32(0.5))) * xt, [[0.0, 1.0, -1.0]])[0]
+    np.testing.assert_array_equal(gx, [0.5, 1.0, 0.0])

@@ -783,3 +783,16 @@ def test_mixed_dtype_products_promote(name, fn, dx, dw):
             assert g[0] == w[0], (k, g[0], w[0])
             _close(g[1], w[1], BF16_TOL if "float32" not in w[0]
                    else F32_TOL, f"{name} grad {k}")
+
+
+def test_imag_of_a_real_tensor_is_zeros_with_a_zero_gradient():
+    x = np.array([0.5, 1.0, 2.0], np.float32)
+    for dtype in ("float32", "float64"):
+        got = T.imag(T.to_tensor(x.astype(dtype)))
+        want = P.imag(P.to_tensor(x.astype(dtype)))
+        assert got.numpy().dtype == want.numpy().dtype
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    for pkg in (T, P):
+        t = pkg.to_tensor(x, stop_gradient=False)
+        (pkg.imag(t) + t).sum().backward()
+        np.testing.assert_array_equal(t.grad.numpy(), np.ones(3, np.float32))

@@ -2,8 +2,11 @@
 neither jax nor the JAX package (the training step, the eager and Layer
 APIs, serving: ``inference``, ``models.llama``, ``observability``'s
 server, ``_chaos``, and ``amp``, ``models.bert``, ``models.moe`` and the
-MoE step of ``models.gpt_hybrid``, and ``io`` and ``vision`` with their
-DataLoader workers), and its entry points default to CUDA:
+MoE step of ``models.gpt_hybrid``, ``io`` and ``vision`` with their
+DataLoader workers, and the training-robustness modules: ``device``,
+``training``, ``hapi`` with ``Model.fit``, ``metric``, ``callbacks``,
+``distributed``'s ``checkpoint``/``watchdog``/``elastic`` and
+``observability.training``), and its entry points default to CUDA:
 the training step's, and the eager API's, whose tensors land on gpu:0
 unless set_device("cpu") was called."""
 import os
@@ -127,6 +130,35 @@ batches = list(pio.DataLoader(fake, batch_size=2, num_workers=2))
 assert batches[0][0].shape == [2, 3, 16, 16]
 assert resnet18(num_classes=10)(batches[0][0]).shape == [2, 10]
 
+# training robustness: Model.fit with a step guard, a watchdog and a
+# committed checkpoint, the device stats, metrics, elastic stores
+import tempfile
+from paddle_tpu_torch import callbacks, device, hapi, metric, training
+from paddle_tpu_torch import distributed
+from paddle_tpu_torch.distributed import checkpoint, elastic, watchdog
+from paddle_tpu_torch.observability import training as otraining
+assert paddle.Model is hapi.Model and paddle.callbacks is callbacks
+assert device.memory_allocated() >= 0 and device.device_count("cpu") == 1
+assert otraining.DEFAULT_PEAK_FLOPS == cost_model.GPU_SPECS["H100"]["flops"]
+net = nn.Linear(4, 2)
+fit_model = paddle.Model(net)
+fit_model.prepare(optimizer.SGD(0.1, parameters=net.parameters()),
+                  nn.MSELoss(), metrics=None,
+                  step_guard=training.StepGuard(check_grads=True),
+                  watchdog=watchdog.TrainStepWatchdog(timeout_s=60.0))
+xy = [(np.ones(4, "f4"), np.zeros(2, "f4"))] * 4
+with tempfile.TemporaryDirectory() as ck:
+    ftc = hapi.FaultTolerantCheckpoint(ck, every_n_steps=2)
+    hist = fit_model.fit(xy, batch_size=2, epochs=1, verbose=0,
+                         callbacks=[ftc])
+    assert len(hist["loss"]) == 2 and checkpoint.latest_committed(ck)
+    elastic.FileKVStore(ck).put("k", "v")
+fit_model._watchdog.stop()
+acc = metric.Accuracy()
+acc.update(acc.compute(paddle.to_tensor([[0.1, 0.9]]),
+                       paddle.to_tensor([[1]])))
+assert acc.accumulate() == 1.0
+
 def foreign(name):
     return (name in ("jax", "jaxlib", "paddle_tpu")
             or name.startswith(("jax.", "jaxlib.", "paddle_tpu.")))
@@ -149,3 +181,21 @@ def test_port_imports_and_runs_without_jax_or_the_jax_package():
     if not torch.cuda.is_available():
         assert "\nNO_CUDA_RAISES True" in out.stdout, out.stdout
         assert "EAGER_NO_CUDA_RAISES True" in out.stdout, out.stdout
+
+
+def test_distributed_names_of_later_slices_raise_naming_their_queue_item():
+    import pytest
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import distributed
+    from paddle_tpu_torch.distributed import elastic
+    assert paddle.Model.__module__ == "paddle_tpu_torch.hapi"
+    assert distributed.save_state_dict is distributed.checkpoint.\
+        save_state_dict
+    for name in ("ProcessMesh", "all_reduce", "fleet", "TCPStore",
+                 "init_parallel_env", "launch"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+            getattr(distributed, name)
+    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+        elastic.TCPKVStore("localhost", 0)
+    with pytest.raises(AttributeError):
+        distributed.no_such_name  # noqa: B018

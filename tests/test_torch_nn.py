@@ -819,3 +819,61 @@ def test_layer_default_initializers_draw_from_the_port_generator():
     limit = np.sqrt(6 / (8 + 4))
     assert np.abs(a).max() <= limit
     assert not T.nn.Linear(8, 4).bias.numpy().any()
+
+
+# ---- BCE-with-logits and focal loss at a logit of exactly 0 ----------------
+Z0 = np.array([100.0, -100.0, 0.0], np.float32)
+Y0 = np.array([0.0, 1.0, 1.0], np.float32)
+
+
+def _fd_grad(fn, z, eps=1e-3):
+    """Central differences in f64 of fn(z) (numpy) at each z."""
+    out = np.zeros_like(z, np.float64)
+    for i in range(z.size):
+        hi, lo = z.astype(np.float64), z.astype(np.float64)
+        hi[i] += eps
+        lo[i] -= eps
+        out[i] = (fn(hi) - fn(lo)) / (2 * eps)
+    return out
+
+
+def _np_bce(z, y=Y0):
+    return np.mean(np.logaddexp(0.0, z) - z * y)
+
+
+def _np_focal(z, y=Y0, alpha=0.25, gamma=2.0):
+    p = 1 / (1 + np.exp(-z))
+    ce = np.logaddexp(0.0, z) - z * y
+    p_t = p * y + (1 - p) * (1 - y)
+    a_t = alpha * y + (1 - alpha) * (1 - y)
+    return np.sum(a_t * (1 - p_t) ** gamma * ce)
+
+
+@pytest.mark.parametrize("name, call, oracle, dz2", [
+    ("bce_logits", lambda F, z, y: F.binary_cross_entropy_with_logits(z, y),
+     _np_bce, -1.0 / 6.0),
+    ("sigmoid_focal", lambda F, z, y: F.sigmoid_focal_loss(z, y),
+     _np_focal, -0.0746),
+])
+def test_logit_losses_are_smooth_at_zero(name, call, oracle, dz2):
+    """The true gradient at z = 0 is sigmoid(0) - y's term, which finite
+    differences give; the reference's kinks (max, abs) give another value
+    there (ROADMAP, found in the reference), so only away from 0 is it
+    held against the reference."""
+    z = T.to_tensor(Z0, stop_gradient=False)
+    loss = call(T.nn.functional, z, T.to_tensor(Y0))
+    loss.backward()
+    fd = _fd_grad(oracle, Z0)
+    np.testing.assert_allclose(z.grad.numpy(), fd, rtol=1e-4, atol=1e-6)
+    assert abs(float(z.grad.numpy()[2]) - dz2) < 1e-4
+    # away from 0: the reference's value and gradient
+    zs = np.array([1.5, -0.7, 0.3, -2.0], np.float32)
+    ys = np.array([0.0, 1.0, 1.0, 0.0], np.float32)
+    got = []
+    for pkg in (T, P):
+        zt = pkg.to_tensor(zs, stop_gradient=False)
+        out = call(pkg.nn.functional, zt, pkg.to_tensor(ys))
+        out.backward()
+        got.append((float(out), zt.grad.numpy()))
+    np.testing.assert_allclose(got[0][0], got[1][0], rtol=1e-6)
+    np.testing.assert_allclose(got[0][1], got[1][1], rtol=1e-5, atol=1e-7)

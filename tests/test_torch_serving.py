@@ -410,7 +410,7 @@ def test_later_names_raise_a_clear_error():
     for name in ("Config", "create_predictor", "save_int8_model"):
         with pytest.raises(NotImplementedError, match="jit/"):
             getattr(inference, name)
-    for name in ("count_compiles", "compile_report", "training"):
+    for name in ("count_compiles", "compile_report"):
         with pytest.raises(NotImplementedError, match="of the port"):
             getattr(obs, name)
     with pytest.raises(AttributeError):
