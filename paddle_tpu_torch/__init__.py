@@ -38,11 +38,16 @@ What is ported so far:
   (``StepGuard``, ``PreemptionHandler``, the train checkpoints),
   ``device`` (memory statistics), ``observability.training`` and the
   part of ``distributed`` they use: ``checkpoint``, ``watchdog``,
-  ``elastic``.
+  ``elastic``;
+- compiled programs: ``jit`` (``to_static`` over ``make_fx`` and
+  ``torch.compile``, ``save``/``load`` over ``torch.export``), ``static``
+  (the Program/Executor facade, ``static.nn``, ``static.amp``), ``base``,
+  ``incubate.jit``, ``tensorrt``, and ``inference``'s predictor
+  (``Config``, ``create_predictor``, the int8 weight-only export).
 
 Use it as ``import paddle_tpu_torch as paddle``. Names of later slices
-(``jit``, ``vision.ops``, ``nn``'s rnn/extended/quant, most of
-``distributed``, ...) are not here.
+(``vision.ops``, ``nn``'s rnn/extended/quant, most of ``distributed``, ...)
+are not here.
 """
 from __future__ import annotations
 
@@ -93,6 +98,7 @@ from . import io  # noqa: F401
 from . import nn  # noqa: F401
 from . import optimizer  # noqa: F401
 from . import amp  # noqa: F401
+from . import jit  # noqa: F401
 from .nn.layer.layers import ParamAttr  # noqa: F401
 
 # generated `<op>_` inplace variants over the out-of-place ops above
@@ -104,7 +110,8 @@ __version__ = "0.1.0"
 
 
 _LAZY = {"vision", "hapi", "metric", "callbacks", "training",
-         "distributed"}
+         "distributed", "static", "inference", "incubate", "base",
+         "tensorrt"}
 
 
 def __getattr__(name):
@@ -160,6 +167,12 @@ def in_dynamic_mode():
 
 def disable_static(place=None):
     pass
+
+
+def enable_static():
+    raise NotImplementedError(
+        "legacy static program mode is replaced by paddle_tpu_torch.jit."
+        "to_static (program capture); see paddle_tpu_torch.static")
 
 
 # bind the rest of the reference Tensor-method surface: every method in the

@@ -11,8 +11,12 @@ from __future__ import annotations
 
 def force_cpu(num_devices: int | None = None,
               pop_tpu: bool = False) -> None:
-    """Make the CPU the default place for this process. ``num_devices``
-    and ``pop_tpu`` are the reference's jax settings and are accepted and
-    ignored: torch's CPU is one device and there is no TPU backend."""
+    """Make the CPU the default place for this process, and ``aot_eager``
+    the default backend of ``jit.to_static`` (inductor's C++ compile takes
+    tens of seconds a program on a CPU). ``num_devices`` and ``pop_tpu``
+    are the reference's jax settings and are accepted and ignored: torch's
+    CPU is one device and there is no TPU backend."""
     from .core.place import set_device
+    from .jit import set_default_backend
     set_device("cpu")
+    set_default_backend("aot_eager")

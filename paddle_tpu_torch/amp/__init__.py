@@ -9,7 +9,11 @@ tensors before the op runs; the casts it makes are recorded by torch's
 autograd, so gradients come back in each leaf's own dtype.
 
 The port's ``GradScaler`` unscales the gradients in place (the reference
-rebinds each gradient to a new array).
+rebinds each gradient to a new array). Inside a compiled step
+(``jit.to_static``) it reads nothing back: the update is computed and then
+kept or dropped with a device-side select on ``found_inf``, and the scale,
+the good/bad step counts and ``found_inf`` are device state that the step
+threads (``_trace_state``); the host reads them back when asked.
 """
 from __future__ import annotations
 
@@ -22,7 +26,7 @@ from ..core import dispatch as _dispatch
 from ..core import dtype as dtype_mod
 from ..core import place as place_mod
 from ..core.flags import define_flag, get_flag
-from ..core.tensor import Tensor
+from ..core.tensor import Tensor, tracing
 
 define_flag("FLAGS_low_precision_op_list", False,
             "record op names auto-cast by AMP; read with "
@@ -174,17 +178,54 @@ class GradScaler:
         self._found_inf = False
         self._unscaled = False
         self._last_skipped = False
+        # device state of compiled steps: [good, bad] counts and found_inf
+        self._counts = None
+        self._found_dev = None
+        self._dev_fresh = False
 
     def is_enable(self):
         return self._enable
 
+    def _trace_state(self):
+        """The tensors a compiled step threads: the scale, the counts and
+        found_inf (made from the host values on first use)."""
+        dev = self._scale._data.device
+        if self._counts is None:
+            self._counts = Tensor._wrap(torch.tensor(
+                [self._good_steps, self._bad_steps], dtype=torch.int64,
+                device=dev))
+            self._found_dev = Tensor._wrap(torch.tensor(
+                self._found_inf, device=dev))
+        return [self._scale, self._counts, self._found_dev]
+
+    def _compiled_step_ran(self):
+        """Called by jit after a compiled call: the device state is newer
+        than the host's copy."""
+        self._dev_fresh = True
+
+    def _sync_host(self):
+        if self._dev_fresh:
+            self._dev_fresh = False
+            self._good_steps, self._bad_steps = self._counts._data.tolist()
+            self._found_inf = bool(self._found_dev._data)
+            self._last_skipped = self._found_inf
+
+    def _sync_device(self):
+        if self._counts is not None:
+            with torch.no_grad():
+                self._counts._data.copy_(torch.tensor(
+                    [self._good_steps, self._bad_steps]))
+                self._found_dev._data.fill_(self._found_inf)
+
     @property
     def found_inf(self):
+        self._sync_host()
         return self._found_inf
 
     def last_step_skipped(self):
         """True when the most recent ``step()`` skipped the optimizer
         update because check_finite_and_unscale found non-finite grads."""
+        self._sync_host()
         return self._enable and self._last_skipped
 
     def is_use_dynamic_loss_scaling(self):
@@ -219,7 +260,15 @@ class GradScaler:
             g32 = g.float() * inv
             found |= ~torch.isfinite(g32).all()
             g.copy_(g32)
-        self._found_inf = bool(found)
+        if tracing():
+            if self._found_dev is None:
+                raise RuntimeError(
+                    "a GradScaler used in a compiled step must be among "
+                    "the step's objs (to_static(fn, objs=[..., scaler]))")
+            self._found_dev._assign_array(found)
+        else:
+            self._sync_host()
+            self._found_inf = bool(found)
         self._unscaled = True
 
     def unscale_(self, optimizer):
@@ -234,15 +283,48 @@ class GradScaler:
             optimizer.step()
             return
         self._unscale(optimizer)
-        self._last_skipped = self._found_inf
-        if not self._found_inf:
-            optimizer.step()
+        if tracing():
+            self._select_step(optimizer)
+        else:
+            self._last_skipped = self._found_inf
+            if not self._found_inf:
+                optimizer.step()
         self._unscaled = False
+
+    @torch.no_grad()
+    def _select_step(self, optimizer):
+        """The traced step: the update is computed, then every tensor it
+        wrote keeps its old value where found_inf is set."""
+        found = self._found_dev._data
+        state = list(optimizer._parameter_list) + optimizer._state_tensors()
+        before = [t._data.detach().clone() for t in state]
+        optimizer.step()
+        for t, old in zip(state, before):
+            t._data.copy_(torch.where(found, old, t._data))
+
+    def _select_update(self):
+        """update_loss_scaling on the device, for a traced step."""
+        found = self._found_dev._data
+        s = self._scale._data
+        good, bad = self._counts._data[0], self._counts._data[1]
+        bad = torch.where(found, bad + 1, 0)
+        good = torch.where(found, 0, good + 1)
+        dec = found & (bad >= self._decr_every)
+        inc = ~found & (good >= self._incr_every)
+        self._scale._assign_array(torch.where(
+            dec, torch.clamp(s * self._decr_ratio, min=1.0),
+            torch.where(inc, s * self._incr_ratio, s)))
+        self._counts._assign_array(torch.stack(
+            [torch.where(inc, 0, good), torch.where(dec, 0, bad)]))
 
     def update(self):
         """update_loss_scaling (amp_kernel.h:32)."""
         if not (self._enable and self._dynamic):
             return
+        if tracing():
+            self._select_update()
+            return
+        self._sync_host()
         s = self._scale._data
         if self._found_inf:
             self._bad_steps += 1
@@ -257,8 +339,10 @@ class GradScaler:
             if self._good_steps >= self._incr_every:
                 self._scale._assign_array(s * self._incr_ratio)
                 self._good_steps = 0
+        self._sync_device()
 
     def state_dict(self):
+        self._sync_host()
         return {
             "scale": self._scale._data.cpu().numpy(),
             "incr_ratio": self._incr_ratio,
@@ -271,8 +355,10 @@ class GradScaler:
         self._scale._assign_array(torch.tensor(
             np.asarray(sd["scale"]), dtype=torch.float32,
             device=self._scale._data.device))
+        self._dev_fresh = False
         self._good_steps = sd.get("incr_count", 0)
         self._bad_steps = sd.get("decr_count", 0)
+        self._sync_device()
 
 
 AmpScaler = GradScaler

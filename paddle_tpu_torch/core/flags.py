@@ -6,7 +6,9 @@ time).
 Only flags that something in the port reads are defined, each with the
 reference's name, default and meaning: the seven that eager dispatch reads
 (``core/dispatch.py``), the two print flags of ``Tensor.__repr__``, the six of the training
-robustness modules (``training``, ``distributed.watchdog``, ``device``), and
+robustness modules (``training``, ``distributed.watchdog``, ``device``), the
+three of ``jit`` (``FLAGS_print_jaxpr``, ``FLAGS_max_specializations``,
+``FLAGS_max_shape_specializations``), and
 ``FLAGS_matmul_precision``/``FLAGS_deterministic``, which set torch's f32
 matmul precision and cuDNN's f32 convolution precision at import and when
 they change, as the reference sets jax's. A module
@@ -122,6 +124,16 @@ define_flag("FLAGS_watchdog_store_root", "",
 define_flag("FLAGS_memory_stats_dump_path", "",
             "paddle.device.dump_memory_stats() target; also dumped by "
             "the watchdog on timeout when set")
+define_flag("FLAGS_print_jaxpr", False,
+            "print the traced FX graph to stderr when to_static builds a "
+            "program (the reference's name; it prints the jaxpr)")
+define_flag("FLAGS_max_specializations", 8,
+            "cap on cached to_static specializations per signature "
+            "before eager fallback")
+define_flag("FLAGS_max_shape_specializations", 8,
+            "cap on distinct dynamic-dim (InputSpec None) shapes a "
+            "to_static fn compiles before new shapes run eagerly "
+            "(the shape-dialect surface's executable budget)")
 define_flag("FLAGS_tensor_print_precision", 6,
             "digits in Tensor repr (set_printoptions analog)")
 define_flag("FLAGS_tensor_print_threshold", 1000,

@@ -17,9 +17,17 @@ The storage is ``_data``, a ``torch.Tensor``, as the reference's is a
   computes where a real in-place write would make torch refuse. A trainable
   leaf rebound outside autograd (an optimizer's update) stays a trainable
   leaf and keeps its gradient.
+
+Python control flow on a tensor's value surfaces as a scalarization
+(``bool``, ``int``, ``float``, ``item``). These go through the
+scalarization interceptor that ``jit`` installs (the reference's seam,
+``paddle_tpu/core/tensor.py:28-34``); with none set, or none active, they
+read the value as before. While ``jit`` traces a program, a host read of a
+value (``numpy``, ``tolist``) raises ``TracedValueError``.
 """
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import numpy as np
@@ -28,6 +36,43 @@ import torch
 from . import dtype as dtype_mod
 from . import place as place_mod
 from .place import Place
+
+
+# Scalarization interceptor (the guard-capture seam, installed by
+# paddle_tpu_torch.jit): fn(kind, array) -> (handled, python_value).
+_scalarize_interceptor = None
+_TRACING = threading.local()
+
+
+def set_scalarize_interceptor(fn):
+    global _scalarize_interceptor
+    prev = _scalarize_interceptor
+    _scalarize_interceptor = fn
+    return prev
+
+
+def tracing() -> bool:
+    """True while this thread traces a compiled program."""
+    return getattr(_TRACING, "depth", 0) > 0
+
+
+class TracedValueError(RuntimeError):
+    """A tensor's value was read on the host while a program was traced."""
+
+
+def _no_host_read(what):
+    if tracing():
+        raise TracedValueError(
+            f"Tensor.{what}() reads a value on the host inside a traced "
+            "program")
+
+
+def _scalarize(kind, arr, plain):
+    if _scalarize_interceptor is not None:
+        handled, val = _scalarize_interceptor(kind, arr)
+        if handled:
+            return val
+    return plain(arr.detach())
 
 
 def _trainable(arr) -> bool:
@@ -270,6 +315,7 @@ class Tensor:
     # ------------------------------------------------------------- transfer
     def numpy(self) -> np.ndarray:
         """The values as numpy; bfloat16/float8 as float32 (core/dtype.py)."""
+        _no_host_read("numpy")
         return dtype_mod.to_numpy(self._data)
 
     def __array__(self, dtype=None, copy=None):
@@ -278,7 +324,7 @@ class Tensor:
 
     def item(self, *args):
         if not args:
-            return self._data.detach().item()
+            return _scalarize("item", self._data, torch.Tensor.item)
         return self.numpy().item(*args)
 
     def tolist(self):
@@ -366,16 +412,16 @@ class Tensor:
                 f"stop_gradient={self.stop_gradient},\n       {body})")
 
     def __bool__(self):
-        return bool(self._data.detach())
+        return _scalarize("bool", self._data, bool)
 
     def __int__(self):
-        return int(self._data.detach())
+        return _scalarize("int", self._data, int)
 
     def __float__(self):
-        return float(self._data.detach())
+        return _scalarize("float", self._data, float)
 
     def __index__(self):
-        return int(self._data.detach())
+        return _scalarize("int", self._data, int)
 
     def __iter__(self):
         for i in range(len(self)):

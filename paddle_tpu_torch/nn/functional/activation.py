@@ -11,7 +11,7 @@ import torch.nn.functional as tF
 
 from ...core import dtype as dtype_mod
 from ...core.dispatch import rebind_inplace, run_op, run_op_inplace
-from ...core.generator import generator_for
+from ...core.generator import generator_for, traced
 from ...ops.math import jax_clip
 
 
@@ -51,7 +51,9 @@ def rrelu(x, lower=1.0 / 8.0, upper=1.0 / 3.0, training=True, name=None):
         gen = generator_for(x._data.device)
 
         def f(a):
-            slope = torch.empty_like(a).uniform_(lower, upper, generator=gen)
+            slope = (gen.uniform(a.shape, a.device, a.dtype, lower, upper)
+                     if traced(gen) else torch.empty_like(a).uniform_(
+                         lower, upper, generator=gen))
             return torch.where(a >= 0, a, slope * a)
         return run_op("rrelu", f, x)
     return leaky_relu(x, (lower + upper) / 2.0)
@@ -179,7 +181,8 @@ def gumbel_softmax(x, temperature=1.0, hard=False, axis=-1, name=None):
     gen = generator_for(x._data.device)
 
     def f(a):
-        u = torch.empty_like(a).uniform_(generator=gen)
+        u = (gen.uniform(a.shape, a.device, a.dtype) if traced(gen)
+             else torch.empty_like(a).uniform_(generator=gen))
         g = -torch.log(-torch.log(u.clamp_min(torch.finfo(a.dtype).tiny)))
         y = torch.softmax((a + g) / temperature, dim=axis)
         if hard:

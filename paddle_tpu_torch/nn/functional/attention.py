@@ -26,7 +26,7 @@ import math
 import torch
 
 from ...core.dispatch import run_op
-from ...core.generator import generator_for
+from ...core.generator import generator_for, traced
 from ...ops.hopper import flash_attention as fa
 
 
@@ -51,8 +51,10 @@ def _xla_attention(q, k, v, mask=None, causal=False, scale=None,
             logits = logits + mask.float()
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     if dropout_p > 0.0 and gen is not None:
-        keep = torch.empty(probs.shape, device=probs.device).bernoulli_(
-            1.0 - dropout_p, generator=gen).bool()
+        keep = (gen.uniform(probs.shape, probs.device) >= dropout_p
+                if traced(gen) else
+                torch.empty(probs.shape, device=probs.device).bernoulli_(
+                    1.0 - dropout_p, generator=gen).bool())
         probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 

@@ -16,7 +16,7 @@ import torch.nn.functional as tF
 
 from ...core import dtype as dtype_mod
 from ...core.dispatch import run_op
-from ...core.generator import generator_for
+from ...core.generator import generator_for, traced
 from ...core.tensor import Tensor
 from ...ops.linalg import promoted
 from ...ops.math import jax_abs
@@ -41,6 +41,8 @@ def linear(x, weight, bias=None, name=None):
 
 def _keep_mask(a, p, shape, gen):
     """Bernoulli(1 - p) keep mask of ``shape`` (bool), from ``gen``."""
+    if traced(gen):
+        return gen.uniform(shape, a.device) >= p
     return torch.empty(shape, device=a.device).bernoulli_(
         1.0 - p, generator=gen).bool()
 

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..core import dtype as dtype_mod
-from ..core.generator import generator_for
+from ..core.generator import generator_for, traced
 from ..core.place import default_device
 
 
@@ -25,14 +25,21 @@ def _dt(dtype):
 
 def _normal(shape):
     dev = default_device()
-    return torch.randn(tuple(shape), generator=generator_for(dev),
-                       dtype=torch.float32, device=dev)
+    gen = generator_for(dev)
+    if traced(gen):
+        return gen.normal(tuple(shape), dev)
+    return torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                       device=dev)
 
 
 def _uniform(shape, low, high, dtype):
     dev = default_device()
+    gen = generator_for(dev)
+    if traced(gen):
+        return gen.uniform(tuple(shape), dev, _dt(dtype) or torch.float32,
+                           low, high)
     out = torch.empty(tuple(shape), dtype=_dt(dtype), device=dev)
-    return out.uniform_(low, high, generator=generator_for(dev))
+    return out.uniform_(low, high, generator=gen)
 
 
 def calculate_gain(nonlinearity, param=None):

@@ -18,9 +18,10 @@ Off switch: ``PADDLE_TPU_METRICS=off`` (env) or ``obs.disable()``.
 ``training`` holds the train loop's funnel (``record_step``, ``configure``:
 step time, samples/s, tokens/s and MFU against one H100's peak).
 
-Not here yet: the compile tracker (``count_compiles``, ``count_traces``,
-``compile_report``), which comes with ``jit/``. Those names raise
-``NotImplementedError``.
+``compile_tracker`` counts the jit's backend compiles and traces
+(``count_compiles``, ``count_traces``, the ``jit.xla_compiles`` counter),
+and ``compile_report`` gives each ``to_static`` function's cache state,
+which a collector publishes as the ``jit.*`` gauges at snapshot time.
 """
 from __future__ import annotations
 
@@ -28,31 +29,18 @@ import json as _json
 import time as _time
 
 from . import catalog  # noqa: F401
+from . import compile_tracker  # noqa: F401
 from . import server  # noqa: F401
 from . import training  # noqa: F401
 from .metrics import (  # noqa: F401
     REGISTRY, Counter, Gauge, Histogram, Registry,
     enable, disable, enabled,
 )
+from .compile_tracker import count_compiles, count_traces  # noqa: F401
 from .server import MetricsServer  # noqa: F401
 from .snapshots import (  # noqa: F401
     Snapshot, SnapshotDelta, delta, window,
 )
-
-_LATER = {
-    "compile_tracker": "jit/", "count_compiles": "jit/",
-    "count_traces": "jit/", "compile_report": "jit/",
-}
-
-
-def __getattr__(name):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"paddle_tpu_torch.observability.{name} comes with "
-            f"{_LATER[name]} of the port (ROADMAP queue 1)")
-    raise AttributeError(
-        f"module {__name__!r} has no attribute {name!r}")
-
 
 def take_snapshot() -> Snapshot:
     """Indexed read-side view of the live registry (snapshots.py)."""
@@ -99,3 +87,47 @@ def dump(path=None, format: str = "json"):
         with open(path, "w") as f:
             f.write(text)
     return snap
+
+
+def compile_report():
+    """Per-StaticFunction jit-cache stats: calls, probes, graph breaks,
+    specializations, compiled graphs (the reference's sot introspection,
+    quantified; ``xla_executables`` keeps the reference's key)."""
+    out = []
+    from .. import jit as _jit
+    for sf in list(_jit._static_functions):
+        calls = probes = breaks = specs = execs = 0
+        fallbacks = 0
+        for e in sf._cache.values():
+            probes += e["probes"]
+            breaks += e["breaks"]
+            specs += len(e["specs"])
+            fallbacks += 1 if e["fallback"] else 0
+            for s in e["specs"]:
+                calls += s.hits
+                if s.jitted is not None:
+                    execs += s.jitted._cache_size()
+        out.append({"function": sf._name, "cache_hits": calls,
+                    "eager_probes": probes, "graph_breaks": breaks,
+                    "specializations": specs, "xla_executables": execs,
+                    "eager_fallbacks": fallbacks})
+    return out
+
+
+def _jit_collector(reg):
+    """Publish aggregate jit-cache state as gauges at snapshot time."""
+    import sys
+    if "paddle_tpu_torch.jit" not in sys.modules:
+        rep = []                  # no to_static function yet
+    else:
+        rep = compile_report()
+    reg.gauge("jit.static_functions").set(len(rep))
+    reg.gauge("jit.specializations").set(
+        sum(r["specializations"] for r in rep))
+    reg.gauge("jit.xla_executables").set(
+        sum(r["xla_executables"] for r in rep))
+    reg.gauge("jit.graph_breaks").set(
+        sum(r["graph_breaks"] for r in rep))
+
+
+REGISTRY.register_collector(_jit_collector)

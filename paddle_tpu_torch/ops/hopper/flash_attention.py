@@ -184,6 +184,8 @@ def _library_op(q, k, v, sm_scale, causal):
            "float sm_scale, bool causal) -> (Tensor, Tensor, Tensor)")
 def _library_bwd_op(q, k, v, o, lse, do, sm_scale, causal):
     if q.device.type == "cuda":
+        if not L.aligned(do):     # e.g. the expanded gradient of a sum()
+            do = do.contiguous()
         dq, delta = library_flash_bwd_dq_cuda(q, k, v, o, lse, do, sm_scale,
                                               causal)
         return (dq, *library_flash_bwd_dkv_cuda(q, k, v, lse, delta, do,
@@ -205,8 +207,8 @@ def _setup_context(ctx, inputs, output):
 
 def _backward(ctx, do, _dlse):
     q, k, v, o, lse = ctx.saved_tensors
-    if not L.aligned(do):     # e.g. the expanded gradient of a sum()
-        do = do.contiguous()
+    # the op aligns do on the card: here do may be a traced (fake) tensor,
+    # which has no data pointer
     dq, dk, dv = _library_bwd_op(q, k, v, o, lse, do, ctx.sm_scale,
                                  ctx.causal)
     return dq, dk, dv, None, None

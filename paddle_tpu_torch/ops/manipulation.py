@@ -16,12 +16,20 @@ from ..core.tensor import Tensor
 _pyslice = slice  # captured before `def slice(...)` below shadows it
 
 
+def _int(s):
+    """A size as an int; a symbolic size (a torch.export trace with a
+    dynamic dim) stays symbolic."""
+    if isinstance(s, torch.SymInt):
+        return s
+    return int(s.item() if isinstance(s, Tensor) else s)
+
+
 def _ints(seq):
     if isinstance(seq, Tensor):
         seq = seq.tolist()
-    if isinstance(seq, (int, np.integer)):
-        return int(seq)
-    return [int(s.item() if isinstance(s, Tensor) else s) for s in seq]
+    if isinstance(seq, (int, np.integer, torch.SymInt)):
+        return _int(seq)
+    return [_int(s) for s in seq]
 
 
 def _int_arg(v):

@@ -9,7 +9,7 @@ import torch
 
 from ..core import dtype as dtype_mod
 from ..core.dispatch import run_op
-from ..core.generator import generator_for
+from ..core.generator import generator_for, no_traced_form
 from ..core.tensor import Tensor
 
 
@@ -251,6 +251,7 @@ def top_p_sampling(x, ps, threshold=None, topp_seed=None, seed=-1, k=0,
     dev = x._data.device
     gen = torch.Generator(device=dev).manual_seed(seed) if seed >= 0 \
         else generator_for(dev)
+    no_traced_form(gen, "top_p_sampling")
 
     def f(probs_in, p):
         probs = probs_in.float().clamp_min(0.0)

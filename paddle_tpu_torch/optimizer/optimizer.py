@@ -123,6 +123,21 @@ class Optimizer:
         return self._master_weights[key]
 
     # ----------------------------------------------------------- state
+    def _state_tensors(self):
+        """Every device tensor the optimizer mutates, which a compiled step
+        threads through its program (``paddle_tpu_torch.jit``); the
+        accumulators and master weights are made first. The learning rate
+        is a Python float that a trace bakes in, as the reference's trace
+        bakes ``get_lr()`` into its device scalar."""
+        self._create_accumulators()
+        for p in self._parameter_list:
+            self._master_weight(p)
+        out = []
+        for d in self._accumulators.values():
+            out.extend(d.values())
+        out.extend(self._master_weights.values())
+        return out
+
     def state_dict(self):
         sd = {}
         for name, d in self._accumulators.items():

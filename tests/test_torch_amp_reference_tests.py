@@ -14,9 +14,12 @@ autouse ``_restore_flags`` of test_flags_effects.py among them) here.
 Bound: ``test_flags_effects.py::test_low_precision_op_list`` and
 ``test_incubate_extras.py::TestAmpDebugging`` (``test_operator_stats``,
 ``test_check_numerics_raises_on_nan``). No AMP test of the two files is
-left out. Their other tests exercise modules of other slices (``jit``,
-``device``, ``distributed``, ``incubate``'s asp/autograd/optimizer,
-``nn.quant``, ``utils.dlpack``) and are not AMP tests.
+left out. Since the jit slice, ``test_flags_effects.py``'s two jit flag
+tests too (``test_max_specializations_flag_caps_jit``,
+``test_print_jaxpr_flag``), on the ``aot_eager`` backend
+(``force_cpu``). The files' other tests exercise modules of other slices
+(``device``, ``distributed``, ``incubate``'s asp/autograd/optimizer,
+``nn.quant``, ``utils.dlpack``).
 ``test_models.py``'s AMP test, ``test_bert_amp_o2``, is bound with the
 other model tests in ``test_torch_serving_reference_tests.py``.
 """
@@ -26,12 +29,14 @@ import re
 
 import pytest
 
-import paddle_tpu_torch
+from paddle_tpu_torch._testing import force_cpu
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # file -> its top-level tests that are bound
 KEEP = {
-    "test_flags_effects.py": ("test_low_precision_op_list",),
+    "test_flags_effects.py": ("test_low_precision_op_list",
+                              "test_max_specializations_flag_caps_jit",
+                              "test_print_jaxpr_flag"),
     "test_incubate_extras.py": ("TestAmpDebugging",),
 }
 # modules of paddle_tpu whose imports are rewritten to paddle_tpu_torch's,
@@ -101,7 +106,7 @@ N_BOUND = {fname: _bind(fname, keep) for fname, keep in KEEP.items()}
 
 @pytest.fixture(autouse=True)
 def _port_on_cpu():
-    paddle_tpu_torch.set_device("cpu")
+    force_cpu()
 
 
 def test_every_amp_reference_test_is_bound():

@@ -305,6 +305,75 @@ def test_layer_gpt_trains_through_the_library_kernels():
         assert np.abs(gg[n] - w).max() <= 1e-4 * np.abs(w).max(), n
 
 
+def test_compiled_layer_gpt_step_launches_the_library_kernels():
+    """The small Layer GPT's train step through jit.to_static (aot_eager,
+    the backend the CPU tests use; chip_smoke.py phase 14 compiles with
+    inductor): each compiled call launches the library tier's three
+    kernels once a layer and no other attention kernel, the trace alone
+    ticks nn.sdpa, and the losses equal eager steps' from one state."""
+    _need_card()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    cfg = GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                    num_heads=4, max_seq_len=256)
+    paddle.set_device("gpu:0")
+    paddle.seed(0)
+    state = GPTForCausalLM(cfg).state_dict()
+    ids = paddle.to_tensor(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (2, 256)))
+    losses = {}
+    for compiled in (False, True):
+        model = GPTForCausalLM(cfg)
+        model.set_state_dict(state)
+        opt = paddle.optimizer.AdamW(1e-3, parameters=model.parameters())
+
+        def step():
+            loss = model(ids, ids)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+        fn = paddle.jit.to_static(step, objs=[model, opt],
+                                  backend="aot_eager") if compiled else step
+        losses[compiled] = []
+        for i in range(3):
+            tfa.reset_launch_counts()
+            before = tfa.dispatch_counts()
+            losses[compiled].append(float(fn()))
+            L = cfg.num_layers
+            assert tfa.LAUNCHES == {n: L for n in tfa.LAUNCHES}
+            ticks = tfa.dispatch_counts(before)
+            if compiled:
+                assert ticks == ({("nn.sdpa", "library_flash"): L}
+                                 if i == 0 else {})
+    np.testing.assert_allclose(losses[True], losses[False], rtol=1e-4)
+    paddle.set_device("cpu")
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_library_ops_fake_strides_equal_the_kernels(dtype):
+    """Inductor trusts the fake (meta) implementation's strides: they must
+    be the CUDA kernels' real ones, forward and backward."""
+    _need_card()
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn(2, 256, 3 * 4 * 64, generator=gen,
+                      device="cuda").to(dtype)
+    q, k, v = (x.reshape(2, 256, 4, 64).transpose(1, 2)
+               for x in qkv.split(4 * 64, -1))
+    do = torch.randn(2, 4, 256, 64, generator=gen, device="cuda").to(dtype)
+    real = tfa.OP(q, k, v, 0.125, True)
+    real += tuple(torch.ops.paddle_tpu_torch.library_flash_bwd(
+        q, k, v, real[0], real[1], do, 0.125, True))
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fq, fk, fv, fdo = (mode.from_tensor(t) for t in (q, k, v, do))
+        fake = tfa.OP(fq, fk, fv, 0.125, True)
+        fake += tuple(torch.ops.paddle_tpu_torch.library_flash_bwd(
+            fq, fk, fv, fake[0], fake[1], fdo, 0.125, True))
+    assert [t.stride() for t in fake] == [t.stride() for t in real]
+    assert [t.dtype for t in fake] == [t.dtype for t in real]
+
+
 # The rungs' tiers at a tiny width: S=2048 at D=64 takes causal_skip (nq=4),
 # S=4096 at D=128 takes blocked (qblock's gate refuses it there), and
 # S=1408 at D=64 takes qblock (the monolithic gate refuses it and

@@ -360,11 +360,12 @@ def test_flags_registry_is_the_references():
     port = {n: f.default for n, f in tflags._REGISTRY.items()
             if not n.startswith("FLAGS_test_")}
     # the 11 eager ones, FLAGS_attn_autotune, FLAGS_kv_capacity_check,
-    # FLAGS_low_precision_op_list and the 6 of training robustness
+    # FLAGS_low_precision_op_list, the 6 of training robustness
     # (FLAGS_max_bad_steps, FLAGS_step_timeout_s, FLAGS_watchdog_interval_s,
     # FLAGS_watchdog_store_root, FLAGS_memory_stats_dump_path,
-    # FLAGS_collective_timeout_s)
-    assert len(port) == 20
+    # FLAGS_collective_timeout_s) and the 3 of jit (FLAGS_print_jaxpr,
+    # FLAGS_max_specializations, FLAGS_max_shape_specializations)
+    assert len(port) == 23
     assert port == {n: jflags._REGISTRY[n].default for n in port}
     assert set(tflags.get_flags()) >= set(port)
     with pytest.raises(KeyError, match="FLAGS_benchmark"):

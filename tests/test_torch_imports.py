@@ -6,7 +6,9 @@ MoE step of ``models.gpt_hybrid``, ``io`` and ``vision`` with their
 DataLoader workers, and the training-robustness modules: ``device``,
 ``training``, ``hapi`` with ``Model.fit``, ``metric``, ``callbacks``,
 ``distributed``'s ``checkpoint``/``watchdog``/``elastic`` and
-``observability.training``), and its entry points default to CUDA:
+``observability.training``, and the compiled programs: ``jit``, ``static``,
+``base``, ``inference``'s predictor, ``incubate.jit``, ``tensorrt``), and
+its entry points default to CUDA:
 the training step's, and the eager API's, whose tensors land on gpu:0
 unless set_device("cpu") was called."""
 import os
@@ -158,6 +160,38 @@ acc = metric.Accuracy()
 acc.update(acc.compute(paddle.to_tensor([[0.1, 0.9]]),
                        paddle.to_tensor([[1]])))
 assert acc.accumulate() == 1.0
+
+# compiled programs: jit, static, base, the predictor, incubate.jit,
+# tensorrt
+from paddle_tpu_torch import base, jit, static, tensorrt
+from paddle_tpu_torch.incubate import jit as incubate_jit
+from paddle_tpu_torch.observability import compile_tracker
+from paddle_tpu_torch.static import amp as static_amp, nn as static_nn
+jit.set_default_backend("aot_eager")
+assert paddle.jit is jit and paddle.static is static
+assert base.Executor is static.Executor and static_amp.GradScaler is \
+    amp.GradScaler
+jit_net = nn.Linear(4, 2)
+jit_opt = optimizer.SGD(0.1, parameters=jit_net.parameters())
+
+def jit_step(x):
+    loss = (jit_net(x) ** 2).mean()
+    loss.backward()
+    jit_opt.step()
+    jit_opt.clear_grad()
+    return loss
+
+jit_x = paddle.to_tensor(np.ones((3, 4), "f4"))
+with compile_tracker.count_compiles() as compiles:
+    jit_losses = [float(jit.to_static(jit_step, objs=[jit_net, jit_opt])(
+        jit_x)) for _ in range(1)]
+assert compiles() == 1 and jit_losses[0] == jit_losses[0]
+with tempfile.TemporaryDirectory() as jd:
+    jit.save(jit_net, jd + "/m", input_spec=[jit.InputSpec([None, 4])])
+    served = inference.create_predictor(inference.Config(jd + "/m"))
+    assert served.run([jit_x])[0].shape == [3, 2]
+assert incubate_jit.inference(nn.Linear(4, 2))(jit_x).shape == [3, 2]
+assert static_nn.fc(jit_x, 5).shape == [3, 5]
 
 def foreign(name):
     return (name in ("jax", "jaxlib", "paddle_tpu")

@@ -2,7 +2,7 @@
 
 Each file in FILES imports the reference only through the serving and
 model modules of ``PORTED`` (``import paddle_tpu as paddle``, ``from
-paddle_tpu import nn, _chaos``, ``paddle_tpu.inference.decode``,
+paddle_tpu import nn, _chaos, inference``, ``paddle_tpu.inference.decode``,
 ``.inference.admission``, ``.observability``, ``.observability.server``,
 ``._chaos``, ``.models.llama``, ``.models.gpt``, ``.models.bert``,
 ``.models.moe``, ``.amp``, ``.incubate.nn``'s ``functional``, ``.io``,
@@ -15,10 +15,10 @@ original file name and binds its ``test_*`` functions and its fixtures
 here, so that each test runs against the port with the reference's own
 assertions. The reference modules themselves are left alone.
 
-Left out, each with the slice that brings what it needs:
-- ``test_decode.py::test_int8_native_serving_export_roundtrip`` and
-  ``::test_predictor_generate_serving``: the Predictor and the int8 export
-  (``inference.Config``, ``create_predictor``), which wait for ``jit/``;
+Left out, each stated again where it can run without jax:
+- ``test_decode.py::test_int8_native_serving_export_roundtrip``: it checks
+  the int8 buffer's dtype against ``jnp.int8``; ``test_torch_inference.py``
+  states it again with ``torch.int8``;
 - ``test_decode.py::test_cache_overflow_raises_eagerly``: it builds its
   cache through ``jax.numpy``; ``test_torch_serving.py`` states it again
   without it;
@@ -56,7 +56,6 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # file -> the tests of it that are not bound
 FILES = {
     "test_decode.py": ("test_int8_native_serving_export_roundtrip",
-                       "test_predictor_generate_serving",
                        "test_cache_overflow_raises_eagerly"),
     "test_continuous_batching.py": (),
     "test_serving_robustness.py": (
@@ -70,7 +69,7 @@ PORTED = ("inference.decode", "inference.admission", "observability",
           "observability.server", "_chaos", "models.llama", "models.gpt",
           "models.bert", "models.moe", "amp", "incubate.nn", "io", "vision",
           "vision.models", "vision.datasets")
-PORTED_NAMES = {"nn", "_chaos"}
+PORTED_NAMES = {"nn", "_chaos", "inference"}
 AUTOUSE = {"_metrics_on"}
 IMPORT = re.compile(r"^(\s*)(from|import)\s+paddle_tpu(\.[\w.]+)?(\s.*)$")
 FOREIGN_IMPORT = re.compile(r"^\s*(import|from)\s+(paddle_tpu|jax)\b(?!_)")
@@ -176,7 +175,7 @@ def _serving_state():
 
 
 def test_every_reference_test_is_bound():
-    assert N_BOUND == {"test_decode.py": 13,
+    assert N_BOUND == {"test_decode.py": 14,
                        "test_continuous_batching.py": 7,
                        "test_serving_robustness.py": 18,
                        "test_metrics_server.py": 4, "test_models.py": 9}
