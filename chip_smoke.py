@@ -231,7 +231,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and B4 from one program: logits against the eager forward's at the
      bf16 bound, 24 library forward launches a run; prints the file's
      size, the save and load seconds and ms a run; a {"jit": {...}} line.
-     ``--phase14`` runs the build and this phase alone, for work on it.
+     ``--phase14`` runs the build and this phase alone, for work on it;
+ 15. the rest of the eager API, on a fresh empty autotune table: (a) every
+     ``paddle._C_ops`` binding (461, generated from the port's own yaml)
+     resolves to a callable of the port; every function this slice adds
+     (``ops/extra``, ``ops/vision_ops``, ``signal``, ``ops/compat``,
+     ``geometric``, ``nn.functional``'s extended ops, ``nn.quant``) runs on
+     one small input on the card and on the CPU, agreeing at 1e-5 of each
+     output's scale (f32); the draws keep their support and moments; the AMP
+     ops keep found_inf and the scale on the card; each explicit infermeta
+     equals the real output's shape and dtype; ``weight_only_linear`` at
+     Llama-2-7B's MLP width (x [8, 4096] bf16, int8 w [4096, 11008])
+     against weight_dequantize + a bf16 matmul, each timed; the host time
+     of one ``_C_ops`` call beside one eager op's; (b) GPT-1.3B's forward and
+     backward written only in ``_C_ops`` bindings (``capi_gpt_loss``) on
+     ``gpt_hybrid.init_params`` (seed 0) at B4 S1024 bf16: 24 launches each
+     of simple_attention's two kernels and no other attention kernel, the
+     step-0 loss in [10, 11.5] and within 1e-2 of ``eager_gpt_loss``'s, then
+     3 steps of ``ops.extra.adamw_`` with f32 master weights and a falling
+     loss; prints forward+backward and optimizer ms, ms/step, tokens/s, MFU
+     (8.4863e9 FLOP/token), peak memory, the idle share of one profiled
+     step, beside phases 7b and 8b; (c) the PTB large LSTM LM (Zaremba et
+     al. 2014: vocab 10000, 2 layers of 1500, dropout 0.65, uniform +-0.04,
+     SGD 1.0 with global-norm clipping at 10, B20, 35 steps unrolled): a
+     small copy (vocab 50, hidden 32) on the card against the CPU (loss and
+     gradients within 1e-5), then 10 steps on one repeated batch, the
+     step-0 loss within 0.1 of ln(10000) and a falling loss; prints
+     ms/step, tokens/s, the idle share and the recurrence's route (cuDNN);
+     an {"eager_api": {...}} line. ``--phase15`` runs the build and this
+     phase alone.
 The script sets FLAGS_matmul_precision to "highest", which the flag's
 default gives a user: f32 products and convolutions run in f32.
 Phases 2-6 keep the autotuner's table in a fresh temporary
@@ -239,7 +267,8 @@ PADDLE_TPU_CACHE_DIR, empty until phase 6, with FLAGS_attn_autotune at its
 default: phases 2-5 (and 7, 8, 10 and 11, each on a table of its own) run
 the configuration a user gets on a new checkout.
 Prints {"serving": {...}}, {"moe_gpt": {...}}, {"bert": {...}},
-{"resnet50": {...}}, {"model_fit": {...}} and {"jit": {...}} lines, the
+{"resnet50": {...}}, {"model_fit": {...}}, {"jit": {...}} and
+{"eager_api": {...}} lines, the
 script's seconds, the card line, then one {"kernels": [...]} line (each row with its design),
 then as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -966,6 +995,44 @@ def eager_gpt_loss(paddle, params, ids, cfg):
     picked = paddle.take_along_axis(logits, paddle.unsqueeze(ids[:, 1:], -1),
                                     axis=-1)
     return paddle.mean(logz - paddle.squeeze(picked, -1))
+
+
+def capi_gpt_loss(C, params, ids, cfg):
+    """``eager_gpt_loss`` written only in the bindings of ``C``, a
+    ``_C_ops`` module (the port's or the reference package's): embedding,
+    layer_norm (its statistics in f32), matmul, flash_attn (causal),
+    tanh-GELU, and the tied head's logsumexp and take_along_axis."""
+    b, s = ids.shape
+    h, nh = cfg.hidden_size, cfg.num_heads
+    d = h // nh
+    wte = params["wte"]
+
+    def linear(x, w, bias):
+        return C.add(C.matmul(x, w), bias)
+
+    def heads(t, i):
+        return C.reshape(C.slice(t, [2], [i * h], [(i + 1) * h]),
+                         [b, s, nh, d])
+
+    x = C.add(C.embedding(ids, wte), C.slice(params["wpe"], [0], [0], [s]))
+    names = sorted(params["blocks"])
+    for lp in zip(*(C.unbind(params["blocks"][n], 0) for n in names)):
+        lp = dict(zip(names, lp))
+        hx = C.layer_norm(x, [h], lp["ln1_g"], lp["ln1_b"], 1e-5)
+        qkv = linear(hx, lp["qkv_w"], lp["qkv_b"])
+        attn = C.reshape(C.flash_attn(heads(qkv, 0), heads(qkv, 1),
+                                      heads(qkv, 2), causal=True), [b, s, h])
+        x = C.add(x, linear(attn, lp["proj_w"], lp["proj_b"]))
+        hx = C.layer_norm(x, [h], lp["ln2_g"], lp["ln2_b"], 1e-5)
+        f1 = C.gelu(linear(hx, lp["fc1_w"], lp["fc1_b"]), True)
+        x = C.add(x, linear(f1, lp["fc2_w"], lp["fc2_b"]))
+    x = C.layer_norm(x, [h], params["lnf_g"], params["lnf_b"], 1e-5)
+    logits = C.cast(C.slice(C.matmul(x, wte, False, True), [1], [0],
+                            [s - 1]), "float32")
+    logz = C.logsumexp(logits, -1)
+    labels = C.unsqueeze(C.slice(ids, [1], [1], [s]), -1)
+    picked = C.squeeze(C.take_along_axis(logits, labels, -1), -1)
+    return C.mean(C.subtract(logz, picked))
 
 
 def drive_eager_gpt(run, paddle, TH, GPTConfig, mods, fa, torch):
@@ -3408,6 +3475,747 @@ def drive_jit(run, paddle, fa, mods, torch, eager_fit_ms, cache_root):
     return out
 
 
+# ---------------------------------------------------------------- phase 15
+# GPT-1.3B through paddle._C_ops (the flagship's widths, B4 S1024, bf16)
+CAPI_STEPS, CAPI_LR = 3, 5e-5
+FLOP_PER_TOKEN_1P3B = 8.4863e9          # gpt_flops_per_token, 1.3B at S1024
+# The PTB "large" LSTM LM (Zaremba, Sutskever & Vinyals 2014, section 4.1;
+# PaddlePaddle/models ptb_lm "large"): vocab 10000, 2 layers of 1500,
+# dropout 0.65 on the non-recurrent connections, uniform init in +-0.04,
+# SGD at lr 1 with global-norm clipping at 10, B20, 35 steps unrolled.
+PTB_LARGE = dict(vocab=10000, hidden=1500, layers=2, dropout=0.65,
+                 init=0.04, batch=20, steps=35, lr=1.0, clip=10.0)
+PTB_SMALL = dict(PTB_LARGE, vocab=50, hidden=32, dropout=0.0, batch=4,
+                 steps=8)
+PTB_TRAIN_STEPS = 10
+
+
+def _arr(shape, seed, lo=None, hi=None, dtype=np.float32):
+    r = np.random.RandomState(seed)
+    if lo is None:
+        return r.randn(*shape).astype(dtype)
+    return r.uniform(lo, hi, shape).astype(dtype)
+
+
+def _ints(shape, hi, seed=0):
+    return np.random.RandomState(seed).randint(0, hi, shape).astype(np.int64)
+
+
+def _quantized_linear(p, a, w):
+    q, s = p.nn.quant.weight_quantize(w)
+    return q, s, p.nn.quant.weight_only_linear(a, q, weight_scale=s)
+
+
+def card_cases():
+    """(name, fn(paddle, *tensors), numpy inputs): every function this
+    slice adds, on one small input (phase 15a runs each on the card and on
+    the CPU)."""
+    x34, pos, prob = _arr((3, 4), 0), _arr((3, 4), 1, 0.5, 3.0), \
+        _arr((3, 4), 2, 0.05, 0.95)
+    img = _arr((2, 3, 6, 6), 3)
+    grid = _arr((2, 4, 5, 2), 4, -1.2, 1.2)
+    lab = (_arr((3, 4), 5) > 0).astype(np.float32)
+    seg = np.array([0, 0, 1, 1, 1, 3])
+    src, dst = np.array([0, 1, 2, 3, 4, 0]), np.array([1, 1, 0, 3, 0, 1])
+
+    def X(p):
+        return p.ops.extra
+
+    def V(p):
+        import importlib
+        return importlib.import_module(p.__name__ + ".ops.vision_ops")
+
+    def F(p):
+        return p.nn.functional
+    cases = [
+        ("p_norm", lambda p, a: X(p).p_norm(a, 3.0, 1), [x34]),
+        ("frobenius_norm", lambda p, a: X(p).frobenius_norm(a, [0, 1]),
+         [x34]),
+        ("squared_l2_norm", lambda p, a: X(p).squared_l2_norm(a), [x34]),
+        ("clip_by_norm", lambda p, a: X(p).clip_by_norm(a, 1.0), [x34]),
+        ("renorm", lambda p, a: p.renorm(a, 2.0, 0, 1.0), [x34]),
+        ("gammaln", lambda p, a: p.gammaln(a), [pos]),
+        ("polygamma", lambda p, a: p.polygamma(a, 2), [pos]),
+        ("gammainc", lambda p, a, b: p.gammainc(a, b), [pos, prob]),
+        ("gammaincc", lambda p, a, b: p.gammaincc(a, b), [pos, prob]),
+        ("logsigmoid", lambda p, a: X(p).logsigmoid(a), [x34]),
+        ("tanh_shrink", lambda p, a: X(p).tanh_shrink(a), [x34]),
+        ("swiglu", lambda p, a: X(p).swiglu(a), [x34]),
+        ("fill", lambda p, a: X(p).fill(a, 2.0), [x34]),
+        ("fill_diagonal", lambda p, a: X(p).fill_diagonal(a, 9.0, 1),
+         [x34]),
+        ("reverse", lambda p, a: p.reverse(a, [0, 1]), [x34]),
+        ("shape", lambda p, a: p.shape(a), [img]),
+        ("as_strided", lambda p, a: p.as_strided(a, [3, 2], [2, 3], 1),
+         [x34]),
+        ("tensor_unfold", lambda p, a: X(p).tensor_unfold(a, 1, 2, 1),
+         [x34]),
+        ("view_dtype", lambda p, a: X(p).view_dtype(a, "int32"), [x34]),
+        ("view_shape", lambda p, a: X(p).view_shape(a, [4, 3]), [x34]),
+        ("split_with_num", lambda p, a: X(p).split_with_num(a, 2, 1),
+         [x34]),
+        ("reduce_as", lambda p, a, t: p.reduce_as(a, t),
+         [_arr((2, 3, 4), 6), _arr((3, 1), 7)]),
+        ("bce_loss", lambda p, a, y: X(p).bce_loss(a, y), [prob, lab]),
+        ("hinge_loss", lambda p, a, y: X(p).hinge_loss(a, y), [x34, lab]),
+        ("kldiv_loss", lambda p, a, y: X(p).kldiv_loss(a, y, "batchmean"),
+         [x34, prob]),
+        ("sigmoid_ce_logits", lambda p, a, y: X(p)
+         .sigmoid_cross_entropy_with_logits(a, y, True), [x34, lab]),
+        ("margin_cross_entropy", lambda p, a, y: X(p).margin_cross_entropy(
+            a, y, return_softmax=True),
+         [_arr((4, 6), 8, -0.9, 0.9), _ints((4,), 6)]),
+        ("fused_softmax_mask", lambda p, a, m: X(p).fused_softmax_mask(a, m),
+         [_arr((2, 2, 4, 4), 9), _arr((2, 1, 4, 4), 10)]),
+        ("fused_softmax_mask_upper_triangle", lambda p, a: X(p)
+         .fused_softmax_mask_upper_triangle(a), [_arr((2, 2, 4, 4), 9)]),
+        ("edit_distance", lambda p, h, r, hl, rl: X(p).edit_distance(
+            h, r, hl, rl, True), [_ints((3, 5), 4), _ints((3, 6), 4, 1),
+                                  np.array([5, 3, 1]), np.array([6, 2, 4])]),
+        ("viterbi_decode", lambda p, e, t, n: X(p).viterbi_decode(e, t, n),
+         [_arr((2, 5, 3), 11), _arr((5, 5), 12), np.array([5, 3])]),
+        ("gather_tree", lambda p, i, q: X(p).gather_tree(i, q),
+         [_ints((4, 2, 3), 9), _ints((4, 2, 3), 3, 1)]),
+        ("send_u_recv", lambda p, a, s, d: X(p).send_u_recv(a, s, d, "MAX"),
+         [_arr((5, 3), 13), src, dst]),
+        ("segment_pool", lambda p, a, s: X(p).segment_pool(a, s, "MEAN"),
+         [_arr((6, 3), 14), seg]),
+        ("bilinear_interp", lambda p, a: V(p).bilinear_interp(a, 9, 4),
+         [img]),
+        ("nearest_interp", lambda p, a: V(p).nearest_interp(a, 9, 4), [img]),
+        ("bicubic_interp", lambda p, a: V(p).bicubic_interp(a, 9, 4), [img]),
+        ("linear_interp", lambda p, a: V(p).linear_interp(a, 9),
+         [_arr((2, 3, 6), 15)]),
+        ("trilinear_interp", lambda p, a: V(p).trilinear_interp(a, 3, 5, 4),
+         [_arr((1, 2, 2, 3, 3), 16)]),
+        ("affine_grid", lambda p, t: V(p).affine_grid(t, [2, 3, 4, 5]),
+         [_arr((2, 2, 3), 17)]),
+        ("grid_sample", lambda p, a, g: V(p).grid_sample(
+            a, g, padding_mode="reflection"), [img, grid]),
+        ("pad3d", lambda p, a: V(p).pad3d(a, [1, 2, 0, 1, 2, 1], "reflect"),
+         [_arr((1, 2, 3, 4, 4), 18)]),
+        ("pool2d", lambda p, a: V(p).pool2d(a, 3, 2, 1, "avg"), [img]),
+        ("pool3d", lambda p, a: V(p).pool3d(a, 2, 2, 1),
+         [_arr((1, 2, 4, 4, 4), 19)]),
+        ("max_pool2d_with_index", lambda p, a: V(p).max_pool2d_with_index(
+            a, 3, 2, 1), [img]),
+        ("unpool", lambda p, a: V(p).unpool(*V(p).max_pool2d_with_index(
+            a, 2), 2), [img]),
+        ("temporal_shift", lambda p, a: V(p).temporal_shift(a, 2),
+         [_arr((4, 8, 2, 2), 20)]),
+        ("shuffle_channel", lambda p, a: V(p).shuffle_channel(a, 3),
+         [_arr((2, 6, 2, 2), 21)]),
+        ("frame", lambda p, a: p.signal.frame(a, 4, 2), [_arr((2, 10), 22)]),
+        ("overlap_add", lambda p, a: p.signal.overlap_add(a, 2),
+         [_arr((2, 4, 3), 23)]),
+        ("stft", lambda p, a: p.signal.stft(a, 8, 2).abs(),
+         [_arr((2, 32), 24)]),
+        ("istft", lambda p, a: p.signal.istft(p.signal.stft(a, 8, 2), 8, 2),
+         [_arr((2, 32), 24)]),
+        ("block_diag", lambda p, a, b: p.block_diag([a, b]), [x34, pos]),
+        ("cartesian_prod", lambda p, a, b: p.cartesian_prod([a, b]),
+         [_arr((3,), 25), _arr((2,), 26)]),
+        ("combinations", lambda p, a: p.combinations(a, 2),
+         [_arr((4,), 27)]),
+        ("vander", lambda p, a: p.vander(a, 4), [_arr((3,), 28)]),
+        ("column_stack", lambda p, a, b: p.column_stack([a, b]), [x34, pos]),
+        ("row_stack", lambda p, a, b: p.row_stack([a, b]), [x34, pos]),
+        ("hsplit", lambda p, a: p.hsplit(a, [1, 3]), [x34]),
+        ("vsplit", lambda p, a: p.vsplit(a, [1]), [x34]),
+        ("dsplit", lambda p, a: p.dsplit(a, 2), [_arr((2, 2, 4), 29)]),
+        ("unflatten", lambda p, a: p.unflatten(a, 1, [2, 2]), [x34]),
+        ("add_n", lambda p, a, b: p.add_n([a, b, a]), [x34, pos]),
+        ("slice_scatter", lambda p, a, v: p.slice_scatter(
+            a, v, [1], [0], [4], [2]), [x34, _arr((3, 2), 30)]),
+        ("select_scatter", lambda p, a, v: p.select_scatter(a, v, 0, 1),
+         [x34, _arr((4,), 31)]),
+        ("diagonal_scatter", lambda p, a, v: p.diagonal_scatter(a, v, 1),
+         [x34, _arr((3,), 32)]),
+        ("isin", lambda p, a, t: p.isin(a, t),
+         [_ints((3, 4), 6), np.array([1, 4])]),
+        ("histogram_bin_edges", lambda p, a: p.histogram_bin_edges(a, 5),
+         [x34]),
+        ("pdist", lambda p, a: p.pdist(a), [x34]),
+        ("sinc", lambda p, a: p.sinc(a), [x34]),
+        ("sgn", lambda p, a: p.sgn(a), [x34]),
+        ("signbit", lambda p, a: p.signbit(a), [x34]),
+        ("frexp", lambda p, a: p.frexp(a), [x34]),
+        ("ldexp", lambda p, a, e: p.ldexp(a, e), [x34, _ints((3, 4), 4)]),
+        ("trapezoid", lambda p, a: p.trapezoid(a, dx=0.5), [x34]),
+        ("cumulative_trapezoid", lambda p, a: p.cumulative_trapezoid(a),
+         [x34]),
+        ("multigammaln", lambda p, a: p.multigammaln(a, 3),
+         [_arr((3, 4), 33, 2.0, 5.0)]),
+        ("rank", lambda p, a: p.rank(a), [img]),
+        ("segment_sum", lambda p, a, s: p.geometric.segment_sum(a, s),
+         [_arr((6, 3), 14), seg]),
+        ("segment_max", lambda p, a, s: p.geometric.segment_max(a, s),
+         [_arr((6, 3), 14), seg]),
+        ("geometric.send_ue_recv", lambda p, a, e, s, d: p.geometric
+         .send_ue_recv(a, e, s, d, "mul", "mean"),
+         [_arr((5, 3), 13), _arr((6, 3), 34), src, dst]),
+        ("geometric.send_uv", lambda p, a, b, s, d: p.geometric.send_uv(
+            a, b, s, d), [_arr((5, 3), 13), _arr((5, 3), 35), src[:3],
+                          dst[:3]]),
+        ("pairwise_distance", lambda p, a, b: F(p).pairwise_distance(a, b),
+         [x34, pos]),
+        ("poisson_nll_loss", lambda p, a, y: F(p).poisson_nll_loss(a, y),
+         [x34, pos]),
+        ("gaussian_nll_loss", lambda p, a, y, v: F(p).gaussian_nll_loss(
+            a, y, v), [x34, prob, pos]),
+        ("multi_margin_loss", lambda p, a, y: F(p).multi_margin_loss(a, y),
+         [x34, _ints((3,), 4)]),
+        ("triplet_margin_with_distance_loss", lambda p, a, b, c: F(p)
+         .triplet_margin_with_distance_loss(a, b, c), [x34, pos, prob]),
+        ("hsigmoid_loss", lambda p, a, y, w: F(p).hsigmoid_loss(a, y, 6, w),
+         [_arr((4, 3), 36), _ints((4,), 6), _arr((5, 3), 37)]),
+        ("rnnt_loss", lambda p, a, y, il, ll: F(p).rnnt_loss(a, y, il, ll),
+         [_arr((2, 4, 3, 5), 38), np.array([[1, 2], [3, 1]]),
+          np.array([4, 3]), np.array([2, 1])]),
+        ("adaptive_log_softmax_with_loss", lambda p, a, y, h, t0, t1: F(p)
+         .adaptive_log_softmax_with_loss(a, y, h, [t0, t1], [4, 7, 10]),
+         [_arr((5, 3), 39), np.array([0, 5, 9, 3, 6]), _arr((3, 6), 40),
+          _arr((3, 3), 41), _arr((3, 3), 42)]),
+        ("zeropad2d", lambda p, a: F(p).zeropad2d(a, [1, 2, 0, 1]), [img]),
+        ("max_unpool2d", lambda p, a: F(p).max_unpool2d(
+            *F(p).max_pool2d(a, 2, return_mask=True), 2), [img]),
+        ("fractional_max_pool2d", lambda p, a: F(p).fractional_max_pool2d(
+            a, 4, random_u=0.3), [img]),
+        ("affine_grid_3d", lambda p, t: F(p).affine_grid(t, [1, 2, 3, 4, 5]),
+         [_arr((1, 3, 4), 43)]),
+        ("functional.grid_sample", lambda p, a, g: F(p).grid_sample(a, g),
+         [img, grid]),
+        ("sparse_attention", lambda p, q, k, v, o, c: F(p).sparse_attention(
+            q, k, v, o, c), [_arr((1, 2, 4, 8), 44), _arr((1, 2, 4, 8), 45),
+                             _arr((1, 2, 4, 8), 46),
+                             np.tile(np.array([0, 2, 3, 6, 7]), (1, 2, 1)),
+                             np.tile(np.array([0, 1, 1, 0, 2, 3, 3]),
+                                     (1, 2, 1))]),
+        ("flashmask_attention", lambda p, q, k, v: F(p).flashmask_attention(
+            q, k, v, causal=True), [_arr((1, 6, 2, 8), 47),
+                                    _arr((1, 6, 2, 8), 48),
+                                    _arr((1, 6, 2, 8), 49)]),
+        ("weight_only_linear", _quantized_linear,
+         [_arr((4, 16), 50), _arr((16, 8), 51)]),
+    ]
+    return cases
+
+
+def _np_outs(out):
+    outs = out if isinstance(out, (tuple, list)) else [out]
+    return [np.asarray(o.numpy()) for o in outs if o is not None]
+
+
+def check_c_ops_surface(run, paddle, torch):
+    """Phase 15a: the _C_ops surface, the slice's functions on the card
+    against the CPU, the explicit infermeta functions against the real
+    outputs, and nn.quant's weight-only linear at Llama-2-7B's MLP
+    width."""
+    import importlib
+    import inspect
+    import re
+    from paddle_tpu_torch import _C_ops as C
+    from paddle_tpu_torch.core import infermeta as im
+    out = {}
+    src = open(C.__file__).read()
+    paths = sorted(set(re.findall(r"_bind\('([^']+)'\)", src)))
+    missing = []
+    for path in paths:
+        mod, fn = path.rsplit(".", 1)
+        obj = getattr(importlib.import_module(mod), fn, None)
+        if not callable(obj) or not obj.__module__.startswith(
+                "paddle_tpu_torch") \
+                or "NotImplementedError" in inspect.getsource(obj):
+            missing.append(path)
+    unbound = [n for n in C.__all__ if not callable(getattr(C, n, None))]
+    out["bindings"], out["names"] = len(paths), len(C.__all__)
+    run.check(len(paths) == 461 and not missing and not unbound,
+              f"_C_ops: {len(paths)} bindings (461) and {len(C.__all__)} "
+              f"names resolve to callables of the port, none raising "
+              f"NotImplementedError; missing {missing}, unbound {unbound}")
+
+    disagree, errs = [], {}
+    cases = card_cases()
+    for name, fn, inputs in cases:
+        got = {}
+        for dev in ("cpu", "gpu:0"):
+            paddle.set_device(dev)
+            paddle.seed(0)
+            got[dev] = _np_outs(fn(paddle, *[paddle.to_tensor(a)
+                                             for a in inputs]))
+        worst = 0.0
+        ok = len(got["cpu"]) == len(got["gpu:0"])
+        for g, w in zip(got["gpu:0"], got["cpu"]):
+            ok = ok and g.shape == w.shape and g.dtype == w.dtype
+            if not ok:
+                break
+            g64, w64 = g.astype(np.float64), w.astype(np.float64)
+            fin = np.isfinite(w64)
+            # an empty segment's max is -inf on both: equal where not finite
+            ok = ok and np.array_equal(fin, np.isfinite(g64)) \
+                and np.array_equal(g64[~fin], w64[~fin])
+            if fin.any():
+                scale = max(float(np.max(np.abs(w64[fin]))), 1e-30)
+                worst = max(worst, float(np.max(np.abs(g64[fin] - w64[fin])))
+                            / scale)
+        errs[name] = worst
+        if not ok or worst > 1e-5:
+            disagree.append((name, worst))
+    out["card_cpu_cases"] = len(cases)
+    out["card_cpu_worst_rel"] = max(errs.values())
+    run.check(not disagree,
+              f"15a: {len(cases)} functions of this slice on the card equal "
+              f"the CPU's (f32, 1e-5 of each output's scale; worst "
+              f"{max(errs.values()):.3e}); disagreeing: {disagree}")
+
+    # the draws: on the card, their support and first moments
+    paddle.set_device("gpu:0")
+    paddle.seed(1)
+    g = paddle.standard_gamma(paddle.full([200000], 3.0)).numpy()
+    d = paddle.ops.extra.dirichlet(paddle.full([100000, 3], 2.0)).numpy()
+    v, ids = paddle.ops.extra.top_p_sampling(
+        paddle.to_tensor(np.tile(np.array([[0.5, 0.3, 0.15, 0.05]],
+                                          np.float32), (20000, 1))),
+        paddle.full([20000], 0.7))
+    ids = ids.numpy().reshape(-1)
+    run.check((g > 0).all() and abs(g.mean() - 3.0) < 0.05
+              and (d > 0).all() and np.allclose(d.sum(-1), 1.0, atol=1e-5)
+              and abs(d.mean() - 1 / 3) < 0.01
+              and set(np.unique(ids)) == {0, 1},
+              f"15a: draws on the card: standard_gamma(3) mean "
+              f"{g.mean():.4f}, dirichlet(2,2,2) rows sum to 1 with mean "
+              f"{d.mean():.4f}, top_p(0.7) draws ids {sorted(set(ids))}")
+
+    # the card's generator state: a restore repeats the draws after it
+    paddle.seed(3)
+    states = paddle.get_cuda_rng_state()
+    first = paddle.rand([1000]).numpy()
+    paddle.set_cuda_rng_state(states)
+    again = paddle.rand([1000]).numpy()
+    run.check(len(states) == torch.cuda.device_count()
+              and np.array_equal(first, again),
+              f"15a: get_cuda_rng_state gives {len(states)} card state(s); "
+              "set_cuda_rng_state repeats the draws made after it")
+
+    # the AMP and optimizer ops stay on the card
+    grads = [paddle.to_tensor(np.array([1024.0, np.inf], np.float32))]
+    _, found = paddle.ops.extra.check_finite_and_unscale_(
+        grads, paddle.to_tensor(np.float32(1024.0)))
+    scale = paddle.to_tensor(np.float32(1024.0))
+    good, bad = (paddle.to_tensor(np.int32(0)) for _ in range(2))
+    paddle.ops.extra.update_loss_scaling_(grads, found, scale, good, bad)
+    run.check(found._data.is_cuda and scale._data.is_cuda
+              and bool(found.numpy()[0]) and float(scale.numpy()) == 512.0
+              and float(grads[0].numpy().max()) == 0.0,
+              "15a: check_finite_and_unscale_/update_loss_scaling_ keep "
+              "found_inf and the scale on the card, halve the scale and "
+              "zero the grads on an inf")
+
+    # each explicit infermeta against the real output on the card
+    M = im.MetaTensor
+    explicit = [
+        ("reshape", [(2, 3, 4)], {"shape": [-1, 4]},
+         lambda m: im.reshape_infermeta(m[0], [-1, 4])),
+        ("transpose", [(2, 3, 4)], {"perm": [2, 0, 1]},
+         lambda m: im.transpose_infermeta(m[0], [2, 0, 1])),
+        ("flatten", [(2, 3, 4)], {"start_axis": 1},
+         lambda m: im.flatten_infermeta(m[0], 1)),
+        ("squeeze", [(2, 1, 4)], {"axis": 1},
+         lambda m: im.squeeze_infermeta(m[0], 1)),
+        ("unsqueeze", [(2, 4)], {"axis": [0, 2]},
+         lambda m: im.unsqueeze_infermeta(m[0], [0, 2])),
+        ("expand", [(1, 3)], {"shape": [5, -1]},
+         lambda m: im.expand_infermeta(m[0], [5, -1])),
+        ("tile", [(2, 3)], {"repeat_times": [2, 1, 2]},
+         lambda m: im.tile_infermeta(m[0], [2, 1, 2])),
+        ("matmul", [(5, 2, 3), (3, 4)], {},
+         lambda m: im.matmul_infermeta(m[0], m[1])),
+        ("addmm", [(3, 4), (3, 5), (5, 4)], {},
+         lambda m: im.addmm_infermeta(*m)),
+        ("concat", [(2, 3), (4, 3)], None,
+         lambda m: im.concat_infermeta(m, 0)),
+        ("stack", [(2, 3), (2, 3)], None,
+         lambda m: im.stack_infermeta(m, 1)),
+        ("split", [(6, 3)], {"num_or_sections": [1, 2, 3]},
+         lambda m: im.split_infermeta(m[0], [1, 2, 3])),
+        ("conv2d", [(2, 3, 16, 16), (8, 3, 3, 3)],
+         {"stride": 2, "padding": 1},
+         lambda m: im.conv2d_infermeta(m[0], m[1], 2, 1)),
+        ("pool2d", [(2, 3, 16, 16)], {"kernel_size": 2},
+         lambda m: im.pool2d_infermeta(m[0], 2)),
+        ("softmax", [(2, 3)], {"axis": 0},
+         lambda m: im.softmax_infermeta(m[0], 0)),
+        ("layer_norm", [(2, 3, 4)], {"normalized_shape": [4]},
+         lambda m: im.layer_norm_infermeta(m[0])),
+        ("tril", [(3, 4)], {"diagonal": 1},
+         lambda m: im.tril_triu_infermeta(m[0], 1)),
+        ("triu", [(3, 4)], {}, lambda m: im.tril_triu_infermeta(m[0])),
+        ("cast", [(2, 3)], {"dtype": "bfloat16"},
+         lambda m: im.cast_infermeta(m[0], "bfloat16")),
+        ("where", [(2, 1), (2, 3), (3,)], {},
+         lambda m: im.where_infermeta(*m)),
+    ]
+    kernels = {"pool2d": paddle.nn.functional.max_pool2d,
+               "softmax": paddle.nn.functional.softmax,
+               "layer_norm": paddle.nn.functional.layer_norm,
+               "conv2d": paddle.nn.functional.conv2d,
+               "concat": lambda *xs: paddle.concat(list(xs), 0),
+               "stack": lambda *xs: paddle.stack(list(xs), 1)}
+    wrong = []
+    for name, shapes, kw, meta in explicit:
+        xs = [paddle.to_tensor(np.ones(s, np.float32) if not (
+            name == "where" and i == 0) else np.ones(s, bool))
+            for i, s in enumerate(shapes)]
+        op = kernels.get(name) or getattr(paddle, name)
+        res = op(*xs, **(kw or {}))
+        res = res if isinstance(res, (list, tuple)) else [res]
+        want = meta([M(x.shape, x.dtype) for x in xs])
+        want = want if isinstance(want, list) else [want]
+        got = [M(r.shape, r.dtype) for r in res]
+        if got != want or not all(r._data.is_cuda for r in res):
+            wrong.append((name, got, want))
+    out["infermeta_checked"] = len(explicit)
+    run.check(not wrong, f"15a: {len(explicit)} explicit infermeta "
+              f"functions equal the shape and dtype of the op's output on "
+              f"the card; wrong: {wrong}")
+
+    # nn.quant at Llama-2-7B's MLP width: x [8, 4096] bf16, w [4096, 11008]
+    paddle.seed(2)
+    w = paddle.randn([4096, 11008]) * 0.02
+    x = paddle.randn([8, 4096]).astype("bfloat16")
+    q, s = paddle.nn.quant.weight_quantize(w)
+    wd = paddle.nn.quant.weight_dequantize(q, s, out_dtype="bfloat16")
+    got = paddle.nn.quant.weight_only_linear(x, q, weight_scale=s)
+    want = paddle.matmul(x, wd)
+    a, r = max_err(got._data, want._data)
+    run.check(q.dtype == paddle.int8 and r <= 2e-2,
+              f"15a: weight_only_linear (int8 [4096, 11008], x [8, 4096] "
+              f"bf16) against weight_dequantize + bf16 matmul: max abs err "
+              f"{a:.3e}, {r:.3e} of the scale (tolerance 2e-2)")
+    wol_ms, wol_spread = windows_ms(
+        lambda: paddle.nn.quant.weight_only_linear(x, q, weight_scale=s),
+        reps=20)
+    mm_ms, mm_spread = windows_ms(lambda: paddle.matmul(x, wd), reps=20)
+    print(f"15a: weight_only_linear {wol_ms:.4f} ms (spread "
+          f"{wol_spread:.4f}) beside the bf16 matmul {mm_ms:.4f} ms (spread "
+          f"{mm_spread:.4f}) at x [8, 4096] w [4096, 11008]", flush=True)
+    out["weight_only_linear_ms"], out["bf16_matmul_ms"] = wol_ms, mm_ms
+    out["weight_only_linear_ms_spread"] = wol_spread
+    out["bf16_matmul_ms_spread"] = mm_spread
+    out["weight_only_linear_rel_err"] = r
+
+    # the host cost of one _C_ops call beside one eager-op call
+    t1, t2 = paddle.ones([4, 4]), paddle.ones([4, 4])
+    n = 2000
+    for label, op in (("c_ops", C.add), ("eager", paddle.add)):
+        op(t1, t2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            op(t1, t2)
+        out[f"{label}_call_host_us"] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+    print(f"15a: host time of one call: _C_ops.add "
+          f"{out['c_ops_call_host_us']:.2f} us, paddle.add "
+          f"{out['eager_call_host_us']:.2f} us", flush=True)
+    return out
+
+
+def drive_capi_gpt(run, paddle, TH, GPTConfig, mods, fa, torch,
+                   eager=None, layer=None):
+    """Phase 15b: GPT-1.3B's forward and backward written in paddle._C_ops
+    (capi_gpt_loss), every count zeroed just before it and read just
+    after; then 3 steps of ops.extra.adamw_ with f32 master weights."""
+    from paddle_tpu_torch import _C_ops as C
+    label, fields, batch, seq, tier, kernels, *_ = PATHS[0]
+    cfg = GPTConfig(**fields)
+    L = cfg.num_layers
+    pcfg = TH.ParallelConfig(remat=False, fused_ce=False,
+                             param_dtype=torch.bfloat16,
+                             compute_dtype=torch.bfloat16)
+    paddle.set_device("gpu:0")
+    tparams = TH.init_params(cfg, pcfg,
+                             torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+    params = TH.eager_params_from_jax(tparams, device="cuda")
+    del tparams
+    every = [v for k, v in sorted(params.items()) if k != "blocks"] \
+        + [v for _, v in sorted(params["blocks"].items())]
+    ids_np = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                              (batch, seq))
+    ids = paddle.to_tensor(ids_np)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods:
+        mod.reset_launch_counts()
+    ticks0 = fa.dispatch_counts()
+    loss = capi_gpt_loss(C, params, ids, cfg)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
+    dispatch = fa.dispatch_counts(ticks0)
+    capi_loss = float(loss)
+    del loss
+    with paddle.no_grad():
+        eager_loss = float(eager_gpt_loss(paddle, params, ids, cfg))
+    print(f"15b capi gpt ({label}, bf16, remat off, plain CE): step-0 loss "
+          f"{capi_loss:.6f} through _C_ops, {eager_loss:.6f} eager (phase "
+          f"7b's function); launches {launches}; dispatch {dispatch}",
+          flush=True)
+    run.check(10.0 <= capi_loss <= 11.5
+              and abs(capi_loss - eager_loss) <= 1e-2,
+              f"15b: step-0 loss {capi_loss:.6f} in [10, 11.5] and within "
+              f"1e-2 of eager_gpt_loss's {eager_loss:.6f}")
+    run.check(launches == {n: L if n in kernels else 0 for n in launches}
+              and dispatch == {("attn.dispatch", tier): L},
+              f"15b: one forward+backward launches each of {list(kernels)} "
+              f"{L} times and no other attention kernel, {L} dispatches to "
+              f"{tier}")
+
+    # adamw_ with f32 master weights, in place
+    state = []
+    with paddle.no_grad():
+        for p in every:
+            state.append((paddle.zeros(p.shape, "float32"),
+                          paddle.zeros(p.shape, "float32"),
+                          paddle.to_tensor(np.float32(1.0)),
+                          paddle.to_tensor(np.float32(1.0)),
+                          p.astype("float32")))
+    lr = paddle.to_tensor(np.float32(CAPI_LR))
+
+    def fwd_bwd():
+        for t in every:
+            t.clear_grad()
+        out = capi_gpt_loss(C, params, ids, cfg)
+        out.backward()
+        return out
+
+    def opt_step():
+        for p, (m1, m2, b1, b2, mw) in zip(every, state):
+            paddle.ops.extra.adamw_(p, p.grad, lr, m1, m2, b1, b2,
+                                    master_param=mw, coeff=0.01,
+                                    multi_precision=True)
+
+    losses, fb_ms, opt_ms = [], [], []
+    for _ in range(CAPI_STEPS):
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(3))
+        e0.record()
+        out = fwd_bwd()
+        e1.record()
+        opt_step()
+        e2.record()
+        torch.cuda.synchronize()
+        losses.append(float(out))
+        fb_ms.append(e0.elapsed_time(e1))
+        opt_ms.append(e1.elapsed_time(e2))
+        del out
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    master_ok = all(mw._data.dtype == torch.float32
+                    and p._data.dtype == torch.bfloat16
+                    and torch.equal(mw._data.to(torch.bfloat16), p._data)
+                    for p, (*_, mw) in zip(every, state))
+    run.check(all(math.isfinite(v) for v in losses)
+              and losses[-1] < losses[0] and master_ok,
+              f"15b: {CAPI_STEPS} adamw_ steps (multi_precision, f32 master "
+              f"weights) on the same batch: losses {losses} fall; each bf16 "
+              "parameter is its master weight rounded")
+    fb = float(np.median(fb_ms[1:]))
+    op = float(np.median(opt_ms[1:]))
+    step_ms = fb + op
+    tokens_s = batch * seq / (step_ms / 1e3)
+    mfu = FLOP_PER_TOKEN_1P3B * tokens_s / PEAK_BF16_FLOPS
+    wall_ms, rows = _profiled(torch, lambda: (fwd_bwd(), opt_step()))
+    busy = sum(r[1] for r in rows)
+    idle = max(0.0, 1 - busy / wall_ms)
+    for key, ms, count in rows[:8]:
+        print(f"  {ms:9.3f} ms {count:6d}x  {key[:100]}")
+    beside = {
+        "phase_7b_eager_fwd_bwd_ms": eager and eager.get("fwd_bwd_ms"),
+        "phase_7b_gpt_hybrid_fwd_bwd_ms":
+            eager and eager.get("gpt_hybrid_fwd_bwd_ms"),
+        "phase_8b_layer_ms_per_step": layer and layer.get("ms_per_step"),
+        "phase_8b_layer_tokens_per_s": layer and layer.get("tokens_per_s")}
+    print(f"15b: forward+backward {fb:.2f} ms, adamw_ {op:.2f} ms, "
+          f"{step_ms:.2f} ms/step, {tokens_s:.0f} tokens/s, MFU {mfu:.4f}, "
+          f"peak memory {peak_gb:.2f} GB, profiled step {wall_ms:.2f} ms wall"
+          f" {busy:.2f} ms kernel time, idle share {idle:.3f}; beside: "
+          f"{beside}", flush=True)
+    del params, every, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step0_loss": capi_loss, "eager_step0_loss": eager_loss,
+            "launches": launches, "losses": losses,
+            "fwd_bwd_ms": fb, "fwd_bwd_ms_all": fb_ms, "opt_ms": op,
+            "opt_ms_all": opt_ms, "ms_per_step": step_ms,
+            "tokens_per_s": tokens_s, "mfu": mfu, "peak_memory_gb": peak_gb,
+            "profiled_ms": wall_ms, "kernel_ms": busy, "idle_share": idle,
+            **beside}
+
+
+def ptb_language_model(paddle, cfg):
+    """The PTB LSTM LM in the Layer API: Embedding, a multi-layer LSTM, a
+    Linear head, dropout on the non-recurrent connections (Zaremba et al.
+    2014), every parameter uniform in +-init."""
+    nn = paddle.nn
+
+    class PTBLanguageModel(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embedding = nn.Embedding(cfg["vocab"], cfg["hidden"])
+            self.lstm = nn.LSTM(cfg["hidden"], cfg["hidden"],
+                                num_layers=cfg["layers"],
+                                dropout=cfg["dropout"])
+            self.head = nn.Linear(cfg["hidden"], cfg["vocab"])
+
+        def forward(self, ids, labels):
+            p = cfg["dropout"]
+            x = nn.functional.dropout(self.embedding(ids), p,
+                                      training=self.training)
+            out, _ = self.lstm(x)
+            out = nn.functional.dropout(out, p, training=self.training)
+            logits = self.head(out)
+            return nn.functional.cross_entropy(
+                logits.reshape([-1, cfg["vocab"]]), labels.reshape([-1]))
+    model = PTBLanguageModel()
+    for prm in model.parameters():
+        prm.set_value(paddle.uniform(prm.shape, min=-cfg["init"],
+                                     max=cfg["init"]))
+    return model
+
+
+def _ptb_batch(cfg, seed):
+    r = np.random.RandomState(seed)
+    seq = r.randint(0, cfg["vocab"], (cfg["batch"], cfg["steps"] + 1))
+    return seq[:, :-1], seq[:, 1:]
+
+
+def check_small_lstm(run, paddle, torch):
+    """Phase 15c, the small copy (vocab 50, hidden 32, dropout 0): on the
+    card (cuDNN's LSTM) against the CPU from one state_dict: the loss and
+    every gradient within 1e-5 of its scale."""
+    from paddle_tpu_torch.nn.layer import rnn
+    cfg = PTB_SMALL
+    x, y = _ptb_batch(cfg, 0)
+    got = {}
+    state = None
+    for dev in ("cpu", "gpu:0"):
+        paddle.set_device(dev)
+        paddle.seed(0)
+        model = ptb_language_model(paddle, cfg)
+        if state is None:
+            state = {k: v.numpy() for k, v in model.state_dict().items()}
+        else:
+            model.set_state_dict(state)
+        rnn.reset_routes()
+        loss = model(paddle.to_tensor(x), paddle.to_tensor(y))
+        loss.backward()
+        got[dev] = (float(loss), {k: p.grad.numpy()
+                                  for k, p in model.named_parameters()},
+                    dict(rnn.ROUTES))
+    (lc, gc_, rc), (lg, gg, rg) = got["cpu"], got["gpu:0"]
+    worst = max(float(np.max(np.abs(gg[k] - gc_[k])))
+                / max(float(np.max(np.abs(gc_[k]))), 1e-30) for k in gc_)
+    run.check(abs(lg - lc) <= 1e-5 * abs(lc) and worst <= 1e-5
+              and rg["cudnn"] == cfg["layers"] and rc["aten"] == cfg["layers"],
+              f"15c small LSTM LM (vocab 50, hidden 32): loss {lg:.7f} card, "
+              f"{lc:.7f} CPU; worst gradient {worst:.3e} of its scale "
+              f"(tolerance 1e-5); routes card {rg}, CPU {rc}")
+    return {"loss_card": lg, "loss_cpu": lc, "worst_grad_rel": worst}
+
+
+def drive_ptb_lstm(run, paddle, torch):
+    """Phase 15c: the PTB large LSTM LM, trained with SGD(1.0) and global
+    norm clipping at 10 on one repeated batch."""
+    from paddle_tpu_torch.nn.layer import rnn
+    cfg = PTB_LARGE
+    paddle.set_device("gpu:0")
+    paddle.seed(0)
+    model = ptb_language_model(paddle, cfg)
+    opt = paddle.optimizer.SGD(
+        learning_rate=cfg["lr"], parameters=model.parameters(),
+        grad_clip=paddle.nn.ClipGradByGlobalNorm(cfg["clip"]))
+    x_np, y_np = _ptb_batch(cfg, 1)
+    x, y = paddle.to_tensor(x_np), paddle.to_tensor(y_np)
+
+    def step():
+        loss = model(x, y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    rnn.reset_routes()
+    losses, ms = [], []
+    for _ in range(PTB_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    routes = dict(rnn.ROUTES)
+    ln_v = math.log(cfg["vocab"])
+    run.check(abs(losses[0] - ln_v) <= 0.1 and losses[-1] < losses[0]
+              and all(math.isfinite(v) for v in losses)
+              and routes == {"cudnn": cfg["layers"] * PTB_TRAIN_STEPS,
+                             "aten": 0},
+              f"15c PTB large LSTM LM: step-0 loss {losses[0]:.4f} within 0.1 "
+              f"of ln(10000) = {ln_v:.4f}; losses {[round(v, 4) for v in losses]}"
+              f" fall over {PTB_TRAIN_STEPS} steps on one batch; routes "
+              f"{routes}")
+    timed = ms[1:]
+    med = float(np.median(timed))
+    tokens = cfg["batch"] * cfg["steps"]
+    wall_ms, rows = _profiled(torch, step)
+    busy = sum(r[1] for r in rows)
+    idle = max(0.0, 1 - busy / wall_ms)
+    for key, kms, count in rows[:6]:
+        print(f"  {kms:9.3f} ms {count:6d}x  {key[:100]}")
+    print(f"15c: {med:.2f} ms/step (median of steps 2-{PTB_TRAIN_STEPS}, "
+          f"spread {max(timed) - min(timed):.2f}), {tokens / med * 1e3:.0f} "
+          f"tokens/s, profiled step {wall_ms:.2f} ms wall {busy:.2f} ms "
+          f"kernel time, idle share {idle:.3f}, recurrence route "
+          f"{'cudnn' if routes['cudnn'] else 'aten'}", flush=True)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "ms_per_step": med,
+            "ms_per_step_spread": max(timed) - min(timed),
+            "ms_all": ms, "tokens_per_s": tokens / med * 1e3,
+            "profiled_ms": wall_ms, "kernel_ms": busy, "idle_share": idle,
+            "route": "cudnn" if routes["cudnn"] else "aten",
+            "routes": routes}
+
+
+def drive_eager_api(run, paddle, TH, GPTConfig, mods, fa, torch, eager=None,
+                    layer=None):
+    """Phase 15: 15a the _C_ops surface, 15b GPT-1.3B through _C_ops, 15c
+    the PTB large LSTM LM."""
+    t_phase = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    out["c_ops"] = check_c_ops_surface(run, paddle, torch)
+    out["c_ops"]["phase_s"] = time.perf_counter() - t0
+    print(f"15a: {out['c_ops']['phase_s']:.1f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["gpt_capi"] = drive_capi_gpt(run, paddle, TH, GPTConfig, mods, fa,
+                                     torch, eager, layer)
+    out["gpt_capi"]["phase_s"] = time.perf_counter() - t0
+    print(f"15b: {out['gpt_capi']['phase_s']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    out["ptb_lstm"] = {"small": check_small_lstm(run, paddle, torch)}
+    out["ptb_lstm"].update(drive_ptb_lstm(run, paddle, torch))
+    out["ptb_lstm"]["phase_s"] = time.perf_counter() - t0
+    print(f"15c: {out['ptb_lstm']['phase_s']:.1f} s", flush=True)
+    paddle.set_device("gpu:0")
+    out["phase_15_s"] = time.perf_counter() - t_phase
+    print(f"eager API phase: {out['phase_15_s']:.1f} s", flush=True)
+    return out
+
+
 def main():
     try:
         import torch
@@ -3462,6 +4270,19 @@ def main():
                               ".cache")
     os.makedirs(cache_root, exist_ok=True)
     mods = (sa, ca, bf, sa2, fa)
+    if "--phase15" in sys.argv[1:]:
+        # phase 15 alone (no kernels line, no ok line): for work on it
+        with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+            os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+            at._table = None
+            api = drive_eager_api(run, paddle, TH, GPTConfig, mods, fa,
+                                  torch)
+        print(json.dumps({"eager_api": api}))
+        print(f"chip_smoke --phase15: {time.perf_counter() - t_script:.1f} "
+              f"s, {len(run.failures)} check(s) failed", flush=True)
+        for what in run.failures:
+            print(f"  {what[:300]}", file=sys.stderr)
+        return 1 if run.failures else 0
     if "--phase14" in sys.argv[1:]:
         # phase 14 alone (no kernels line, no ok line): for work on it
         with tempfile.TemporaryDirectory(dir=cache_root) as cache:
@@ -3562,6 +4383,13 @@ def main():
         at._table = None
         jit = drive_jit(run, paddle, fa, mods, torch, fit["ms_per_step"],
                         cache_root)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+        os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+        at._table = None
+        api = drive_eager_api(run, paddle, TH, GPTConfig, mods, fa, torch,
+                              eager, layer)
 
     kernels = []
     for kern in KERNELS:
@@ -3603,6 +4431,7 @@ def main():
     print(json.dumps({"resnet50": resnet}))
     print(json.dumps({"model_fit": fit}))
     print(json.dumps({"jit": jit}))
+    print(json.dumps({"eager_api": api}))
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s", flush=True)
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed:",

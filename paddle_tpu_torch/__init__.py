@@ -43,11 +43,17 @@ What is ported so far:
   ``torch.compile``, ``save``/``load`` over ``torch.export``), ``static``
   (the Program/Executor facade, ``static.nn``, ``static.amp``), ``base``,
   ``incubate.jit``, ``tensorrt``, and ``inference``'s predictor
-  (``Config``, ``create_predictor``, the int8 weight-only export).
+  (``Config``, ``create_predictor``, the int8 weight-only export);
+- the rest of the eager API: ``_C_ops``, generated from the port's own
+  ``ops/yaml`` by its generator, ``core.infermeta``, the rest of
+  ``ops/extra`` (norms, special functions, decode loops, the fused AMP
+  and optimizer ops), ``ops/vision_ops``, ``ops/compat`` (the top-level
+  names), ``ops/array`` with the ``tensor`` namespace, ``linalg``,
+  ``signal``, ``nn``'s RNNs, extended layers and functionals and
+  ``nn.quant``, string tensors and ``text``.
 
 Use it as ``import paddle_tpu_torch as paddle``. Names of later slices
-(``vision.ops``, ``nn``'s rnn/extended/quant, most of ``distributed``, ...)
-are not here.
+(``vision.ops``, ``fft``, most of ``distributed``, ...) are not here.
 """
 from __future__ import annotations
 
@@ -62,8 +68,8 @@ from .core.dtype import (  # noqa: F401
     DType as dtype,
 )
 from .core.place import (  # noqa: F401
-    CPUPlace, CUDAPlace, CUDAPinnedPlace, Place, TPUPlace, get_device,
-    set_device, is_compiled_with_tpu,
+    CPUPlace, CUDAPlace, CUDAPinnedPlace, CustomPlace, IPUPlace, Place,
+    TPUPlace, XPUPlace, get_device, set_device, is_compiled_with_tpu,
 )
 from .core.generator import seed, default_generator  # noqa: F401
 from .core.flags import get_flags, set_flags, define_flag  # noqa: F401
@@ -82,9 +88,25 @@ from .ops.linalg import (  # noqa: F401
 from .ops.random import (  # noqa: F401
     rand, randn, randint, randint_like, randperm, uniform, normal,
     standard_normal, bernoulli, bernoulli_, binomial, multinomial, poisson,
-    rand_like, randn_like, normal_, uniform_, exponential_,
+    rand_like, randn_like, normal_, uniform_, exponential_, laplace,
 )
-from .ops import extra  # noqa: F401  (flash_attn)
+from .ops import extra  # noqa: F401
+from .ops.extra import (  # noqa: F401
+    renorm, reverse, shape, as_strided, reduce_as, gammaln, polygamma,
+    gammainc, gammaincc, standard_gamma,
+)
+from .ops.compat import (  # noqa: F401
+    block_diag, cartesian_prod, combinations, vander, column_stack,
+    row_stack, hsplit, vsplit, dsplit, unflatten, add_n, slice_scatter,
+    select_scatter, diagonal_scatter, isin, histogram_bin_edges, pdist,
+    sinc, sgn, signbit, frexp, ldexp, trapezoid, cumulative_trapezoid,
+    multigammaln, log_normal, rank, tolist, is_complex, is_integer,
+    is_floating_point, check_shape, disable_signal_handler,
+    set_printoptions, get_rng_state, set_rng_state, get_cuda_rng_state,
+    set_cuda_rng_state, create_parameter, batch, LazyGuard, flops,
+    cauchy_, geometric_, log_normal_,
+)
+from . import _C_ops  # noqa: F401  (generated dispatch surface)
 
 # ---- autograd, io ---------------------------------------------------------
 from . import autograd  # noqa: F401
@@ -100,6 +122,8 @@ from . import optimizer  # noqa: F401
 from . import amp  # noqa: F401
 from . import jit  # noqa: F401
 from .nn.layer.layers import ParamAttr  # noqa: F401
+from . import linalg  # noqa: F401
+from . import signal  # noqa: F401
 
 # generated `<op>_` inplace variants over the out-of-place ops above
 from .ops.tensor_methods import build_inplace_variants as _biv
@@ -111,7 +135,7 @@ __version__ = "0.1.0"
 
 _LAZY = {"vision", "hapi", "metric", "callbacks", "training",
          "distributed", "static", "inference", "incubate", "base",
-         "tensorrt"}
+         "tensorrt", "tensor", "text", "geometric"}
 
 
 def __getattr__(name):

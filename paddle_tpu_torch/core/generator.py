@@ -67,18 +67,30 @@ class Generator:
             return (self._seed * 0x9E3779B1 + self._offset * 0x85EBCA77) \
                 & 0x7FFFFFFF
 
-    def for_device(self, device) -> torch.Generator:
-        """The torch.Generator that draws on ``device``; counts one draw."""
+    def _device_gen(self, device) -> torch.Generator:
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
+        g = self._gens.get(device)
+        if g is None:
+            g = torch.Generator(device=device).manual_seed(self._seed)
+            self._gens[device] = g
+        return g
+
+    def for_device(self, device) -> torch.Generator:
+        """The torch.Generator that draws on ``device``; counts one draw."""
         with self._lock:
             self._offset += 1
-            g = self._gens.get(device)
-            if g is None:
-                g = torch.Generator(device=device).manual_seed(self._seed)
-                self._gens[device] = g
-            return g
+            return self._device_gen(device)
+
+    def device_state(self, device):
+        """The state of the torch.Generator that draws on ``device``."""
+        with self._lock:
+            return self._device_gen(device).get_state()
+
+    def set_device_state(self, device, state):
+        with self._lock:
+            self._device_gen(device).set_state(state)
 
 
 _DEFAULT = Generator(seed=np.random.randint(0, 2**31 - 1))

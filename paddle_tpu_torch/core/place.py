@@ -26,6 +26,11 @@ class Place:
     def torch_device(self) -> torch.device:
         raise ValueError(f"{self!r} names no device of paddle_tpu_torch")
 
+    def get_device(self) -> torch.device:
+        """The device this place names (the reference's returns its jax
+        device)."""
+        return self.torch_device()
+
     def __eq__(self, other):
         return (isinstance(other, Place)
                 and self.device_type == other.device_type
@@ -78,6 +83,30 @@ class TPUPlace(Place):
         raise ValueError(
             "paddle_tpu_torch has no TPU: it runs on CUDA devices ('gpu') "
             "and the CPU ('cpu')")
+
+
+class XPUPlace(TPUPlace):
+    """Accepted for API compatibility; maps to 'tpu', as the reference's,
+    which the port does not have."""
+
+
+class IPUPlace(CPUPlace):
+    """Accepted for API compatibility; a CPU place, as the reference's."""
+
+
+class CustomPlace(Place):
+    """A place of a named device type: 'cpu' and 'gpu' resolve, any other
+    type names no device of the port."""
+
+    def __init__(self, device_type: str, device_id: int = 0):
+        super().__init__(device_id)
+        self.device_type = device_type
+
+    def torch_device(self):
+        if self.device_type in ("cpu", "gpu", "cuda"):
+            return _place_for(self.device_type,
+                              self.device_id).torch_device()
+        return super().torch_device()
 
 
 def is_compiled_with_tpu() -> bool:

@@ -1,10 +1,32 @@
 """paddle.incubate.nn.functional on the port: the port of
 ``paddle_tpu/incubate/nn/functional/__init__.py``'s
 ``masked_multihead_attention`` (:177), with its refusals, over
-``inference.decode.masked_multihead_attention_impl``. The module's other
-names wait for a later slice (ROADMAP queue 1, item 7).
+``inference.decode.masked_multihead_attention_impl``, and of
+``fused_rms_norm``, ``fused_layer_norm`` and ``swiglu`` (:15, :22, :102).
+The module's other names wait for a later slice (ROADMAP queue 1, item 7).
 """
 from __future__ import annotations
+
+
+def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon=1e-6,
+                   begin_norm_axis=-1, **kw):
+    """reference fused_rms_norm.py: (out, invvar), invvar None."""
+    from ....nn import functional as F
+    return F.rms_norm(x, norm_weight, norm_bias, epsilon,
+                      begin_norm_axis), None
+
+
+def fused_layer_norm(x, norm_weight, norm_bias, epsilon=1e-5,
+                     begin_norm_axis=-1, **kw):
+    from ....nn import functional as F
+    return F.layer_norm(x, x.shape[begin_norm_axis:], norm_weight,
+                        norm_bias, epsilon), None
+
+
+def swiglu(x, y=None, name=None):
+    """reference swiglu fused op: silu(x) * y (or x split in half)."""
+    from ....ops.extra import swiglu as _swiglu
+    return _swiglu(x, y)
 
 
 def masked_multihead_attention(x, cache_kv=None, src_mask=None,

@@ -1,6 +1,4 @@
-"""paddle.nn: the port of ``paddle_tpu/nn``. Not ported yet (ROADMAP queue 1,
-item 3): ``layer/rnn.py``, ``layer/extended.py`` and
-``functional/extended.py``, ``quant/``."""
+"""paddle.nn: the port of ``paddle_tpu/nn``."""
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
 from .layer.layers import (  # noqa: F401
@@ -36,6 +34,10 @@ from .layer.transformer import (  # noqa: F401
     MultiHeadAttention, Transformer, TransformerDecoder,
     TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer,
 )
+from .layer.rnn import (  # noqa: F401
+    BiRNN, GRU, GRUCell, LSTM, LSTMCell, RNN, RNNCellBase, SimpleRNN,
+    SimpleRNNCell,
+)
 from .layer.loss import (  # noqa: F401
     BCELoss, BCEWithLogitsLoss, CTCLoss, CosineEmbeddingLoss,
     CrossEntropyLoss, HingeEmbeddingLoss, HuberLoss, KLDivLoss, L1Loss,
@@ -47,9 +49,20 @@ from .clip import (  # noqa: F401
     clip_grad_value_,
 )
 from . import utils  # noqa: F401
+from . import quant  # noqa: F401
 
 from ..core.tensor import Parameter  # noqa: F401
 
 
 def initializer_set(*a, **k):
     pass
+
+
+from .layer.extended import (  # noqa: F401,E402
+    AdaptiveLogSoftmaxWithLoss, BeamSearchDecoder, FeatureAlphaDropout,
+    FractionalMaxPool2D, FractionalMaxPool3D, GaussianNLLLoss,
+    HSigmoidLoss, LPPool1D, LPPool2D, MaxUnPool1D, MaxUnPool2D,
+    MaxUnPool3D, MultiMarginLoss, PairwiseDistance, PoissonNLLLoss,
+    RNNTLoss, Softmax2D, TripletMarginWithDistanceLoss, Unflatten,
+    ZeroPad1D, ZeroPad3D, dynamic_decode,
+)

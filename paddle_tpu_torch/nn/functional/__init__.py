@@ -1,5 +1,4 @@
-"""paddle.nn.functional: the port of ``paddle_tpu/nn/functional``. The
-names of ``functional/extended.py`` are not ported yet (ROADMAP)."""
+"""paddle.nn.functional: the port of ``paddle_tpu/nn/functional``."""
 from .activation import *  # noqa: F401,F403
 from .common import (  # noqa: F401
     linear, dropout, dropout2d, dropout3d, alpha_dropout, embedding,
@@ -31,4 +30,14 @@ from .loss import (  # noqa: F401
 )
 from .attention import (  # noqa: F401
     scaled_dot_product_attention, flash_attention, flash_attn_unpadded,
+)
+from .extended import (  # noqa: F401
+    pairwise_distance, poisson_nll_loss, gaussian_nll_loss,
+    multi_margin_loss, triplet_margin_with_distance_loss, hsigmoid_loss,
+    rnnt_loss, adaptive_log_softmax_with_loss, feature_alpha_dropout,
+    zeropad2d, max_unpool1d, max_unpool2d, max_unpool3d,
+    fractional_max_pool2d, fractional_max_pool3d, affine_grid, grid_sample,
+    class_center_sample, sparse_attention, gather_tree, temporal_shift,
+    margin_cross_entropy, flash_attn_qkvpacked,
+    flash_attn_varlen_qkvpacked, flashmask_attention,
 )

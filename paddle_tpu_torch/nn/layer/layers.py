@@ -63,9 +63,11 @@ class _HookRemoveHelper:
 
 def _as_array(value, like):
     """A state_dict value (Tensor, numpy array, bfloat16 numpy included) as
-    a torch tensor of ``like``'s shape, dtype and device."""
+    a torch tensor of ``like``'s shape, dtype and device, with storage of its
+    own: the optimizers write parameters in place, and a write must not
+    reach the dict that was loaded (the reference's arrays are immutable)."""
     if isinstance(value, Tensor):
-        arr = value._data.detach()
+        arr = value._data.detach().clone()
     else:
         arr = dtype_mod.from_numpy(np.asarray(value))
     return arr.reshape(like.shape).to(device=like.device, dtype=like.dtype)

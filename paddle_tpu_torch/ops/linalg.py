@@ -175,9 +175,16 @@ def triangular_solve(x, y, upper=True, transpose=False, unitriangular=False,
 
 
 def lstsq(x, y, rcond=None, driver=None, name=None):
+    """(solution, residuals, rank, singular values) as the reference's
+    jnp.linalg.lstsq gives them: the residuals are the squared norm of
+    b - a x over the rows, whatever the rank (torch leaves them empty
+    unless m > n and a has full rank, and on CUDA gives no rank or
+    singular values)."""
     def f(a, b):
-        r = torch.linalg.lstsq(a, b, rcond=rcond, driver=driver)
-        return r.solution, r.residuals, r.rank, r.singular_values
+        sol = torch.linalg.lstsq(a, b, rcond=rcond, driver=driver).solution
+        resid = torch.sum((b - a @ sol) ** 2, dim=0)
+        return (sol, resid, torch.linalg.matrix_rank(a).to(torch.int32),
+                torch.linalg.svdvals(a))
     return run_op("lstsq", f, x, y)
 
 

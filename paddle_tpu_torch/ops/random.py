@@ -214,5 +214,6 @@ def laplace(loc=0.0, scale=1.0, shape=None, dtype=None, name=None):
     dev = default_device()
     shp = _shape_tuple(shape) if shape is not None else ()
     u = _rand(shp, _gen(dev), _dt(dtype), dev) - 0.5
-    return Tensor._wrap(loc - scale * torch.sign(u)
-                        * torch.log1p(-2 * torch.abs(u)))
+    # loc and scale may be Tensors, which broadcast the draw (reference)
+    z = Tensor._wrap(-torch.sign(u) * torch.log1p(-2 * torch.abs(u)))
+    return loc + scale * z

@@ -10,10 +10,11 @@ import torch
 from ..core import dtype as dtype_mod
 from ..core.dispatch import run_op
 from ..core.generator import generator_for, no_traced_form
-from ..core.tensor import Tensor
+from ..core.tensor import Tensor, _no_host_read
 
 
 def _host(x):
+    _no_host_read("numpy")
     return dtype_mod.to_numpy(x._data)
 
 

@@ -813,3 +813,81 @@ def test_async_checkpoint_snapshots_the_card_state_before_the_next_step(
                                before[k].view(-1).view(torch.uint8)), k
     finally:
         paddle.set_device("cpu")
+
+
+def test_capi_gpt_matches_eager_gpt_on_the_card():
+    """chip_smoke.py phase 15b at a small width: the GPT written in
+    paddle._C_ops (capi_gpt_loss) against eager_gpt_loss on the card, from
+    one gpt_hybrid.init_params (seed 0), bf16: the loss within 1e-2, every
+    gradient within 5e-2 of its leaf's scale, and each forward+backward
+    launching each of simple_attention's two kernels once a layer."""
+    _need_card()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import _C_ops as C
+    cs = _chip_smoke()
+    cfg = GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                    num_heads=2, max_seq_len=256)
+    pcfg = TH.ParallelConfig(param_dtype=torch.bfloat16,
+                             compute_dtype=torch.bfloat16)
+    tparams = TH.init_params(cfg, pcfg,
+                             torch.Generator(device="cuda").manual_seed(0),
+                             device="cuda")
+    paddle.set_device("gpu:0")
+    try:
+        ids = paddle.to_tensor(np.random.RandomState(0).randint(
+            0, cfg.vocab_size, (2, 256)))
+        runs = []
+        for fn in (lambda p: cs.capi_gpt_loss(C, p, ids, cfg),
+                   lambda p: cs.eager_gpt_loss(paddle, p, ids, cfg)):
+            params = TH.eager_params_from_jax(
+                {k: ({kk: vv.clone() for kk, vv in v.items()}
+                     if isinstance(v, dict) else v.clone())
+                 for k, v in tparams.items()}, device="cuda")
+            tsa.reset_launch_counts()
+            loss = fn(params)
+            loss.backward()
+            torch.cuda.synchronize()
+            leaves = [params["wte"], params["blocks"]["qkv_w"],
+                      params["blocks"]["fc2_w"]]
+            runs.append((float(loss), [t.grad._data for t in leaves],
+                         dict(tsa.LAUNCHES)))
+        (capi, capi_g, capi_n), (eager, eager_g, eager_n) = runs
+        assert abs(capi - eager) <= 1e-2, (capi, eager)
+        for g, w in zip(capi_g, eager_g):
+            assert _rel_err(g, w) <= 5e-2
+        assert capi_n == eager_n == {"simple_attention_fwd": 2,
+                                     "simple_attention_bwd": 2}
+    finally:
+        paddle.set_device("cpu")
+
+
+def test_small_lstm_lm_on_the_card():
+    """chip_smoke.py phase 15c's small copy of the PTB LSTM LM (vocab 50,
+    hidden 32, dropout 0): the loss and every gradient on the card (cuDNN's
+    LSTM) within 1e-5 of the CPU's, from one state_dict."""
+    _need_card()
+    import paddle_tpu_torch as paddle
+    cs = _chip_smoke()
+    run = cs.Run()
+    try:
+        cs.check_small_lstm(run, paddle, torch)
+    finally:
+        paddle.set_device("cpu")
+    assert not run.failures, run.failures
+
+
+def test_cuda_rng_state_round_trip_on_the_card():
+    """get_cuda_rng_state/set_cuda_rng_state read and write the card's
+    torch.Generator: a restore repeats the draws made after it."""
+    _need_card()
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu:0")
+    try:
+        paddle.seed(3)
+        states = paddle.get_cuda_rng_state()
+        assert len(states) == torch.cuda.device_count()
+        first = paddle.rand([64]).numpy()
+        paddle.set_cuda_rng_state(states)
+        np.testing.assert_array_equal(paddle.rand([64]).numpy(), first)
+    finally:
+        paddle.set_device("cpu")

@@ -7,7 +7,11 @@ DataLoader workers, and the training-robustness modules: ``device``,
 ``training``, ``hapi`` with ``Model.fit``, ``metric``, ``callbacks``,
 ``distributed``'s ``checkpoint``/``watchdog``/``elastic`` and
 ``observability.training``, and the compiled programs: ``jit``, ``static``,
-``base``, ``inference``'s predictor, ``incubate.jit``, ``tensorrt``), and
+``base``, ``inference``'s predictor, ``incubate.jit``, ``tensorrt``, and
+the rest of the eager API: ``_C_ops`` and ``ops/yaml``, ``core.infermeta``,
+``ops``' ``extra``, ``vision_ops``, ``compat`` and ``array``, ``tensor``,
+``linalg``, ``signal``, ``geometric``, ``nn``'s ``rnn``, extended layers and
+functionals and ``quant``, ``core.string_tensor`` and ``text``), and
 its entry points default to CUDA:
 the training step's, and the eager API's, whose tensors land on gpu:0
 unless set_device("cpu") was called."""
@@ -192,6 +196,46 @@ with tempfile.TemporaryDirectory() as jd:
     assert served.run([jit_x])[0].shape == [3, 2]
 assert incubate_jit.inference(nn.Linear(4, 2))(jit_x).shape == [3, 2]
 assert static_nn.fc(jit_x, 5).shape == [3, 5]
+
+# the rest of the eager API: _C_ops from the port's yaml, infermeta, the
+# extra, vision and compat ops, tensor arrays, linalg, signal, geometric,
+# the RNNs, nn's extended layers and functionals, nn.quant, string tensors
+# and text
+from paddle_tpu_torch import _C_ops, geometric, linalg, signal, tensor, text
+from paddle_tpu_torch.core import infermeta, string_tensor
+from paddle_tpu_torch.nn import quant
+from paddle_tpu_torch.nn.functional import extended as fextended
+from paddle_tpu_torch.nn.layer import extended as lextended, rnn
+from paddle_tpu_torch.ops import array, compat, vision_ops
+from paddle_tpu_torch.ops.yaml import bootstrap, generator
+from paddle_tpu_torch.text import tokenizer
+assert paddle._C_ops is _C_ops and paddle.linalg is linalg
+assert _C_ops.matmul(jit_x, jit_x, False, True).shape == [3, 3]
+assert _C_ops.elementwise_add is _C_ops.add
+assert infermeta.infer_via_eval_shape(
+    paddle.matmul, infermeta.MetaTensor([3, 4], "float32"),
+    infermeta.MetaTensor([4, 5], "float32")).shape == (3, 5)
+lstm = nn.LSTM(4, 8, num_layers=2, direction="bidirect")
+lstm_out, (lstm_h, lstm_c) = lstm(jit_x.reshape([3, 1, 4]))
+assert lstm_out.shape == [3, 1, 16] and rnn.ROUTES["aten"] >= 2
+assert nn.GRU(4, 8)(jit_x.reshape([3, 1, 4]))[0].shape == [3, 1, 8]
+q_w, q_s = quant.weight_quantize(paddle.randn([4, 6]))
+assert quant.weight_only_linear(jit_x, q_w, weight_scale=q_s).shape == \
+    [3, 6]
+assert nn.functional.grid_sample(
+    paddle.ones([1, 1, 4, 4]), paddle.zeros([1, 2, 2, 2])).shape == \
+    [1, 1, 2, 2]
+assert vision_ops.pool2d(paddle.ones([1, 1, 4, 4]), 2).shape == [1, 1, 2, 2]
+assert signal.stft(paddle.ones([32]), 8).shape == [5, 17]
+arr = tensor.array_write(jit_x, paddle.to_tensor([0]))
+assert int(tensor.array_length(arr)) == 1
+tok = text.FasterTokenizer(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "hi"])
+assert tok(string_tensor.StringTensor(["hi"]))[0].numpy().tolist() == \
+    [[2, 4, 3]]
+assert compat.block_diag([jit_x, jit_x]).shape == [6, 8]
+assert geometric.segment_sum(jit_x, paddle.to_tensor([0, 0, 1])).shape == \
+    [2, 4]
+assert paddle.linalg.inv(paddle.eye(3)).shape == [3, 3]
 
 def foreign(name):
     return (name in ("jax", "jaxlib", "paddle_tpu")

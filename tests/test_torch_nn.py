@@ -877,3 +877,25 @@ def test_logit_losses_are_smooth_at_zero(name, call, oracle, dz2):
         got.append((float(out), zt.grad.numpy()))
     np.testing.assert_allclose(got[0][0], got[1][0], rtol=1e-6)
     np.testing.assert_allclose(got[0][1], got[1][1], rtol=1e-5, atol=1e-7)
+
+
+def test_training_after_set_state_dict_leaves_the_loaded_dict_alone():
+    """The optimizers write parameters in place; a parameter loaded from
+    another Layer's state_dict owns its storage, so training it changes
+    neither that dict nor its Layer, as with the reference's immutable
+    arrays."""
+    import paddle_tpu as P
+    for pd in (P, T):
+        pd.seed(0)
+        src = pd.nn.Linear(4, 3)
+        state = src.state_dict()
+        snap = {k: v.numpy().copy() for k, v in state.items()}
+        dst = pd.nn.Linear(4, 3)
+        dst.set_state_dict(state)
+        opt = pd.optimizer.AdamW(1e-1, parameters=dst.parameters())
+        (dst(pd.ones([2, 4])) ** 2).sum().backward()
+        opt.step()
+        for k, v in src.state_dict().items():
+            np.testing.assert_array_equal(v.numpy(), snap[k])
+            np.testing.assert_array_equal(state[k].numpy(), snap[k])
+        assert not np.array_equal(dst.weight.numpy(), snap["weight"])
