@@ -735,8 +735,8 @@ def drive(run, path, TH, GPTConfig, mods, fa, cost_model, torch, experts=0):
     split = step_breakdown(TH, cfg, pcfg, params, opt_state, ids, torch)
     return {"launches": launches, "steps": steps, "ms_per_step": ms,
             "tokens_per_s": tok_s, "mfu": mfu, "peak_memory_gb": peak_gb,
-            "step0_loss": losses[0], "last_loss": losses[-1], **extra,
-            **split}
+            "step0_loss": losses[0], "last_loss": losses[-1],
+            "losses": losses, **extra, **split}
 
 
 def moe_flops_per_token(cfg, seq, experts_run, experts, cost_model):
@@ -4216,7 +4216,557 @@ def drive_eager_api(run, paddle, TH, GPTConfig, mods, fa, torch, eager=None,
     return out
 
 
+# --------------------------------------------------------------- phase 16
+# Collective parallelism over torch.distributed on the card, at world 1 over
+# NCCL (one card: its kernels and the code that N ranks run), and two ranks
+# on the one card. NCCL refuses two ranks on one device (NCCL 2.28.9 on an
+# NVIDIA H100 80GB HBM3: "Duplicate GPU detected : rank 0 and rank 1 both on
+# CUDA device"), so 16d runs DataParallel over gloo with the card's tensors.
+DP2_BACKEND = "gloo"
+# 16b: benchmarks/workloads/gpt_dp_sharding1.py's full configuration at one
+# rank (GPT-1.3B: h2048, 24 layers, 16 heads of 128, vocab 50304; B4 S1024;
+# bf16, remat "names", fused CE, ParallelConfig(dp=1, zero1=True)).
+DP_FLAGSHIP = PATHS[0]
+DP_COMPARED, DP_TIMED = 3, 5
+# 16d: GPT-3 Medium's widths (Brown et al. 2020, Table 2.1: d_model 1024,
+# 24 layers, 16 heads of 64) at B4 S1024, two ranks of B2 each.
+DP_MEDIUM = dict(vocab_size=50304, hidden_size=1024, num_layers=24,
+                 num_heads=16, max_seq_len=1024)
+DP_MEDIUM_BATCH, DP_MEDIUM_SEQ = 4, 1024
+# all-reduce sizes of 16a, bytes
+ALL_REDUCE_BYTES = (1 << 20, 256 << 20)
+
+
+def _nccl_rows(rows):
+    return [r for r in rows if "nccl" in r[0].lower()]
+
+
+def _op_and_device_rows(torch, fn):
+    """(the NCCL op records, the device rows with time) of one profiled
+    call of ``fn``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    return (sorted({e.key for e in events if e.key.startswith("nccl:")}),
+            sorted({e.key for e in events
+                    if e.device_type == DeviceType.CUDA
+                    and e.self_device_time_total > 0}))
+
+
+def check_collectives(run, paddle, dist, torch):
+    """16a: every eager collective on CUDA tensors at world 1 over NCCL
+    (f32 and bf16) against its world-1 value; sync_op=False handles; what
+    one profiled all-reduce and reduce-scatter run on the card; the
+    all-reduce's time at 1 MB and 256 MB, the reduce-scatter's and
+    all-gather's at 256 MB."""
+    from paddle_tpu_torch.core.tensor import Tensor
+    from paddle_tpu_torch.distributed import collective as C
+    group = dist.init_parallel_env()
+    run.check(dist.get_backend() == "nccl" and dist.get_world_size() == 1
+              and group.rank == 0,
+              f"16a: init_parallel_env over {dist.get_backend()}, world "
+              f"{dist.get_world_size()}, cuda:{torch.cuda.current_device()}")
+    bad = []
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.arange(1, 9, device="cuda", dtype=torch.float32).to(dt)
+
+        def t():
+            return Tensor._wrap(x.clone())
+
+        def same(got, what):
+            a = got._data if isinstance(got, Tensor) else got
+            if not (a.is_cuda and a.dtype == dt and torch.equal(a, x)):
+                bad.append(f"{what} {dt}")
+        for op in ("SUM", "AVG", "MAX", "MIN", "PROD"):
+            y = t()
+            dist.all_reduce(y, getattr(dist.ReduceOp, op))
+            same(y, f"all_reduce {op}")
+        y = t()
+        task = dist.all_reduce(y, sync_op=False)
+        task.wait()
+        same(y, "all_reduce sync_op=False")
+        outs = []
+        dist.all_gather(outs, t(), sync_op=False).wait()
+        same(outs[0], "all_gather")
+        y = t()
+        dist.broadcast(y, src=0)
+        same(y, "broadcast")
+        y = t()
+        dist.reduce(y, dst=0)
+        same(y, "reduce")
+        y = Tensor._wrap(torch.zeros_like(x))
+        dist.scatter(y, [t()], src=0)
+        same(y, "scatter")
+        y = Tensor._wrap(torch.zeros_like(x))
+        dist.reduce_scatter(y, [t()])
+        same(y, "reduce_scatter")
+        outs = []
+        dist.alltoall([t()], outs)
+        same(outs[0], "alltoall")
+        y = Tensor._wrap(torch.zeros_like(x))
+        dist.alltoall_single(t(), y)
+        same(y, "alltoall_single")
+        outs = []
+        dist.gather(t(), outs, dst=0)
+        same(outs[0], "gather")
+        y = Tensor._wrap(torch.zeros_like(x))
+        for task in dist.batch_isend_irecv([dist.P2POp(dist.isend, t(), 0),
+                                            dist.P2POp(dist.irecv, y, 0)]):
+            task.wait()
+        same(y, "batch_isend_irecv to itself")
+        flat = torch.zeros_like(x)
+        C.reduce_scatter_flat(flat, x.clone())
+        same(flat, "reduce_scatter_flat")
+        full = x.clone()
+        C.all_gather_flat(full, full)
+        same(full, "all_gather_flat in place")
+    objs = []
+    dist.all_gather_object(objs, {"rank": 0})
+    got = [None]
+    dist.broadcast_object_list(got, src=0)
+    out = []
+    dist.scatter_object_list(out, [{"x": 1}], src=0)
+    dist.barrier()
+    torch.cuda.synchronize()
+    run.check(not bad and objs == [{"rank": 0}] and out == [{"x": 1}],
+              f"16a: 17 tensor collectives a dtype (f32, bf16) and three "
+              f"object collectives give their world-1 values on the card"
+              f"{'; wrong: ' + ', '.join(bad) if bad else ''}")
+    timings = {}
+    for nbytes in ALL_REDUCE_BYTES:
+        buf = torch.ones(nbytes // 4, device="cuda")
+        timings[f"all_reduce_{nbytes >> 20}MB"] = windows_ms(
+            lambda: C.all_reduce_flat(buf, C.ReduceOp.SUM), reps=20)
+    big = torch.ones(ALL_REDUCE_BYTES[-1] // 4, device="cuda")
+    other = torch.empty_like(big)
+    timings[f"reduce_scatter_{ALL_REDUCE_BYTES[-1] >> 20}MB"] = windows_ms(
+        lambda: C.reduce_scatter_flat(other, big, C.ReduceOp.SUM), reps=20)
+    timings[f"all_gather_{ALL_REDUCE_BYTES[-1] >> 20}MB"] = windows_ms(
+        lambda: C.all_gather_flat(other, big), reps=20)
+    # at world 1 ProcessGroupNCCL launches no NCCL kernel: its in-place
+    # all-reduce moves nothing, and its out-of-place reduce-scatter and
+    # all-gather are one device-to-device copy each ("Memcpy DtoD") under
+    # the op's "nccl:*" record (torch 2.11, NCCL 2.28.9, NVIDIA H100 80GB
+    # HBM3). The profiler's device rows of so short a window can come back
+    # empty late in this script, so the copy is shown by its time: at least
+    # its bytes (read and written) over the HBM rate
+    seen = {}
+    for name, fn in (("all_reduce", lambda: C.all_reduce_flat(
+            big, C.ReduceOp.SUM)), ("reduce_scatter", lambda: C.
+            reduce_scatter_flat(other, big, C.ReduceOp.SUM))):
+        seen[name] = _op_and_device_rows(torch, fn)
+    ops, rows = seen["reduce_scatter"]
+    rs_ms = timings[f"reduce_scatter_{ALL_REDUCE_BYTES[-1] >> 20}MB"][0]
+    copy_ms = 2 * ALL_REDUCE_BYTES[-1] / PEAK_HBM_BYTES * 1e3
+    run.check(any(k.startswith("nccl:") for k in ops) and rs_ms >= copy_ms,
+              f"16a: a profiled reduce-scatter runs through NCCL ({ops}) "
+              f"and its copy takes {rs_ms * 1e3:.1f} us, at least its bytes "
+              f"over HBM ({copy_ms * 1e3:.1f} us); device rows {rows}")
+    out = {"backend": dist.get_backend(), "world": dist.get_world_size(),
+           "reduce_scatter_ops": ops, "reduce_scatter_device_rows": rows,
+           "all_reduce_ops": seen["all_reduce"][0],
+           "all_reduce_device_rows": seen["all_reduce"][1],
+           "copy_bound_us": copy_ms * 1e3}
+    for name, (ms, spread) in timings.items():
+        nbytes = int(name.rsplit("_", 1)[1][:-2]) << 20
+        gbs = nbytes / (ms / 1e3) / 1e9
+        out[f"{name}_us"] = ms * 1e3
+        out[f"{name}_us_spread"] = spread * 1e3
+        out[f"{name}_GBps"] = gbs
+        print(f"16a: {name} f32 at world 1: {ms * 1e3:.1f} us (spread "
+              f"{spread * 1e3:.1f}), {gbs:.1f} GB/s (bytes / time)",
+              flush=True)
+    print(f"16a: a profiled all-reduce: ops {out['all_reduce_ops']}, device "
+          f"rows {out['all_reduce_device_rows']}; a reduce-scatter: ops "
+          f"{ops}, device rows {rows}", flush=True)
+    del big, other
+    return out
+
+
+def _flagship_single(TH, GPTConfig, torch, steps):
+    """The flagship's single-device losses and ms/step (phase 4's step,
+    before any process group exists, each step timed by CUDA events): the
+    same-time baseline of 16b, and its reference when phase 4 did not
+    run."""
+    label, fields, batch, seq, *_ = DP_FLAGSHIP
+    cfg = GPTConfig(**fields)
+    pcfg = TH.ParallelConfig(remat=True, remat_policy="names", fused_ce=True,
+                             param_dtype=torch.bfloat16,
+                             compute_dtype=torch.bfloat16, zero1=True)
+    params, opt_state, step = TH.setup(cfg, pcfg, seed=0)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (batch, seq))).cuda()
+    losses, times = [], []
+    for _ in range(steps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(params, opt_state, (ids, ids))[2]
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    del params, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, float(np.median(times[1:]))
+
+
+def drive_dp_gpt(run, TH, GPTConfig, mods, fa, cost_model, torch,
+                 single_losses, single_ms, now_ms):
+    """16b: the main path, gpt_dp_sharding1.py's full configuration through
+    setup() and the data-parallel step at world 1 over NCCL."""
+    label, fields, batch, seq, tier, kernels, *_ = DP_FLAGSHIP
+    cfg = GPTConfig(**fields)
+    L = cfg.num_layers
+    pcfg = TH.ParallelConfig(dp=1, remat=True, remat_policy="names",
+                             fused_ce=True, param_dtype=torch.bfloat16,
+                             compute_dtype=torch.bfloat16, zero1=True)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, step = TH.setup(cfg, pcfg, seed=0)
+    buckets = TH._bind_flat(params, 1)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (batch, seq))).cuda()
+    torch.cuda.synchronize()
+    for mod in mods:
+        mod.reset_launch_counts()
+    losses = [float(step(params, opt_state, (ids, ids))[2])
+              for _ in range(DP_COMPARED)]
+    torch.cuda.synchronize()
+    launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
+    times = []
+    for _ in range(DP_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(params, opt_state, (ids, ids))[2]
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    ms = float(np.median(times))
+    tok_s = batch * seq / (ms / 1e3)
+    fpt = cost_model.gpt_flops_per_token(cfg, seq)
+    mfu = cost_model.mfu(tok_s, fpt, "H100")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt_state, (ids, ids))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(prof)
+    nccl_ops = sorted({e.key for e in prof.key_averages()
+                       if e.key.startswith("nccl:")})
+    # the device time the profiler files under the NCCL records (at world 1
+    # the copies that ProcessGroupNCCL issues); counted once in busy
+    nccl_ms = sum(r[1] for r in _nccl_rows(rows))
+    busy = sum(r[1] for r in rows) - nccl_ms
+    idle = max(0.0, 1 - busy / wall_ms)
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(losses[:DP_COMPARED], single_losses[:DP_COMPARED]))
+    print(f"16b {label} dp=1 zero1 over NCCL: losses "
+          f"{[round(x, 4) for x in losses]}; single-device "
+          f"{[round(x, 4) for x in single_losses[:DP_COMPARED]]}",
+          flush=True)
+    run.check(rel <= TOL["bfloat16"],
+              f"16b: the distributed step's {DP_COMPARED} losses equal the "
+              f"single-device step's (phase 4) within {TOL['bfloat16']} "
+              f"relative (bf16): worst {rel:.3e}")
+    run.check(launches == {n: L * DP_COMPARED if n in kernels else 0
+                           for n in launches},
+              f"16b: {L} launches a step of each of {list(kernels)} over "
+              f"{DP_COMPARED} steps, no other attention kernel: {launches}")
+    run.check(10.0 <= losses[0] <= 11.5 and losses[-1] < losses[0]
+              and all(map(math.isfinite, losses)),
+              f"16b: step-0 loss {losses[0]:.4f} in [10, 11.5] and the loss "
+              f"falls to {losses[-1]:.4f}")
+    want_ops = {"nccl:_reduce_scatter_base", "nccl:_all_gather_base"}
+    run.check(len(buckets) == 1 and want_ops <= set(nccl_ops),
+              f"16b: one gradient bucket (bf16), reduce-scattered and "
+              f"all-gathered through NCCL in the profiled step: {nccl_ops}, "
+              f"{nccl_ms:.3f} ms of device time under them")
+    print(f"16b: {ms:.2f} ms/step (device events, median of {DP_TIMED}, "
+          f"spread {max(times) - min(times):.2f}) beside phase 4's "
+          f"{single_ms if single_ms is None else round(single_ms, 2)} and "
+          f"the single-device step's {now_ms:.2f} just before this phase; "
+          f"{tok_s:.1f} tokens/s, MFU {mfu:.4f} at {fpt:.4e} FLOP/token, "
+          f"peak memory {peak_gb:.2f} GB; profiled step {wall_ms:.2f} ms wall, "
+          f"{busy:.2f} ms kernel time, NCCL {nccl_ms:.3f} ms, idle share "
+          f"{idle:.3f}", flush=True)
+    for key, kms, count in rows[:10]:
+        print(f"  {kms:9.3f} ms {count:6d}x  {key[:100]}")
+    del params, opt_state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "single_device_losses":
+            single_losses[:DP_COMPARED], "loss_rel_err": rel,
+            "ms_per_step": ms, "ms_per_step_spread": max(times) - min(times),
+            "single_device_ms_per_step": single_ms,
+            "single_device_ms_now": now_ms, "tokens_per_s": tok_s,
+            "mfu": mfu, "flops_per_token": fpt, "peak_memory_gb": peak_gb,
+            "profiled_ms": wall_ms, "kernel_ms": busy, "nccl_ms": nccl_ms,
+            "nccl_ops": nccl_ops, "idle_share": idle, "buckets": len(buckets),
+            "launches": launches}
+
+
+def _layer_gpt_steps(paddle, dist, GPTConfig, GPTForCausalLM, fa, torch,
+                     wrap, steps):
+    """(losses, ms per step, launches per step) of the Layer GPT-1.3B
+    (phase 8b's model, seed, batch and optimizer) wrapped by ``wrap``."""
+    cfg = GPTConfig.gpt3_1p3b()
+    paddle.seed(0)
+    model = GPTForCausalLM(cfg)
+    model.bfloat16()
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters(),
+                                 multi_precision=True)
+    model, opt = wrap(model, opt)
+    ids = paddle.to_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (LAYER_GPT_BATCH, LAYER_GPT_SEQ)))
+    losses, times, launches = [], [], []
+    for _ in range(steps):
+        fa.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = model(ids, ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(loss))
+        launches.append(dict(fa.LAUNCHES))
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, times, launches
+
+
+def drive_layer_dp(run, paddle, dist, GPTConfig, GPTForCausalLM, fa, torch,
+                   layer=None):
+    """16c: the Layer GPT-1.3B through DataParallel, then through
+    group_sharded_parallel(level="os_g"), 3 steps of AdamW each, against
+    phase 8b's plain run (and a plain run just before, for the time)."""
+    L = GPTConfig.gpt3_1p3b().num_layers
+    now, ptimes, _ = _layer_gpt_steps(
+        paddle, dist, GPTConfig, GPTForCausalLM, fa, torch,
+        lambda m, o: (m, o), DP_COMPARED)
+    now_ms = float(np.median(ptimes[1:]))
+    if layer is None:
+        plain, plain_ms = now, now_ms
+    else:
+        plain, plain_ms = layer["losses"], layer["ms_per_step"]
+    out = {"plain_losses": plain[:DP_COMPARED], "plain_ms_per_step": plain_ms,
+           "plain_ms_now": now_ms}
+    wraps = {
+        "data_parallel": lambda m, o: (dist.DataParallel(m), o),
+        "group_sharded_os_g": lambda m, o: dist.group_sharded_parallel(
+            m, o, level="os_g")[:2],
+    }
+    for name, wrap in wraps.items():
+        losses, times, launches = _layer_gpt_steps(
+            paddle, dist, GPTConfig, GPTForCausalLM, fa, torch, wrap,
+            DP_COMPARED)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+        want = {n: L if n in fa.LAUNCHES else 0 for n in launches[0]}
+        ms = float(np.median(times[1:]))
+        run.check(rel <= TOL["bfloat16"] and all(x == want for x in launches)
+                  and losses[-1] < losses[0],
+                  f"16c {name}: losses {[round(x, 4) for x in losses]} equal "
+                  f"phase 8b's {[round(x, 4) for x in plain[:DP_COMPARED]]} "
+                  f"within {TOL['bfloat16']} relative (worst {rel:.3e}), "
+                  f"{L} launches a step of each library kernel, and fall")
+        print(f"16c {name}: {ms:.2f} ms/step (device events, median of steps "
+              f"2-{DP_COMPARED}) beside phase 8b's {plain_ms:.2f} and the "
+              f"plain Layer GPT's {now_ms:.2f} just before", flush=True)
+        out[name] = {"losses": losses, "loss_rel_err": rel,
+                     "ms_per_step": ms, "step_ms": times}
+    return out
+
+
+def phase16d_worker(out_dir):
+    """One rank of 16d, started by the port's launcher: DataParallel over
+    DP2_BACKEND with the card's tensors, this rank's rows of the global
+    batch; rank 0 writes the global losses and times."""
+    import torch
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+    paddle.set_device("gpu:0")
+    dist.init_parallel_env(backend=DP2_BACKEND)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    paddle.seed(0)
+    model = GPTForCausalLM(GPTConfig(**DP_MEDIUM))
+    model.bfloat16()
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters(),
+                                 multi_precision=True)
+    dp = dist.DataParallel(model)
+    reducer = dp._reducer
+    reduce_ms = []
+    bucket = reducer.reduce_bucket
+
+    def timed_bucket(b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bucket(b)
+        torch.cuda.synchronize()
+        reduce_ms[-1] += (time.perf_counter() - t0) * 1e3
+    reducer.reduce_bucket = timed_bucket
+    ids = np.random.RandomState(0).randint(
+        0, DP_MEDIUM["vocab_size"], (DP_MEDIUM_BATCH, DP_MEDIUM_SEQ))
+    n = DP_MEDIUM_BATCH // world
+    local = paddle.to_tensor(ids[rank * n:(rank + 1) * n])
+    losses, step_ms = [], []
+    for _ in range(DP_COMPARED):
+        reduce_ms.append(0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = dp(local, local)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        g = loss._data.detach().float().reshape(1).clone()
+        dist.all_reduce(g, dist.ReduceOp.AVG)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(g[0]))
+    if rank == 0:
+        with open(os.path.join(out_dir, "dp2.json"), "w") as f:
+            json.dump({"losses": losses, "step_ms": step_ms,
+                       "reduce_ms": reduce_ms, "world": world,
+                       "backend": dist.get_backend(),
+                       "buckets": len(reducer.buckets)}, f)
+    dist.destroy_process_group()
+
+
+def drive_two_ranks(run, paddle, GPTConfig, GPTForCausalLM, torch):
+    """16d: two ranks on the one card, started by the port's launcher,
+    against a world-1 run of the same global batch in this process."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, ".cache")) as d:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node", "2", os.path.abspath(__file__),
+             "--phase16d-worker", d],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, start_new_session=True)
+        try:
+            _, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            _, err = proc.communicate()
+        wall = time.perf_counter() - t0
+        ok = proc.returncode == 0 and os.path.exists(os.path.join(d,
+                                                                  "dp2.json"))
+        run.check(ok, f"16d: two ranks over {DP2_BACKEND} on the one card "
+                  f"ran (rc {proc.returncode}, {wall:.1f} s){'' if ok else ': ' + err[-1500:]}")
+        if not ok:
+            return {"backend": DP2_BACKEND, "rc": proc.returncode}
+        with open(os.path.join(d, "dp2.json")) as f:
+            two = json.load(f)
+    paddle.set_device("gpu:0")
+    paddle.seed(0)
+    model = GPTForCausalLM(GPTConfig(**DP_MEDIUM))
+    model.bfloat16()
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters(),
+                                 multi_precision=True)
+    ids = paddle.to_tensor(np.random.RandomState(0).randint(
+        0, DP_MEDIUM["vocab_size"], (DP_MEDIUM_BATCH, DP_MEDIUM_SEQ)))
+    one, one_ms = [], []
+    for _ in range(DP_COMPARED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model(ids, ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+        one.append(float(loss))
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(two["losses"], one))
+    run.check(rel <= TOL["bfloat16"] and two["world"] == 2
+              and two["backend"] == DP2_BACKEND,
+              f"16d: rank 0's global losses {[round(x, 4) for x in two['losses']]}"
+              f" over 2 ranks ({two['backend']}) equal the world-1 run's "
+              f"{[round(x, 4) for x in one]} within {TOL['bfloat16']} "
+              f"relative (worst {rel:.3e})")
+    ms2 = float(np.median(two["step_ms"][1:]))
+    red = float(np.median(two["reduce_ms"][1:]))
+    print(f"16d: GPT-3 Medium widths, B{DP_MEDIUM_BATCH} S{DP_MEDIUM_SEQ}: "
+          f"two ranks over {DP2_BACKEND} {ms2:.1f} ms/step (host clock, "
+          f"median of steps 2-{DP_COMPARED}; the reduction {red:.1f} ms of "
+          f"it, {two['buckets']} buckets); world 1 "
+          f"{float(np.median(one_ms[1:])):.1f} ms/step", flush=True)
+    return {"backend": DP2_BACKEND, "two_rank_losses": two["losses"],
+            "world1_losses": one, "loss_rel_err": rel,
+            "ms_per_step": ms2, "step_ms": two["step_ms"],
+            "reduce_ms": red, "reduce_ms_all": two["reduce_ms"],
+            "buckets": two["buckets"],
+            "world1_ms_per_step": float(np.median(one_ms[1:])),
+            "launcher_s": wall}
+
+
+def drive_distributed(run, paddle, TH, GPTConfig, GPTForCausalLM, mods, fa,
+                      cost_model, torch, flagship=None, layer=None):
+    """Phase 16: 16a collectives, 16b the dp + ZeRO-1 GPT-1.3B step,
+    16c the Layer GPT-1.3B through DataParallel and ZeRO stage 2, 16d two
+    ranks on the one card."""
+    import paddle_tpu_torch.distributed as dist
+    t_phase = time.perf_counter()
+    import threading
+    paddle.set_device("gpu:0")
+    print(f"16: {len(gc.get_objects())} objects tracked by gc, "
+          f"{threading.active_count()} threads in this process", flush=True)
+    now, now_ms = _flagship_single(TH, GPTConfig, torch, DP_COMPARED)
+    if flagship is None:
+        single, single_ms = now, None
+    else:
+        single, single_ms = flagship["losses"], flagship["ms_per_step"]
+    out = {}
+    t0 = time.perf_counter()
+    out["collectives"] = check_collectives(run, paddle, dist, torch)
+    print(f"16a: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    out["dp_zero1_gpt"] = drive_dp_gpt(run, TH, GPTConfig, mods, fa,
+                                       cost_model, torch, single, single_ms,
+                                       now_ms)
+    print(f"16b: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    out["layer_gpt"] = drive_layer_dp(run, paddle, dist, GPTConfig,
+                                      GPTForCausalLM, fa, torch, layer)
+    print(f"16c: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    out["two_ranks"] = drive_two_ranks(run, paddle, GPTConfig,
+                                       GPTForCausalLM, torch)
+    print(f"16d: {time.perf_counter() - t0:.1f} s", flush=True)
+    dist.destroy_process_group()
+    out["phase_16_s"] = time.perf_counter() - t_phase
+    print(f"distributed phase: {out['phase_16_s']:.1f} s", flush=True)
+    return out
+
+
 def main():
+    if sys.argv[1:2] == ["--phase16d-worker"]:
+        phase16d_worker(sys.argv[2])
+        return 0
     try:
         import torch
     except ImportError as e:
@@ -4270,6 +4820,20 @@ def main():
                               ".cache")
     os.makedirs(cache_root, exist_ok=True)
     mods = (sa, ca, bf, sa2, fa)
+    if "--phase16" in sys.argv[1:]:
+        # phase 16 alone (no kernels line, no ok line): for work on it
+        with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+            os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+            at._table = None
+            dd = drive_distributed(run, paddle, TH, GPTConfig,
+                                   GPTForCausalLM, mods, fa, cost_model,
+                                   torch)
+        print(json.dumps({"distributed": dd}))
+        print(f"chip_smoke --phase16: {time.perf_counter() - t_script:.1f} "
+              f"s, {len(run.failures)} check(s) failed", flush=True)
+        for what in run.failures:
+            print(f"  {what[:300]}", file=sys.stderr)
+        return 1 if run.failures else 0
     if "--phase15" in sys.argv[1:]:
         # phase 15 alone (no kernels line, no ok line): for work on it
         with tempfile.TemporaryDirectory(dir=cache_root) as cache:
@@ -4390,6 +4954,14 @@ def main():
         at._table = None
         api = drive_eager_api(run, paddle, TH, GPTConfig, mods, fa, torch,
                               eager, layer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+        os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+        at._table = None
+        dd = drive_distributed(run, paddle, TH, GPTConfig, GPTForCausalLM,
+                               mods, fa, cost_model, torch,
+                               paths["flagship"], layer)
 
     kernels = []
     for kern in KERNELS:
@@ -4432,6 +5004,7 @@ def main():
     print(json.dumps({"model_fit": fit}))
     print(json.dumps({"jit": jit}))
     print(json.dumps({"eager_api": api}))
+    print(json.dumps({"distributed": dd}))
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s", flush=True)
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed:",

@@ -50,10 +50,15 @@ What is ported so far:
   and optimizer ops), ``ops/vision_ops``, ``ops/compat`` (the top-level
   names), ``ops/array`` with the ``tensor`` namespace, ``linalg``,
   ``signal``, ``nn``'s RNNs, extended layers and functionals and
-  ``nn.quant``, string tensors and ``text``.
+  ``nn.quant``, string tensors and ``text``;
+- collective parallelism over ``torch.distributed`` (``distributed``:
+  process groups, collectives, ``DataParallel``, the ZeRO stages, fleet's
+  dp and sharding, the launcher, sharded checkpoints) and
+  ``models/gpt_hybrid``'s data-parallel step with ZeRO-1.
 
 Use it as ``import paddle_tpu_torch as paddle``. Names of later slices
-(``vision.ops``, ``fft``, most of ``distributed``, ...) are not here.
+(``vision.ops``, ``fft``, tensor, pipeline and expert parallelism, ...)
+are not here.
 """
 from __future__ import annotations
 
@@ -146,6 +151,9 @@ def __getattr__(name):
     if name == "Model":
         from .hapi import Model
         return Model
+    if name == "DataParallel":
+        from .distributed.parallel import DataParallel
+        return DataParallel
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 

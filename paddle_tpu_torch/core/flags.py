@@ -106,6 +106,8 @@ define_flag("FLAGS_retain_grad_for_all", False,
 define_flag("FLAGS_call_stack_level", 1,
             ">=2: eager op errors are wrapped with the op name and "
             "input dtypes/shapes")
+define_flag("FLAGS_collective_debug", False,
+            "print each eager collective (op, group, shape) to stderr")
 define_flag("FLAGS_collective_timeout_s", 600.0,
             "collective watchdog: seconds before a device probe counts "
             "as hung")

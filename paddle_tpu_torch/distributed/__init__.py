@@ -1,13 +1,14 @@
-"""paddle.distributed: the part of ``paddle_tpu/distributed`` that the
-training-robustness slice needs.
+"""paddle.distributed: the port of ``paddle_tpu/distributed`` over
+``torch.distributed`` (one process per GPU; NCCL on the card, gloo when the
+caller asks for the CPU).
 
-Ported: ``checkpoint`` (``save_state_dict``, ``load_state_dict`` and the
-``_COMMITTED.json`` protocol), ``watchdog`` (the collective and train-step
-watchdogs) and ``elastic`` (the KV stores, ``ElasticManager``,
-``run_resilient``). The rest of the reference's surface — process groups
-and collectives over ``torch.distributed``, meshes and distributed tensors,
-fleet, sharding, the launcher, ``TCPStore`` — comes with ROADMAP queue 1,
-item 5; those names raise ``NotImplementedError`` naming it.
+Ported: process groups (``env``), the eager collectives (``collective``,
+``communication``), ``ProcessMesh`` and the placements (``mesh``),
+``DataParallel`` (``parallel``), the ZeRO stages (``sharding``), fleet's
+data-parallel and sharding surface (``fleet``), the launcher (``launch``),
+``spawn``, ``checkpoint`` (with sharded entries), ``watchdog`` and
+``elastic``. The names still missing raise ``NotImplementedError`` naming
+the slice of ROADMAP queue 1, item 5 (or item 6) that brings them.
 """
 from __future__ import annotations
 
@@ -15,36 +16,150 @@ from . import checkpoint  # noqa: F401
 from .checkpoint import save_state_dict, load_state_dict  # noqa: F401
 from . import watchdog  # noqa: F401
 from . import elastic  # noqa: F401
+from . import env  # noqa: F401
+from .env import (  # noqa: F401
+    Group, ParallelEnv, barrier, destroy_process_group, get_backend,
+    get_group, get_rank, get_world_size, init_parallel_env, is_initialized,
+    new_group,
+)
+from . import collective  # noqa: F401
+from .collective import (  # noqa: F401
+    P2POp, ReduceOp, all_gather, all_gather_object, all_reduce, alltoall,
+    alltoall_single, batch_isend_irecv, broadcast, broadcast_object_list,
+    gather, irecv, isend, ops, recv, reduce, reduce_scatter, scatter,
+    scatter_object_list, send, wait,
+)
+from . import mesh  # noqa: F401
+from .mesh import (  # noqa: F401
+    Partial, Placement, ProcessMesh, ReduceType, Replicate, Shard,
+    auto_mesh, get_mesh, set_mesh,
+)
+from . import parallel  # noqa: F401
+from .parallel import DataParallel  # noqa: F401
+from . import sharding  # noqa: F401
+from .sharding import (  # noqa: F401
+    DygraphShardingOptimizer, GroupShardedScaler, GroupShardedStage2,
+    GroupShardedStage3, group_sharded_parallel, save_group_sharded_model,
+)
+from . import fleet  # noqa: F401
+from .fleet.recompute import recompute  # noqa: F401
+from . import launch  # noqa: F401
+from . import communication  # noqa: F401
+from . import io  # noqa: F401
+from .communication import stream  # noqa: F401
 
-#: the reference's other public names (paddle_tpu/distributed/__init__.py)
-_LATER = frozenset({
-    "Group", "ParallelEnv", "barrier", "destroy_process_group", "get_group",
-    "get_rank", "get_world_size", "init_parallel_env", "is_initialized",
-    "new_group", "P2POp", "ReduceOp", "all_gather", "all_gather_object",
-    "all_reduce", "alltoall", "alltoall_single", "batch_isend_irecv",
-    "broadcast", "broadcast_object_list", "irecv", "isend", "ops", "recv",
-    "reduce", "reduce_scatter", "scatter", "send", "wait", "Partial",
-    "Placement", "ProcessMesh", "ReduceType", "Replicate", "Shard",
-    "auto_mesh", "get_mesh", "set_mesh", "ShardingStage1", "ShardingStage2",
-    "ShardingStage3", "dtensor_from_fn", "dtensor_from_local", "reshard",
-    "shard_layer", "shard_optimizer", "shard_tensor", "DataParallel",
-    "TCPStore", "sharding", "DygraphShardingOptimizer", "GroupShardedScaler",
-    "GroupShardedStage2", "GroupShardedStage3", "group_sharded_parallel",
-    "save_group_sharded_model", "fleet", "recompute", "spawn",
-    "get_backend", "launch", "rpc", "communication", "stream", "ps",
-    "fleet_executor", "gather", "scatter_object_list", "shard_dataloader",
-    "shard_scaler", "to_static", "unshard_dtensor", "Strategy", "DistModel",
-    "DistAttr", "ParallelMode", "is_available", "split",
-    "gloo_init_parallel_env", "gloo_barrier", "gloo_release",
-    "QueueDataset", "InMemoryDataset", "ProbabilityEntry",
-    "CountFilterEntry", "ShowClickEntry", "io", "mesh", "env", "collective",
-    "api", "parallel", "planner", "auto_parallel", "auto_tuner", "utils",
-})
+
+def _spawn_entry(rank, func, args, nprocs, master, backend):
+    import os
+    os.environ.update({
+        "PADDLE_TRAINER_ID": str(rank), "PADDLE_TRAINERS_NUM": str(nprocs),
+        "PADDLE_MASTER": master, "PADDLE_LOCAL_RANK": str(rank),
+        "RANK": str(rank), "WORLD_SIZE": str(nprocs),
+        "LOCAL_RANK": str(rank)})
+    if backend == "gloo":
+        from .._testing import force_cpu
+        force_cpu()
+    func(*args)
+
+
+def spawn(func, args=(), nprocs=-1, join=True, daemon=False, **options):
+    """reference paddle.distributed.spawn (spawn.py:463): start ``nprocs``
+    processes (default: one per GPU) that each run ``func(*args)`` with the
+    launcher's variables set, so ``init_parallel_env()`` joins them.
+    ``backend="gloo"`` makes each process's default place the CPU. Returns
+    torch's ProcessContext; with ``join`` it waits and raises if a process
+    failed."""
+    import torch
+    import torch.multiprocessing as mp
+    from .launch.main import _free_port
+    if nprocs == -1:
+        nprocs = torch.cuda.device_count()
+    if nprocs < 1:
+        raise RuntimeError("spawn: no GPU to start a process for; pass "
+                           "nprocs and backend='gloo' for the CPU")
+    master = options.get("master") or f"127.0.0.1:{_free_port()}"
+    backend = options.get("backend")
+    return mp.start_processes(_spawn_entry,
+                              args=(func, tuple(args), nprocs, master,
+                                    backend),
+                              nprocs=nprocs, join=join, daemon=daemon,
+                              start_method="spawn")
+
+
+class ParallelMode:
+    """reference base/topology.py ParallelMode constants."""
+    DATA_PARALLEL = 0
+    TENSOR_PARALLEL = 1
+    PIPELINE_PARALLEL = 2
+    SHARDING_PARALLEL = 3
+    SEGMENT_PARALLEL = 4
+
+
+def is_available():
+    """reference distributed.is_available: collective support present."""
+    import torch.distributed as dist
+    return dist.is_available()
+
+
+def gloo_init_parallel_env(rank_id, rank_num, server_endpoint):
+    """reference gloo_init_parallel_env: a gloo group of ``rank_num`` CPU
+    ranks at ``server_endpoint`` (host:port), for CPU barriers."""
+    import datetime
+    import torch.distributed as dist
+    global _GLOO
+    host, port = server_endpoint.rsplit(":", 1)
+    store = dist.TCPStore(host, int(port), rank_num, rank_id == 0,
+                          timeout=datetime.timedelta(seconds=300))
+    if is_initialized():
+        raise RuntimeError("gloo_init_parallel_env: a default process group "
+                           "exists already; use new_group(backend='gloo')")
+    dist.init_process_group("gloo", store=store, rank=rank_id,
+                            world_size=rank_num)
+    _GLOO = True
+
+
+_GLOO = False
+
+
+def gloo_barrier():
+    import torch.distributed as dist
+    if not _GLOO:
+        raise RuntimeError("gloo_barrier: call gloo_init_parallel_env first")
+    dist.barrier()
+
+
+def gloo_release():
+    global _GLOO
+    if _GLOO:
+        destroy_process_group()
+        _GLOO = False
+
+
+_AUTO = "the auto-parallel slice"
+_PS = "the parameter-server slice"
+#: the reference's other public names, and the slice that brings each
+_LATER = {
+    "split": "the tensor- and sequence-parallel slice",
+    "ShardingStage1": _AUTO, "ShardingStage2": _AUTO,
+    "ShardingStage3": _AUTO, "dtensor_from_fn": _AUTO,
+    "dtensor_from_local": _AUTO, "reshard": _AUTO, "shard_layer": _AUTO,
+    "shard_optimizer": _AUTO, "shard_tensor": _AUTO,
+    "shard_dataloader": _AUTO, "shard_scaler": _AUTO, "to_static": _AUTO,
+    "unshard_dtensor": _AUTO, "Strategy": _AUTO, "DistModel": _AUTO,
+    "DistAttr": _AUTO, "api": _AUTO, "planner": _AUTO,
+    "auto_parallel": _AUTO, "auto_tuner": _AUTO,
+    "rpc": "the rpc slice", "ps": _PS, "QueueDataset": _PS,
+    "InMemoryDataset": _PS, "ProbabilityEntry": _PS,
+    "CountFilterEntry": _PS, "ShowClickEntry": _PS,
+    "fleet_executor": "the fleet-executor slice",
+    "utils": "the expert-parallel slice",
+    "TCPStore": "the native TCPStore (ROADMAP queue 1, item 6)",
+}
 
 
 def __getattr__(name):
     if name in _LATER:
         raise NotImplementedError(
-            f"paddle_tpu_torch.distributed.{name} comes with the port of "
-            "distributed over torch.distributed (ROADMAP queue 1, item 5)")
+            f"paddle_tpu_torch.distributed.{name} comes with "
+            f"{_LATER[name]} (ROADMAP queue 1, item 5)")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

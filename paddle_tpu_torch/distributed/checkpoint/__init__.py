@@ -30,10 +30,17 @@ What the port does differently:
   ``ml_dtypes``. A reference checkpoint's bfloat16 arrays are read by their
   bits as well;
 - loading copies into the live tensors in place, on their own devices;
-- the rank is ``torch.distributed``'s, or 0 when no process group exists.
-  Only unsharded tensors are written; an ``index`` entry (the reference's
-  sharded layout) is refused until distributed tensors are ported (ROADMAP
-  queue 1, item 5).
+- the rank is ``torch.distributed``'s, or 0 when no process group exists;
+- a plain ``torch.Tensor`` (a leaf of gpt_hybrid's parameter tree) is saved
+  and loaded in place like a Tensor;
+- a sharded tensor is a ``ShardedTensor``: this rank's block of a global
+  tensor, with the global shape and the block's offsets. Each rank writes
+  its own blocks as the reference's ``index`` entries ([start, stop) per
+  dim); the coordinator gathers every rank's entries into the metadata
+  (so every rank of the group calls ``save_state_dict``, and the save is
+  synchronous). ``load_state_dict`` assembles a target's region, whole
+  tensor or ``ShardedTensor`` block, from whichever entries overlap it, so a
+  checkpoint written at one world size loads at another.
 """
 from __future__ import annotations
 
@@ -52,6 +59,26 @@ from ...io import _world
 #: commit manifest written LAST by the coordinator; its presence (and
 #: the existence of every file it references) defines "committed"
 COMMIT_MARKER = "_COMMITTED.json"
+
+
+class ShardedTensor:
+    """This rank's block of a global tensor: ``local`` (a Tensor) holds the
+    elements at ``offsets`` .. ``offsets + local.shape`` of a tensor of
+    ``global_shape``."""
+
+    def __init__(self, local: Tensor, global_shape, offsets):
+        self.local = local
+        self.global_shape = tuple(int(n) for n in global_shape)
+        self.offsets = tuple(int(o) for o in offsets)
+        if len(self.offsets) != len(self.global_shape) or \
+                len(self.offsets) != local._data.dim():
+            raise ValueError("ShardedTensor: offsets, global shape and the "
+                             "local block need the same rank")
+
+    @property
+    def index(self):
+        return [[o, o + n] for o, n in zip(self.offsets,
+                                            self.local._data.shape)]
 
 
 def _flat(state_dict, prefix=""):
@@ -92,11 +119,26 @@ def save_state_dict(state_dict: Dict, path: str, process_group=None,
     flat = _flat(state_dict)
     meta = {"version": 1, "tensors": {}}
     arrays = {}
+    sharded = False
     for key, t in flat.items():
-        if not isinstance(t, Tensor):
+        if isinstance(t, ShardedTensor):
+            sharded = True
+            arr = t.local._data
+            entries = []
+            if arr.numel():
+                name = f"{key}.{pid}"
+                arrays[name] = _to_host(arr)
+                entries.append({"file": f"shard_{pid}.npz", "name": name,
+                                "index": t.index})
+            meta["tensors"][key] = {"kind": "tensor",
+                                    "shape": list(t.global_shape),
+                                    "dtype": _dtype_name(arr),
+                                    "entries": entries}
+            continue
+        if not isinstance(t, (Tensor, torch.Tensor)):
             meta["tensors"][key] = {"kind": "python", "value": t}
             continue
-        arr = t._data
+        arr = t._data if isinstance(t, Tensor) else t
         entries = []
         # dedup: only the coordinator writes (every tensor is whole)
         if pid == coordinator_rank:
@@ -110,6 +152,7 @@ def save_state_dict(state_dict: Dict, path: str, process_group=None,
             "dtype": _dtype_name(arr),
             "entries": entries,
         }
+    gather = sharded and _world()[0] > 1
 
     def _write():
         # atomic PER FILE (tmp + os.replace): a writer killed mid-save
@@ -130,6 +173,17 @@ def save_state_dict(state_dict: Dict, path: str, process_group=None,
         shard = os.path.join(path, f"shard_{pid}.npz")
         np.savez(shard + ".tmp.npz", **arrays)
         os.replace(shard + ".tmp.npz", shard)
+        if gather:
+            # every rank's entries, once every shard file is in place
+            import torch.distributed as dist
+            everyone = [None] * dist.get_world_size()
+            dist.all_gather_object(everyone, meta)
+            for r, other in enumerate(everyone):
+                for key, info in other["tensors"].items():
+                    if r != pid and info.get("kind") == "tensor" and any(
+                            e["index"] is not None for e in info["entries"]):
+                        meta["tensors"][key]["entries"].extend(
+                            info["entries"])
         if pid == coordinator_rank:
             mpath = os.path.join(path, "metadata.json")
             with open(mpath + ".tmp", "w") as f:
@@ -146,7 +200,7 @@ def save_state_dict(state_dict: Dict, path: str, process_group=None,
                 json.dump(marker, f)
             os.replace(cpath + ".tmp", cpath)
 
-    if async_save:
+    if async_save and not gather:
         th = threading.Thread(target=_write, daemon=True)
         th.start()
         return th
@@ -236,32 +290,60 @@ def load_state_dict(state_dict: Dict, path: str, process_group=None,
             if info["kind"] == "python":
                 restored_py[key] = info["value"]
                 continue
-            if not isinstance(t, Tensor):
+            if isinstance(t, ShardedTensor):
+                dst, lo = t.local._data, t.offsets
+                owner = t.local
+            elif isinstance(t, (Tensor, torch.Tensor)):
+                owner = t if isinstance(t, Tensor) else None
+                dst = t._data if owner is not None else t
+                lo = (0,) * dst.dim()
+                if tuple(info["shape"]) != tuple(dst.shape):
+                    raise ValueError(
+                        f"checkpoint entry {key!r} has shape "
+                        f"{tuple(info['shape'])}, the target "
+                        f"{tuple(dst.shape)}")
+            else:
                 continue
-            entries = info["entries"]
-            if len(entries) != 1 or entries[0]["index"] is not None:
-                raise NotImplementedError(
-                    f"checkpoint entry {key!r} at {path!r} is sharded; "
-                    "sharded checkpoints come with distributed tensors "
-                    "(ROADMAP queue 1, item 5)")
-            e = entries[0]
-            if e["file"] not in files:
-                files[e["file"]] = np.load(os.path.join(path, e["file"]))
-            src = _from_host(files[e["file"]][e["name"]], info["dtype"])
-            dst = t._data
-            if tuple(src.shape) != tuple(dst.shape):
-                raise ValueError(
-                    f"checkpoint entry {key!r} has shape "
-                    f"{tuple(src.shape)}, the target {tuple(dst.shape)}")
-            with torch.no_grad():
-                dst.copy_(src)
-            t._version += 1
+            _fill(dst, lo, key, info, path, files)
+            if owner is not None:
+                owner._version += 1
     finally:
         for f in files.values():
             f.close()
     if restored_py:
         _write_back_python(state_dict, restored_py)
     return state_dict
+
+
+def _fill(dst, lo, key, info, path, files):
+    """Copies into ``dst`` (the block at offsets ``lo`` of the saved
+    tensor) every saved entry's overlap with it; raises unless the entries
+    cover the block."""
+    hi = [o + n for o, n in zip(lo, dst.shape)]
+    shape = info["shape"]
+    if any(h > n for h, n in zip(hi, shape)) or len(lo) != len(shape):
+        raise ValueError(f"checkpoint entry {key!r} of shape {tuple(shape)} "
+                         f"holds no block at {list(lo)} of shape "
+                         f"{tuple(dst.shape)}")
+    covered = 0
+    for e in info["entries"]:
+        idx = e["index"] or [[0, n] for n in shape]
+        a = [max(s, o) for (s, _), o in zip(idx, lo)]
+        b = [min(t, h) for (_, t), h in zip(idx, hi)]
+        if any(x >= y for x, y in zip(a, b)) and dst.dim():
+            continue
+        if e["file"] not in files:
+            files[e["file"]] = np.load(os.path.join(path, e["file"]))
+        src = _from_host(files[e["file"]][e["name"]], info["dtype"])
+        src_sl = tuple(slice(x - s, y - s) for x, y, (s, _) in zip(a, b, idx))
+        dst_sl = tuple(slice(x - o, y - o) for x, y, o in zip(a, b, lo))
+        with torch.no_grad():
+            dst[dst_sl].copy_(src[src_sl])
+        covered += int(np.prod([y - x for x, y in zip(a, b)]))
+    if covered < dst.numel():
+        raise ValueError(f"checkpoint entry {key!r} at {path!r}: the saved "
+                         f"blocks cover {covered} of the {dst.numel()} "
+                         "elements asked for")
 
 
 def _write_back_python(tree, restored, prefix=""):
@@ -273,5 +355,6 @@ def _write_back_python(tree, restored, prefix=""):
         v = tree[k]
         if isinstance(v, dict):
             _write_back_python(v, restored, key)
-        elif not isinstance(v, Tensor) and key in restored:
+        elif not isinstance(v, (Tensor, torch.Tensor, ShardedTensor)) \
+                and key in restored:
             tree[k] = restored[key]

@@ -1,7 +1,10 @@
-"""GPT training step on one device: the port of ``paddle_tpu/models/gpt_hybrid.py``.
+"""GPT training step: the port of ``paddle_tpu/models/gpt_hybrid.py``.
 
 The reference compiles one SPMD program over a (dp, pp, tp) mesh; this port
-runs its single-device case (dp=pp=tp=1) eagerly on one CUDA card:
+runs its single-device case eagerly on one CUDA card, and its data-parallel
+case (dp = N, with or without ZeRO-1) over ``torch.distributed``, one
+process a GPU (see "data parallel" below; pp, tp, sp and experts at dp > 1
+wait for their slices):
 
 - parameters are the reference's dict of stacked ``[L, ...]`` block leaves
   in the ``x @ W`` orientation, so ``params_from_jax`` is a plain copy;
@@ -45,14 +48,15 @@ from .gpt import GPTConfig
 
 @dataclass
 class ParallelConfig:
-    """The reference's ParallelConfig, field for field. One device only:
-    ``dp``/``pp``/``tp`` > 1, ``sp`` and ``collective_matmul`` raise
-    NotImplementedError in ``setup``, ``build_train_step`` and
-    ``build_accum_steps``, and so does ``num_experts`` > 0 beside any of
-    them (expert parallelism); ``microbatches``, ``pp_schedule`` and
-    ``vpp_chunks`` only matter at pp > 1. ``zero1`` (shard the moments over
-    dp) and ``scan_unroll`` (lax.scan unrolling) have no effect on one
-    device in eager PyTorch."""
+    """The reference's ParallelConfig, field for field. ``dp`` > 1 needs a
+    process group of dp ranks (``distributed.init_parallel_env``); ``zero1``
+    shards the Adam moments over them. ``pp``/``tp`` > 1, ``sp`` and
+    ``collective_matmul`` raise NotImplementedError in ``setup``,
+    ``build_train_step`` and ``build_accum_steps``, naming their slices, and
+    so does ``num_experts`` > 0 beside any of them or dp > 1 (expert
+    parallelism); ``microbatches``, ``pp_schedule`` and ``vpp_chunks`` only
+    matter at pp > 1. ``scan_unroll`` (lax.scan unrolling) has no effect in
+    eager PyTorch."""
     dp: int = 1
     pp: int = 1
     tp: int = 1
@@ -77,21 +81,43 @@ class ParallelConfig:
     compute_dtype: Any = torch.bfloat16
 
 
+_TP_SLICE = "the tensor- and sequence-parallel slice"
+_LATER = (("pp", "the pipeline slice"), ("tp", _TP_SLICE))
+
+
 def _validate(pcfg: ParallelConfig):
-    multi = [f"{n}={getattr(pcfg, n)}" for n in ("dp", "pp", "tp")
-             if getattr(pcfg, n) > 1]
+    """Refuses what later slices bring (naming each), and dp > 1 unless a
+    process group of exactly dp ranks exists."""
+    later = [f"{n}={getattr(pcfg, n)} waits for {where}"
+             for n, where in _LATER if getattr(pcfg, n) > 1]
     if pcfg.sp:
-        multi.append("sp=True")
+        later.append(f"sp=True waits for {_TP_SLICE}")
     if pcfg.collective_matmul:
-        multi.append("collective_matmul=True")
-    if multi and pcfg.num_experts > 0:
-        multi.append(f"num_experts={pcfg.num_experts}")
-    if multi:
+        later.append(f"collective_matmul=True waits for {_TP_SLICE}")
+    if pcfg.num_experts > 0 and (later or pcfg.dp > 1):
+        later.append(f"num_experts={pcfg.num_experts} beside dp, pp or tp "
+                     "> 1 waits for the expert-parallel slice")
+    if later:
         raise NotImplementedError(
-            "paddle_tpu_torch runs the single-device step only; "
-            f"{', '.join(multi)} waits for the distributed slice (ROADMAP)")
+            "paddle_tpu_torch runs the single-device and data-parallel "
+            f"steps; {'; '.join(later)} (ROADMAP queue 1, item 5)")
+    if pcfg.dp > 1:
+        from ..distributed.env import get_world_size, is_initialized
+        if not is_initialized():
+            raise RuntimeError(
+                f"dp={pcfg.dp} runs one process a GPU: start {pcfg.dp} "
+                "ranks (python -m paddle_tpu_torch.distributed.launch) and "
+                "call paddle_tpu_torch.distributed.init_parallel_env() first")
+        if get_world_size() != pcfg.dp:
+            raise ValueError(f"dp={pcfg.dp} but the process group has "
+                             f"{get_world_size()} ranks")
     if pcfg.remat and pcfg.remat_policy not in ("full", "dots", "names"):
         raise ValueError(f"unknown remat_policy {pcfg.remat_policy!r}")
+
+
+def _distributed() -> bool:
+    from ..distributed.env import is_initialized
+    return is_initialized()
 
 
 # ------------------------------ init ---------------------------------------
@@ -426,8 +452,13 @@ def build_train_step(cfg: GPTConfig, pcfg: ParallelConfig, lr=3e-4):
     ``batch`` is (input_ids, labels), int64 [B, S] on the params' device.
     With ``gradient_merge_steps`` = k > 1 the batch is split into k chunks
     whose gradients are summed in the param dtype and averaged before one
-    update; the loss is the mean of the chunks' losses."""
+    update; the loss is the mean of the chunks' losses.
+
+    With a process group initialized (at any world size, 1 included) this
+    is the data-parallel step (``_dp_train_step``)."""
     _validate(pcfg)
+    if _distributed():
+        return _dp_train_step(cfg, pcfg, lr)
     k = pcfg.gradient_merge_steps
 
     def train_step(params, opt_state, batch):
@@ -475,8 +506,14 @@ def build_accum_steps(cfg: GPTConfig, pcfg: ParallelConfig, lr=3e-4):
     ``apply_step(params, opt_state, acc, k) -> (params, opt_state, acc)``
     divides the sum by k, runs ``adamw_update`` (in place) and zeroes
     ``acc`` in place. The reference donates ``acc`` to both programs and
-    returns new trees; the port writes into the ones it is given."""
+    returns new trees; the port writes into the ones it is given.
+
+    With a process group initialized, ``grad_step`` adds this rank's rows'
+    gradients and ``apply_step`` reduces the sum once over dp before the
+    update (``_dp_accum_steps``)."""
     _validate(pcfg)
+    if _distributed():
+        return _dp_accum_steps(cfg, pcfg, lr)
 
     @torch.no_grad()
     def add_into(acc, grads):
@@ -509,10 +546,316 @@ def init_grad_accum(params):
 
 def setup(cfg: GPTConfig, pcfg: ParallelConfig, seed=0, device=None):
     """Returns (params, opt_state, train_step) on ``device`` (CUDA unless
-    the caller says otherwise; raises when CUDA is missing)."""
+    the caller says otherwise; raises when CUDA is missing). With a process
+    group initialized, the parameters are broadcast from rank 0, laid into
+    flat buffers (``_bind_flat``) and the state and step are the
+    data-parallel ones."""
     _validate(pcfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = init_params(cfg, pcfg, gen, dev)
-    opt_state = adamw_init(params, pcfg)
+    if _distributed():
+        from ..distributed import collective as C
+        for b in _bind_flat(params, pcfg.dp):
+            C.broadcast(b.flat, src=0)
+        opt_state = dp_adamw_init(params, pcfg)
+    else:
+        opt_state = adamw_init(params, pcfg)
     return params, opt_state, build_train_step(cfg, pcfg, lr=3e-4)
+
+
+# --------------------------- data parallel ---------------------------------
+# The reference's dp step is one GSPMD program: replicated params, the batch
+# sharded over dp, XLA's psum of the gradients, and with zero1 each moment
+# sharded over dp on its first divisible dim (moment_specs). Here each rank
+# is a process: it runs the forward and backward on its B/dp rows of the
+# global batch, and the leaves of one dtype live in one flat buffer, padded
+# to a multiple of dp, of which rank r owns [r * c, (r + 1) * c). Its
+# gradient bucket is reduce-scattered (AVG) onto that slice, _adamw_leaf
+# updates the slice of the parameters and of the moments (ZeRO-1: the
+# moments are only the slice), and an all-gather rebuilds the parameters.
+# Without zero1 the gradients are all-reduced and every rank updates the
+# whole buffer with whole moments. The update is elementwise, so any
+# partition of the elements gives the reference's numbers; the padding
+# stays 0 (p = g = m = v = 0 gives a 0 step) and never reaches a parameter.
+_UPDATE_CHUNK = 1 << 26        # elements per piece of the sliced update
+
+
+class _Bucket:
+    """The leaves of one dtype, as views of one flat buffer."""
+
+    def __init__(self, dtype, refs, flat, numel, chunk):
+        self.dtype, self.refs, self.flat = dtype, refs, flat
+        self.numel, self.chunk = numel, chunk
+
+    @property
+    def key(self):
+        return str(self.dtype).replace("torch.", "")
+
+    def owned(self, t, rank):
+        return t[rank * self.chunk:(rank + 1) * self.chunk]
+
+
+def _leaf_refs(tree):
+    """(dict, key) of every leaf, in ``_leaves`` order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out.extend(_leaf_refs(v) if isinstance(v, dict) else [(tree, k)])
+    return out
+
+
+def _bind_flat(params, dp):
+    """One ``_Bucket`` a dtype (in order of first appearance in
+    ``_leaves``). Leaves that are not yet views of their bucket's buffer
+    are copied into a new one and replaced in ``params`` by views of it."""
+    groups = {}
+    for d, k in _leaf_refs(params):
+        groups.setdefault(d[k].dtype, []).append((d, k))
+    buckets = []
+    for dtype, refs in groups.items():
+        leaves = [d[k] for d, k in refs]
+        numel = sum(x.numel() for x in leaves)
+        chunk = -(-numel // dp)
+        base = leaves[0]._base
+        offs = np.cumsum([0] + [x.numel() for x in leaves[:-1]])
+        bound = (base is not None and base.numel() == chunk * dp
+                 and base.dim() == 1 and all(
+                     x._base is base and x.storage_offset() == int(o)
+                     and x.is_contiguous() for x, o in zip(leaves, offs)))
+        if not bound:
+            base = torch.zeros(chunk * dp, dtype=dtype,
+                               device=leaves[0].device)
+            for (d, k), x, o in zip(refs, leaves, offs):
+                o = int(o)
+                view = base[o:o + x.numel()].view(x.shape)
+                view.copy_(x)
+                d[k] = view
+        buckets.append(_Bucket(dtype, refs, base, numel, chunk))
+    return buckets
+
+
+def _dp():
+    from ..distributed.env import get_rank, get_world_size
+    return get_world_size(), get_rank()
+
+
+def dp_adamw_init(params, pcfg):
+    """The data-parallel AdamW state: per dtype bucket, the moments of this
+    rank's slice (``zero1``) or of the whole buffer, and the step."""
+    dp, _ = _dp()
+    m, v = {}, {}
+    for b in _bind_flat(params, dp):
+        n = b.chunk if pcfg.zero1 else b.chunk * dp
+        mdt = pcfg.moment_dtype or b.dtype
+        m[b.key] = torch.zeros(n, dtype=mdt, device=b.flat.device)
+        v[b.key] = torch.zeros(n, dtype=mdt, device=b.flat.device)
+    return {"m": m, "v": v, "step": 0}
+
+
+def _flat_state(params, opt_state, pcfg, buckets):
+    """Turns a state in the reference's layout (moment trees like params,
+    as ``adamw_init`` or ``params_from_jax`` give) into this rank's flat
+    one, in place."""
+    keys = {b.key for b in buckets}
+    if set(opt_state["m"]) == keys and all(
+            isinstance(opt_state["m"][k], torch.Tensor) for k in keys):
+        return
+    dp, rank = _dp()
+    for name in ("m", "v"):
+        refs = dict(zip(map(id, _leaves(params)), _leaves(opt_state[name])))
+        flat = {}
+        for b in buckets:
+            parts = [refs[id(d[k])].reshape(-1) for d, k in b.refs]
+            full = torch.cat(parts + [parts[0].new_zeros(
+                b.chunk * dp - b.numel)])
+            flat[b.key] = (b.owned(full, rank) if pcfg.zero1
+                           else full).clone()
+        opt_state[name] = flat
+
+
+def _local_rows(batch, dp, rank):
+    b0 = batch[0].shape[0]
+    if b0 % dp:
+        raise ValueError(f"global batch {b0} is not divisible by dp={dp}")
+    n = b0 // dp
+    return tuple(x[rank * n:(rank + 1) * n] for x in batch)
+
+
+def _detached_value_and_grad(params, batch, cfg, pcfg):
+    """(loss, gradients in ``_leaves`` order) of ``batch`` with respect to
+    detached views of the parameters (the buffers' views stay untouched by
+    autograd)."""
+    def detach(tree):
+        return {k: detach(v) if isinstance(v, dict)
+                else v.detach().requires_grad_(True) for k, v in tree.items()}
+    tree = detach(params)
+    loss = loss_fn(tree, batch, cfg, pcfg)
+    return loss.detach(), torch.autograd.grad(loss, _leaves(tree))
+
+
+def _flat_grads(buckets, grads, params):
+    """The gradients as one padded flat tensor a bucket."""
+    by_id = dict(zip(map(id, _leaves(params)), grads))
+    out = []
+    for b in buckets:
+        parts = [by_id[id(d[k])].reshape(-1) for d, k in b.refs]
+        pad = b.flat.numel() - b.numel
+        out.append(torch.cat(parts + [parts[0].new_zeros(pad)] if pad
+                             else parts))
+    return out
+
+
+@torch.no_grad()
+def _dp_update(buckets, flat_grads, opt_state, pcfg, lr):
+    """Reduce each bucket's gradient over dp (AVG), update this rank's
+    slice (or, without zero1, the whole buffer) in place and rebuild the
+    parameters with an all-gather."""
+    from ..distributed import collective as C
+    dp, rank = _dp()
+    step = opt_state["step"] + 1
+    for b, g in zip(buckets, flat_grads):
+        if pcfg.zero1:
+            gs = torch.empty(b.chunk, dtype=g.dtype, device=g.device)
+            C.reduce_scatter_flat(gs, g, C.ReduceOp.AVG)
+            p = b.owned(b.flat, rank)
+        else:
+            C.all_reduce_flat(g, C.ReduceOp.AVG)
+            gs, p = g, b.flat
+        m, v = opt_state["m"][b.key], opt_state["v"][b.key]
+        for i in range(0, p.numel(), _UPDATE_CHUNK):
+            sl = slice(i, i + _UPDATE_CHUNK)
+            pn, mn, vn = _adamw_leaf(p[sl], m[sl], v[sl], gs[sl], step, lr)
+            p[sl].copy_(pn)
+            m[sl].copy_(mn)
+            v[sl].copy_(vn)
+        if pcfg.zero1:
+            C.all_gather_flat(b.flat, p)
+    opt_state["step"] = step
+
+
+def _avg_loss(loss):
+    from ..distributed import collective as C
+    out = loss.float().reshape(1).clone()
+    C.all_reduce_flat(out, C.ReduceOp.AVG)
+    return out[0]
+
+
+def _dp_train_step(cfg, pcfg, lr):
+    """``step(params, opt_state, batch)`` with ``batch`` the global batch:
+    this rank computes on its B/dp rows (in ``gradient_merge_steps``
+    chunks, reduced once); the loss returned is the mean over dp."""
+    k = pcfg.gradient_merge_steps
+
+    def train_step(params, opt_state, batch):
+        dp, rank = _dp()
+        buckets = _bind_flat(params, dp)
+        _flat_state(params, opt_state, pcfg, buckets)
+        rows = _local_rows(batch, dp, rank)
+        if rows[0].shape[0] % k:
+            raise ValueError(
+                f"the rank's batch {rows[0].shape[0]} is not divisible by "
+                f"gradient_merge_steps={k}")
+        acc, lsum = None, 0.0
+        for chunk in zip(*(x.chunk(k) for x in rows)):
+            loss, grads = _detached_value_and_grad(params, chunk, cfg, pcfg)
+            flat = _flat_grads(buckets, grads, params)
+            del grads
+            acc = flat if acc is None else [a.add_(f)
+                                            for a, f in zip(acc, flat)]
+            lsum = lsum + loss
+        if k > 1:
+            acc = [a / k for a in acc]
+        _dp_update(buckets, acc, opt_state, pcfg, lr)
+        return params, opt_state, _avg_loss(lsum / k)
+
+    return train_step
+
+
+def _dp_accum_steps(cfg, pcfg, lr):
+    @torch.no_grad()
+    def add_into(acc, grads):
+        for a, g in zip(_leaves(acc), grads):
+            a.add_(g.to(a.dtype))
+
+    def grad_step(params, acc, batch):
+        dp, rank = _dp()
+        loss, grads = _detached_value_and_grad(
+            params, _local_rows(batch, dp, rank), cfg, pcfg)
+        add_into(acc, grads)
+        return acc, _avg_loss(loss)
+
+    def apply_step(params, opt_state, acc, k):
+        dp, _ = _dp()
+        buckets = _bind_flat(params, dp)
+        _flat_state(params, opt_state, pcfg, buckets)
+        acc_leaves = _leaves(acc)
+        flat = _flat_grads(buckets, [a / k for a in acc_leaves], params)
+        _dp_update(buckets, flat, opt_state, pcfg, lr)
+        for a in acc_leaves:
+            a.zero_()
+        return params, opt_state, acc
+
+    return grad_step, apply_step
+
+
+def gather_opt_state(params, opt_state, pcfg):
+    """The data-parallel AdamW state in the reference's layout on every
+    rank: ``{"m": tree, "v": tree, "step": n}`` with trees like ``params``
+    (each moment all-gathered from the ranks' slices under zero1)."""
+    from ..distributed import collective as C
+    dp, _ = _dp()
+    buckets = _bind_flat(params, dp)
+    out = {"step": opt_state["step"]}
+    for name in ("m", "v"):
+        by_leaf = {}
+        for b in buckets:
+            part = opt_state[name][b.key]
+            if pcfg.zero1:
+                full = torch.empty(b.chunk * dp, dtype=part.dtype,
+                                   device=part.device)
+                C.all_gather_flat(full, part)
+            else:
+                full = part
+            off = 0
+            for d, k in b.refs:
+                x = d[k]
+                by_leaf[id(x)] = full[off:off + x.numel()].view(
+                    x.shape).clone()
+                off += x.numel()
+
+        def tree_of(t):
+            return {k: tree_of(v) if isinstance(v, dict) else by_leaf[id(v)]
+                    for k, v in t.items()}
+        out[name] = tree_of(params)
+    return out
+
+
+def opt_state_shards(params, opt_state, pcfg):
+    """The moments for ``distributed.checkpoint.save_state_dict``: per
+    bucket, this rank's slice of each (clipped to the unpadded length) as a
+    ``ShardedTensor`` of the bucket's global flat shape, so that another
+    world size can load them (``load_opt_state_shards``)."""
+    from ..core.tensor import Tensor
+    from ..distributed.checkpoint import ShardedTensor
+    dp, rank = _dp()
+    out = {"step": opt_state["step"]}
+    for name in ("m", "v"):
+        out[name] = {}
+        for b in _bind_flat(params, dp):
+            t = opt_state[name][b.key]
+            lo = rank * b.chunk if pcfg.zero1 else 0
+            hi = min(lo + t.numel(), b.numel)
+            out[name][b.key] = ShardedTensor(
+                Tensor._wrap(t[:max(hi - lo, 0)]), (b.numel,), (lo,))
+    return out
+
+
+def load_opt_state_shards(params, opt_state, pcfg, path):
+    """Fills this rank's moments (and the step) from a checkpoint that
+    ``opt_state_shards`` wrote at any world size; the padding stays 0."""
+    from ..distributed.checkpoint import load_state_dict
+    target = opt_state_shards(params, opt_state, pcfg)
+    load_state_dict(target, path)
+    opt_state["step"] = target["step"]
+    return opt_state

@@ -18,9 +18,9 @@ Where the port differs on purpose:
 - the reference's ``lax.scan`` loops (``edit_distance``, ``viterbi_decode``,
   ``gather_tree``) are Python loops over time whose carries stay on the
   device: no step reads a value on the host;
-- ``gammainc``/``gammaincc`` differentiate in their second argument only:
-  torch has no derivative of the incomplete gamma in its first (``a``), and
-  the backward raises there, where jax gives one.
+- ``gammainc``/``gammaincc`` differentiate in ``a`` through
+  ``_igamma_grad_a``, the series and continued fraction of jax's
+  ``igamma_grad_a`` written in torch (torch has no derivative in ``a``).
 """
 from __future__ import annotations
 
@@ -112,13 +112,137 @@ def polygamma(x, n):
     return run_op("polygamma", f, _t(x))
 
 
+def _igamma_grad_a(a, x):
+    """d P(a, x) / da, elementwise: jax's ``igamma_grad_a`` (the series of
+    P for x <= 1 or x <= a, else the continued fraction of Q), each iterated
+    until its derivative term moves by less than the dtype's eps."""
+    eps = torch.finfo(a.dtype).eps
+    a, x = torch.broadcast_tensors(a, x)
+    x_is_zero = x == 0
+    domain = (x < 0) | (a <= 0) | torch.isnan(a) | torch.isnan(x)
+    use_cf = (x > 1) & (x > a)
+    safe_x = torch.where(x_is_zero | domain, torch.ones_like(x), x)
+    safe_a = torch.where(domain, torch.ones_like(a), a)
+    logax = safe_a * torch.log(safe_x) - safe_x - torch.lgamma(safe_a)
+    underflow = logax < -math.log(torch.finfo(a.dtype).max)
+    ax = torch.exp(logax)
+    enabled = ~(x_is_zero | domain | underflow)
+
+    # the series: P = ax / a * sum_n c_n, c_0 = 1, c_n = c_{n-1} x / (a + n)
+    on = enabled & ~use_cf
+    r, c, ans = safe_a.clone(), torch.ones_like(a), torch.ones_like(a)
+    dc, dans = torch.zeros_like(a), torch.zeros_like(a)
+    while bool(on.any()):
+        r1 = r + 1
+        dc1 = dc * (safe_x / r1) - (c * safe_x) / (r1 * r1)
+        dans1 = dans + dc1
+        c1 = c * (safe_x / r1)
+        r, c = torch.where(on, r1, r), torch.where(on, c1, c)
+        ans = torch.where(on, ans + c1, ans)
+        dc, dans = torch.where(on, dc1, dc), torch.where(on, dans1, dans)
+        on = on & ((dc1 / dans1).abs() > eps)
+    dlogax = torch.log(safe_x) - torch.digamma(safe_a + 1)
+    series = ax * (ans * dlogax + dans) / safe_a
+
+    # the continued fraction of Q (Cephes igamc), with its derivative in a
+    on = enabled & use_cf
+    y = 1 - safe_a
+    z = safe_x + y + 1
+    cnt = torch.zeros_like(a)
+    pkm2, qkm2 = torch.ones_like(a), safe_x.clone()
+    pkm1, qkm1 = safe_x + 1, z * safe_x
+    ans = pkm1 / qkm1
+    dpkm2, dqkm2 = torch.zeros_like(a), torch.zeros_like(a)
+    dpkm1, dqkm1 = torch.zeros_like(a), -safe_x
+    dans = (dpkm1 - ans * dqkm1) / qkm1
+    n = 0
+    while bool(on.any()) and n < 2000:
+        n += 1
+        cnt, y, z = cnt + 1, y + 1, z + 2
+        yc = y * cnt
+        pk = pkm1 * z - pkm2 * yc
+        qk = qkm1 * z - qkm2 * yc
+        nz = qk != 0
+        rk = pk / torch.where(nz, qk, torch.ones_like(qk))
+        ans1 = torch.where(nz, rk, ans)
+        dpk = dpkm1 * z - pkm1 - dpkm2 * yc + pkm2 * cnt
+        dqk = dqkm1 * z - qkm1 - dqkm2 * yc + qkm2 * cnt
+        dans1 = torch.where(
+            nz, (dpk - ans1 * dqk) / torch.where(nz, qk, torch.ones_like(qk)),
+            dans)
+        moved = torch.where(nz, (dans1 - dans).abs(), torch.ones_like(dans))
+        pkm2n, pkm1n, qkm2n, qkm1n = pkm1, pk, qkm1, qk
+        dpkm2n, dqkm2n, dpkm1n, dqkm1n = dpkm1, dqkm1, dpk, dqk
+        big = pk.abs() > 1 / eps
+        scale = torch.where(big, torch.full_like(pk, eps), torch.ones_like(pk))
+        pkm2n, pkm1n = pkm2n * scale, pkm1n * scale
+        qkm2n, qkm1n = qkm2n * scale, qkm1n * scale
+        dpkm2n, dqkm2n = dpkm2n * scale, dqkm2n * scale
+        dpkm1n, dqkm1n = dpkm1n * scale, dqkm1n * scale
+        ans, dans = torch.where(on, ans1, ans), torch.where(on, dans1, dans)
+        pkm2, pkm1 = torch.where(on, pkm2n, pkm2), torch.where(on, pkm1n, pkm1)
+        qkm2, qkm1 = torch.where(on, qkm2n, qkm2), torch.where(on, qkm1n, qkm1)
+        dpkm2 = torch.where(on, dpkm2n, dpkm2)
+        dqkm2 = torch.where(on, dqkm2n, dqkm2)
+        dpkm1 = torch.where(on, dpkm1n, dpkm1)
+        dqkm1 = torch.where(on, dqkm1n, dqkm1)
+        on = on & (moved > eps)
+    dlogax = torch.log(safe_x) - torch.digamma(safe_a)
+    cf = -ax * (ans * dlogax + dans)
+
+    out = torch.where(use_cf, cf, series)
+    out = torch.where(x_is_zero, torch.zeros_like(out), out)
+    return torch.where(domain, torch.full_like(out, float("nan")), out)
+
+
+def _igamma_grad_x(a, x):
+    """d P(a, x) / dx = x^(a-1) e^(-x) / Gamma(a)."""
+    return torch.exp((a - 1) * torch.log(x) - x - torch.lgamma(a))
+
+
+def _unbroadcast(g, shape):
+    while g.ndim > len(shape):
+        g = g.sum(0)
+    for i, n in enumerate(shape):
+        if n == 1 and g.shape[i] != 1:
+            g = g.sum(i, keepdim=True)
+    return g
+
+
+class _Igamma(torch.autograd.Function):
+    """P(a, x) (sign 1) or Q(a, x) = 1 - P (sign -1), differentiable in
+    both arguments."""
+
+    @staticmethod
+    def forward(ctx, a, x, sign):
+        ctx.save_for_backward(a, x)
+        ctx.sign = sign
+        return (torch.special.gammainc if sign > 0
+                else torch.special.gammaincc)(a, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, x = ctx.saved_tensors
+        ga = gx = None
+        with torch.no_grad():
+            if ctx.needs_input_grad[0]:
+                ga = _unbroadcast(ctx.sign * g * _igamma_grad_a(a, x),
+                                  a.shape)
+            if ctx.needs_input_grad[1]:
+                gx = _unbroadcast(ctx.sign * g * _igamma_grad_x(a, x),
+                                  x.shape)
+        return ga, gx, None
+
+
 def gammaincc(x, y):
     """Regularized upper incomplete gamma Q(x, y)."""
-    return run_op("gammaincc", torch.special.gammaincc, _t(x), _t(y))
+    return run_op("gammaincc", lambda a, b: _Igamma.apply(a, b, -1),
+                  _t(x), _t(y))
 
 
 def gammainc(x, y):
-    return run_op("gammainc", torch.special.gammainc, _t(x), _t(y))
+    return run_op("gammainc", lambda a, b: _Igamma.apply(a, b, 1),
+                  _t(x), _t(y))
 
 
 def standard_gamma(x):

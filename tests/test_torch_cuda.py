@@ -891,3 +891,71 @@ def test_cuda_rng_state_round_trip_on_the_card():
         np.testing.assert_array_equal(paddle.rand([64]).numpy(), first)
     finally:
         paddle.set_device("cpu")
+
+
+def test_nccl_world1_collectives_on_the_card():
+    """init_parallel_env over NCCL at world 1 on cuda:0, and each eager
+    collective's world-1 value on a card tensor (chip_smoke.py phase 16a's
+    checks)."""
+    _need_card()
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.distributed as dist
+    cs = _chip_smoke()
+    run = cs.Run()
+    paddle.set_device("gpu:0")
+    try:
+        cs.check_collectives(run, paddle, dist, torch)
+    finally:
+        dist.destroy_process_group()
+        paddle.set_device("cpu")
+    assert not run.failures, run.failures
+
+
+def test_tiny_gpt_hybrid_distributed_step_on_the_card():
+    """gpt_hybrid's data-parallel step at world 1 over NCCL on the card
+    (ZeRO-1, gradient merge 2) against the single-device step on the CPU:
+    f32, the same arithmetic in another order (1e-4 of the loss and of each
+    leaf's scale, beside Adam's 0.1 lr a step on rounding noise)."""
+    _need_card()
+    import paddle_tpu_torch.distributed as dist
+    import paddle_tpu_torch as paddle
+    cfg = GPTConfig(vocab_size=256, hidden_size=128, num_layers=2,
+                    num_heads=2, max_seq_len=128)
+    pcfg = TH.ParallelConfig(dp=1, zero1=True, gradient_merge_steps=2,
+                             remat=True, remat_policy="names",
+                             param_dtype=torch.float32,
+                             compute_dtype=torch.float32)
+    start = TH.init_params(cfg, pcfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (4, 128)))
+
+    def run(device):
+        params = TH.params_from_jax(
+            {k: ({kk: vv.numpy() for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.numpy())
+             for k, v in start.items()}, device=device)
+        opt = TH.dp_adamw_init(params, pcfg) if dist.is_initialized() \
+            else TH.adamw_init(params, pcfg)
+        step = TH.build_train_step(cfg, pcfg)
+        batch = (ids.to(device), ids.to(device))
+        losses = [float(step(params, opt, batch)[2]) for _ in range(3)]
+        return losses, [p.detach().float().cpu() for p in TH._leaves(params)]
+
+    want_l, want_p = run("cpu")
+    paddle.set_device("gpu:0")
+    dist.init_parallel_env()
+    try:
+        assert dist.get_backend() == "nccl"
+        tsa.reset_launch_counts()
+        got_l, got_p = run("cuda")
+    finally:
+        dist.destroy_process_group()
+        paddle.set_device("cpu")
+    np.testing.assert_allclose(got_l, want_l, rtol=1e-4)
+    for g, w in zip(got_p, want_p):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max()) \
+            + 3 * 0.1 * 3e-4
+    L = cfg.num_layers
+    assert tsa.LAUNCHES == {"simple_attention_fwd": 3 * 2 * L,
+                            "simple_attention_bwd": 3 * 2 * L}

@@ -363,9 +363,10 @@ def test_flags_registry_is_the_references():
     # FLAGS_low_precision_op_list, the 6 of training robustness
     # (FLAGS_max_bad_steps, FLAGS_step_timeout_s, FLAGS_watchdog_interval_s,
     # FLAGS_watchdog_store_root, FLAGS_memory_stats_dump_path,
-    # FLAGS_collective_timeout_s) and the 3 of jit (FLAGS_print_jaxpr,
-    # FLAGS_max_specializations, FLAGS_max_shape_specializations)
-    assert len(port) == 23
+    # FLAGS_collective_timeout_s), the 3 of jit (FLAGS_print_jaxpr,
+    # FLAGS_max_specializations, FLAGS_max_shape_specializations) and
+    # the collectives' FLAGS_collective_debug
+    assert len(port) == 24
     assert port == {n: jflags._REGISTRY[n].default for n in port}
     assert set(tflags.get_flags()) >= set(port)
     with pytest.raises(KeyError, match="FLAGS_benchmark"):

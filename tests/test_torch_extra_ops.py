@@ -12,8 +12,9 @@ the reference gradient's scale. Values are compared, not storage widths
 that draw (``standard_gamma``, ``dirichlet``, ``top_p_sampling``,
 ``log_normal`` and the random fills) draw from torch's generators, so their
 draws differ from jax's by design: they are held to their distribution and
-support instead. ``gammainc``/``gammaincc`` are differentiated in their
-second argument only (torch has no derivative in ``a``).
+support instead. ``gammainc``/``gammaincc`` are differentiated in both
+arguments, and their derivative in ``a`` is also held to ``jax.grad`` in
+float64 at 1e-5 relative, in both of its regimes.
 """
 import importlib
 
@@ -131,9 +132,9 @@ EXTRA = [
     Case("polygamma_0", lambda pd, x: X(pd).polygamma(x, 0), [POS], (0,)),
     Case("polygamma_2", lambda pd, x: X(pd).polygamma(x, 2), [POS], (0,)),
     Case("gammaincc", lambda pd, a, x: X(pd).gammaincc(a, x),
-         [POS, f32(3, 4, lo=0.1, hi=4.0, seed=3)], (1,)),
+         [POS, f32(3, 4, lo=0.1, hi=4.0, seed=3)], (0, 1)),
     Case("gammainc", lambda pd, a, x: X(pd).gammainc(a, x),
-         [POS, f32(3, 4, lo=0.1, hi=4.0, seed=3)], (1,)),
+         [POS, f32(3, 4, lo=0.1, hi=4.0, seed=3)], (0, 1)),
     Case("logsigmoid", lambda pd, x: X(pd).logsigmoid(x), [f32(3, 4)],
          (0,)),
     Case("tanh_shrink", lambda pd, x: X(pd).tanh_shrink(x), [f32(3, 4)],
@@ -401,6 +402,29 @@ CASES = EXTRA + VISION + SIGNAL + COMPAT + GEOMETRIC
 @pytest.mark.parametrize("case", CASES, ids=[c.id for c in CASES])
 def test_op_matches_reference(case):
     _check(case)
+
+
+@pytest.mark.parametrize("name", ["gammainc", "gammaincc"])
+def test_gammainc_grad_in_a_matches_jax_f64(name):
+    """d/da of P and Q at (a, x) pairs of both regimes of jax's
+    igamma_grad_a: the series (x <= 1 or x <= a) and the continued
+    fraction (x > 1 and x > a); 1e-5 relative in float64."""
+    import jax
+    import jax.numpy as jnp
+    a = np.array([0.3, 0.8, 1.0, 4.0, 10.0, 0.5, 2.5, 3.0, 7.5, 2.0])
+    x = np.array([0.2, 0.05, 0.5, 1.5, 9.0, 3.0, 6.0, 3.5, 12.0, 40.0])
+    assert ((x > 1) & (x > a)).sum() == 5        # five of each regime
+    ta = T.to_tensor(a, dtype="float64", stop_gradient=False)
+    tx = T.to_tensor(x, dtype="float64", stop_gradient=False)
+    getattr(T.ops.extra, name)(ta, tx).sum().backward()
+    fn = getattr(jax.scipy.special, name)
+    with jax.enable_x64(True):
+        ja, jx = jax.grad(lambda p, q: fn(p, q).sum(), argnums=(0, 1))(
+            jnp.asarray(a, jnp.float64), jnp.asarray(x, jnp.float64))
+        ja, jx = np.asarray(ja), np.asarray(jx)
+    assert ta.grad.numpy().dtype == np.float64
+    np.testing.assert_allclose(ta.grad.numpy(), ja, rtol=1e-5, atol=0)
+    np.testing.assert_allclose(tx.grad.numpy(), jx, rtol=1e-5, atol=0)
 
 
 # ------------------------------------------------------------- draws

@@ -11,7 +11,10 @@ DataLoader workers, and the training-robustness modules: ``device``,
 the rest of the eager API: ``_C_ops`` and ``ops/yaml``, ``core.infermeta``,
 ``ops``' ``extra``, ``vision_ops``, ``compat`` and ``array``, ``tensor``,
 ``linalg``, ``signal``, ``geometric``, ``nn``'s ``rnn``, extended layers and
-functionals and ``quant``, ``core.string_tensor`` and ``text``), and
+functionals and ``quant``, ``core.string_tensor`` and ``text``, and
+collective parallelism: ``distributed``'s ``env``, ``collective``,
+``communication``, ``mesh``, ``parallel``, ``sharding``, ``fleet`` and
+``launch``, with the data-parallel step of ``models.gpt_hybrid``), and
 its entry points default to CUDA:
 the training step's, and the eager API's, whose tensors land on gpu:0
 unless set_device("cpu") was called."""
@@ -237,6 +240,38 @@ assert geometric.segment_sum(jit_x, paddle.to_tensor([0, 0, 1])).shape == \
     [2, 4]
 assert paddle.linalg.inv(paddle.eye(3)).shape == [3, 3]
 
+# collective parallelism at world 1 over gloo: process groups, collectives,
+# DataParallel, the ZeRO stages, fleet, the launcher, the dp + ZeRO-1 step
+import paddle_tpu_torch.distributed as dist
+from paddle_tpu_torch.distributed import (collective, communication, env,
+                                          fleet, io as dist_io, launch,
+                                          mesh, parallel, sharding)
+from paddle_tpu_torch.distributed.communication import stream
+from paddle_tpu_torch.distributed.fleet import recompute, topology
+from paddle_tpu_torch.distributed.fleet.utils import (
+    fs, hybrid_parallel_util, log_util, mix_precision_utils, timer_helper)
+from paddle_tpu_torch.distributed.launch import main as launch_main
+params, opt, step = TH.setup(cfg, pcfg, seed=0, device="cpu")
+single = float(step(params, opt, (ids, ids))[2])
+dist.init_parallel_env()
+assert dist.get_backend() == "gloo" and dist.get_world_size() == 1
+t = paddle.ones([4])
+dist.all_reduce(t)
+assert t.numpy().tolist() == [1.0] * 4
+fleet.init(is_collective=True, strategy=fleet.DistributedStrategy())
+lin = nn.Linear(4, 4)
+dp_model = dist.DataParallel(lin)
+dp_model(paddle.ones([2, 4])).sum().backward()
+lin3 = nn.Linear(4, 4)
+zm, zo, _ = dist.group_sharded_parallel(
+    lin3, optimizer.AdamW(1e-3, parameters=lin3.parameters()), "p_g_os")
+zm(paddle.ones([2, 4])).sum().backward()
+zo.step()
+params, opt, step = TH.setup(cfg, pcfg, seed=0, device="cpu")
+assert isinstance(opt["m"]["float32"], torch.Tensor)      # flat buckets
+assert float(step(params, opt, (ids, ids))[2]) == single
+dist.destroy_process_group()
+
 def foreign(name):
     return (name in ("jax", "jaxlib", "paddle_tpu")
             or name.startswith(("jax.", "jaxlib.", "paddle_tpu.")))
@@ -269,10 +304,13 @@ def test_distributed_names_of_later_slices_raise_naming_their_queue_item():
     assert paddle.Model.__module__ == "paddle_tpu_torch.hapi"
     assert distributed.save_state_dict is distributed.checkpoint.\
         save_state_dict
-    for name in ("ProcessMesh", "all_reduce", "fleet", "TCPStore",
-                 "init_parallel_env", "launch"):
+    for name in ("shard_tensor", "reshard", "split", "rpc", "ps",
+                 "fleet_executor", "TCPStore"):
         with pytest.raises(NotImplementedError, match="queue 1, item 5"):
             getattr(distributed, name)
+    for name in ("ColumnParallelLinear", "PipelineLayer", "UtilBase"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+            getattr(distributed.fleet, name)
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         elastic.TCPKVStore("localhost", 0)
     with pytest.raises(AttributeError):

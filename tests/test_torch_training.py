@@ -577,10 +577,20 @@ def test_the_references_checkpoint_loads_and_a_sharded_entry_is_refused(
     assert out["step"] == 3
     with open(tmp_path / "metadata.json") as f:
         meta = json.load(f)
+    # the reference's sharded layout: an entry holding the whole tensor as
+    # one block loads; blocks that leave part of the target uncovered are
+    # refused
     meta["tensors"]["a"]["entries"][0]["index"] = [[0, 2], [0, 3]]
     with open(tmp_path / "metadata.json", "w") as f:
         json.dump(meta, f)
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    out["a"] = T.zeros([2, 3])
+    dc.load_state_dict(out, str(tmp_path))
+    np.testing.assert_array_equal(out["a"].numpy(), ref["a"].numpy())
+    meta["tensors"]["a"]["shape"] = [4, 3]
+    with open(tmp_path / "metadata.json", "w") as f:
+        json.dump(meta, f)
+    out["a"] = T.zeros([4, 3])
+    with pytest.raises(ValueError, match="cover 6 of the 12"):
         dc.load_state_dict(out, str(tmp_path))
 
 
