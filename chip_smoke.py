@@ -260,6 +260,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
      ms/step, tokens/s, the idle share and the recurrence's route (cuDNN);
      an {"eager_api": {...}} line. ``--phase15`` runs the build and this
      phase alone.
+ 16. collective parallelism over torch.distributed (see the phase 16
+     section below); ``--phase16`` runs the build and it alone.
+ 17. tensor and sequence parallelism: (a) each tp/sp primitive (the
+     column -> row linears, the vocab-parallel embedding, the parallel
+     cross entropy, the sequence-parallel linears, the two ring collective
+     matmuls, ring and Ulysses attention causal and not) at world 1 over
+     NCCL against its plain form, f32 and bf16, output and gradients; (b)
+     benchmarks/workloads/llama_tp_pp_sharding3.py's Llama-7B widths
+     (vocab 32000, h4096, 32 heads of 128) at 16 of its 32 layers, B2
+     S2048, bf16, remat "names", fused CE, zero1, sp, through setup() and
+     the tp + sp step at world 1 over NCCL: its losses against the
+     single-device step's (run just before), 16 launches a step of each of
+     causal_attention's kernels and of no other, no host-staged
+     collective; ms/step, tokens/s, MFU, the peak, the NCCL ms and idle
+     share of one profiled step; then with collective_matmul; (c) two
+     ranks at tp = 2 + sp over gloo on the one card through the launcher
+     (2 layers): global losses within 2e-2 of the world-1 step's, 2
+     launches a step of each causal_attention kernel at 16 local heads;
+     ms/step, the collectives' host-clock ms, collective.host_staged. A
+     {"tensor_parallel": {...}} line. ``--phase17`` runs the build and this
+     phase alone.
 The script sets FLAGS_matmul_precision to "highest", which the flag's
 default gives a user: f32 products and convolutions run in f32.
 Phases 2-6 keep the autotuner's table in a fresh temporary
@@ -267,8 +288,9 @@ PADDLE_TPU_CACHE_DIR, empty until phase 6, with FLAGS_attn_autotune at its
 default: phases 2-5 (and 7, 8, 10 and 11, each on a table of its own) run
 the configuration a user gets on a new checkout.
 Prints {"serving": {...}}, {"moe_gpt": {...}}, {"bert": {...}},
-{"resnet50": {...}}, {"model_fit": {...}}, {"jit": {...}} and
-{"eager_api": {...}} lines, the
+{"resnet50": {...}}, {"model_fit": {...}}, {"jit": {...}},
+{"eager_api": {...}}, {"distributed": {...}} and {"tensor_parallel": {...}}
+lines, the
 script's seconds, the card line, then one {"kernels": [...]} line (each row with its design),
 then as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -4763,9 +4785,472 @@ def drive_distributed(run, paddle, TH, GPTConfig, GPTForCausalLM, mods, fa,
     return out
 
 
+# --------------------------------------------------------------- phase 17
+# Tensor and sequence parallelism over torch.distributed (the manual-tp
+# block over the tp group, the sp linears, the ring collective matmuls,
+# ring and Ulysses attention). The card holds one rank of NCCL (17a, 17b:
+# the code that N ranks run, at world 1) and two ranks of gloo (17c: NCCL
+# refuses two ranks on one device, phase 16d).
+# 17b: benchmarks/workloads/llama_tp_pp_sharding3.py's full configuration
+# (Llama-7B dims: vocab 32000, h4096, 32 heads of 128, S2048; B2; bf16;
+# remat "names", fused CE, zero1, sp) without pp, at dp = tp = 1. Depth is
+# the only cut, 16 of its 32 layers: ~1.6 GB a layer of bf16 parameters,
+# gradients and moments, and the single-device step's whole-leaf f32 update
+# beside it, leave 32 layers no room on 80 GB.
+TP_LLAMA = dict(vocab_size=32000, hidden_size=4096, num_layers=16,
+                num_heads=32, max_seq_len=2048)
+TP_BATCH, TP_SEQ = 2, 2048
+TP_COMPARED, TP_TIMED = 3, 5
+TP_KERNELS = ("causal_attention_fwd", "causal_attention_bwd")
+# 17c: the same widths at 2 layers, tp = 2 over gloo with the card's tensors
+TP2_LAYERS, TP2_BACKEND = 2, "gloo"
+
+
+def _tp_pcfg(TH, torch, **fields):
+    return TH.ParallelConfig(**{
+        "remat": True, "remat_policy": "names", "fused_ce": True,
+        "zero1": True, "param_dtype": torch.bfloat16,
+        "compute_dtype": torch.bfloat16, **fields})
+
+
+def _tp_ids(torch, cfg):
+    """The workload's batch: RandomState(0), the same ids every step."""
+    return torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (TP_BATCH, TP_SEQ))).cuda()
+
+
+def _timed_steps(torch, step, params, opt_state, batch, n):
+    losses, times = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(params, opt_state, batch)[2]
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    return losses, times
+
+
+def check_tp_primitives(run, paddle, dist, torch):
+    """17a: each tensor- and sequence-parallel primitive on the card at
+    world 1 over NCCL against its plain single-device computation, f32 and
+    bf16, the output and every input's gradient of sum(out * c):
+    ColumnParallelLinear -> RowParallelLinear, VocabParallelEmbedding,
+    ParallelCrossEntropy, the two sequence-parallel linears,
+    all_gather_matmul and matmul_reduce_scatter, ring and Ulysses
+    attention, causal and not."""
+    import torch.nn.functional as tF
+    from paddle_tpu_torch.core.tensor import Tensor
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.parallel.collective_matmul import (
+        all_gather_matmul, matmul_reduce_scatter)
+    from paddle_tpu_torch.parallel.ring_attention import ring_attention
+    from paddle_tpu_torch.parallel.ulysses import ulysses_attention
+    g = dist.init_parallel_env()
+    run.check(dist.get_backend() == "nccl" and g.nranks == 1,
+              f"17a: init_parallel_env over {dist.get_backend()}, world "
+              f"{g.nranks}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    errs = {}
+
+    def randn(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dt)
+
+    def rel(a, b):
+        a, b = a.detach().float(), b.detach().float()
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    def compare(name, dt, fn, plain, inputs):
+        """fn and plain on leaf copies of inputs: the largest relative error
+        of the output and of each input's gradient."""
+        a = [x.clone().requires_grad_(x.is_floating_point()) for x in inputs]
+        b = [x.clone().requires_grad_(x.is_floating_point()) for x in inputs]
+        ya, yb = fn(*a), plain(*b)
+        c = randn(yb.shape, torch.float32)
+        (ya.float() * c).sum().backward()
+        (yb.float() * c).sum().backward()
+        errs[f"{name} {str(dt)[6:]}"] = max(
+            [rel(ya, yb)] + [rel(x.grad, y.grad) for x, y in zip(a, b)
+                             if x.grad is not None])
+
+    def layer_fn(*layers):
+        """f(x, *params): the layers chained, their params bound to the
+        leaves given (so the gradients land on them)."""
+        ps = [p for layer in layers for _, p in
+              sorted(layer.named_parameters())]
+
+        def f(x, *leaves):
+            for p, w in zip(ps, leaves):
+                p._data = w
+            y = Tensor._wrap(x, not x.requires_grad)
+            for layer in layers:
+                y = layer(y)
+            return y._data
+        return f, [p._data.detach() for p in ps]
+
+    h, ffn, vocab = 1024, 4096, 32000
+    for dt in (torch.float32, torch.bfloat16):
+        paddle.seed(0)
+        col = fleet.ColumnParallelLinear(h, ffn, gather_output=False,
+                                         mp_group=g)
+        row = fleet.RowParallelLinear(ffn, h, input_is_parallel=True,
+                                      mp_group=g)
+        if dt == torch.bfloat16:
+            col.bfloat16()
+            row.bfloat16()
+        f, ws = layer_fn(col, row)
+        x = randn((2, 512, h), dt)
+        compare("column->row linear", dt, f, lambda x, b1, w1, b2, w2:
+                (x @ w1 + b1) @ w2 + b2, [x] + ws)
+        scol = fleet.ColumnSequenceParallelLinear(h, ffn, mp_group=g)
+        srow = fleet.RowSequenceParallelLinear(ffn, h, mp_group=g)
+        if dt == torch.bfloat16:
+            scol.bfloat16()
+            srow.bfloat16()
+        f, ws = layer_fn(scol, srow)
+        compare("sequence-parallel linears", dt, f,
+                lambda x, b1, w1, b2, w2: (x @ w1 + b1) @ w2 + b2, [x] + ws)
+        emb = fleet.VocabParallelEmbedding(vocab, h, mp_group=g)
+        if dt == torch.bfloat16:
+            emb.bfloat16()
+        f, ws = layer_fn(emb)
+        ids = torch.randint(0, vocab, (2, 512), generator=gen,
+                            device="cuda")
+        compare("vocab-parallel embedding", dt, f,
+                lambda i, w: tF.embedding(i, w), [ids] + ws)
+        ce = fleet.ParallelCrossEntropy(mp_group=g)
+        labels = torch.randint(0, vocab, (1024,), generator=gen,
+                               device="cuda")
+        labels[::7] = -100
+        compare("parallel cross entropy", dt,
+                lambda z: ce(Tensor._wrap(z, False),
+                             Tensor._wrap(labels))._data,
+                lambda z: tF.cross_entropy(z.float(), labels,
+                                           reduction="none"),
+                [randn((1024, vocab), dt, 4.0)])
+        xs = randn((2048, 2, h), dt)
+        compare("all_gather_matmul", dt,
+                lambda x, w: all_gather_matmul(x, w, g),
+                lambda x, w: x @ w, [xs, randn((h, ffn), dt, 0.03)])
+        compare("matmul_reduce_scatter", dt,
+                lambda x, w: matmul_reduce_scatter(x, w, g),
+                lambda x, w: x @ w, [xs, randn((h, ffn), dt, 0.03)])
+        qkv = [randn((1, 2048, 8, 128), dt) for _ in range(3)]
+        for causal in (False, True):
+            def plain(q, k, v, causal=causal):
+                lg = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                                  k.float()) / math.sqrt(q.shape[-1])
+                if causal:
+                    keep = torch.ones(lg.shape[-2:], dtype=torch.bool,
+                                      device="cuda").tril()
+                    lg = lg.masked_fill(~keep, -1e30)
+                return torch.einsum("bhqk,bkhd->bqhd", lg.softmax(-1),
+                                    v.float()).to(q.dtype)
+            for name, fn in (("ring", ring_attention),
+                             ("ulysses", ulysses_attention)):
+                compare(f"{name} attention causal={causal}", dt,
+                        lambda q, k, v, fn=fn, causal=causal:
+                        fn(q, k, v, g, causal=causal), plain, qkv)
+    worst = {}
+    for name, err in errs.items():
+        tol = 1e-5 if name.endswith("float32") else TOL["bfloat16"]
+        worst[name] = err
+        run.check(err <= tol, f"17a: {name} on the card over NCCL at world "
+                  f"1 equals its plain form: {err:.3e} <= {tol}")
+    return worst
+
+
+def _tp_single(TH, GPTConfig, torch, cfg_fields, steps):
+    """The losses and ms/step of the single-device step (no process group)
+    of the same configuration, the baseline of 17b and 17c."""
+    cfg = GPTConfig(**cfg_fields)
+    params, opt_state, step = TH.setup(cfg, _tp_pcfg(TH, torch), seed=0)
+    losses, times = _timed_steps(torch, step, params, opt_state,
+                                 (_tp_ids(torch, cfg),) * 2, steps)
+    del params, opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses, float(np.median(times[1:]))
+
+
+def drive_tp_gpt(run, paddle, dist, TH, GPTConfig, mods, cost_model, torch,
+                 single, single_ms):
+    """17b: the main path, llama_tp_pp_sharding3.py's configuration (16
+    layers) through setup() and the tp + sp step at world 1 over NCCL, then
+    with collective_matmul."""
+    from paddle_tpu_torch.distributed import collective as C
+    cfg = GPTConfig(**TP_LLAMA)
+    L = cfg.num_layers
+    dist.init_parallel_env()
+    out = {}
+    for cm in (False, True):
+        pcfg = _tp_pcfg(TH, torch, dp=1, tp=1, sp=True,
+                        collective_matmul=cm)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt_state, step = TH.setup(cfg, pcfg, seed=0)
+        batch = (_tp_ids(torch, cfg),) * 2
+        torch.cuda.synchronize()
+        for mod in mods:
+            mod.reset_launch_counts()
+        staged0 = dict(C.HOST_STAGED)
+        losses = [float(step(params, opt_state, batch)[2])
+                  for _ in range(TP_COMPARED)]
+        torch.cuda.synchronize()
+        launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
+        timed, times = _timed_steps(torch, step, params, opt_state, batch,
+                                    TP_TIMED)
+        losses += timed
+        ms = float(np.median(times))
+        tok_s = TP_BATCH * TP_SEQ / (ms / 1e3)
+        fpt = cost_model.gpt_flops_per_token(cfg, TP_SEQ)
+        mfu = cost_model.mfu(tok_s, fpt, "H100")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        label = "17b" + (" collective_matmul" if cm else "")
+        if not cm:
+            from torch.profiler import ProfilerActivity, profile
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step(params, opt_state, batch)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            rows = _device_rows(prof)
+            nccl_ops = sorted({e.key for e in prof.key_averages()
+                               if e.key.startswith("nccl:")})
+            nccl_ms = sum(r[1] for r in _nccl_rows(rows))
+            busy = sum(r[1] for r in rows) - nccl_ms
+            idle = max(0.0, 1 - busy / wall_ms)
+            ref = single
+        else:
+            ref = out["tp_sp"]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(losses[:TP_COMPARED], ref[:TP_COMPARED]))
+        staged = {k: v - staged0.get(k, 0) for k, v in C.HOST_STAGED.items()
+                  if v != staged0.get(k, 0)}
+        print(f"{label} Llama-7B widths, {L} layers, B{TP_BATCH} "
+              f"S{TP_SEQ}, tp + sp at world 1 over NCCL: losses "
+              f"{[round(x, 4) for x in losses]}; against "
+              f"{[round(x, 4) for x in ref[:TP_COMPARED]]}", flush=True)
+        what = "the single-device step's" if not cm else \
+            "the step without collective_matmul's"
+        run.check(rel <= TOL["bfloat16"],
+                  f"{label}: the {TP_COMPARED} losses equal {what} within "
+                  f"{TOL['bfloat16']} relative (bf16): worst {rel:.3e}")
+        run.check(launches == {n: L * TP_COMPARED if n in TP_KERNELS else 0
+                               for n in launches},
+                  f"{label}: {L} launches a step of each of "
+                  f"{list(TP_KERNELS)} over {TP_COMPARED} steps, no other "
+                  f"attention kernel: {launches}")
+        run.check(all(map(math.isfinite, losses))
+                  and 10.0 <= losses[0] <= 11.5 and losses[-1] < losses[0],
+                  f"{label}: step-0 loss {losses[0]:.4f} in [10, 11.5] "
+                  f"(ln(32000) = 10.37) and the loss falls to "
+                  f"{losses[-1]:.4f}")
+        run.check(not staged, f"{label}: no collective took the host route "
+                  f"(NCCL): {staged}")
+        res = {"losses": losses, "loss_rel_err": rel, "ms_per_step": ms,
+               "ms_per_step_spread": max(times) - min(times),
+               "tokens_per_s": tok_s, "mfu": mfu, "flops_per_token": fpt,
+               "peak_memory_gb": peak_gb, "launches": launches,
+               "host_staged": staged}
+        if not cm:
+            res.update({"single_device_losses": single[:TP_COMPARED],
+                        "single_device_ms_per_step": single_ms,
+                        "profiled_ms": wall_ms, "kernel_ms": busy,
+                        "nccl_ms": nccl_ms, "nccl_ops": nccl_ops,
+                        "idle_share": idle})
+            print(f"{label}: {ms:.2f} ms/step (device events, median of "
+                  f"{TP_TIMED}, spread {max(times) - min(times):.2f}) beside "
+                  f"the single-device step's {single_ms:.2f}; {tok_s:.1f} "
+                  f"tokens/s, MFU {mfu:.4f} at {fpt:.4e} FLOP/token, peak "
+                  f"memory {peak_gb:.2f} GB; profiled step {wall_ms:.2f} ms "
+                  f"wall, {busy:.2f} ms kernel time, NCCL {nccl_ms:.3f} ms "
+                  f"({nccl_ops}), idle share {idle:.3f}", flush=True)
+            for key, kms, count in rows[:8]:
+                print(f"  {kms:9.3f} ms {count:6d}x  {key[:100]}")
+            out["tp_sp"] = res
+        else:
+            print(f"{label}: {ms:.2f} ms/step (spread "
+                  f"{max(times) - min(times):.2f}) beside "
+                  f"{out['tp_sp']['ms_per_step']:.2f} without it; peak "
+                  f"{peak_gb:.2f} GB", flush=True)
+            out["tp_sp_collective_matmul"] = res
+        del params, opt_state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase17c_worker(out_dir):
+    """One rank of 17c, started by the port's launcher: the tp = 2 + sp step
+    over TP2_BACKEND with the card's tensors, each collective timed on the
+    host clock; rank 0 writes the losses, times and counts."""
+    import torch
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.models import gpt_hybrid as TH
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.ops.hopper import causal_attention as ca
+    paddle.set_device("gpu:0")
+    dist.init_parallel_env(backend=TP2_BACKEND)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    coll_ms = [0.0]
+
+    def timed(fn):
+        def wrapper(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                coll_ms[0] += (time.perf_counter() - t0) * 1e3
+        return wrapper
+    for name in ("_sum_over", "_gather_along", "_scatter_sum", "_exchange",
+                 "_permute", "all_reduce_flat", "reduce_scatter_flat",
+                 "all_gather_flat"):
+        setattr(C, name, timed(getattr(C, name)))
+    heads = set()
+    attend = ca.attention_bhsd
+
+    def counted(q, *a, **k):
+        heads.add(int(q.shape[1]))
+        return attend(q, *a, **k)
+    ca.attention_bhsd = counted
+    cfg = GPTConfig(**dict(TP_LLAMA, num_layers=TP2_LAYERS))
+    pcfg = _tp_pcfg(TH, torch, tp=world, sp=True)
+    params, opt_state, step = TH.setup(cfg, pcfg, seed=0)
+    batch = (_tp_ids(torch, cfg),) * 2
+    losses, step_ms, step_coll = [], [], []
+    ca.reset_launch_counts()
+    for _ in range(TP_COMPARED):
+        coll_ms[0] = 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(params, opt_state, batch)[2]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_coll.append(coll_ms[0])
+    if rank == 0:
+        with open(os.path.join(out_dir, "tp2.json"), "w") as f:
+            json.dump({"losses": losses, "step_ms": step_ms,
+                       "collective_ms": step_coll, "world": world,
+                       "backend": dist.get_backend(),
+                       "launches": dict(ca.LAUNCHES),
+                       "local_heads": sorted(heads),
+                       "host_staged": dict(C.HOST_STAGED)}, f)
+    dist.destroy_process_group()
+
+
+def drive_tp_two_ranks(run, TH, GPTConfig, torch):
+    """17c: two ranks at tp = 2 + sp on the one card over gloo, started by
+    the port's launcher, against the single-device step of the same
+    configuration from the same parameters in this process."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    fields = dict(TP_LLAMA, num_layers=TP2_LAYERS)
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, ".cache")) as d:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node", "2", os.path.abspath(__file__),
+             "--phase17c-worker", d],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, start_new_session=True)
+        try:
+            _, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            _, err = proc.communicate()
+        wall = time.perf_counter() - t0
+        ok = proc.returncode == 0 and os.path.exists(os.path.join(d,
+                                                                  "tp2.json"))
+        run.check(ok, f"17c: two ranks at tp = 2 over {TP2_BACKEND} on the "
+                  f"one card ran (rc {proc.returncode}, {wall:.1f} s)"
+                  f"{'' if ok else ': ' + err[-1500:]}")
+        if not ok:
+            return {"backend": TP2_BACKEND, "rc": proc.returncode}
+        with open(os.path.join(d, "tp2.json")) as f:
+            two = json.load(f)
+    one, one_ms = _tp_single(TH, GPTConfig, torch, fields, TP_COMPARED)
+    diff = max(abs(a - b) for a, b in zip(two["losses"], one))
+    run.check(diff <= 2e-2 and two["world"] == 2
+              and two["backend"] == TP2_BACKEND,
+              f"17c: the global losses {[round(x, 4) for x in two['losses']]}"
+              f" of 2 ranks ({two['backend']}) are within 2e-2 of the "
+              f"world-1 run's {[round(x, 4) for x in one]} (worst "
+              f"{diff:.3e})")
+    want = {n: TP2_LAYERS * TP_COMPARED for n in TP_KERNELS}
+    heads = TP_LLAMA["num_heads"] // 2
+    run.check(two["launches"] == want and two["local_heads"] == [heads],
+              f"17c: each rank launched {TP2_LAYERS} a step of each "
+              f"causal_attention kernel ({two['launches']}) at "
+              f"{two['local_heads']} local heads, {heads} expected")
+    ms2 = float(np.median(two["step_ms"][1:]))
+    coll = float(np.median(two["collective_ms"][1:]))
+    print(f"17c: Llama-7B widths at {TP2_LAYERS} layers, B{TP_BATCH} "
+          f"S{TP_SEQ}, tp = 2 + sp over {TP2_BACKEND}: {ms2:.1f} ms/step "
+          f"(host clock, median of steps 2-{TP_COMPARED}), the collectives "
+          f"{coll:.1f} ms of it; collective.host_staged "
+          f"{two['host_staged']}; world 1 {one_ms:.1f} ms/step (CUDA "
+          "events)", flush=True)
+    return {"backend": TP2_BACKEND, "two_rank_losses": two["losses"],
+            "world1_losses": one, "loss_abs_err": diff,
+            "ms_per_step": ms2, "step_ms": two["step_ms"],
+            "collective_ms": coll, "collective_ms_all": two["collective_ms"],
+            "host_staged": two["host_staged"],
+            "launches": two["launches"], "local_heads": two["local_heads"],
+            "world1_ms_per_step": one_ms, "launcher_s": wall}
+
+
+def drive_tensor_parallel(run, paddle, TH, GPTConfig, mods, cost_model,
+                          torch):
+    """Phase 17: 17a the primitives at world 1 over NCCL, 17b the Llama-7B
+    width tp + sp step (16 layers) with and without collective_matmul, 17c
+    two ranks at tp = 2 over gloo on the one card."""
+    import paddle_tpu_torch.distributed as dist
+    t_phase = time.perf_counter()
+    paddle.set_device("gpu:0")
+    out = {"allocated_at_start_gb": torch.cuda.memory_allocated() / 1e9}
+    print(f"17: {out['allocated_at_start_gb']:.2f} GB allocated on the card "
+          "by earlier phases", flush=True)
+    t0 = time.perf_counter()
+    single, single_ms = _tp_single(TH, GPTConfig, torch, TP_LLAMA,
+                                   TP_COMPARED)
+    print(f"17b single-device step: {[round(x, 4) for x in single]}, "
+          f"{single_ms:.2f} ms/step ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    t0 = time.perf_counter()
+    out["primitives_rel_err"] = check_tp_primitives(run, paddle, dist,
+                                                    torch)
+    print(f"17a: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    out.update(drive_tp_gpt(run, paddle, dist, TH, GPTConfig, mods,
+                            cost_model, torch, single, single_ms))
+    print(f"17b: {time.perf_counter() - t0:.1f} s", flush=True)
+    dist.destroy_process_group()
+    t0 = time.perf_counter()
+    out["two_ranks"] = drive_tp_two_ranks(run, TH, GPTConfig, torch)
+    print(f"17c: {time.perf_counter() - t0:.1f} s", flush=True)
+    out["phase_17_s"] = time.perf_counter() - t_phase
+    print(f"tensor-parallel phase: {out['phase_17_s']:.1f} s", flush=True)
+    return out
+
+
 def main():
     if sys.argv[1:2] == ["--phase16d-worker"]:
         phase16d_worker(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--phase17c-worker"]:
+        phase17c_worker(sys.argv[2])
         return 0
     try:
         import torch
@@ -4820,6 +5305,19 @@ def main():
                               ".cache")
     os.makedirs(cache_root, exist_ok=True)
     mods = (sa, ca, bf, sa2, fa)
+    if "--phase17" in sys.argv[1:]:
+        # phase 17 alone (no kernels line, no ok line): for work on it
+        with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+            os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+            at._table = None
+            tp = drive_tensor_parallel(run, paddle, TH, GPTConfig, mods,
+                                       cost_model, torch)
+        print(json.dumps({"tensor_parallel": tp}))
+        print(f"chip_smoke --phase17: {time.perf_counter() - t_script:.1f} "
+              f"s, {len(run.failures)} check(s) failed", flush=True)
+        for what in run.failures:
+            print(f"  {what[:300]}", file=sys.stderr)
+        return 1 if run.failures else 0
     if "--phase16" in sys.argv[1:]:
         # phase 16 alone (no kernels line, no ok line): for work on it
         with tempfile.TemporaryDirectory(dir=cache_root) as cache:
@@ -4962,6 +5460,13 @@ def main():
         dd = drive_distributed(run, paddle, TH, GPTConfig, GPTForCausalLM,
                                mods, fa, cost_model, torch,
                                paths["flagship"], layer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+        os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+        at._table = None
+        tp = drive_tensor_parallel(run, paddle, TH, GPTConfig, mods,
+                                   cost_model, torch)
 
     kernels = []
     for kern in KERNELS:
@@ -5005,6 +5510,7 @@ def main():
     print(json.dumps({"jit": jit}))
     print(json.dumps({"eager_api": api}))
     print(json.dumps({"distributed": dd}))
+    print(json.dumps({"tensor_parallel": tp}))
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s", flush=True)
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed:",

@@ -108,6 +108,10 @@ define_flag("FLAGS_call_stack_level", 1,
             "input dtypes/shapes")
 define_flag("FLAGS_collective_debug", False,
             "print each eager collective (op, group, shape) to stderr")
+define_flag("FLAGS_collective_matmul", False,
+            "the sequence-parallel linears use the ring collective matmuls "
+            "(all_gather@W / X@W->reduce_scatter, parallel/"
+            "collective_matmul.py) instead of a collective then a matmul")
 define_flag("FLAGS_collective_timeout_s", 600.0,
             "collective watchdog: seconds before a device probe counts "
             "as hung")

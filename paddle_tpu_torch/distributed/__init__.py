@@ -2,10 +2,12 @@
 ``torch.distributed`` (one process per GPU; NCCL on the card, gloo when the
 caller asks for the CPU).
 
-Ported: process groups (``env``), the eager collectives (``collective``,
-``communication``), ``ProcessMesh`` and the placements (``mesh``),
-``DataParallel`` (``parallel``), the ZeRO stages (``sharding``), fleet's
-data-parallel and sharding surface (``fleet``), the launcher (``launch``),
+Ported: process groups (``env``), the eager collectives and the
+differentiable mesh-axis ``ops`` (``collective``, ``communication``),
+``ProcessMesh`` and the placements (``mesh``), ``DataParallel``
+(``parallel``), the ZeRO stages (``sharding``), fleet's data-, tensor-,
+sequence-parallel and sharding surface (``fleet``: the mp layers and the
+sequence-parallel linears), ``split``, the launcher (``launch``),
 ``spawn``, ``checkpoint`` (with sharded entries), ``watchdog`` and
 ``elastic``. The names still missing raise ``NotImplementedError`` naming
 the slice of ROADMAP queue 1, item 5 (or item 6) that brings them.
@@ -135,11 +137,48 @@ def gloo_release():
         _GLOO = False
 
 
+#: layers built by split(), keyed by call site: calling split again with the
+#: same key reuses the same parameters; an optimizer reaches them here.
+_split_layers = {}
+
+
+def split(x, size, operation, axis=0, num_partitions=1, gather_out=True,
+          weight_attr=None, bias_attr=None, name=None):
+    """reference paddle.distributed.split (distributed/__init__.py:90): a
+    row- or column-parallel linear, or a vocab-parallel embedding, over the
+    model-parallel group (fleet's mp layers), applied to ``x``. The layer
+    is cached by (name, operation, size, axis, num_partitions) so repeated
+    calls share one set of parameters; collect them through
+    ``_split_layers[key].parameters()``."""
+    from .fleet.mp_layers import (ColumnParallelLinear, RowParallelLinear,
+                                  VocabParallelEmbedding)
+    key = (name, operation, tuple(size), axis, num_partitions)
+    layer = _split_layers.get(key)
+    if layer is None:
+        if operation == "linear":
+            if axis == 1:
+                layer = ColumnParallelLinear(
+                    size[0], size[1], weight_attr=weight_attr,
+                    has_bias=bias_attr is not False,
+                    gather_output=gather_out)
+            else:
+                layer = RowParallelLinear(
+                    size[0], size[1], weight_attr=weight_attr,
+                    has_bias=bias_attr is not False,
+                    input_is_parallel=False)
+        elif operation == "embedding":
+            layer = VocabParallelEmbedding(size[0], size[1],
+                                           weight_attr=weight_attr)
+        else:
+            raise ValueError(f"unknown split operation {operation!r}")
+        _split_layers[key] = layer
+    return layer(x)
+
+
 _AUTO = "the auto-parallel slice"
 _PS = "the parameter-server slice"
 #: the reference's other public names, and the slice that brings each
 _LATER = {
-    "split": "the tensor- and sequence-parallel slice",
     "ShardingStage1": _AUTO, "ShardingStage2": _AUTO,
     "ShardingStage3": _AUTO, "dtensor_from_fn": _AUTO,
     "dtensor_from_local": _AUTO, "reshard": _AUTO, "shard_layer": _AUTO,

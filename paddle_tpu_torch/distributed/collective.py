@@ -15,10 +15,15 @@ Gloo has no AVG: there it is a SUM divided by the group's size.
 
 The reference's in-graph ``ops`` (lax collectives keyed by a mesh axis name)
 are functions of torch tensors here, keyed by the group that a mesh axis of
-the current ``ProcessMesh`` names; they return new tensors.
+the current ``ProcessMesh`` names; they return new tensors and are
+differentiable, with lax's transposes as their gradients (the tensor- and
+sequence-parallel layers build on them). Under gloo, collectives of CUDA
+tensors other than the all-reduce and the broadcast run on a host copy,
+counted in ``HOST_STAGED``.
 """
 from __future__ import annotations
 
+import collections
 import sys
 from typing import List, Optional
 
@@ -151,7 +156,8 @@ _LOCAL = object()        # world 1 before init_parallel_env: the identity
 
 def _pg(group: Optional[Group]):
     """torch's process group of ``group``, or ``_LOCAL`` for world 1 before
-    ``init_parallel_env``. A group this process is not in raises."""
+    ``init_parallel_env`` and for a one-rank group without a torch group. A
+    group this process is not in raises."""
     if group is None:
         if is_initialized():
             return dist.group.WORLD
@@ -160,7 +166,9 @@ def _pg(group: Optional[Group]):
                                f"{get_world_size()} need init_parallel_env()")
         return _LOCAL
     if group.process_group is None:
-        if not is_initialized() and group.nranks == 1 and group.rank == 0:
+        # world 1 before init_parallel_env, or a group of this rank alone
+        # made without a torch group (its collectives are the identity)
+        if group.nranks == 1 and group.rank == 0:
             return _LOCAL
         raise ValueError(f"this process (rank {get_rank()}) is not a member "
                          f"of {group}")
@@ -481,9 +489,248 @@ def scatter_object_list(out_object_list, in_object_list=None, src=0,
 
 
 # ---------------------------------------------------------------------------
-# collectives keyed by mesh axis (the reference's in-graph ``ops``)
+# differentiable collectives over a group (the reference's in-graph ops)
 # ---------------------------------------------------------------------------
+# Each rank holds its own tensor. The autograd Functions below carry lax's
+# transposes, so that a rank's gradient is its part of the gradient of the
+# one global function the reference computes: psum's backward is the
+# identity (lax's pbroadcast), pvary is the identity with a psum backward
+# (Megatron's f at a column-parallel input), all_gather <-> psum_scatter,
+# all_to_all <-> the reverse all_to_all, ppermute <-> the inverse
+# permutation. _GatherInvariant (all_gather with a slice backward, lax's
+# all_gather_invariant) and _Split (a slice with an all_gather backward)
+# move a tensor between sharded and replicated, whose gradient is the same
+# on every rank.
+
+#: collectives of CUDA tensors run on a host copy, by op. Under gloo the
+#: port hands CUDA tensors only to the all-reduce and the broadcast (the
+#: ops DataParallel over gloo runs on the card); its other collectives of
+#: CUDA tensors go through the host (``_host_route``). NCCL never takes
+#: this route.
+HOST_STAGED = collections.Counter()
+_GLOO_TAKES_CUDA = ("all_reduce", "broadcast")
+
+
+def _host_route(op, pg, a):
+    """(the tensor to hand the backend, whether it is a host copy)."""
+    if a.is_cuda and _gloo(pg) and op not in _GLOO_TAKES_CUDA:
+        HOST_STAGED[op] += 1
+        if _met._ENABLED:
+            _met.REGISTRY.counter("collective.host_staged", op=op).inc()
+        return a.cpu(), True
+    return a, False
+
+
+def _sum_over(x, group, op=ReduceOp.SUM):
+    """The reduction of every rank's ``x`` over ``group``, out of place."""
+    _collective_log("all_reduce", x, group)
+    pg = _pg(group)
+    out = x.detach().clone(memory_format=torch.contiguous_format)
+    if pg is not _LOCAL:
+        top, div = _torch_op(op, pg)
+        dist.all_reduce(out, op=top, group=pg)
+        then = _divide(out, div)
+        if then is not None:
+            then()
+    return out
+
+
+def _gather_along(x, group, dim):
+    """Every rank's ``x`` concatenated along ``dim`` in group-rank order."""
+    _collective_log("all_gather", x, group)
+    pg = _pg(group)
+    if pg is _LOCAL:
+        return x.detach().clone()
+    n = _nranks(pg)
+    a, staged = _host_route("all_gather", pg, x.detach().contiguous())
+    a = a.reshape((-1,) + tuple(a.shape[1:]))
+    buf = a.new_empty((n * a.shape[0],) + tuple(a.shape[1:]))
+    _ALL_GATHER(buf, a, group=pg)
+    out = torch.cat(buf.view((n,) + tuple(x.shape)).unbind(0), dim)
+    return out.to(x.device) if staged else out
+
+
+def _chunks(x, n, dim, what):
+    if x.shape[dim] % n:
+        raise ValueError(f"{what}: dim {dim} of size {x.shape[dim]} is not "
+                         f"divisible by the group's {n} ranks")
+    return x.chunk(n, dim)
+
+
+def _scatter_sum(x, group, dim):
+    """This rank's chunk along ``dim`` of the sum of every rank's ``x``
+    (lax.psum_scatter, tiled)."""
+    _collective_log("reduce_scatter", x, group)
+    pg = _pg(group)
+    if pg is _LOCAL:
+        return x.detach().clone()
+    n = _nranks(pg)
+    parts = torch.stack(_chunks(x.detach(), n, dim,
+                                "psum_scatter")).contiguous()
+    a, staged = _host_route("reduce_scatter", pg, parts)
+    out = a.new_empty(a.shape[1:])
+    _REDUCE_SCATTER(out, a.view((-1,) + tuple(a.shape[2:])),
+                    op=dist.ReduceOp.SUM, group=pg)
+    return out.to(x.device) if staged else out
+
+
+def _own_chunk(x, group, dim):
+    n, r = group.nranks, group.rank
+    return _chunks(x, n, dim, "split")[r].contiguous()
+
+
+def _exchange(x, group, split_axis, concat_axis, tiled=True):
+    """lax.all_to_all: chunk j of ``split_axis`` goes to group rank j; the
+    chunks received are concatenated along ``concat_axis`` (stacked there
+    when not ``tiled``, where ``split_axis`` has one entry a rank)."""
+    _collective_log("alltoall", x, group)
+    pg = _pg(group)
+    n = _nranks(pg)
+    if tiled:
+        parts = torch.stack(_chunks(x.detach(), n, split_axis,
+                                    "all_to_all")).contiguous()
+    else:
+        if x.shape[split_axis] != n:
+            raise ValueError(f"all_to_all(tiled=False): dim {split_axis} "
+                             f"has {x.shape[split_axis]} entries for {n} "
+                             "ranks")
+        parts = x.detach().movedim(split_axis, 0).contiguous()
+    if pg is _LOCAL:
+        got = parts.clone()
+    else:
+        a, staged = _host_route("alltoall", pg, parts)
+        got = torch.empty_like(a, memory_format=torch.contiguous_format)
+        dist.all_to_all_single(got, a, group=pg)
+        got = got.to(x.device) if staged else got
+    if tiled:
+        return torch.cat(got.unbind(0), concat_axis)
+    return got.movedim(0, concat_axis).contiguous()
+
+
+def _permute(x, group, perm):
+    """lax.ppermute: group rank i sends ``x`` to group rank j for each
+    (i, j) in ``perm``; a rank that receives nothing gets zeros. Every rank
+    posts its sends and receives in ``perm``'s order."""
+    _collective_log("ppermute", x, group)
+    me = group.rank
+    out = torch.zeros_like(x, memory_format=torch.contiguous_format)
+    pg = _pg(group)
+    p2p = []
+    staged = False
+    if pg is not _LOCAL and any(i != j for i, j in perm):
+        src, staged = _host_route("ppermute", pg, x.detach().contiguous())
+        dst = torch.zeros_like(src) if staged else out
+    for i, j in perm:
+        if i == me and j == me:
+            out.copy_(x)
+        elif i == me:
+            p2p.append(dist.P2POp(dist.isend, src, group.ranks[j],
+                                  group=None if pg is dist.group.WORLD
+                                  else pg))
+        elif j == me:
+            p2p.append(dist.P2POp(dist.irecv, dst, group.ranks[i],
+                                  group=None if pg is dist.group.WORLD
+                                  else pg))
+    for work in dist.batch_isend_irecv(p2p) if p2p else ():
+        work.wait()
+    if staged and any(j == me and i != me for i, j in perm):
+        out.copy_(dst)
+    return out
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_over(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Pvary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g, ctx.group), None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather_along(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_sum(g, ctx.group, ctx.dim), None, None
+
+
+class _GatherInvariant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _gather_along(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own_chunk(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _scatter_sum(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_along(g, ctx.group, ctx.dim), None, None
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _own_chunk(x.detach(), group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_along(g, ctx.group, ctx.dim), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis, tiled):
+        ctx.args = (group, concat_axis, split_axis, tiled)
+        return _exchange(x, group, split_axis, concat_axis, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_exchange(g, *ctx.args), None, None, None, None)
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, perm):
+        ctx.group = group
+        ctx.inverse = [(j, i) for i, j in perm]
+        return _permute(x, group, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _permute(g, ctx.group, ctx.inverse), None, None
+
+
 def _axis_group(axis_name):
+    """The group that ``axis_name`` names: a Group is itself; a name is an
+    axis of the current ``ProcessMesh``."""
+    if isinstance(axis_name, Group):
+        return axis_name
     from .mesh import get_mesh
     mesh = get_mesh()
     if mesh is None:
@@ -492,75 +739,66 @@ def _axis_group(axis_name):
     return mesh.get_group(axis_name)
 
 
-def _reduced(x, axis_name, op):
-    out = x.detach().clone()
-    all_reduce(out, op, _axis_group(axis_name))
-    return out
-
-
 class ops:
-    """The reference's lax collectives keyed by a mesh axis name, over the
-    group that the axis of the current ``ProcessMesh`` names. Functions of
-    torch tensors; each returns a new tensor."""
+    """The reference's lax collectives keyed by a mesh axis name (or given
+    a Group), over the group that the axis of the current ``ProcessMesh``
+    names. Functions of torch tensors with lax's transposes as their
+    gradients; each returns a new tensor (``pvary`` a view)."""
 
     @staticmethod
     def psum(x, axis_name):
-        return _reduced(x, axis_name, ReduceOp.SUM)
+        return _Psum.apply(x, _axis_group(axis_name))
+
+    @staticmethod
+    def pvary(x, axis_name):
+        """The identity, with a psum over the axis as its gradient: a
+        replicated value entering computation that differs by rank."""
+        return _Pvary.apply(x, _axis_group(axis_name))
 
     @staticmethod
     def pmean(x, axis_name):
-        return _reduced(x, axis_name, ReduceOp.AVG)
+        g = _axis_group(axis_name)
+        return _Psum.apply(x, g) / g.nranks
 
     @staticmethod
     def pmax(x, axis_name):
-        return _reduced(x, axis_name, ReduceOp.MAX)
+        """Not differentiable (lax.pmax has no AD rule)."""
+        return _sum_over(x, _axis_group(axis_name), ReduceOp.MAX)
 
     @staticmethod
     def all_gather(x, axis_name, axis=0, tiled=True):
-        parts = []
-        all_gather(parts, x.detach(), _axis_group(axis_name))
-        return torch.cat(parts, axis) if tiled else torch.stack(parts, axis)
+        g = _axis_group(axis_name)
+        if not tiled:
+            x = x.unsqueeze(axis)
+        return _AllGather.apply(x, g, axis)
 
     @staticmethod
-    def reduce_scatter(x, axis_name, scatter_dimension=0, tiled=True):
-        g = _axis_group(axis_name)
-        parts = list(x.detach().chunk(g.nranks, scatter_dimension))
-        out = torch.empty_like(parts[0])
-        reduce_scatter(out, parts, ReduceOp.SUM, g)
+    def psum_scatter(x, axis_name, scatter_dimension=0, tiled=True):
+        out = _ReduceScatter.apply(x, _axis_group(axis_name),
+                                   scatter_dimension)
         return out if tiled else out.squeeze(scatter_dimension)
+
+    reduce_scatter = psum_scatter
 
     @staticmethod
     def all_to_all(x, axis_name, split_axis, concat_axis, tiled=True):
-        g = _axis_group(axis_name)
-        ins = [p.contiguous() for p in x.detach().chunk(g.nranks,
-                                                        split_axis)]
-        outs = []
-        alltoall(ins, outs, g)
-        return torch.cat(outs, concat_axis)
+        return _AllToAll.apply(x, _axis_group(axis_name), split_axis,
+                               concat_axis, tiled)
 
     @staticmethod
     def ppermute(x, axis_name, perm):
         """Group rank i sends x to group rank j for each (i, j) in perm;
         a rank that receives nothing gets zeros."""
-        g = _axis_group(axis_name)
-        me = g.rank
-        out = torch.zeros_like(x)
-        p2p = []
-        for i, j in perm:
-            if i == me and j == me:
-                out.copy_(x)
-            elif i == me:
-                p2p.append(P2POp(isend, x.detach().contiguous(),
-                                 g.ranks[j], g))
-            elif j == me:
-                p2p.append(P2POp(irecv, out, g.ranks[i], g))
-        for task in batch_isend_irecv(p2p) if p2p else ():
-            task.wait()
-        return out
+        return _Ppermute.apply(x, _axis_group(axis_name),
+                               [(int(i), int(j)) for i, j in perm])
 
     @staticmethod
     def axis_index(axis_name):
         return _axis_group(axis_name).rank
+
+    @staticmethod
+    def axis_size(axis_name):
+        return _axis_group(axis_name).nranks
 
 
 # ---------------------------------------------------------------------------
@@ -583,10 +821,14 @@ def reduce_scatter_flat(out: torch.Tensor, inp: torch.Tensor,
         out.copy_(inp)
         return
     top, div = _torch_op(op, pg)
-    _REDUCE_SCATTER(out, inp, op=top, group=pg)
-    then = _divide(out, div)
+    a, staged = _host_route("reduce_scatter", pg, inp)
+    o = out.cpu() if staged else out
+    _REDUCE_SCATTER(o, a, op=top, group=pg)
+    then = _divide(o, div)
     if then is not None:
         then()
+    if staged:
+        out.copy_(o)
 
 
 def all_gather_flat(out: torch.Tensor, inp: torch.Tensor,
@@ -598,6 +840,12 @@ def all_gather_flat(out: torch.Tensor, inp: torch.Tensor,
     if pg is _LOCAL:
         if out.data_ptr() != inp.data_ptr():
             out.copy_(inp)
+        return
+    a, staged = _host_route("all_gather", pg, inp)
+    if staged:
+        o = out.cpu()
+        _ALL_GATHER(o, a, group=pg)
+        out.copy_(o)
         return
     if _gloo(pg) and out.untyped_storage().data_ptr() == \
             inp.untyped_storage().data_ptr():

@@ -1,16 +1,18 @@
 """Fleet: the port of ``paddle_tpu/distributed/fleet/__init__.py`` for
-collective data parallelism (reference: fleet/fleet.py:151 — fleet.init
-builds the HybridCommunicateGroup from the DistributedStrategy;
-distributed_model wraps by strategy, fleet/model.py:32;
-distributed_optimizer wraps with HybridParallelOptimizer,
-hybrid_parallel_optimizer.py:258).
+collective parallelism (reference: fleet/fleet.py:151 — fleet.init builds
+the HybridCommunicateGroup from the DistributedStrategy; distributed_model
+wraps by strategy, fleet/model.py:32; distributed_optimizer wraps with
+HybridParallelOptimizer, hybrid_parallel_optimizer.py:258).
 
 Ported: ``dp_degree`` and ``sharding_degree`` (DataParallel over the dp
-group, the stage-1 sharding optimizer over the sharding group), gradient
-merge and AMP O2 as the strategy wires them. ``mp_degree``, ``pp_degree``
-or ``sep_degree`` above 1, the tensor-, sequence- and pipeline-parallel
-layers, the parameter server and the role makers come with later slices
-of ROADMAP queue 1, item 5: they raise ``NotImplementedError`` naming it.
+group, the stage-1 sharding optimizer over the sharding group),
+``mp_degree`` and ``sep_degree`` (their groups, in the reference's axis
+order pp -> sep -> mp -> sharding -> dp; the tensor-parallel layers of
+``mp_layers`` and the sequence-parallel ones of
+``sequence_parallel_utils`` over the mp group), gradient merge and AMP O2
+as the strategy wires them. ``pp_degree`` above 1, the pipeline layers,
+the parameter server and the role makers come with later slices of
+ROADMAP queue 1, item 5: they raise ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -25,6 +27,14 @@ from .recompute import recompute, recompute_sequential  # noqa: F401
 from .topology import (CommunicateTopology, HybridCommunicateGroup,
                        get_hybrid_communicate_group,
                        set_hybrid_communicate_group)
+from . import mp_layers, sequence_parallel_utils  # noqa: F401
+from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,  # noqa: F401
+                        RowParallelLinear, VocabParallelEmbedding,
+                        get_rng_state_tracker, model_parallel_random_seed)
+from .sequence_parallel_utils import (  # noqa: F401
+    ColumnSequenceParallelLinear, RowSequenceParallelLinear,
+    mark_as_sequence_parallel_parameter,
+    register_sequence_parallel_allreduce_hooks)
 
 __all__ = [
     "init", "DistributedStrategy", "distributed_model",
@@ -32,22 +42,17 @@ __all__ = [
     "get_hybrid_communicate_group", "Fleet", "recompute",
     "recompute_sequential", "CommunicateTopology",
     "HybridCommunicateGroup", "HybridParallelOptimizer", "worker_num",
-    "worker_index",
+    "worker_index", "ColumnParallelLinear", "RowParallelLinear",
+    "VocabParallelEmbedding", "ParallelCrossEntropy",
+    "get_rng_state_tracker", "ColumnSequenceParallelLinear",
+    "RowSequenceParallelLinear", "mark_as_sequence_parallel_parameter",
+    "register_sequence_parallel_allreduce_hooks",
 ]
 
-_TP = "the tensor- and sequence-parallel slice"
 _PP = "the pipeline slice"
 _PS = "the parameter-server slice"
 #: the reference's fleet names that later slices bring, and which
 _LATER = {
-    "ColumnParallelLinear": _TP, "RowParallelLinear": _TP,
-    "VocabParallelEmbedding": _TP, "ParallelCrossEntropy": _TP,
-    "get_rng_state_tracker": _TP, "model_parallel_random_seed": _TP,
-    "mp_layers": _TP, "ColumnSequenceParallelLinear": _TP,
-    "RowSequenceParallelLinear": _TP,
-    "mark_as_sequence_parallel_parameter": _TP,
-    "register_sequence_parallel_allreduce_hooks": _TP,
-    "sequence_parallel_utils": _TP,
     "LayerDesc": _PP, "PipelineLayer": _PP, "SharedLayerDesc": _PP,
     "pp_layers": _PP, "meta_parallel": _PP, "pp_parallel_adaptor": _PP,
     "PaddleCloudRoleMaker": _PS, "UserDefinedRoleMaker": _PS, "Role": _PS,
@@ -120,12 +125,10 @@ class _Fleet:
         hc = self._strategy.hybrid_configs
         dims = {n: int(hc.get(f"{n}_degree", 1))
                 for n in ("pp", "sep", "mp", "sharding", "dp")}
-        later = {"mp": _TP, "sep": _TP, "pp": _PP}
-        for n, slice_ in later.items():
-            if dims[n] > 1:
-                raise NotImplementedError(
-                    f"{n}_degree={dims[n]} comes with {slice_} (ROADMAP "
-                    "queue 1, item 5); this slice runs dp and sharding")
+        if dims["pp"] > 1:
+            raise NotImplementedError(
+                f"pp_degree={dims['pp']} comes with {_PP} (ROADMAP queue 1, "
+                "item 5c); fleet runs dp, sharding, mp and sep")
         world = get_world_size()
         total = int(np.prod(list(dims.values())))
         if total == 1 and world > 1:
@@ -161,7 +164,9 @@ class _Fleet:
     def distributed_model(self, model: Layer):
         """Wrap by strategy (reference fleet/model.py:32): AMP O2 casts the
         parameters when the strategy asks for it, and dp_degree > 1 wraps
-        in DataParallel over the dp group."""
+        in DataParallel over the dp group. At mp_degree > 1 the model's
+        tensor-parallel layers already hold their shards and communicate
+        over the mp group (reference :205), so nothing more is wrapped."""
         hcg = self._hcg
         if hcg is None:
             raise RuntimeError("call fleet.init first")

@@ -100,6 +100,9 @@ class HybridCommunicateGroup:
                 g = new_group(ranks)
                 if self.global_rank in ranks:
                     self._groups[nm] = g
+        # the mesh's axes resolve to these groups (collective.ops over "mp",
+        # "sep", ...) without building torch's DeviceMesh
+        self.mesh._groups.update(self._groups)
 
     # --- degree queries (reference API) ---
     def get_data_parallel_world_size(self):

@@ -1,9 +1,9 @@
 """fleet.utils: the port of ``paddle_tpu/distributed/fleet/utils/__init__.py``
 (reference python/paddle/distributed/fleet/utils/__init__.py: LocalFS,
-HDFSClient, recompute, DistributedInfer and the helper submodules).
-``sequence_parallel_utils`` and ``pp_parallel_adaptor`` come with the
-tensor- and pipeline-parallel slices (ROADMAP queue 1): their names raise
-``NotImplementedError`` naming it."""
+HDFSClient, recompute, DistributedInfer and the helper submodules;
+``sequence_parallel_utils`` lives one level up and is re-exported here).
+``pp_parallel_adaptor`` comes with the pipeline slice (ROADMAP queue 1):
+its name raises ``NotImplementedError`` naming it."""
 from __future__ import annotations
 
 from ..recompute import recompute  # noqa: F401
@@ -17,13 +17,11 @@ from . import (  # noqa: F401
 )
 from .fs import HDFSClient, LocalFS  # noqa: F401
 from .ps_util import DistributedInfer  # noqa: F401
+from .. import sequence_parallel_utils  # noqa: F401
 
 __all__ = ["LocalFS", "recompute", "DistributedInfer", "HDFSClient"]
 
-_LATER = {
-    "sequence_parallel_utils": "the tensor- and sequence-parallel slice",
-    "pp_parallel_adaptor": "the pipeline slice",
-}
+_LATER = {"pp_parallel_adaptor": "the pipeline slice"}
 
 
 def __getattr__(name):

@@ -96,6 +96,7 @@ class ReduceType:
 
 # ------------------------------- mesh --------------------------------------
 _GLOBAL_MESH: Optional["ProcessMesh"] = None
+_AXIS_ALIASES = {"tp": "mp", "mp": "tp"}
 
 
 class ProcessMesh:
@@ -175,8 +176,15 @@ class ProcessMesh:
         return self._device_mesh
 
     def get_group(self, dim_name) -> "Group":
-        """The Group along ``dim_name`` that holds this rank."""
+        """The Group along ``dim_name`` that holds this rank. The tensor-
+        parallel axis answers to "tp" and "mp" alike (gpt_hybrid's name and
+        fleet's)."""
         from .env import Group, get_rank, is_initialized
+        if dim_name not in self._dim_names:
+            alias = _AXIS_ALIASES.get(dim_name)
+            if alias not in self._dim_names:
+                raise ValueError(f"{self} has no axis {dim_name!r}")
+            dim_name = alias
         if dim_name not in self._groups:
             if not is_initialized():
                 if self._ids.size != 1:

@@ -1,13 +1,15 @@
 """GPT training step: the port of ``paddle_tpu/models/gpt_hybrid.py``.
 
 The reference compiles one SPMD program over a (dp, pp, tp) mesh; this port
-runs its single-device case eagerly on one CUDA card, and its data-parallel
-case (dp = N, with or without ZeRO-1) over ``torch.distributed``, one
-process a GPU (see "data parallel" below; pp, tp, sp and experts at dp > 1
-wait for their slices):
+runs its single-device case eagerly on one CUDA card, and its data- and
+tensor-parallel cases over ``torch.distributed``, one process a GPU, the
+ranks a (dp, tp) grid with tp innermost (see "data parallel" and "tensor
+parallel" below; pp, and experts beside any of dp, tp or sp, wait for
+their slices):
 
 - parameters are the reference's dict of stacked ``[L, ...]`` block leaves
-  in the ``x @ W`` orientation, so ``params_from_jax`` is a plain copy;
+  in the ``x @ W`` orientation, so ``params_from_jax`` is a plain copy (at
+  tp > 1, this rank's shards of them);
 - attention goes through ``ops/hopper/flash_attention.flash_attention_maybe``
   (the Hopper ``simple_attention`` kernel at the 1.3B shape,
   ``causal_attention`` at S=2048 and ``blocked_flash`` at S=4096 on the
@@ -48,15 +50,18 @@ from .gpt import GPTConfig
 
 @dataclass
 class ParallelConfig:
-    """The reference's ParallelConfig, field for field. ``dp`` > 1 needs a
-    process group of dp ranks (``distributed.init_parallel_env``); ``zero1``
-    shards the Adam moments over them. ``pp``/``tp`` > 1, ``sp`` and
-    ``collective_matmul`` raise NotImplementedError in ``setup``,
-    ``build_train_step`` and ``build_accum_steps``, naming their slices, and
-    so does ``num_experts`` > 0 beside any of them or dp > 1 (expert
-    parallelism); ``microbatches``, ``pp_schedule`` and ``vpp_chunks`` only
-    matter at pp > 1. ``scan_unroll`` (lax.scan unrolling) has no effect in
-    eager PyTorch."""
+    """The reference's ParallelConfig, field for field. ``dp`` x ``tp`` > 1
+    needs a process group of dp x tp ranks
+    (``distributed.init_parallel_env``); ``zero1`` shards the Adam moments
+    over the dp ranks, ``tp`` shards the weights Megatron's way, ``sp``
+    shards the activations between the blocks over the sequence, and
+    ``collective_matmul`` (with ``sp``) makes the sequence-parallel matmuls
+    ring collective matmuls. ``pp`` > 1 raises NotImplementedError in
+    ``setup``, ``build_train_step`` and ``build_accum_steps``, naming its
+    slice, and so does ``num_experts`` > 0 beside dp or tp > 1, ``sp`` or
+    ``collective_matmul`` (expert parallelism); ``microbatches``,
+    ``pp_schedule`` and ``vpp_chunks`` only matter at pp > 1.
+    ``scan_unroll`` (lax.scan unrolling) has no effect in eager PyTorch."""
     dp: int = 1
     pp: int = 1
     tp: int = 1
@@ -81,36 +86,33 @@ class ParallelConfig:
     compute_dtype: Any = torch.bfloat16
 
 
-_TP_SLICE = "the tensor- and sequence-parallel slice"
-_LATER = (("pp", "the pipeline slice"), ("tp", _TP_SLICE))
-
-
 def _validate(pcfg: ParallelConfig):
-    """Refuses what later slices bring (naming each), and dp > 1 unless a
-    process group of exactly dp ranks exists."""
-    later = [f"{n}={getattr(pcfg, n)} waits for {where}"
-             for n, where in _LATER if getattr(pcfg, n) > 1]
-    if pcfg.sp:
-        later.append(f"sp=True waits for {_TP_SLICE}")
-    if pcfg.collective_matmul:
-        later.append(f"collective_matmul=True waits for {_TP_SLICE}")
-    if pcfg.num_experts > 0 and (later or pcfg.dp > 1):
+    """Refuses what later slices bring (naming each), and dp x tp > 1 unless
+    a process group of exactly dp x tp ranks exists."""
+    later = []
+    if pcfg.pp > 1:
+        later.append(f"pp={pcfg.pp} waits for the pipeline slice")
+    if pcfg.num_experts > 0 and (pcfg.dp > 1 or pcfg.pp > 1 or pcfg.tp > 1
+                                 or pcfg.sp or pcfg.collective_matmul):
         later.append(f"num_experts={pcfg.num_experts} beside dp, pp or tp "
-                     "> 1 waits for the expert-parallel slice")
+                     "> 1, sp or collective_matmul waits for the "
+                     "expert-parallel slice")
     if later:
         raise NotImplementedError(
-            "paddle_tpu_torch runs the single-device and data-parallel "
-            f"steps; {'; '.join(later)} (ROADMAP queue 1, item 5)")
-    if pcfg.dp > 1:
+            "paddle_tpu_torch runs the single-device, data- and tensor-"
+            f"parallel steps; {'; '.join(later)} (ROADMAP queue 1, item 5)")
+    ranks = pcfg.dp * pcfg.tp
+    if ranks > 1:
         from ..distributed.env import get_world_size, is_initialized
         if not is_initialized():
             raise RuntimeError(
-                f"dp={pcfg.dp} runs one process a GPU: start {pcfg.dp} "
-                "ranks (python -m paddle_tpu_torch.distributed.launch) and "
-                "call paddle_tpu_torch.distributed.init_parallel_env() first")
-        if get_world_size() != pcfg.dp:
-            raise ValueError(f"dp={pcfg.dp} but the process group has "
-                             f"{get_world_size()} ranks")
+                f"dp={pcfg.dp} x tp={pcfg.tp} runs one process a GPU: start "
+                f"{ranks} ranks (python -m paddle_tpu_torch.distributed."
+                "launch) and call paddle_tpu_torch.distributed."
+                "init_parallel_env() first")
+        if get_world_size() != ranks:
+            raise ValueError(f"dp={pcfg.dp} x tp={pcfg.tp} but the process "
+                             f"group has {get_world_size()} ranks")
     if pcfg.remat and pcfg.remat_policy not in ("full", "dots", "names"):
         raise ValueError(f"unknown remat_policy {pcfg.remat_policy!r}")
 
@@ -184,13 +186,93 @@ def _to_torch(x, device):
     return torch.from_numpy(np.array(arr)).to(device)
 
 
-def params_from_jax(np_tree, device=None):
+def params_from_jax(np_tree, device=None, tp_rank=0, tp=1):
     """The reference's parameter (or moment) dict, as numpy arrays, to
-    torch tensors with the same keys, shapes and dtypes."""
+    torch tensors with the same keys and dtypes; at ``tp`` > 1 this rank's
+    shards of them, as the reference's ``param_specs`` shards them
+    (``tp_shard``)."""
     dev = resolve_device(device)
-    if isinstance(np_tree, dict):
-        return {k: params_from_jax(v, dev) for k, v in np_tree.items()}
-    return _to_torch(np_tree, dev)
+
+    def convert(t):
+        if isinstance(t, dict):
+            return {k: convert(v) for k, v in t.items()}
+        return _to_torch(t, dev)
+    tree = convert(np_tree)
+    return tp_shard(tree, tp_rank, tp) if tp > 1 else tree
+
+
+# --------------------------- tensor-parallel layout ------------------------
+# The reference's param_specs shard the block weights Megatron's way over
+# "tp": qkv_w/qkv_b and fc1_w/fc1_b by columns, proj_w and fc2_w by rows, the
+# rest replicated; wte by vocab rows when tp divides the vocab, replicated
+# otherwise. GSPMD shards qkv_w's flat last dim, which straddles q|k|v; here
+# a rank holds its columns of each of q, k and v (the manual-tp layout,
+# gpt_manual_tp._reshape_qkv), flattened back: [L, h, 3 h / tp].
+_TP_COLUMNS = ("qkv_w", "qkv_b", "fc1_w", "fc1_b")
+_TP_ROWS = ("proj_w", "fc2_w")
+
+
+def _vocab_sharded(vocab, tp):
+    return vocab % tp == 0
+
+
+def _tp_slice(name, x, tp_rank, tp):
+    """This rank's shard of one block leaf."""
+    if name in ("qkv_w", "qkv_b"):
+        h = x.shape[-1] // 3
+        x = x.reshape(tuple(x.shape[:-1]) + (3, h))
+        x = x.chunk(tp, -1)[tp_rank]
+        return x.reshape(tuple(x.shape[:-2]) + (-1,))
+    if name in _TP_COLUMNS:
+        return x.chunk(tp, -1)[tp_rank]
+    if name in _TP_ROWS:
+        return x.chunk(tp, -2)[tp_rank]
+    return x
+
+
+def tp_shard(tree, tp_rank, tp):
+    """This tp rank's shards of a parameter (or moment) tree in the
+    reference's global layout."""
+    out = dict(tree)
+    out["blocks"] = {k: _tp_slice(k, v, tp_rank, tp).contiguous()
+                     for k, v in tree["blocks"].items()}
+    if _vocab_sharded(tree["wte"].shape[0], tp):
+        out["wte"] = tree["wte"].chunk(tp, 0)[tp_rank].contiguous()
+    return out
+
+
+def _tp_gather_leaf(name, x, group, vocab_rows=None):
+    """The global leaf from every tp rank's shard (eager all-gathers)."""
+    from ..distributed import collective as C
+    if group.nranks == 1:
+        return x.clone()
+    if name in ("qkv_w", "qkv_b"):
+        hl = x.shape[-1] // 3
+        full = C._gather_along(x.reshape(tuple(x.shape[:-1]) + (3, hl)),
+                               group, x.dim())
+        return full.reshape(tuple(x.shape[:-1]) + (-1,))
+    if name in _TP_COLUMNS:
+        return C._gather_along(x, group, x.dim() - 1)
+    if name in _TP_ROWS:
+        return C._gather_along(x, group, x.dim() - 2)
+    if name == "wte" and vocab_rows is not None and x.shape[0] != vocab_rows:
+        return C._gather_along(x, group, 0)
+    return x.clone()
+
+
+def _tp_gather(tree, group, vocab):
+    out = {k: _tp_gather_leaf(k, v, group, vocab)
+           for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = {k: _tp_gather_leaf(k, v, group)
+                     for k, v in tree["blocks"].items()}
+    return out
+
+
+#: leaves used on this rank's slice of the sequence only under sp: their
+#: gradients are summed over tp (the reference gets this from GSPMD; the
+#: fleet layers from register_sequence_parallel_allreduce_hooks)
+_SP_BLOCK_LEAVES = ("ln1_g", "ln1_b", "ln2_g", "ln2_b", "proj_b", "fc2_b")
+_SP_TOP_LEAVES = ("lnf_g", "lnf_b", "wpe")
 
 
 def eager_params_from_jax(tree, device=None, stop_gradient=False):
@@ -402,6 +484,131 @@ def loss_fn(params, batch, cfg, pcfg):
     return _ce_from_hidden(x, params["wte"], labels, pcfg)
 
 
+# --------------------------- tensor parallel -------------------------------
+# The reference's tp and sp branches are GSPMD's: one global program, the
+# weights sharded by param_specs, the activations constrained to
+# P("dp", "tp", None) between blocks under sp. Here each rank of the tp group
+# holds its shards and runs gpt_manual_tp's block (Megatron's explicit
+# collectives, the differentiable distributed.collective Functions). The
+# embedding is a masked lookup of this rank's vocab rows, psum'd (non-sp)
+# or reduce-scattered onto the sequence (sp); with the vocab replicated
+# (tp does not divide it) each rank looks up its own positions under sp.
+# The LM head, under fused_ce, is FusedLMCE over this rank's share of the
+# tokens (its slice of the sequence) with the whole wte (all-gathered from
+# the vocab shards, whose gradient is reduce-scattered back): the losses'
+# sums are psum'd and divided by the global count of next-token positions,
+# the reference's mean. Its peak at Llama-7B width is the gathered wte
+# (V x h, 0.26 GB in bf16) and one chunk of logits, never [T, V]. Without
+# fused_ce, a vocab-sharded head is gpt_manual_tp.ce_vocab_parallel (the
+# cross-rank max and sum). Under sp the leaves used on the sequence slice
+# only (_SP_*_LEAVES, and a replicated wte) get their gradients summed over
+# tp after the backward.
+def _ce_sum(h, w, tgt, mask, fused):
+    """The sum over the tokens of ``mask`` of the next-token CE of h @ w.T."""
+    hid = h.shape[-1]
+    if fused:
+        m = mask.reshape(-1)
+        return fused_lm_ce(h.reshape(-1, hid), w.to(h.dtype),
+                           tgt.reshape(-1), m) * m.sum()
+    logits = torch.einsum("bsh,vh->bsv", h, w.to(h.dtype)).float()
+    ce = torch.logsumexp(logits, -1) - logits.gather(
+        -1, tgt[..., None])[..., 0]
+    return (ce * mask).sum()
+
+
+def _ce_tp(h, wte, labels, pcfg, group, sharded):
+    """The reference's ``_ce_from_hidden`` on a tp group: ``h`` is this
+    rank's [b, s / tp, hid] (sp) or the whole [b, s, hid]."""
+    from ..distributed import collective as C
+    from .gpt_manual_tp import ce_vocab_parallel
+    b, s = labels.shape
+    n, r = group.nranks, group.rank
+    if sharded and not pcfg.fused_ce:
+        full = C._AllGather.apply(h, group, 1) if pcfg.sp \
+            else C._Pvary.apply(h, group)
+        return ce_vocab_parallel(full, wte, labels, group)
+    if not pcfg.sp and s % n:
+        # no even share of the tokens: every rank runs the whole head
+        w = C._GatherInvariant.apply(wte, group, 0) if sharded else wte
+        return _ce_from_hidden(h, w, labels, pcfg)
+    if not pcfg.sp:
+        h = C._Split.apply(h, group, 1)
+    sl = s // n
+    lo = r * sl
+    if sharded:
+        w = C._AllGather.apply(wte, group, 0)
+    else:
+        w = wte if pcfg.sp else C._Pvary.apply(wte, group)
+    tgt = torch.cat([labels[:, 1:], labels.new_zeros((b, 1))], 1)
+    pos = torch.arange(lo, lo + sl, device=h.device)
+    mask = (pos < s - 1).to(torch.float32)[None].expand(b, sl)
+    part = _ce_sum(h, w, tgt[:, lo:lo + sl], mask, pcfg.fused_ce)
+    return C._Psum.apply(part.reshape(1), group)[0] / (b * (s - 1))
+
+
+def loss_fn_tp(params, batch, cfg, pcfg, group):
+    """``loss_fn`` on one rank of a tp group (a Group): ``params`` are this
+    rank's shards (``tp_shard``), ``batch`` the tp group's whole batch."""
+    from ..distributed import collective as C
+    from .gpt_manual_tp import stack_apply_manual_tp
+    input_ids, labels = batch
+    cdt = pcfg.compute_dtype
+    b, s = input_ids.shape
+    n, r = group.nranks, group.rank
+    if pcfg.sp and s % n:
+        raise ValueError(f"sp requires seq len {s} % tp {n} == 0")
+    sl = s // n if pcfg.sp else s
+    lo = r * sl if pcfg.sp else 0
+    wte = params["wte"]
+    sharded = _vocab_sharded(cfg.vocab_size, n)
+    if sharded:
+        vl = wte.shape[0]
+        loc = input_ids - r * vl
+        x = F.embedding(loc.clamp(0, vl - 1), wte) * \
+            ((loc >= 0) & (loc < vl))[..., None].to(wte.dtype)
+        x = C._ReduceScatter.apply(x, group, 1) if pcfg.sp \
+            else C._Psum.apply(x, group)
+    else:
+        x = F.embedding(input_ids[:, lo:lo + sl], wte)
+    x = x.to(cdt) + params["wpe"][lo:lo + sl][None].to(cdt)
+    blocks = {k: p.to(cdt) for k, p in params["blocks"].items()}
+    x = stack_apply_manual_tp(blocks, x, cfg, pcfg, group)
+    h = _layer_norm(x, params["lnf_g"].to(cdt), params["lnf_b"].to(cdt))
+    return _ce_tp(h, wte, labels, pcfg, group, sharded)
+
+
+def _leaf_names(params, prefix=""):
+    out = []
+    for k in sorted(params):
+        v = params[k]
+        out.extend(_leaf_names(v, prefix + k + ".") if isinstance(v, dict)
+                   else [prefix + k])
+    return out
+
+
+def _sp_leaf_indices(params, cfg, tp):
+    """The ``_leaves`` positions whose gradients sp leaves partial."""
+    names = set(_SP_TOP_LEAVES) | {f"blocks.{n}" for n in _SP_BLOCK_LEAVES}
+    if not _vocab_sharded(cfg.vocab_size, tp):
+        names.add("wte")
+    return [i for i, n in enumerate(_leaf_names(params)) if n in names]
+
+
+@torch.no_grad()
+def _sum_sp_grads(grads, idx, group):
+    """Sums the gradients at ``idx`` over the tp group, in one buffer."""
+    from ..distributed import collective as C
+    grads = list(grads)
+    parts = [grads[i] for i in idx]
+    flat = torch.cat([g.reshape(-1).float() for g in parts])
+    C.all_reduce_flat(flat, C.ReduceOp.SUM, group)
+    off = 0
+    for i, g in zip(idx, parts):
+        grads[i] = flat[off:off + g.numel()].view(g.shape).to(g.dtype)
+        off += g.numel()
+    return grads
+
+
 # --------------------------- optimizer -------------------------------------
 def _adamw_leaf(p, m, v, g, step, lr, b1=0.9, b2=0.95, eps=1e-8, wd=0.1):
     """The per-leaf AdamW update math (f32 compute, storage dtypes kept).
@@ -427,20 +634,41 @@ def adamw_init(params, pcfg):
     return {"m": zeros(params), "v": zeros(params), "step": 0}
 
 
+#: elements per piece of the update: the f32 temporaries of _adamw_leaf
+#: stay 2^26 elements (the reference's compiled update fuses them away)
+_UPDATE_CHUNK = 1 << 26
+
+
+def _adamw_pieces(p, m, v, g, step, lr, b1=0.9, b2=0.95, eps=1e-8, wd=0.1):
+    """``_adamw_leaf`` over p, m, v and g, written into p, m and v in place
+    in pieces of ``_UPDATE_CHUNK`` elements (whole when one of them is not
+    contiguous)."""
+    if not (p.is_contiguous() and m.is_contiguous() and v.is_contiguous()):
+        pn, mn, vn = _adamw_leaf(p, m, v, g, step, lr, b1, b2, eps, wd)
+        p.copy_(pn)
+        m.copy_(mn)
+        v.copy_(vn)
+        return
+    p, m, v, g = p.view(-1), m.view(-1), v.view(-1), g.reshape(-1)
+    for i in range(0, p.numel(), _UPDATE_CHUNK):
+        sl = slice(i, i + _UPDATE_CHUNK)
+        pn, mn, vn = _adamw_leaf(p[sl], m[sl], v[sl], g[sl], step, lr, b1,
+                                 b2, eps, wd)
+        p[sl].copy_(pn)
+        m[sl].copy_(mn)
+        v[sl].copy_(vn)
+
+
 @torch.no_grad()
 def adamw_update(params, grads, opt_state, lr=3e-4, b1=0.9, b2=0.95,
                  eps=1e-8, wd=0.1):
     """One AdamW step over every leaf, written into params and opt_state in
-    place (the reference donates both to its step). ``grads`` is a list in
-    ``_leaves`` order."""
+    place (the reference donates both to its step), each leaf in pieces
+    (``_adamw_pieces``). ``grads`` is a list in ``_leaves`` order."""
     step = opt_state["step"] + 1
     for p, g, m, v in zip(_leaves(params), grads, _leaves(opt_state["m"]),
                           _leaves(opt_state["v"])):
-        p_new, m_new, v_new = _adamw_leaf(p, m, v, g, step, lr, b1, b2,
-                                          eps, wd)
-        p.copy_(p_new)
-        m.copy_(m_new)
-        v.copy_(v_new)
+        _adamw_pieces(p, m, v, g, step, lr, b1, b2, eps, wd)
     opt_state["step"] = step
     return params, opt_state
 
@@ -547,17 +775,22 @@ def init_grad_accum(params):
 def setup(cfg: GPTConfig, pcfg: ParallelConfig, seed=0, device=None):
     """Returns (params, opt_state, train_step) on ``device`` (CUDA unless
     the caller says otherwise; raises when CUDA is missing). With a process
-    group initialized, the parameters are broadcast from rank 0, laid into
-    flat buffers (``_bind_flat``) and the state and step are the
-    data-parallel ones."""
+    group initialized, each rank keeps its tp shards (``tp_shard``) of the
+    parameters drawn from ``seed``, which are broadcast over dp and laid
+    into flat buffers (``_bind_flat``), and the state and step are the
+    distributed ones."""
     _validate(pcfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = init_params(cfg, pcfg, gen, dev)
     if _distributed():
         from ..distributed import collective as C
-        for b in _bind_flat(params, pcfg.dp):
-            C.broadcast(b.flat, src=0)
+        grid = _grid(pcfg)
+        if grid.tp > 1:
+            params = tp_shard(params, grid.tp_rank, grid.tp)
+        for b in _bind_flat(params, grid.dp):
+            C.broadcast(b.flat, src=grid.dp_group.ranks[0],
+                        group=grid.dp_group)
         opt_state = dp_adamw_init(params, pcfg)
     else:
         opt_state = adamw_init(params, pcfg)
@@ -578,9 +811,6 @@ def setup(cfg: GPTConfig, pcfg: ParallelConfig, seed=0, device=None):
 # whole buffer with whole moments. The update is elementwise, so any
 # partition of the elements gives the reference's numbers; the padding
 # stays 0 (p = g = m = v = 0 gives a 0 step) and never reaches a parameter.
-_UPDATE_CHUNK = 1 << 26        # elements per piece of the sliced update
-
-
 class _Bucket:
     """The leaves of one dtype, as views of one flat buffer."""
 
@@ -635,15 +865,63 @@ def _bind_flat(params, dp):
     return buckets
 
 
-def _dp():
-    from ..distributed.env import get_rank, get_world_size
-    return get_world_size(), get_rank()
+class _Grid:
+    """This rank's place in the (dp, tp) grid of the job's ranks, tp
+    innermost (the reference's build_mesh order): rank = dp_rank * tp +
+    tp_rank. A group spanning the job is the job's group; a group of this
+    rank alone has no torch group (its collectives are the identity), and
+    neither has the job before ``init_parallel_env`` (``world`` None)."""
+
+    def __init__(self, world, tp, tp_branch):
+        from ..distributed.env import Group, new_group
+        world = world or Group(0, [0])
+        n, rank = world.nranks, world.rank
+        if n % tp:
+            raise ValueError(f"tp={tp} does not divide the job's {n} ranks")
+        self.world, self.tp, self.dp = world, tp, n // tp
+        self.dp_rank, self.tp_rank = divmod(rank, tp)
+        self.tp_branch = tp_branch
+
+        def group(all_ranks):
+            mine = next(r for r in all_ranks if rank in r)
+            if len(mine) == n:
+                return world
+            if len(mine) == 1:
+                return Group(rank, mine)
+            made = [new_group(r) for r in all_ranks]
+            return made[all_ranks.index(mine)]
+        self.tp_group = group([[d * tp + j for j in range(tp)]
+                               for d in range(self.dp)])
+        self.dp_group = group([[d * tp + j for d in range(self.dp)]
+                               for j in range(tp)])
+
+
+_GRIDS: Dict[Any, _Grid] = {}
+
+
+def _grid(pcfg) -> _Grid:
+    """The (dp, tp) grid of the current process group (made once a group;
+    every rank makes its torch groups in the same order). The tp branch
+    runs at tp > 1, and at any tp under sp or collective_matmul."""
+    from ..distributed.env import init_parallel_env, is_initialized
+    world = init_parallel_env() if is_initialized() else None
+    tp_branch = pcfg.tp > 1 or pcfg.sp or pcfg.collective_matmul
+    key = (pcfg.tp, tp_branch)
+    g = _GRIDS.get(key)
+    if g is None or world is None or g.world is not world:
+        g = _GRIDS[key] = _Grid(world, pcfg.tp, tp_branch)
+    return g
+
+
+def _dp(pcfg):
+    g = _grid(pcfg)
+    return g.dp, g.dp_rank
 
 
 def dp_adamw_init(params, pcfg):
     """The data-parallel AdamW state: per dtype bucket, the moments of this
     rank's slice (``zero1``) or of the whole buffer, and the step."""
-    dp, _ = _dp()
+    dp, _ = _dp(pcfg)
     m, v = {}, {}
     for b in _bind_flat(params, dp):
         n = b.chunk if pcfg.zero1 else b.chunk * dp
@@ -661,7 +939,7 @@ def _flat_state(params, opt_state, pcfg, buckets):
     if set(opt_state["m"]) == keys and all(
             isinstance(opt_state["m"][k], torch.Tensor) for k in keys):
         return
-    dp, rank = _dp()
+    dp, rank = _dp(pcfg)
     for name in ("m", "v"):
         refs = dict(zip(map(id, _leaves(params)), _leaves(opt_state[name])))
         flat = {}
@@ -685,13 +963,22 @@ def _local_rows(batch, dp, rank):
 def _detached_value_and_grad(params, batch, cfg, pcfg):
     """(loss, gradients in ``_leaves`` order) of ``batch`` with respect to
     detached views of the parameters (the buffers' views stay untouched by
-    autograd)."""
+    autograd). On the tp branch: this rank's shards' gradients, the sp
+    leaves' summed over tp."""
     def detach(tree):
         return {k: detach(v) if isinstance(v, dict)
                 else v.detach().requires_grad_(True) for k, v in tree.items()}
     tree = detach(params)
-    loss = loss_fn(tree, batch, cfg, pcfg)
-    return loss.detach(), torch.autograd.grad(loss, _leaves(tree))
+    grid = _grid(pcfg)
+    if not grid.tp_branch:
+        loss = loss_fn(tree, batch, cfg, pcfg)
+        return loss.detach(), torch.autograd.grad(loss, _leaves(tree))
+    loss = loss_fn_tp(tree, batch, cfg, pcfg, grid.tp_group)
+    grads = torch.autograd.grad(loss, _leaves(tree))
+    if pcfg.sp:
+        grads = _sum_sp_grads(grads, _sp_leaf_indices(tree, cfg, grid.tp),
+                              grid.tp_group)
+    return loss.detach(), grads
 
 
 def _flat_grads(buckets, grads, params):
@@ -712,32 +999,29 @@ def _dp_update(buckets, flat_grads, opt_state, pcfg, lr):
     slice (or, without zero1, the whole buffer) in place and rebuild the
     parameters with an all-gather."""
     from ..distributed import collective as C
-    dp, rank = _dp()
+    grid = _grid(pcfg)
+    rank, group = grid.dp_rank, grid.dp_group
     step = opt_state["step"] + 1
     for b, g in zip(buckets, flat_grads):
         if pcfg.zero1:
             gs = torch.empty(b.chunk, dtype=g.dtype, device=g.device)
-            C.reduce_scatter_flat(gs, g, C.ReduceOp.AVG)
+            C.reduce_scatter_flat(gs, g, C.ReduceOp.AVG, group)
             p = b.owned(b.flat, rank)
         else:
-            C.all_reduce_flat(g, C.ReduceOp.AVG)
+            C.all_reduce_flat(g, C.ReduceOp.AVG, group)
             gs, p = g, b.flat
-        m, v = opt_state["m"][b.key], opt_state["v"][b.key]
-        for i in range(0, p.numel(), _UPDATE_CHUNK):
-            sl = slice(i, i + _UPDATE_CHUNK)
-            pn, mn, vn = _adamw_leaf(p[sl], m[sl], v[sl], gs[sl], step, lr)
-            p[sl].copy_(pn)
-            m[sl].copy_(mn)
-            v[sl].copy_(vn)
+        _adamw_pieces(p, opt_state["m"][b.key], opt_state["v"][b.key], gs,
+                      step, lr)
         if pcfg.zero1:
-            C.all_gather_flat(b.flat, p)
+            C.all_gather_flat(b.flat, p, group)
     opt_state["step"] = step
 
 
-def _avg_loss(loss):
+def _avg_loss(loss, pcfg):
+    """The loss averaged over dp (the tp ranks hold the same loss)."""
     from ..distributed import collective as C
     out = loss.float().reshape(1).clone()
-    C.all_reduce_flat(out, C.ReduceOp.AVG)
+    C.all_reduce_flat(out, C.ReduceOp.AVG, _grid(pcfg).dp_group)
     return out[0]
 
 
@@ -748,7 +1032,7 @@ def _dp_train_step(cfg, pcfg, lr):
     k = pcfg.gradient_merge_steps
 
     def train_step(params, opt_state, batch):
-        dp, rank = _dp()
+        dp, rank = _dp(pcfg)
         buckets = _bind_flat(params, dp)
         _flat_state(params, opt_state, pcfg, buckets)
         rows = _local_rows(batch, dp, rank)
@@ -767,7 +1051,7 @@ def _dp_train_step(cfg, pcfg, lr):
         if k > 1:
             acc = [a / k for a in acc]
         _dp_update(buckets, acc, opt_state, pcfg, lr)
-        return params, opt_state, _avg_loss(lsum / k)
+        return params, opt_state, _avg_loss(lsum / k, pcfg)
 
     return train_step
 
@@ -779,14 +1063,14 @@ def _dp_accum_steps(cfg, pcfg, lr):
             a.add_(g.to(a.dtype))
 
     def grad_step(params, acc, batch):
-        dp, rank = _dp()
+        dp, rank = _dp(pcfg)
         loss, grads = _detached_value_and_grad(
             params, _local_rows(batch, dp, rank), cfg, pcfg)
         add_into(acc, grads)
-        return acc, _avg_loss(loss)
+        return acc, _avg_loss(loss, pcfg)
 
     def apply_step(params, opt_state, acc, k):
-        dp, _ = _dp()
+        dp, _ = _dp(pcfg)
         buckets = _bind_flat(params, dp)
         _flat_state(params, opt_state, pcfg, buckets)
         acc_leaves = _leaves(acc)
@@ -799,12 +1083,20 @@ def _dp_accum_steps(cfg, pcfg, lr):
     return grad_step, apply_step
 
 
-def gather_opt_state(params, opt_state, pcfg):
-    """The data-parallel AdamW state in the reference's layout on every
-    rank: ``{"m": tree, "v": tree, "step": n}`` with trees like ``params``
-    (each moment all-gathered from the ranks' slices under zero1)."""
+def gather_params(params, cfg, pcfg):
+    """The parameters in the reference's global layout on every rank (the
+    tp shards all-gathered; at tp = 1 a copy)."""
+    return _tp_gather(params, _grid(pcfg).tp_group, cfg.vocab_size)
+
+
+def gather_opt_state(params, opt_state, pcfg, cfg=None):
+    """The distributed AdamW state in the reference's layout on every rank:
+    ``{"m": tree, "v": tree, "step": n}`` with trees like the reference's
+    params (each moment all-gathered from the dp ranks' slices under zero1,
+    and from the tp ranks' shards at tp > 1, which needs ``cfg``)."""
     from ..distributed import collective as C
-    dp, _ = _dp()
+    grid = _grid(pcfg)
+    dp = grid.dp
     buckets = _bind_flat(params, dp)
     out = {"step": opt_state["step"]}
     for name in ("m", "v"):
@@ -814,7 +1106,7 @@ def gather_opt_state(params, opt_state, pcfg):
             if pcfg.zero1:
                 full = torch.empty(b.chunk * dp, dtype=part.dtype,
                                    device=part.device)
-                C.all_gather_flat(full, part)
+                C.all_gather_flat(full, part, grid.dp_group)
             else:
                 full = part
             off = 0
@@ -828,6 +1120,10 @@ def gather_opt_state(params, opt_state, pcfg):
             return {k: tree_of(v) if isinstance(v, dict) else by_leaf[id(v)]
                     for k, v in t.items()}
         out[name] = tree_of(params)
+        if grid.tp > 1:
+            if cfg is None:
+                raise ValueError("gather_opt_state at tp > 1 needs cfg")
+            out[name] = _tp_gather(out[name], grid.tp_group, cfg.vocab_size)
     return out
 
 
@@ -835,10 +1131,14 @@ def opt_state_shards(params, opt_state, pcfg):
     """The moments for ``distributed.checkpoint.save_state_dict``: per
     bucket, this rank's slice of each (clipped to the unpadded length) as a
     ``ShardedTensor`` of the bucket's global flat shape, so that another
-    world size can load them (``load_opt_state_shards``)."""
+    dp world size can load them (``load_opt_state_shards``). At tp > 1
+    each tp rank's buckets are entries of their own (``<dtype>.tp<r>``),
+    loaded at the same tp."""
     from ..core.tensor import Tensor
     from ..distributed.checkpoint import ShardedTensor
-    dp, rank = _dp()
+    grid = _grid(pcfg)
+    dp, rank = grid.dp, grid.dp_rank
+    suffix = f".tp{grid.tp_rank}" if grid.tp > 1 else ""
     out = {"step": opt_state["step"]}
     for name in ("m", "v"):
         out[name] = {}
@@ -846,7 +1146,7 @@ def opt_state_shards(params, opt_state, pcfg):
             t = opt_state[name][b.key]
             lo = rank * b.chunk if pcfg.zero1 else 0
             hi = min(lo + t.numel(), b.numel)
-            out[name][b.key] = ShardedTensor(
+            out[name][b.key + suffix] = ShardedTensor(
                 Tensor._wrap(t[:max(hi - lo, 0)]), (b.numel,), (lo,))
     return out
 

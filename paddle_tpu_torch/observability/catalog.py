@@ -128,6 +128,10 @@ CATALOG = {
     "collective.calls": _m("counter", "collective op launches", ("op",)),
     "collective.bytes": _m("counter", "bytes moved by collectives",
                            ("op",)),
+    "collective.host_staged": _m(
+        "counter", "collectives of CUDA tensors run on a host copy (under "
+        "gloo, all but the all-reduce and the broadcast)",
+        ("op",)),
     # -------------------------------------------------- eager dispatch
     "eager.op_dispatches": _m("counter", "eager op dispatches"),
     "eager.grad_ops": _m("counter", "ops recorded on the eager tape"),

@@ -959,3 +959,74 @@ def test_tiny_gpt_hybrid_distributed_step_on_the_card():
     L = cfg.num_layers
     assert tsa.LAUNCHES == {"simple_attention_fwd": 3 * 2 * L,
                             "simple_attention_bwd": 3 * 2 * L}
+
+
+def test_tensor_parallel_primitives_world1_on_the_card():
+    """The tensor- and sequence-parallel primitives at world 1 over NCCL on
+    the card against their plain single-device forms, f32 and bf16, output
+    and gradients (chip_smoke.py phase 17a's checks)."""
+    _need_card()
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.distributed as dist
+    cs = _chip_smoke()
+    run = cs.Run()
+    paddle.set_device("gpu:0")
+    try:
+        cs.check_tp_primitives(run, paddle, dist, torch)
+    finally:
+        dist.destroy_process_group()
+        paddle.set_device("cpu")
+    assert not run.failures, run.failures
+
+
+def test_tiny_tp_sp_step_on_the_card():
+    """gpt_hybrid's tp + sp step (the manual-tp block, the vocab-parallel
+    embedding and head, ZeRO-1) at world 1 over NCCL on the card, with and
+    without collective_matmul, against the single-device step on the CPU:
+    f32, the same arithmetic in another order (1e-4 of the loss and of each
+    leaf's scale, beside Adam's 0.1 lr a step on rounding noise); each step
+    launches causal_attention's two kernels once a layer (S = 2048)."""
+    _need_card()
+    import paddle_tpu_torch.distributed as dist
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed import collective as C
+    cfg = GPTConfig(vocab_size=256, hidden_size=256, num_layers=2,
+                    num_heads=2, max_seq_len=2048)
+    fields = dict(remat=True, remat_policy="names",
+                  param_dtype=torch.float32, compute_dtype=torch.float32)
+    start = TH.init_params(cfg, TH.ParallelConfig(**fields),
+                           torch.Generator().manual_seed(0), device="cpu")
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 2048)))
+
+    def run(device, pcfg):
+        params = TH.params_from_jax(
+            {k: ({kk: vv.numpy() for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.numpy())
+             for k, v in start.items()}, device=device)
+        opt = TH.dp_adamw_init(params, pcfg) if dist.is_initialized() \
+            else TH.adamw_init(params, pcfg)
+        step = TH.build_train_step(cfg, pcfg)
+        batch = (ids.to(device), ids.to(device))
+        losses = [float(step(params, opt, batch)[2]) for _ in range(3)]
+        return losses, [p.detach().float().cpu() for p in TH._leaves(params)]
+
+    want_l, want_p = run("cpu", TH.ParallelConfig(**fields))
+    paddle.set_device("gpu:0")
+    dist.init_parallel_env()
+    staged = dict(C.HOST_STAGED)
+    try:
+        for cm in (False, True):
+            tca.reset_launch_counts()
+            got_l, got_p = run("cuda", TH.ParallelConfig(
+                sp=True, collective_matmul=cm, **fields))
+            np.testing.assert_allclose(got_l, want_l, rtol=1e-4)
+            for g, w in zip(got_p, want_p):
+                assert float((g - w).abs().max()) <= \
+                    1e-4 * float(w.abs().max()) + 3 * 0.1 * 3e-4
+            assert tca.LAUNCHES == {"causal_attention_fwd": 3 * 2,
+                                    "causal_attention_bwd": 3 * 2}
+    finally:
+        dist.destroy_process_group()
+        paddle.set_device("cpu")
+    assert dict(C.HOST_STAGED) == staged

@@ -365,8 +365,8 @@ def test_flags_registry_is_the_references():
     # FLAGS_watchdog_store_root, FLAGS_memory_stats_dump_path,
     # FLAGS_collective_timeout_s), the 3 of jit (FLAGS_print_jaxpr,
     # FLAGS_max_specializations, FLAGS_max_shape_specializations) and
-    # the collectives' FLAGS_collective_debug
-    assert len(port) == 24
+    # the collectives' FLAGS_collective_debug and FLAGS_collective_matmul
+    assert len(port) == 25
     assert port == {n: jflags._REGISTRY[n].default for n in port}
     assert set(tflags.get_flags()) >= set(port)
     with pytest.raises(KeyError, match="FLAGS_benchmark"):

@@ -256,10 +256,10 @@ def test_zero1_ranks_hold_one_nth_of_the_moments(runs, world):
 
 
 @pytest.mark.parametrize("bad,slice_", [
-    (dict(tp=2), "tensor- and sequence-parallel"),
+    (dict(tp=2, pp=2), "pipeline"),
     (dict(pp=2), "pipeline"),
-    (dict(sp=True), "tensor- and sequence-parallel"),
-    (dict(collective_matmul=True), "tensor- and sequence-parallel"),
+    (dict(sp=True, num_experts=2), "expert-parallel"),
+    (dict(collective_matmul=True, num_experts=2), "expert-parallel"),
     (dict(dp=2, num_experts=2), "expert-parallel"),
 ])
 def test_validate_refuses_later_slices_naming_them(bad, slice_):

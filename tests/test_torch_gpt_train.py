@@ -235,14 +235,16 @@ def test_setup_on_cpu_runs_and_learns():
 
 
 @pytest.mark.parametrize("bad", [dict(dp=2), dict(tp=2), dict(pp=2),
-                                 dict(sp=True), dict(dp=2, num_experts=4),
-                                 dict(collective_matmul=True)])
+                                 dict(tp=2, sp=True),
+                                 dict(dp=2, num_experts=4),
+                                 dict(tp=2, collective_matmul=True)])
 def test_multi_device_configs_raise(bad):
-    """What later slices bring is refused; dp=2 (ported) needs a process
-    group of two ranks, which this process has not."""
+    """What later slices bring (pp, experts beside dp) is refused; dp=2 and
+    tp=2 (ported) need a process group of two ranks, which this process has
+    not."""
     _, tp = _pcfgs(**bad)
-    with pytest.raises(RuntimeError if bad == dict(dp=2)
-                       else NotImplementedError):
+    later = bad.get("pp", 1) > 1 or "num_experts" in bad
+    with pytest.raises(NotImplementedError if later else RuntimeError):
         TH.build_train_step(TCFG, tp)
 
 

@@ -14,7 +14,10 @@ the rest of the eager API: ``_C_ops`` and ``ops/yaml``, ``core.infermeta``,
 functionals and ``quant``, ``core.string_tensor`` and ``text``, and
 collective parallelism: ``distributed``'s ``env``, ``collective``,
 ``communication``, ``mesh``, ``parallel``, ``sharding``, ``fleet`` and
-``launch``, with the data-parallel step of ``models.gpt_hybrid``), and
+``launch``, with the data-parallel step of ``models.gpt_hybrid``, and
+tensor and sequence parallelism: ``fleet``'s ``mp_layers`` and
+``sequence_parallel_utils``, ``split``, the ``parallel`` package,
+``models.gpt_manual_tp`` and gpt_hybrid's tp + sp step), and
 its entry points default to CUDA:
 the training step's, and the eager API's, whose tensors land on gpu:0
 unless set_device("cpu") was called."""
@@ -270,6 +273,23 @@ zo.step()
 params, opt, step = TH.setup(cfg, pcfg, seed=0, device="cpu")
 assert isinstance(opt["m"]["float32"], torch.Tensor)      # flat buckets
 assert float(step(params, opt, (ids, ids))[2]) == single
+# tensor and sequence parallelism at world 1: fleet's mp and sp layers,
+# split, the parallel package, the manual-tp block and the tp + sp step
+import paddle_tpu_torch.parallel as tpar
+from paddle_tpu_torch.distributed.fleet import (
+    ColumnParallelLinear, ColumnSequenceParallelLinear, ParallelCrossEntropy,
+    RowParallelLinear, RowSequenceParallelLinear, VocabParallelEmbedding,
+    get_rng_state_tracker, mark_as_sequence_parallel_parameter, mp_layers,
+    register_sequence_parallel_allreduce_hooks, sequence_parallel_utils)
+from paddle_tpu_torch.models import gpt_manual_tp
+from paddle_tpu_torch.parallel import (collective_matmul, ring_attention,
+                                       sequence, ulysses)
+assert dist.split(paddle.ones([2, 4]), (4, 6), "linear", axis=1).shape == \
+    [2, 6]
+tp_cfg = TH.ParallelConfig(sp=True, collective_matmul=True, remat=True,
+                           remat_policy="names")
+params, opt, step = TH.setup(cfg, tp_cfg, seed=0, device="cpu")
+assert abs(float(step(params, opt, (ids, ids))[2]) - single) < 1e-3 * single
 dist.destroy_process_group()
 
 def foreign(name):
@@ -304,11 +324,11 @@ def test_distributed_names_of_later_slices_raise_naming_their_queue_item():
     assert paddle.Model.__module__ == "paddle_tpu_torch.hapi"
     assert distributed.save_state_dict is distributed.checkpoint.\
         save_state_dict
-    for name in ("shard_tensor", "reshard", "split", "rpc", "ps",
+    for name in ("shard_tensor", "reshard", "rpc", "ps",
                  "fleet_executor", "TCPStore"):
         with pytest.raises(NotImplementedError, match="queue 1, item 5"):
             getattr(distributed, name)
-    for name in ("ColumnParallelLinear", "PipelineLayer", "UtilBase"):
+    for name in ("LayerDesc", "PipelineLayer", "UtilBase"):
         with pytest.raises(NotImplementedError, match="queue 1, item 5"):
             getattr(distributed.fleet, name)
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
