@@ -280,7 +280,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      launches a step of each causal_attention kernel at 16 local heads;
      ms/step, the collectives' host-clock ms, collective.host_staged. A
      {"tensor_parallel": {...}} line. ``--phase17`` runs the build and this
-     phase alone.
+     phase alone;
+ 18. pipelines at the same Llama-7B widths, 16 layers in 2 stages, B4 S2048
+     in 4 microbatches (the workload's B2 does not split into its 4): (a)
+     parallel.pp_schedule.run_schedule in this process with 1F1B, ZBH1, the
+     interleaved schedule (v = 2) and ZB-V, each schedule's loss and every
+     gradient against the unpipelined single-device step within bf16's
+     2e-2 of the scale, causal_attention's launches against the count the
+     schedule and the recompute imply (``pp_expected_launches``), ms/step,
+     peak_activations, peak memory and idle share; (b) gpt_hybrid at
+     pp = 2 (4 layers) as two gloo ranks on the one card through the
+     launcher with gpipe, 1f1b and zbh1: global losses within 2e-2 of the
+     world-1 step's, each rank's launches, ms/step and pipeline hops. A
+     {"pipeline": {...}} line. ``--phase18`` runs the build and this phase
+     alone.
 The script sets FLAGS_matmul_precision to "highest", which the flag's
 default gives a user: f32 products and convolutions run in f32.
 Phases 2-6 keep the autotuner's table in a fresh temporary
@@ -289,8 +302,8 @@ default: phases 2-5 (and 7, 8, 10 and 11, each on a table of its own) run
 the configuration a user gets on a new checkout.
 Prints {"serving": {...}}, {"moe_gpt": {...}}, {"bert": {...}},
 {"resnet50": {...}}, {"model_fit": {...}}, {"jit": {...}},
-{"eager_api": {...}}, {"distributed": {...}} and {"tensor_parallel": {...}}
-lines, the
+{"eager_api": {...}}, {"distributed": {...}}, {"tensor_parallel": {...}}
+and {"pipeline": {...}} lines, the
 script's seconds, the card line, then one {"kernels": [...]} line (each row with its design),
 then as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -5245,12 +5258,404 @@ def drive_tensor_parallel(run, paddle, TH, GPTConfig, mods, cost_model,
     return out
 
 
+# Phase 18: pipelines at llama_tp_pp_sharding3.py's widths (TP_LLAMA: vocab
+# 32000, h4096, 32 heads of 128, S2048; bf16, remat "names", fused CE) at
+# 16 of its 32 layers (17b's depth, for the same memory reason) in 2 stages.
+# The batch is B4 in 4 microbatches: the workload's full configuration
+# (B = 2·dp = 2 at TP4 x PP2, 4 microbatches) is refused by the reference's
+# own pipeline_microbatch (a batch of 2 does not split into 4), so the card
+# runs the smallest batch its 4 microbatches divide.
+PP_BATCH, PP_MICRO, PP_STAGES = 4, 4, 2
+# 18a's schedules: (label, builder); 18b's pp_schedule values at 4 layers
+PP_SCHEDULES = (("1F1B", "schedule_1f1b"), ("ZBH1", "schedule_zbh1"),
+                ("VPP2", "schedule_interleaved"), ("ZB-V", "schedule_zbvpp"))
+PP2_LAYERS, PP2_SCHEDULES, PP2_STEPS = 4, ("gpipe", "1f1b", "zbh1"), 3
+
+
+def _pp_ids(torch, cfg):
+    return torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (PP_BATCH, TP_SEQ))).cuda()
+
+
+def pp_expected_launches(kind, layers, micro, ticks=None):
+    """causal_attention's launches (fwd, bwd) a step, written down before
+    the run. A forward cell runs each layer's forward once (no autograd);
+    a fused B recomputes the stage forward (1 forward a layer; remat
+    "names" saves the attention output, so its checkpoints recompute no
+    attention) and back-propagates once (1 backward); a zero-bubble B
+    recomputes it without the checkpoints and back-propagates for the
+    input gradient, and W back-propagates through the same graph again
+    (2 backwards). GPipe runs every tick of its rotation, masked ones
+    included: ``ticks`` = M + N - 1 stage forwards and backwards."""
+    if kind == "gpipe":
+        return ticks * layers, ticks * layers
+    if kind in ("zbh1", "ZBH1", "ZB-V"):
+        return 2 * layers * micro, 2 * layers * micro
+    return 2 * layers * micro, layers * micro
+
+
+def drive_pp_schedules(run, TH, GPTConfig, torch):
+    """18a: pp_schedule.run_schedule on the card in one process, every stage
+    here: 1F1B, ZBH1, the interleaved schedule (v = 2) and ZB-V over the
+    16-layer Llama-7B-width model split in 2 stages, B4 S2048 in 4
+    microbatches, against the unpipelined single-device step's loss and
+    gradients."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.ops.hopper import causal_attention as ca
+    from paddle_tpu_torch.parallel import pp_schedule as PS
+    cfg = GPTConfig(**TP_LLAMA)
+    L, m = cfg.num_layers, PP_MICRO
+    pcfg = _tp_pcfg(TH, torch)
+    flat_pcfg = _tp_pcfg(TH, torch, remat=False)
+    cdt = pcfg.compute_dtype
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = TH.init_params(cfg, pcfg, gen, "cuda")
+    ids = _pp_ids(torch, cfg)
+    names = sorted(params["blocks"])
+    # the unpipelined single-device step: its loss and gradients
+    ca.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base_loss, base_grads = TH._value_and_grad(params, (ids, ids), cfg, pcfg)
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t0
+    base_launches = dict(ca.LAUNCHES)
+    base_loss = float(base_loss)
+    # kept on the host, brought back a layer at a time to compare: 6.7 GB
+    # of the card freed for the schedules' peaks
+    base = {k: g.cpu() for k, g in zip(TH._leaf_names(params), base_grads)}
+    del base_grads
+    print(f"18a unpipelined step: loss {base_loss:.5f}, {base_s:.2f} s, "
+          f"launches {base_launches}", flush=True)
+    out = {"unpipelined_loss": base_loss, "unpipelined_launches":
+           base_launches, "schedules": {}}
+
+    def one_step(sched):
+        """Loss and gradients (f32, by leaf name) of one run_schedule."""
+        n, v = sched.n_stages, sched.n_chunks
+        per = L // (n * v)
+        wte = params["wte"].detach().requires_grad_(True)
+        wpe = params["wpe"].detach().requires_grad_(True)
+        x = F.embedding(ids, wte).to(cdt) + wpe[:TP_SEQ][None].to(cdt)
+        mbs = list(x.detach().chunk(m))
+        lbls = ids.chunk(m)
+        grads = {k: torch.zeros((L,) + tuple(p.shape[1:]),
+                                dtype=torch.float32, device="cuda")
+                 for k, p in params["blocks"].items()}
+        head = {"wte": torch.zeros_like(params["wte"], dtype=torch.float32),
+                "lnf_g": torch.zeros_like(params["lnf_g"],
+                                          dtype=torch.float32),
+                "lnf_b": torch.zeros_like(params["lnf_b"],
+                                          dtype=torch.float32)}
+        loss = [0.0]
+        dx0 = {}
+        seen = [0]
+
+        def layers(stage, chunk):
+            vi = sched.virtual_index(stage, chunk)
+            return vi, slice(vi * per, (vi + 1) * per)
+
+        def blocks(sl, leaves=None):
+            src = leaves or [params["blocks"][k][sl].to(cdt) for k in names]
+            return dict(zip(names, src))
+
+        def forward(stage, chunk, xin):
+            vi, sl = layers(stage, chunk)
+            with torch.no_grad():
+                y = TH._stack_apply(blocks(sl), xin, cfg, pcfg)
+            ctx = {"x": xin, "sl": sl, "vi": vi}
+            if vi == 0:
+                ctx["mb"] = seen[0]
+                seen[0] += 1
+            return y, ctx
+
+        def recompute(ctx, graph):
+            leaves = [params["blocks"][k][ctx["sl"]].to(cdt).detach()
+                      .requires_grad_(True) for k in names]
+            xg = ctx["x"].detach().requires_grad_(True)
+            y = TH._stack_apply(blocks(ctx["sl"], leaves), xg, cfg,
+                                flat_pcfg if graph else pcfg)
+            return y, xg, leaves
+
+        def add(sl, leaves_grads):
+            for k, g in zip(names, leaves_grads):
+                grads[k][sl] += g.float()
+
+        def backward(stage, chunk, ctx, gy):
+            split = sched._has_w()
+            with torch.enable_grad():
+                y, xg, leaves = recompute(ctx, split)
+                if split:
+                    (gx,) = torch.autograd.grad(y, [xg], gy,
+                                                retain_graph=True)
+                    ctx["graph"] = (y, leaves)
+                else:
+                    gx, *gl = torch.autograd.grad(y, [xg] + leaves, gy)
+                    add(ctx["sl"], gl)
+            if ctx["vi"] == 0:
+                dx0[ctx["mb"]] = gx
+            return gx
+
+        def weight_grad(stage, chunk, ctx, gy):
+            y, leaves = ctx.pop("graph")
+            add(ctx["sl"], torch.autograd.grad(y, leaves, gy))
+
+        def loss_grads(mb, y):
+            with torch.enable_grad():
+                hp = {k: params[k].detach().requires_grad_(True)
+                      for k in ("wte", "lnf_g", "lnf_b")}
+                yg = y.detach().requires_grad_(True)
+                h = TH._layer_norm(yg, hp["lnf_g"].to(cdt),
+                                   hp["lnf_b"].to(cdt))
+                lv = TH._ce_from_hidden(h, hp["wte"], lbls[mb], pcfg) / m
+                gy, *gh = torch.autograd.grad(lv, [yg] + [hp[k] for k in
+                                                          sorted(hp)])
+            for k, g in zip(sorted(hp), gh):
+                head[k] += g.float()
+            loss[0] += float(lv)
+            return gy
+
+        PS.run_schedule(sched, forward, backward,
+                        weight_grad if sched._has_w() else None, mbs,
+                        loss_grads)
+        dwte, dwpe = torch.autograd.grad(
+            x, [wte, wpe], torch.cat([dx0[i] for i in range(m)]))
+        out_g = {"wte": head["wte"] + dwte.float(), "wpe": dwpe.float(),
+                 "lnf_g": head["lnf_g"], "lnf_b": head["lnf_b"]}
+        out_g.update({f"blocks.{k}": g for k, g in grads.items()})
+        return loss[0], out_g
+
+    for label, builder in PP_SCHEDULES:
+        sched = getattr(PS, builder)(PP_STAGES, m, 2) if label == "VPP2" \
+            else getattr(PS, builder)(PP_STAGES, m)
+        want = pp_expected_launches(label, L, m)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        at_start = torch.cuda.memory_allocated()
+        ca.reset_launch_counts()
+        loss, grads = one_step(sched)
+        torch.cuda.synchronize()
+        launches = dict(ca.LAUNCHES)
+        peak_gb = (torch.cuda.max_memory_allocated() - at_start) / 1e9
+        rel = abs(loss - base_loss) / abs(base_loss)
+        worst, worst_leaf = 0.0, None
+        for k, g in grads.items():
+            # a layer at a time: fc1_w's f32 temporaries are 4 GB whole
+            ref = base[k]
+            pairs = zip(g.unbind(0), ref.unbind(0)) if k.startswith(
+                "blocks.") else [(g, ref)]
+            diff = scale = 0.0
+            for a, b in pairs:
+                b = b.cuda().float()
+                diff = max(diff, float((a - b).abs().max()))
+                scale = max(scale, float(b.abs().max()))
+            err = diff / max(scale, 1e-30)
+            if err > worst:
+                worst, worst_leaf = err, k
+        del grads
+        times = []
+        for _ in range(2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            one_step(sched)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            one_step(sched)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy = sum(r[1] for r in _device_rows(prof))
+        idle = max(0.0, 1 - busy / wall_ms)
+        makespan, bubble = sched.simulate()
+        res = {"loss": loss, "loss_rel_err": rel, "grad_rel_err": worst,
+               "worst_leaf": worst_leaf, "launches": launches,
+               "expected_launches": {TP_KERNELS[0]: want[0],
+                                     TP_KERNELS[1]: want[1]},
+               "ms_per_step": float(np.median(times)), "step_ms": times,
+               "peak_activations": sched.peak_activations(),
+               "peak_memory_gb": peak_gb, "idle_share": idle,
+               "profiled_ms": wall_ms, "kernel_ms": busy,
+               "bubble": bubble, "makespan": makespan}
+        out["schedules"][label] = res
+        print(f"18a {label}: loss {loss:.5f} (unpipelined {base_loss:.5f}, "
+              f"rel {rel:.2e}), worst gradient {worst:.2e} of its scale "
+              f"({worst_leaf}); launches {launches} (expected {want}); "
+              f"{res['ms_per_step']:.2f} ms/step (CUDA events, median of 2: "
+              f"{[round(t, 2) for t in times]}); peak_activations "
+              f"{res['peak_activations']}, peak {peak_gb:.2f} GB above "
+              f"the {at_start / 1e9:.2f} GB held; profiled {wall_ms:.2f} "
+              f"ms wall, {busy:.2f} ms kernels, idle share {idle:.3f}; "
+              f"simulated bubble {bubble:.3f}", flush=True)
+        run.check(rel <= TOL["bfloat16"] and worst <= TOL["bfloat16"],
+                  f"18a {label}: the loss ({rel:.2e}) and every gradient "
+                  f"(worst {worst:.2e}, {worst_leaf}) within "
+                  f"{TOL['bfloat16']} of the unpipelined step's scale")
+        run.check(launches == {TP_KERNELS[0]: want[0],
+                               TP_KERNELS[1]: want[1]},
+                  f"18a {label}: causal_attention launched {launches}, "
+                  f"expected fwd {want[0]}, bwd {want[1]}")
+    del params, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase18b_worker(out_dir):
+    """One rank of 18b, started by the port's launcher: gpt_hybrid's pp = 2
+    step over gloo with the card's tensors for each of PP2_SCHEDULES; rank
+    by rank, the losses, host-clock ms/step, causal_attention's launches and
+    the pipeline hops (``collective.P2P_STATS``, ``HOST_STAGED``)."""
+    import torch
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.models import gpt_hybrid as TH
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.ops.hopper import causal_attention as ca
+    paddle.set_device("gpu:0")
+    dist.init_parallel_env(backend="gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = GPTConfig(**dict(TP_LLAMA, num_layers=PP2_LAYERS))
+    res = {"world": world, "backend": dist.get_backend()}
+    for kind in PP2_SCHEDULES:
+        pcfg = _tp_pcfg(TH, torch, pp=world, microbatches=PP_MICRO,
+                        pp_schedule=kind)
+        params, opt_state, step = TH.setup(cfg, pcfg, seed=0)
+        batch = (_pp_ids(torch, cfg),) * 2
+        ca.reset_launch_counts()
+        C.P2P_STATS.clear()
+        C.HOST_STAGED.clear()
+        losses, step_ms = [], []
+        for _ in range(PP2_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(params, opt_state, batch)[2]))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        res[kind] = {"losses": losses, "step_ms": step_ms,
+                     "launches": dict(ca.LAUNCHES),
+                     "p2p": dict(C.P2P_STATS),
+                     "host_staged": dict(C.HOST_STAGED)}
+        del params, opt_state, step
+    with open(os.path.join(out_dir, f"pp2.{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def drive_pp_two_ranks(run, TH, GPTConfig, torch):
+    """18b: gpt_hybrid at pp = 2, two ranks on the one card over gloo (NCCL
+    refuses two ranks on one device), through the launcher, against the
+    world-1 single-device step of the same configuration."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=os.path.join(root, ".cache")) as d:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node", "2", os.path.abspath(__file__),
+             "--phase18b-worker", d],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, start_new_session=True)
+        try:
+            _, err = proc.communicate(timeout=400)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            _, err = proc.communicate()
+        wall = time.perf_counter() - t0
+        files = [os.path.join(d, f"pp2.{r}.json") for r in range(2)]
+        ok = proc.returncode == 0 and all(map(os.path.exists, files))
+        run.check(ok, f"18b: two ranks at pp = 2 over gloo on the one card "
+                  f"ran (rc {proc.returncode}, {wall:.1f} s)"
+                  f"{'' if ok else ': ' + err[-1500:]}")
+        if not ok:
+            return {"rc": proc.returncode}
+        ranks = []
+        for path in files:
+            with open(path) as f:
+                ranks.append(json.load(f))
+    cfg = GPTConfig(**dict(TP_LLAMA, num_layers=PP2_LAYERS))
+    params, opt_state, step = TH.setup(cfg, _tp_pcfg(TH, torch), seed=0)
+    one, one_t = _timed_steps(torch, step, params, opt_state,
+                              (_pp_ids(torch, cfg),) * 2, PP2_STEPS)
+    del params, opt_state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"world1_losses": one, "world1_ms_per_step":
+           float(np.median(one_t[1:])), "launcher_s": wall, "schedules": {}}
+    per_rank = PP2_LAYERS // 2
+    for kind in PP2_SCHEDULES:
+        got = [r[kind] for r in ranks]
+        diff = max(abs(a - b) for r in got for a, b in zip(r["losses"], one))
+        want = pp_expected_launches(kind, per_rank, PP_MICRO,
+                                    ticks=PP_MICRO + 2 - 1)
+        want = {TP_KERNELS[0]: want[0] * PP2_STEPS,
+                TP_KERNELS[1]: want[1] * PP2_STEPS}
+        run.check(diff <= 2e-2,
+                  f"18b {kind}: the global losses "
+                  f"{[round(x, 4) for x in got[0]['losses']]} of 2 ranks "
+                  f"are within 2e-2 of the world-1 step's "
+                  f"{[round(x, 4) for x in one]} (worst {diff:.3e})")
+        run.check(all(r["launches"] == want for r in got),
+                  f"18b {kind}: each rank launched "
+                  f"{[r['launches'] for r in got]} causal_attention "
+                  f"kernels over {PP2_STEPS} steps, expected {want}")
+        res = {"loss_abs_err": diff,
+               "losses": got[0]["losses"],
+               "ms_per_step": [float(np.median(r["step_ms"][1:]))
+                               for r in got],
+               "launches": [r["launches"] for r in got],
+               "expected_launches": want,
+               "p2p": [r["p2p"] for r in got],
+               "host_staged": [r["host_staged"] for r in got]}
+        out["schedules"][kind] = res
+        print(f"18b {kind}: Llama-7B widths at {PP2_LAYERS} layers "
+              f"({per_rank} a stage), B{PP_BATCH} S{TP_SEQ} in {PP_MICRO} "
+              f"microbatches, pp = 2 over gloo: losses "
+              f"{[round(x, 4) for x in res['losses']]} (world 1 "
+              f"{[round(x, 4) for x in one]}); ms/step by rank "
+              f"{[round(x, 1) for x in res['ms_per_step']]} (host clock, "
+              f"median of steps 2-{PP2_STEPS}; world 1 "
+              f"{out['world1_ms_per_step']:.1f}); launches by rank "
+              f"{res['launches']}; hops by rank {res['p2p']}; host-staged "
+              f"{res['host_staged']}", flush=True)
+    return out
+
+
+def drive_pipeline(run, paddle, TH, GPTConfig, torch):
+    """Phase 18: 18a run_schedule's four schedules on the card in one
+    process, 18b gpt_hybrid at pp = 2 as two gloo ranks on the one card."""
+    t_phase = time.perf_counter()
+    paddle.set_device("gpu:0")
+    out = {"allocated_at_start_gb": torch.cuda.memory_allocated() / 1e9,
+           "batch": PP_BATCH, "microbatches": PP_MICRO,
+           "layers": TP_LLAMA["num_layers"], "stages": PP_STAGES}
+    t0 = time.perf_counter()
+    out["run_schedule"] = drive_pp_schedules(run, TH, GPTConfig, torch)
+    print(f"18a: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    out["two_ranks"] = drive_pp_two_ranks(run, TH, GPTConfig, torch)
+    print(f"18b: {time.perf_counter() - t0:.1f} s", flush=True)
+    out["phase_18_s"] = time.perf_counter() - t_phase
+    print(f"pipeline phase: {out['phase_18_s']:.1f} s", flush=True)
+    return out
+
+
 def main():
     if sys.argv[1:2] == ["--phase16d-worker"]:
         phase16d_worker(sys.argv[2])
         return 0
     if sys.argv[1:2] == ["--phase17c-worker"]:
         phase17c_worker(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--phase18b-worker"]:
+        phase18b_worker(sys.argv[2])
         return 0
     try:
         import torch
@@ -5305,6 +5710,18 @@ def main():
                               ".cache")
     os.makedirs(cache_root, exist_ok=True)
     mods = (sa, ca, bf, sa2, fa)
+    if "--phase18" in sys.argv[1:]:
+        # phase 18 alone (no kernels line, no ok line): for work on it
+        with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+            os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+            at._table = None
+            pp = drive_pipeline(run, paddle, TH, GPTConfig, torch)
+        print(json.dumps({"pipeline": pp}))
+        print(f"chip_smoke --phase18: {time.perf_counter() - t_script:.1f} "
+              f"s, {len(run.failures)} check(s) failed", flush=True)
+        for what in run.failures:
+            print(f"  {what[:300]}", file=sys.stderr)
+        return 1 if run.failures else 0
     if "--phase17" in sys.argv[1:]:
         # phase 17 alone (no kernels line, no ok line): for work on it
         with tempfile.TemporaryDirectory(dir=cache_root) as cache:
@@ -5467,6 +5884,12 @@ def main():
         at._table = None
         tp = drive_tensor_parallel(run, paddle, TH, GPTConfig, mods,
                                    cost_model, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+        os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+        at._table = None
+        pp = drive_pipeline(run, paddle, TH, GPTConfig, torch)
 
     kernels = []
     for kern in KERNELS:
@@ -5511,6 +5934,7 @@ def main():
     print(json.dumps({"eager_api": api}))
     print(json.dumps({"distributed": dd}))
     print(json.dumps({"tensor_parallel": tp}))
+    print(json.dumps({"pipeline": pp}))
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s", flush=True)
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed:",

@@ -79,3 +79,75 @@ def spawn_probe(out_dir):
         json.dump([dist.get_rank(), dist.get_world_size(), float(t[0]),
                    dist.get_backend()], f)
     dist.destroy_process_group()
+
+
+def gpt_hybrid_worker(out, configs, batch, seq, steps):
+    """A rank of a gpt_hybrid parity job (the multi-rank tests' worker):
+    for each (name, size, ParallelConfig fields) of ``configs`` it loads
+    the reference's parameters from ``out/start.<name>.npz`` (its global
+    layout, flattened to "blocks.<leaf>" keys), takes this rank's stage and
+    tp shards, runs ``steps`` steps of the (dp, pp, tp) step on batches of
+    ``RandomState(step)`` ids, and writes ``out/<name>.<world>.<rank>.npz``:
+    the losses, the loss of ``loss_fn`` on the first batch after the steps,
+    and the parameters and moments gathered into the reference's layout
+    ("p."/"m."/"v." + leaf)."""
+    import os
+    import numpy as np
+    import torch
+    from . import distributed as dist
+    from .models import gpt_hybrid as TH
+    from .models.gpt import GPTConfig
+    force_cpu()
+    dist.init_parallel_env()
+    rank, world = dist.get_rank(), dist.get_world_size()
+
+    def tree(path):
+        t = {"blocks": {}}
+        with np.load(path) as f:
+            for k in f.files:
+                if k.startswith("blocks."):
+                    t["blocks"][k[7:]] = f[k]
+                else:
+                    t[k] = f[k]
+        return t
+
+    def flat(t, prefix=""):
+        o = {}
+        for k in sorted(t):
+            v = t[k]
+            o.update(flat(v, prefix + k + ".") if isinstance(v, dict)
+                     else {prefix + k: v.detach().float().numpy()})
+        return o
+
+    for name, size, fields in configs:
+        cfg = GPTConfig(**size)
+        pcfg = TH.ParallelConfig(**{"remat": False, "fused_ce": True,
+                                    "param_dtype": torch.float32,
+                                    "compute_dtype": torch.float32,
+                                    **fields})
+        grid = TH._grid(pcfg)
+        params = TH.params_from_jax(
+            tree(os.path.join(out, f"start.{name}.npz")), device="cpu",
+            tp_rank=grid.tp_rank, tp=pcfg.tp, pp_rank=grid.pp_rank,
+            pp=pcfg.pp)
+        opt = TH.dp_adamw_init(params, pcfg)
+        step = TH.build_train_step(cfg, pcfg)
+        losses = []
+        for i in range(steps):
+            x = np.random.RandomState(i).randint(0, size["vocab_size"],
+                                                 (batch, seq))
+            ids = torch.from_numpy(x).long()
+            losses.append(float(step(params, opt, (ids, ids))[2]))
+        x = np.random.RandomState(0).randint(0, size["vocab_size"],
+                                             (batch, seq))
+        ids = torch.from_numpy(x).long()
+        with torch.no_grad():
+            eval_loss = float(TH.loss_fn(params, (ids, ids), cfg, pcfg))
+        full = TH.gather_opt_state(params, opt, pcfg, cfg)
+        res = {"loss": np.asarray(losses), "eval_loss": eval_loss,
+               "step": np.asarray(full["step"])}
+        for kind, t in (("p", TH.gather_params(params, cfg, pcfg)),
+                        ("m", full["m"]), ("v", full["v"])):
+            res.update({f"{kind}.{k}": v for k, v in flat(t).items()})
+        np.savez(os.path.join(out, f"{name}.{world}.{rank}.npz"), **res)
+    dist.destroy_process_group()

@@ -46,6 +46,7 @@ from .sharding import (  # noqa: F401
 from . import fleet  # noqa: F401
 from .fleet.recompute import recompute  # noqa: F401
 from . import launch  # noqa: F401
+from . import auto_parallel  # noqa: F401
 from . import communication  # noqa: F401
 from . import io  # noqa: F401
 from .communication import stream  # noqa: F401
@@ -56,6 +57,7 @@ def _spawn_entry(rank, func, args, nprocs, master, backend):
     os.environ.update({
         "PADDLE_TRAINER_ID": str(rank), "PADDLE_TRAINERS_NUM": str(nprocs),
         "PADDLE_MASTER": master, "PADDLE_LOCAL_RANK": str(rank),
+        "PADDLE_STORE_HOSTED": "1",
         "RANK": str(rank), "WORLD_SIZE": str(nprocs),
         "LOCAL_RANK": str(rank)})
     if backend == "gloo":
@@ -70,22 +72,28 @@ def spawn(func, args=(), nprocs=-1, join=True, daemon=False, **options):
     launcher's variables set, so ``init_parallel_env()`` joins them.
     ``backend="gloo"`` makes each process's default place the CPU. Returns
     torch's ProcessContext; with ``join`` it waits and raises if a process
-    failed."""
+    failed. This process hosts the job's rendezvous store (at
+    ``master``'s port, or one the OS picks), which the processes join as
+    clients; without ``join`` it lives as long as the returned context."""
     import torch
     import torch.multiprocessing as mp
-    from .launch.main import _free_port
+    from .launch.main import _host_store
     if nprocs == -1:
         nprocs = torch.cuda.device_count()
     if nprocs < 1:
         raise RuntimeError("spawn: no GPU to start a process for; pass "
                            "nprocs and backend='gloo' for the CPU")
-    master = options.get("master") or f"127.0.0.1:{_free_port()}"
+    host, port = (options.get("master") or "127.0.0.1:0").rsplit(":", 1)
+    store, port = _host_store(host, port, nprocs)
     backend = options.get("backend")
-    return mp.start_processes(_spawn_entry,
-                              args=(func, tuple(args), nprocs, master,
-                                    backend),
-                              nprocs=nprocs, join=join, daemon=daemon,
-                              start_method="spawn")
+    ctx = mp.start_processes(_spawn_entry,
+                             args=(func, tuple(args), nprocs,
+                                   f"{host}:{port}", backend),
+                             nprocs=nprocs, join=join, daemon=daemon,
+                             start_method="spawn")
+    if ctx is not None:
+        ctx._store = store
+    return ctx
 
 
 class ParallelMode:
@@ -186,7 +194,7 @@ _LATER = {
     "shard_dataloader": _AUTO, "shard_scaler": _AUTO, "to_static": _AUTO,
     "unshard_dtensor": _AUTO, "Strategy": _AUTO, "DistModel": _AUTO,
     "DistAttr": _AUTO, "api": _AUTO, "planner": _AUTO,
-    "auto_parallel": _AUTO, "auto_tuner": _AUTO,
+    "auto_tuner": _AUTO,
     "rpc": "the rpc slice", "ps": _PS, "QueueDataset": _PS,
     "InMemoryDataset": _PS, "ProbabilityEntry": _PS,
     "CountFilterEntry": _PS, "ShowClickEntry": _PS,

@@ -397,9 +397,19 @@ def send(tensor, dst=0, group=None, sync_op=True):
     pg = _pg(group)
     if pg is _LOCAL:
         raise ValueError("send at world 1 has no peer")
-    work = dist.isend(_arr(tensor).detach().contiguous(),
-                      dst=int(dst), group=pg)
+    a, _ = _host_route("send", pg, _arr(tensor).detach().contiguous())
+    work = dist.isend(a, dst=int(dst), group=pg)
     return _finish(work, None, sync_op)
+
+
+def _recv_into(tensor, op, pg):
+    """(the buffer to hand the backend, what copies it into ``tensor``
+    once the receive completed: the host route's copy back, or None)."""
+    buf = _buf(tensor)
+    a, staged = _host_route(op, pg, buf)
+    if not staged:
+        return a, None
+    return a, lambda: buf.copy_(a)
 
 
 def recv(tensor, src=0, group=None, sync_op=True):
@@ -407,8 +417,9 @@ def recv(tensor, src=0, group=None, sync_op=True):
     pg = _pg(group)
     if pg is _LOCAL:
         raise ValueError("recv at world 1 has no peer")
-    work = dist.irecv(_buf(tensor), src=int(src), group=pg)
-    return _finish(work, None, sync_op)
+    a, then = _recv_into(tensor, "recv", pg)
+    work = dist.irecv(a, src=int(src), group=pg)
+    return _finish(work, then, sync_op)
 
 
 def isend(tensor, dst=0, group=None):
@@ -421,26 +432,73 @@ def irecv(tensor, src=0, group=None):
 
 class P2POp:
     """One send or receive of ``batch_isend_irecv``: ``op`` is ``isend`` or
-    ``irecv`` (this module's or torch's)."""
+    ``irecv`` (this module's or torch's); ``tag`` tells apart two messages
+    between the same pair of ranks (gloo matches on it; NCCL matches in
+    order)."""
 
-    def __init__(self, op, tensor, peer, group=None):
+    def __init__(self, op, tensor, peer, group=None, tag=0):
         self.op = op
         self.tensor = tensor
         self.peer = peer
         self.group = group
+        self.tag = tag
 
 
 def batch_isend_irecv(p2p_op_list):
-    ops = []
+    """Posts every send and receive of the list and returns one task each.
+    Under gloo, CUDA tensors go through a host copy (``HOST_STAGED``
+    "send"/"recv"); a receive's task copies it back in ``wait()``."""
+    ops, thens = [], []
     for p in p2p_op_list:
         name = getattr(p.op, "__name__", "")
-        top = dist.isend if name in ("isend", "send") else dist.irecv
-        a = _buf(p.tensor) if top is dist.irecv \
-            else _arr(p.tensor).detach().contiguous()
+        sending = name in ("isend", "send")
         pg = _pg(p.group)
-        ops.append(dist.P2POp(top, a, int(p.peer),
-                              group=None if pg is dist.group.WORLD else pg))
-    return [_Task(w) for w in dist.batch_isend_irecv(ops)]
+        if sending:
+            _collective_log("send", p.tensor, p.group)
+            a, _ = _host_route("send", pg, _arr(p.tensor).detach()
+                               .contiguous())
+            then = None
+        else:
+            _collective_log("recv", p.tensor, p.group)
+            a, then = _recv_into(p.tensor, "recv", pg)
+        ops.append(dist.P2POp(dist.isend if sending else dist.irecv, a,
+                              int(p.peer),
+                              group=None if pg is dist.group.WORLD else pg,
+                              tag=int(getattr(p, "tag", 0))))
+        thens.append(then)
+    works = dist.batch_isend_irecv(ops) if ops else []
+    return [_Task(w, t) for w, t in zip(works, thens)]
+
+
+#: the pipeline's hops: calls, bytes sent and received, and the host
+#: clock around them (``p2p_exchange`` and ``ppermute``), by this process
+P2P_STATS = collections.Counter()
+
+
+def p2p_exchange(sends, recvs, group):
+    """One pipeline hop between the ranks of ``group`` (the pp group):
+    ``sends`` is [(tensor, group rank, tag)], ``recvs`` [(shape, dtype,
+    device, group rank, tag)]. Posts every receive and send at once, waits
+    for all of them and returns the received tensors in ``recvs``' order.
+    Both sides of a pair must post the same messages: each side lists them
+    in the same (tag) order, which NCCL matches in order and gloo by tag.
+    """
+    import time
+    t0 = time.perf_counter()
+    ops, outs = [], []
+    for shape, dtype, device, peer, tag in recvs:
+        buf = torch.empty(shape, dtype=dtype, device=device)
+        outs.append(buf)
+        ops.append(P2POp(irecv, buf, group.ranks[peer], group, tag))
+        P2P_STATS["recv_bytes"] += buf.numel() * buf.element_size()
+    for t, peer, tag in sends:
+        ops.append(P2POp(isend, t, group.ranks[peer], group, tag))
+        P2P_STATS["send_bytes"] += t.numel() * t.element_size()
+    for task in batch_isend_irecv(ops):
+        task.wait()
+    P2P_STATS["calls"] += 1
+    P2P_STATS["seconds"] += time.perf_counter() - t0
+    return outs
 
 
 def wait(tensor, group=None, use_calc_stream=True):
@@ -612,6 +670,8 @@ def _permute(x, group, perm):
     (i, j) in ``perm``; a rank that receives nothing gets zeros. Every rank
     posts its sends and receives in ``perm``'s order."""
     _collective_log("ppermute", x, group)
+    import time
+    t0 = time.perf_counter()
     me = group.rank
     out = torch.zeros_like(x, memory_format=torch.contiguous_format)
     pg = _pg(group)
@@ -635,6 +695,14 @@ def _permute(x, group, perm):
         work.wait()
     if staged and any(j == me and i != me for i, j in perm):
         out.copy_(dst)
+    if p2p:
+        nbytes = x.numel() * x.element_size()
+        P2P_STATS["calls"] += 1
+        P2P_STATS["send_bytes"] += nbytes * sum(i == me != j
+                                                for i, j in perm)
+        P2P_STATS["recv_bytes"] += nbytes * sum(j == me != i
+                                                for i, j in perm)
+        P2P_STATS["seconds"] += time.perf_counter() - t0
     return out
 
 

@@ -118,8 +118,10 @@ def init_parallel_env(backend: Optional[str] = None,
 
     ``backend`` None picks NCCL on ``cuda:LOCAL_RANK``, or gloo when the
     current place is the CPU. NCCL without a card or without NCCL raises.
-    The rendezvous is a TCP store at the launcher's master address; world 1
-    with no master address uses an in-process store."""
+    The rendezvous is a TCP store at the master address: the launcher's
+    own (``PADDLE_STORE_HOSTED``: every rank joins it as a client), or else
+    one that rank 0 hosts; world 1 with no master address uses an
+    in-process store."""
     global _GLOBAL_GROUP
     if is_initialized():
         if _GLOBAL_GROUP is None:
@@ -152,6 +154,14 @@ def init_parallel_env(backend: Optional[str] = None,
                 "python -m paddle_tpu_torch.distributed.launch")
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                 world_size=1, **kwargs)
+    elif os.environ.get("PADDLE_STORE_HOSTED") == "1":
+        # the launcher hosts the store: every rank, 0 included, is a client
+        host, port = master
+        store = dist.TCPStore(host, int(port), world, is_master=False,
+                              timeout=datetime.timedelta(
+                                  seconds=timeout_s or 300))
+        dist.init_process_group(backend, store=store, rank=rank,
+                                world_size=world, **kwargs)
     else:
         host, port = master
         dist.init_process_group(backend, init_method=f"tcp://{host}:{port}",

@@ -9,10 +9,13 @@ group, the stage-1 sharding optimizer over the sharding group),
 ``mp_degree`` and ``sep_degree`` (their groups, in the reference's axis
 order pp -> sep -> mp -> sharding -> dp; the tensor-parallel layers of
 ``mp_layers`` and the sequence-parallel ones of
-``sequence_parallel_utils`` over the mp group), gradient merge and AMP O2
-as the strategy wires them. ``pp_degree`` above 1, the pipeline layers,
-the parameter server and the role makers come with later slices of
-ROADMAP queue 1, item 5: they raise ``NotImplementedError`` naming it.
+``sequence_parallel_utils`` over the mp group), ``pp_degree`` (the pipe
+group; ``distributed_model`` wraps a ``PipelineLayer`` in
+``meta_parallel.PipelineParallel``, whose ``train_batch`` runs the
+``pipeline_configs`` schedule), gradient merge and AMP O2 as the strategy
+wires them. The parameter server and the role makers come with a later
+slice of ROADMAP queue 1, item 5: they raise ``NotImplementedError``
+naming it.
 """
 from __future__ import annotations
 
@@ -28,6 +31,8 @@ from .topology import (CommunicateTopology, HybridCommunicateGroup,
                        get_hybrid_communicate_group,
                        set_hybrid_communicate_group)
 from . import mp_layers, sequence_parallel_utils  # noqa: F401
+from . import meta_parallel, pp_layers, pp_parallel_adaptor  # noqa: F401
+from .pp_layers import LayerDesc, PipelineLayer, SharedLayerDesc  # noqa: F401
 from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,  # noqa: F401
                         RowParallelLinear, VocabParallelEmbedding,
                         get_rng_state_tracker, model_parallel_random_seed)
@@ -46,15 +51,13 @@ __all__ = [
     "VocabParallelEmbedding", "ParallelCrossEntropy",
     "get_rng_state_tracker", "ColumnSequenceParallelLinear",
     "RowSequenceParallelLinear", "mark_as_sequence_parallel_parameter",
-    "register_sequence_parallel_allreduce_hooks",
+    "register_sequence_parallel_allreduce_hooks", "LayerDesc",
+    "PipelineLayer", "SharedLayerDesc",
 ]
 
-_PP = "the pipeline slice"
 _PS = "the parameter-server slice"
 #: the reference's fleet names that later slices bring, and which
 _LATER = {
-    "LayerDesc": _PP, "PipelineLayer": _PP, "SharedLayerDesc": _PP,
-    "pp_layers": _PP, "meta_parallel": _PP, "pp_parallel_adaptor": _PP,
     "PaddleCloudRoleMaker": _PS, "UserDefinedRoleMaker": _PS, "Role": _PS,
     "UtilBase": _PS, "MultiSlotDataGenerator": _PS,
     "MultiSlotStringDataGenerator": _PS, "is_server": _PS,
@@ -125,10 +128,6 @@ class _Fleet:
         hc = self._strategy.hybrid_configs
         dims = {n: int(hc.get(f"{n}_degree", 1))
                 for n in ("pp", "sep", "mp", "sharding", "dp")}
-        if dims["pp"] > 1:
-            raise NotImplementedError(
-                f"pp_degree={dims['pp']} comes with {_PP} (ROADMAP queue 1, "
-                "item 5c); fleet runs dp, sharding, mp and sep")
         world = get_world_size()
         total = int(np.prod(list(dims.values())))
         if total == 1 and world > 1:
@@ -163,10 +162,13 @@ class _Fleet:
 
     def distributed_model(self, model: Layer):
         """Wrap by strategy (reference fleet/model.py:32): AMP O2 casts the
-        parameters when the strategy asks for it, and dp_degree > 1 wraps
-        in DataParallel over the dp group. At mp_degree > 1 the model's
-        tensor-parallel layers already hold their shards and communicate
-        over the mp group (reference :205), so nothing more is wrapped."""
+        parameters when the strategy asks for it; at pp_degree > 1 a
+        ``PipelineLayer`` becomes a ``PipelineParallel`` (which averages
+        its gradients over dp itself), and one the pipeline cannot split
+        passes through with a warning; dp_degree > 1 wraps in DataParallel
+        over the dp group. At mp_degree > 1 the model's tensor-parallel
+        layers already hold their shards and communicate over the mp group
+        (reference :205), so nothing more is wrapped."""
         hcg = self._hcg
         if hcg is None:
             raise RuntimeError("call fleet.init first")
@@ -175,6 +177,20 @@ class _Fleet:
             if level == "O2":
                 from ... import amp
                 model = amp.decorate(models=model, level="O2", dtype=dtype)
+        if hcg.get_pipe_parallel_world_size() > 1 and \
+                isinstance(model, PipelineLayer):
+            model.build_pipeline(hcg)
+            from .meta_parallel import PipelineParallel, UnpartitionableModel
+            try:
+                return PipelineParallel(model, hcg, self._strategy)
+            except (UnpartitionableModel, NotImplementedError) as e:
+                import warnings
+                warnings.warn(
+                    f"fleet PipelineParallel unavailable for this "
+                    f"model ({e}); falling back to the plain wrap path "
+                    "(the pipeline layer as-is, DataParallel-wrapped "
+                    "when dp_degree > 1 — forward/eval works; use the "
+                    "hybrid engine for pipelined training)", stacklevel=2)
         if hcg.get_data_parallel_world_size() > 1:
             model = DataParallel(
                 model, group=hcg.get_data_parallel_group(),

@@ -4,8 +4,8 @@ CommunicateTopology, fleet/base/topology.py:70, and HybridCommunicateGroup,
 :189 — the N-d rank mesh with axis order pp -> sep -> mp -> sharding -> dp
 and a communication group per axis).
 
-The groups are torch process groups: ``HybridCommunicateGroup`` makes, for
-each axis, every group along it (all ranks make all of them, in the same
+The groups are torch process groups (the pipe group carries the pipeline's
+hops): ``HybridCommunicateGroup`` makes, for each axis, every group along it (all ranks make all of them, in the same
 order, as torch's ``new_group`` requires) and keeps the one holding this
 rank.
 """
@@ -128,6 +128,12 @@ class HybridCommunicateGroup:
 
     def get_stage_id(self):
         return self._coord.get("pp", 0)
+
+    def is_first_stage(self):
+        return self.get_stage_id() == 0
+
+    def is_last_stage(self):
+        return self.get_stage_id() == self._pp_degree - 1
 
     def get_sharding_parallel_rank(self):
         return self._coord.get("sharding", 0)

@@ -12,24 +12,37 @@ the native ``TCPStore`` (ROADMAP queue 1, item 6) and is refused.
 Every worker starts in a session of its own, and a stop kills each
 worker's whole process group (SIGTERM, then SIGKILL after 5 s), so no
 worker or child of one is left blocked in a rendezvous.
+
+The rendezvous store is the launcher's own: on the first node it hosts a
+torch ``TCPStore`` (at ``--master``'s port, or at a port the OS picks) for
+each launch of the job, and every worker joins it as a client
+(``PADDLE_STORE_HOSTED``). The port stays bound from before the workers
+start until the job's attempt ends, so no other process on the machine can
+take it in between, and a worker never outlives the store it talks to.
+``PADDLE_TRAINER_ENDPOINTS`` and ``PADDLE_CURRENT_ENDPOINT`` name the
+workers (host:store port, with the rank after a slash); nothing listens at
+them.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import signal
-import socket
 import subprocess
 import sys
 import time
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+def _host_store(host, port, world):
+    """A TCPStore server at ``host:port`` (port 0: the OS picks one) that
+    the job's workers join as clients; returns (store, its port)."""
+    import datetime
+
+    import torch.distributed as dist
+    store = dist.TCPStore(host, int(port), world, is_master=True,
+                          wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=300))
+    return store, str(store.port)
 
 
 def _parse(argv=None):
@@ -61,12 +74,20 @@ def _parse(argv=None):
 
 
 def _spawn(args, attempt, nprocs=None):
+    """Starts this node's workers of one attempt; returns [(rank, Popen)].
+    On the first node it first hosts the attempt's store
+    (``args.store``, replacing the last attempt's)."""
     nprocs = nprocs if nprocs is not None else args.nproc_per_node
     world = args.nnodes * nprocs
-    master = args.master
-    host, port = master.rsplit(":", 1)
-    base_port = int(port) + 1
-    endpoints = ",".join(f"{host}:{base_port + r}" for r in range(world))
+    if args.master is None:
+        host, port = "127.0.0.1", "0"
+    else:
+        host, port = args.master.rsplit(":", 1)
+    if args.rank == 0:
+        args.store = None          # the last attempt's port is free again
+        args.store, port = _host_store(host, port, world)
+    master = f"{host}:{port}"
+    endpoints = ",".join(f"{host}:{port}/{r}" for r in range(world))
     if args.log_dir:
         os.makedirs(args.log_dir, exist_ok=True)
     procs = []
@@ -81,7 +102,8 @@ def _spawn(args, attempt, nprocs=None):
             "PADDLE_LOCAL_RANK": str(local),
             "PADDLE_JOB_ID": args.job_id,
             "PADDLE_TRAINER_ENDPOINTS": endpoints,
-            "PADDLE_CURRENT_ENDPOINT": f"{host}:{base_port + rank}",
+            "PADDLE_CURRENT_ENDPOINT": f"{host}:{port}/{rank}",
+            "PADDLE_STORE_HOSTED": "1",
             "PADDLE_RESTART_COUNT": str(attempt),
             "RANK": str(rank),
             "WORLD_SIZE": str(world),
@@ -143,12 +165,9 @@ def main(argv=None):
     if args.elastic_store and not args.np_range:
         raise SystemExit("--elastic_store requires --np_range (the join "
                          "watcher needs a MAX world size to scale to)")
-    if args.master is None:
-        if args.nnodes != 1:
-            raise SystemExit("--master host:port is required with --nnodes "
-                             "> 1")
-        # an OS-assigned port, so that jobs on one machine do not contend
-        args.master = f"127.0.0.1:{_free_port()}"
+    if args.master is None and args.nnodes != 1:
+        raise SystemExit("--master host:port is required with --nnodes > 1")
+    args.store = None
     store = None
     if args.elastic_store:
         if args.elastic_store.startswith("tcp://"):

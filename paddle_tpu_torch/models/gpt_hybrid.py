@@ -1,11 +1,11 @@
 """GPT training step: the port of ``paddle_tpu/models/gpt_hybrid.py``.
 
 The reference compiles one SPMD program over a (dp, pp, tp) mesh; this port
-runs its single-device case eagerly on one CUDA card, and its data- and
-tensor-parallel cases over ``torch.distributed``, one process a GPU, the
-ranks a (dp, tp) grid with tp innermost (see "data parallel" and "tensor
-parallel" below; pp, and experts beside any of dp, tp or sp, wait for
-their slices):
+runs its single-device case eagerly on one CUDA card, and its data-, tensor-
+and pipeline-parallel cases over ``torch.distributed``, one process a GPU,
+the ranks a (dp, pp, tp) grid with tp innermost (see "data parallel",
+"tensor parallel" and "pipeline parallel" below; experts beside any of dp,
+pp, tp or sp wait for their slice):
 
 - parameters are the reference's dict of stacked ``[L, ...]`` block leaves
   in the ``x @ W`` orientation, so ``params_from_jax`` is a plain copy (at
@@ -56,12 +56,14 @@ class ParallelConfig:
     over the dp ranks, ``tp`` shards the weights Megatron's way, ``sp``
     shards the activations between the blocks over the sequence, and
     ``collective_matmul`` (with ``sp``) makes the sequence-parallel matmuls
-    ring collective matmuls. ``pp`` > 1 raises NotImplementedError in
-    ``setup``, ``build_train_step`` and ``build_accum_steps``, naming its
-    slice, and so does ``num_experts`` > 0 beside dp or tp > 1, ``sp`` or
-    ``collective_matmul`` (expert parallelism); ``microbatches``,
-    ``pp_schedule`` and ``vpp_chunks`` only matter at pp > 1.
-    ``scan_unroll`` (lax.scan unrolling) has no effect in eager PyTorch."""
+    ring collective matmuls. ``pp`` > 1 splits the layers into pp stages,
+    a rank each, run as ``pp_schedule`` ("gpipe", "1f1b", "zbh1", "zbvpp")
+    over ``microbatches`` microbatches; ``vpp_chunks`` > 1 (with "1f1b")
+    gives each stage that many interleaved chunks (``_validate_pp_schedule``
+    has the reference's rules). ``num_experts`` > 0 beside dp, pp or tp > 1,
+    ``sp`` or ``collective_matmul`` raises NotImplementedError naming the
+    expert-parallel slice. ``scan_unroll`` (lax.scan unrolling) has no
+    effect in eager PyTorch."""
     dp: int = 1
     pp: int = 1
     tp: int = 1
@@ -87,34 +89,89 @@ class ParallelConfig:
 
 
 def _validate(pcfg: ParallelConfig):
-    """Refuses what later slices bring (naming each), and dp x tp > 1 unless
-    a process group of exactly dp x tp ranks exists."""
-    later = []
-    if pcfg.pp > 1:
-        later.append(f"pp={pcfg.pp} waits for the pipeline slice")
+    """Refuses what a later slice brings (naming it), the reference's
+    pipeline refusals (``_validate_pp_schedule``), and dp x pp x tp > 1
+    unless a process group of exactly that many ranks exists."""
     if pcfg.num_experts > 0 and (pcfg.dp > 1 or pcfg.pp > 1 or pcfg.tp > 1
                                  or pcfg.sp or pcfg.collective_matmul):
-        later.append(f"num_experts={pcfg.num_experts} beside dp, pp or tp "
-                     "> 1, sp or collective_matmul waits for the "
-                     "expert-parallel slice")
-    if later:
         raise NotImplementedError(
-            "paddle_tpu_torch runs the single-device, data- and tensor-"
-            f"parallel steps; {'; '.join(later)} (ROADMAP queue 1, item 5)")
-    ranks = pcfg.dp * pcfg.tp
+            "paddle_tpu_torch runs the single-device, data-, tensor- and "
+            f"pipeline-parallel steps; num_experts={pcfg.num_experts} "
+            "beside dp, pp or tp > 1, sp or collective_matmul waits for the "
+            "expert-parallel slice (ROADMAP queue 1, item 5d)")
+    _validate_pp_schedule(pcfg)
+    ranks = pcfg.dp * pcfg.pp * pcfg.tp
     if ranks > 1:
         from ..distributed.env import get_world_size, is_initialized
         if not is_initialized():
             raise RuntimeError(
-                f"dp={pcfg.dp} x tp={pcfg.tp} runs one process a GPU: start "
-                f"{ranks} ranks (python -m paddle_tpu_torch.distributed."
-                "launch) and call paddle_tpu_torch.distributed."
-                "init_parallel_env() first")
+                f"dp={pcfg.dp} x pp={pcfg.pp} x tp={pcfg.tp} runs one "
+                f"process a GPU: start {ranks} ranks (python -m "
+                "paddle_tpu_torch.distributed.launch) and call "
+                "paddle_tpu_torch.distributed.init_parallel_env() first")
         if get_world_size() != ranks:
-            raise ValueError(f"dp={pcfg.dp} x tp={pcfg.tp} but the process "
-                             f"group has {get_world_size()} ranks")
+            raise ValueError(f"dp={pcfg.dp} x pp={pcfg.pp} x tp={pcfg.tp} "
+                             f"but the process group has {get_world_size()} "
+                             "ranks")
     if pcfg.remat and pcfg.remat_policy not in ("full", "dots", "names"):
         raise ValueError(f"unknown remat_policy {pcfg.remat_policy!r}")
+
+
+def _validate_pp_schedule(pcfg):
+    """The reference's pp-schedule validation, with its messages."""
+    if pcfg.pp_schedule not in ("gpipe", "1f1b", "zbh1", "zbvpp"):
+        raise ValueError(
+            f"pp_schedule must be 'gpipe', '1f1b', 'zbh1' or 'zbvpp', "
+            f"got {pcfg.pp_schedule!r}")
+    if pcfg.vpp_chunks > 1 and (pcfg.pp <= 1
+                                or pcfg.pp_schedule != "1f1b"):
+        raise ValueError(
+            "vpp_chunks > 1 requires pp > 1 with pp_schedule='1f1b' "
+            "(the interleaved schedule generalizes the compiled 1F1B; "
+            "'zbvpp' brings its own two V-placed chunks)")
+    if pcfg.pp_schedule in ("zbh1", "zbvpp") and pcfg.num_experts > 0 \
+            and pcfg.tp > 1:
+        raise ValueError(
+            f"pp_schedule={pcfg.pp_schedule!r} with BOTH tp>1 and "
+            "expert-parallel MoE: the manual stage bodies exist per "
+            "axis (manual-tp, manual-ep — models/gpt_manual_tp.py) but "
+            "not combined. Use tp=1 for zb x MoE, or '1f1b' for the "
+            "full tp x ep hybrid.")
+    if pcfg.pp_schedule in ("zbh1", "zbvpp") and pcfg.num_experts > 0 \
+            and pcfg.dp > 1 and pcfg.num_experts % pcfg.dp:
+        raise ValueError(
+            f"zb x MoE shards experts over dp: num_experts "
+            f"{pcfg.num_experts} must divide by dp {pcfg.dp}")
+    if pcfg.pp_schedule == "zbvpp" and pcfg.pp <= 1:
+        raise ValueError("pp_schedule='zbvpp' requires pp > 1 (the "
+                         "V placement spans a pipeline ring)")
+    if pcfg.pp_schedule in ("zbh1", "zbvpp") and pcfg.tp > 1 \
+            and pcfg.collective_matmul:
+        raise ValueError(
+            "collective_matmul does not compose with the zero-bubble "
+            "schedules: the ring's tp ppermute lowers to ONE "
+            "collective-permute spanning the whole mesh, and inside a "
+            "cond-gated phase the idle pipeline stages never reach it "
+            "(cross-matched data or rendezvous deadlock). Use "
+            "pp_schedule='1f1b' for the ring under pp>1, or drop "
+            "collective_matmul for zero-bubble.")
+    if _cm_dropped(pcfg):
+        import warnings
+        warnings.warn(
+            "collective_matmul requested but not routable at pp>1 "
+            "(needs pp_schedule='1f1b', vpp_chunks=1, sp=True, tp>1, "
+            "no MoE, fused_ce=False — the manual-tp route; with "
+            "fused_ce=True the fused-CE memory win keeps the GSPMD "
+            "route); running WITHOUT the ring overlap", stacklevel=3)
+
+
+def _cm_dropped(pcfg):
+    """collective_matmul at pp > 1 where the reference runs without the
+    ring (it rides its manual-tp 1F1B route only)."""
+    return pcfg.collective_matmul and pcfg.pp > 1 and not (
+        pcfg.pp_schedule == "1f1b" and pcfg.vpp_chunks == 1
+        and pcfg.sp and pcfg.tp > 1 and pcfg.num_experts == 0
+        and not pcfg.fused_ce)
 
 
 def _distributed() -> bool:
@@ -186,19 +243,82 @@ def _to_torch(x, device):
     return torch.from_numpy(np.array(arr)).to(device)
 
 
-def params_from_jax(np_tree, device=None, tp_rank=0, tp=1):
+def params_from_jax(np_tree, device=None, tp_rank=0, tp=1, pp_rank=0, pp=1):
     """The reference's parameter (or moment) dict, as numpy arrays, to
-    torch tensors with the same keys and dtypes; at ``tp`` > 1 this rank's
-    shards of them, as the reference's ``param_specs`` shards them
-    (``tp_shard``)."""
+    torch tensors with the same keys and dtypes; at ``pp`` > 1 its block
+    leaves are the reference's stage-stacked ones ([pp, L / pp, ...], or
+    [pp, v, Lc, ...] interleaved, or [pp, 2, Lc, ...] in the ZB-V
+    placement) and this rank keeps stage ``pp_rank``'s entry; at ``tp`` > 1
+    this rank's shards of them, as the reference's ``param_specs`` shards
+    them (``tp_shard``)."""
     dev = resolve_device(device)
 
-    def convert(t):
+    def convert(t, stage):
         if isinstance(t, dict):
-            return {k: convert(v) for k, v in t.items()}
+            return {k: convert(v, stage) for k, v in t.items()}
+        if stage:
+            t = np.asarray(t)[pp_rank]
         return _to_torch(t, dev)
-    tree = convert(np_tree)
+    tree = {k: convert(v, k == "blocks" and pp > 1)
+            for k, v in np_tree.items()}
     return tp_shard(tree, tp_rank, tp) if tp > 1 else tree
+
+
+# --------------------------- pipeline layout -------------------------------
+# The reference's shard_params stacks the block leaves by stage: [pp, L/pp]
+# (layer l on stage l // (L/pp)); with vpp_chunks = v, [pp, v, Lc] (virtual
+# stage sigma = j * pp + s, layers [sigma Lc, (sigma + 1) Lc), at [s, j]);
+# under "zbvpp", [pp, 2, Lc] (the V placement: stage s holds virtual stages
+# s and 2 pp - 1 - s). A rank holds its stage's entry.
+def _stage_layers(pcfg, num_layers, pp_rank):
+    """The global layer ids of stage ``pp_rank``'s block leaves, in their
+    order (chunk-major where the leaves carry a chunk dim)."""
+    L, pp, v = num_layers, pcfg.pp, pcfg.vpp_chunks
+    if pcfg.pp_schedule == "zbvpp":
+        ng = 2 * pp
+        if L % ng:
+            raise ValueError(
+                f"num_layers {L} not divisible by 2*pp {ng} "
+                "(pp_schedule='zbvpp' splits the model into 2*pp "
+                "V-placed chunks)")
+        lc = L // ng
+        return [sg * lc + i for sg in (pp_rank, ng - 1 - pp_rank)
+                for i in range(lc)]
+    if L % (pp * v):
+        raise ValueError(f"num_layers {L} not divisible by pp*vpp_chunks "
+                         f"{pp}*{v}")
+    lc = L // (pp * v)
+    return [(j * pp + pp_rank) * lc + i for j in range(v) for i in range(lc)]
+
+
+def _chunked(pcfg):
+    """Whether a stage's block leaves carry a chunk dim."""
+    return pcfg.pp_schedule == "zbvpp" or pcfg.vpp_chunks > 1
+
+
+def pp_stage(tree, cfg, pcfg, pp_rank):
+    """Stage ``pp_rank``'s share of a tree in the flat [L, ...] layout
+    (``init_params``'): its block leaves in the reference's per-stage
+    layout, the rest whole."""
+    if pcfg.pp <= 1:
+        return tree
+    ids = _stage_layers(pcfg, cfg.num_layers, pp_rank)
+    out = dict(tree)
+
+    def take(x):
+        x = x[ids]
+        if _chunked(pcfg):
+            v = 2 if pcfg.pp_schedule == "zbvpp" else pcfg.vpp_chunks
+            x = x.reshape((v, len(ids) // v) + tuple(x.shape[1:]))
+        return x.contiguous()
+    out["blocks"] = {k: take(v) for k, v in tree["blocks"].items()}
+    return out
+
+
+def _stage_flat(x, pcfg):
+    """A stage block leaf with its chunk dim (if any) folded into the
+    layer dim."""
+    return x.reshape((-1,) + tuple(x.shape[2:])) if _chunked(pcfg) else x
 
 
 # --------------------------- tensor-parallel layout ------------------------
@@ -434,7 +554,7 @@ def _stack_apply(blocks, x, cfg, pcfg):
     per_layer = zip(*(torch.unbind(blocks[n], 0) for n in names))
     for leaves in per_layer:
         lp = dict(zip(names, leaves))
-        if not pcfg.remat:
+        if not pcfg.remat or not torch.is_grad_enabled():
             x = _block(x, lp, cfg, pcfg)
         elif pcfg.remat_policy == "full":
             x = checkpoint(_block, x, lp, cfg, pcfg, use_reentrant=False)
@@ -445,6 +565,8 @@ def _stack_apply(blocks, x, cfg, pcfg):
 
 
 def forward_hidden(params, input_ids, cfg: GPTConfig, pcfg: ParallelConfig):
+    if pcfg.pp > 1:
+        return forward_hidden_pp(params, input_ids, cfg, pcfg)
     cdt = pcfg.compute_dtype
     b, s = input_ids.shape
     x = F.embedding(input_ids, params["wte"]).to(cdt) + \
@@ -478,6 +600,8 @@ def _ce_from_hidden(h, wte, labels, pcfg):
 
 
 def loss_fn(params, batch, cfg, pcfg):
+    if pcfg.pp > 1:
+        return loss_fn_pp(params, batch, cfg, pcfg)
     input_ids, labels = batch
     # forward_hidden already applies the final layer norm
     x = forward_hidden(params, input_ids, cfg, pcfg)
@@ -549,9 +673,22 @@ def _ce_tp(h, wte, labels, pcfg, group, sharded):
 def loss_fn_tp(params, batch, cfg, pcfg, group):
     """``loss_fn`` on one rank of a tp group (a Group): ``params`` are this
     rank's shards (``tp_shard``), ``batch`` the tp group's whole batch."""
-    from ..distributed import collective as C
     from .gpt_manual_tp import stack_apply_manual_tp
     input_ids, labels = batch
+    cdt = pcfg.compute_dtype
+    x = _embed_tp(params, input_ids, cfg, pcfg, group)
+    blocks = {k: p.to(cdt) for k, p in params["blocks"].items()}
+    x = stack_apply_manual_tp(blocks, x, cfg, pcfg, group)
+    h = _layer_norm(x, params["lnf_g"].to(cdt), params["lnf_b"].to(cdt))
+    return _ce_tp(h, params["wte"], labels, pcfg, group,
+                  _vocab_sharded(cfg.vocab_size, group.nranks))
+
+
+def _embed_tp(params, input_ids, cfg, pcfg, group):
+    """The tp branch's embedding: a masked lookup of this rank's vocab rows
+    psum'd (non-sp) or reduce-scattered onto the sequence (sp); with the
+    vocab replicated, under sp, each rank looks up its own positions."""
+    from ..distributed import collective as C
     cdt = pcfg.compute_dtype
     b, s = input_ids.shape
     n, r = group.nranks, group.rank
@@ -560,8 +697,7 @@ def loss_fn_tp(params, batch, cfg, pcfg, group):
     sl = s // n if pcfg.sp else s
     lo = r * sl if pcfg.sp else 0
     wte = params["wte"]
-    sharded = _vocab_sharded(cfg.vocab_size, n)
-    if sharded:
+    if _vocab_sharded(cfg.vocab_size, n):
         vl = wte.shape[0]
         loc = input_ids - r * vl
         x = F.embedding(loc.clamp(0, vl - 1), wte) * \
@@ -570,11 +706,7 @@ def loss_fn_tp(params, batch, cfg, pcfg, group):
             else C._Psum.apply(x, group)
     else:
         x = F.embedding(input_ids[:, lo:lo + sl], wte)
-    x = x.to(cdt) + params["wpe"][lo:lo + sl][None].to(cdt)
-    blocks = {k: p.to(cdt) for k, p in params["blocks"].items()}
-    x = stack_apply_manual_tp(blocks, x, cfg, pcfg, group)
-    h = _layer_norm(x, params["lnf_g"].to(cdt), params["lnf_b"].to(cdt))
-    return _ce_tp(h, wte, labels, pcfg, group, sharded)
+    return x.to(cdt) + params["wpe"][lo:lo + sl][None].to(cdt)
 
 
 def _leaf_names(params, prefix=""):
@@ -607,6 +739,216 @@ def _sum_sp_grads(grads, idx, group):
         grads[i] = flat[off:off + g.numel()].view(g.shape).to(g.dtype)
         off += g.numel()
     return grads
+
+
+# --------------------------- pipeline parallel -----------------------------
+# The reference's pp branch runs the stage-stacked blocks inside shard_map
+# over "pp": GPipe as a rotation differentiated by jax.grad, the other
+# schedules as compiled tick loops (parallel/pipeline_1f1b.py). Here each
+# rank of a pp group holds its stage (pp_stage) and runs the same schedules
+# over torch.distributed point-to-point hops (parallel/pipeline*.py). The
+# embedding runs on every rank outside the pipeline, and its backward takes
+# the first stage's input cotangents (dx0, summed over pp); the head (final
+# LayerNorm and CE) is the last stage's seed, its loss and gradients summed
+# over pp; the tied wte adds both. The stage body is _stack_apply, or on the
+# tp branch gpt_manual_tp's block over the tp group. Every rank of a tp
+# group runs the same cells, so their tp collectives pair up.
+def _stage_fn(cfg, pcfg, grid):
+    if grid.tp_branch:
+        from .gpt_manual_tp import stack_apply_manual_tp
+        return lambda p, x: stack_apply_manual_tp(p, x, cfg, pcfg,
+                                                  grid.tp_group)
+    return lambda p, x: _stack_apply(p, x, cfg, pcfg)
+
+
+def _embed(params, input_ids, cfg, pcfg, grid):
+    if grid.tp_branch:
+        return _embed_tp(params, input_ids, cfg, pcfg, grid.tp_group)
+    cdt = pcfg.compute_dtype
+    s = input_ids.shape[1]
+    return F.embedding(input_ids, params["wte"]).to(cdt) + \
+        params["wpe"][:s][None].to(cdt)
+
+
+def _head_loss(y, hp, labels, cfg, pcfg, grid, vocab_parallel=False):
+    """The reference's head on the last stage's output: final LayerNorm and
+    next-token CE (mean over ``labels``' tokens). ``vocab_parallel``: the
+    manual-tp zero-bubble head (gpt_manual_tp.train_grads_zb_manual_tp)."""
+    cdt = pcfg.compute_dtype
+    h = _layer_norm(y, hp["lnf_g"].to(cdt), hp["lnf_b"].to(cdt))
+    if vocab_parallel:
+        from ..distributed import collective as C
+        from .gpt_manual_tp import ce_vocab_parallel
+        g = grid.tp_group
+        if pcfg.sp:
+            h = C._AllGather.apply(h, g, 1)
+        else:
+            h = C._Pvary.apply(h, g)
+        V = cfg.vocab_size
+        vpad = (-V) % g.nranks
+        w = hp["wte"]
+        if not _vocab_sharded(V, g.nranks):
+            # the reference pads the head's rows to a multiple of tp and
+            # masks the pad rows: this rank's rows of the padded wte
+            w = F.pad(w, (0, 0, 0, vpad))
+            vl = w.shape[0] // g.nranks
+            w = w[g.rank * vl:(g.rank + 1) * vl]
+        return ce_vocab_parallel(h, w, labels, g,
+                                 valid_vocab=V if vpad else None)
+    if grid.tp_branch:
+        return _ce_tp(h, hp["wte"], labels, pcfg, grid.tp_group,
+                      _vocab_sharded(cfg.vocab_size, grid.tp))
+    return _ce_from_hidden(h, hp["wte"], labels, pcfg)
+
+
+def _pp_loss_and_grads(params, batch, cfg, pcfg, grid, vocab_parallel=False):
+    """(loss, gradient tree) of the global ``batch`` (this rank's dp rows)
+    through this rank's stage of the pipeline: the reference's
+    ``_train_grads_1f1b`` (and its GPipe loss_fn) a rank at a time."""
+    from ..distributed import collective as C
+    from ..parallel.pipeline import pipeline_apply, pipeline_microbatch
+    from ..parallel import pipeline_1f1b as P1
+    input_ids, labels = batch
+    cdt = pcfg.compute_dtype
+    m = pcfg.microbatches
+    stage_fn = _stage_fn(cfg, pcfg, grid)
+    with torch.enable_grad():
+        x = _embed(params, input_ids, cfg, pcfg, grid)
+    x_in = x.detach()
+    mb = pipeline_microbatch(x_in, m)
+    lbl_mb = pipeline_microbatch(labels, m)
+    head_params = {"wte": params["wte"], "lnf_g": params["lnf_g"],
+                   "lnf_b": params["lnf_b"]}
+    if pcfg.pp_schedule == "gpipe":
+        # forward by hops, backward by autograd across the hops; every rank
+        # runs the head on the broadcast outputs, so its head gradients are
+        # already whole and only dx0 is summed over pp
+        with torch.enable_grad():
+            mbg = mb.detach().requires_grad_(True)
+            blocks = {k: p.to(cdt) for k, p in params["blocks"].items()}
+            out = pipeline_apply(stage_fn, blocks, mbg, grid.pp_group)
+            y = out.reshape(x_in.shape)
+            loss = _head_loss(y, head_params, labels, cfg, pcfg, grid)
+            hl = _leaves(head_params)
+            bl = _leaves(params["blocks"])
+            g = torch.autograd.grad(loss, [mbg] + hl + bl,
+                                    allow_unused=True)
+        dx0 = g[0].reshape(-1).float()
+        C.all_reduce_flat(dx0, C.ReduceOp.SUM, grid.pp_group)
+        dx0 = dx0.view(x_in.shape).to(x_in.dtype)
+        hg = dict(zip(sorted(head_params), g[1:1 + len(hl)]))
+        bgrads = dict(zip(sorted(params["blocks"]), g[1 + len(hl):]))
+        loss = loss.detach()
+    else:
+        def last_grad(yv, hp, mb_idx):
+            with torch.enable_grad():
+                leaves = [p.detach().requires_grad_(True)
+                          for p in _leaves(hp)]
+                yg = yv.detach().requires_grad_(True)
+                hp_ = dict(zip(sorted(hp), leaves))
+                lv = _head_loss(yg, hp_, lbl_mb[mb_idx], cfg, pcfg, grid,
+                                vocab_parallel) / m
+                gy, *gh = torch.autograd.grad(lv, [yg] + leaves)
+            return lv.detach(), gy, dict(zip(sorted(hp), gh))
+
+        blocks = {k: p.to(cdt) for k, p in params["blocks"].items()}
+        args = (stage_fn, blocks, mb, last_grad, head_params, grid.pp_group)
+        if pcfg.vpp_chunks > 1:
+            loss, bgrads, hg, dx0 = P1.pipeline_train_interleaved(
+                *args, num_chunks=pcfg.vpp_chunks)
+        elif pcfg.pp_schedule == "1f1b":
+            loss, bgrads, hg, dx0 = P1.pipeline_train_1f1b(*args)
+        else:
+            # the zero-bubble B keeps its recomputed stage's graph for W's
+            # second backward: without the per-block checkpoints, which
+            # allow one backward only
+            run = {"zbh1": P1.pipeline_train_zbh1,
+                   "zbvpp": P1.pipeline_train_zbvpp}[pcfg.pp_schedule]
+            loss, bgrads, hg, dx0 = run(*args, graph_stage_fn=_stage_fn(
+                cfg, ParallelConfig(**{**pcfg.__dict__, "remat": False}),
+                grid))
+        dx0 = dx0.reshape(x_in.shape)
+    # the embedding's backward from dx0 (the same on every rank)
+    dwte, dwpe = torch.autograd.grad(x, [params["wte"], params["wpe"]],
+                                     dx0.to(x.dtype))
+    hwte = hg["wte"].float()
+    if vocab_parallel and not pcfg.sp and \
+            not _vocab_sharded(cfg.vocab_size, grid.tp):
+        # the padded head's rows of a replicated wte: one share a tp rank
+        hwte = hwte.contiguous()
+        C.all_reduce_flat(hwte.view(-1), C.ReduceOp.SUM, grid.tp_group)
+    grads = {"wte": dwte.float() + hwte,
+             "wpe": dwpe.float(),
+             "lnf_g": hg["lnf_g"], "lnf_b": hg["lnf_b"],
+             "blocks": bgrads}
+    return loss, grads
+
+
+def _train_grads_1f1b(params, batch, cfg, pcfg):
+    """Loss and gradients (trees) of this rank's stage through the
+    pipeline schedule: the reference's routing, where the zero-bubble
+    schedules at tp > 1 take the manual-tp route
+    (gpt_manual_tp.train_grads_zb_manual_tp)."""
+    use_manual_tp = pcfg.tp > 1 and pcfg.num_experts == 0 and (
+        pcfg.pp_schedule in ("zbh1", "zbvpp")
+        or (pcfg.pp_schedule == "1f1b" and pcfg.vpp_chunks == 1
+            and pcfg.collective_matmul and pcfg.sp and not pcfg.fused_ce))
+    if use_manual_tp:
+        from .gpt_manual_tp import train_grads_zb_manual_tp
+        return train_grads_zb_manual_tp(params, batch, cfg, pcfg)
+    if _cm_dropped(pcfg):
+        pcfg = ParallelConfig(**{**pcfg.__dict__,
+                                 "collective_matmul": False})
+    return _pp_loss_and_grads(params, batch, cfg, pcfg, _grid(pcfg))
+
+
+def _eval_blocks(blocks, cfg, pcfg, grid):
+    """This rank's stage of the plain [pp, L/pp] layout from a stage in
+    any layout (the reference's eval relayout of the interleaved and ZB-V
+    stackings): the blocks all-gathered over pp and re-split."""
+    from ..distributed import collective as C
+    if not _chunked(pcfg):
+        return blocks
+    L, pp = cfg.num_layers, pcfg.pp
+    lp = L // pp
+    order = [i for r in range(pp) for i in _stage_layers(pcfg, L, r)]
+    out = {}
+    for k, x in blocks.items():
+        flat = _stage_flat(x, pcfg)
+        allx = C._gather_along(flat, grid.pp_group, 0)
+        full = torch.empty_like(allx)
+        full[order] = allx
+        out[k] = full[grid.pp_rank * lp:(grid.pp_rank + 1) * lp]
+    return out
+
+
+def forward_hidden_pp(params, input_ids, cfg: GPTConfig,
+                      pcfg: ParallelConfig):
+    """``forward_hidden`` at pp > 1 on this rank's stage: the reference's
+    GPipe forward (interleaved and ZB-V stages relaid out to the plain
+    layout first), the final hidden states on every rank."""
+    from ..parallel.pipeline import pipeline_apply, pipeline_microbatch
+    grid = _grid(pcfg)
+    cdt = pcfg.compute_dtype
+    x = _embed(params, input_ids, cfg, pcfg, grid)
+    blocks = {k: p.to(cdt) for k, p in _eval_blocks(
+        params["blocks"], cfg, pcfg, grid).items()}
+    mb = pipeline_microbatch(x, pcfg.microbatches)
+    y = pipeline_apply(_stage_fn(cfg, pcfg, grid), blocks, mb,
+                       grid.pp_group).reshape(x.shape)
+    return _layer_norm(y, params["lnf_g"].to(cdt), params["lnf_b"].to(cdt))
+
+
+def loss_fn_pp(params, batch, cfg, pcfg):
+    """``loss_fn`` at pp > 1 (the GPipe forward and the head), the same on
+    every rank."""
+    input_ids, labels = batch
+    h = forward_hidden_pp(params, input_ids, cfg, pcfg)
+    grid = _grid(pcfg)
+    if grid.tp_branch:
+        return _ce_tp(h, params["wte"], labels, pcfg, grid.tp_group,
+                      _vocab_sharded(cfg.vocab_size, grid.tp))
+    return _ce_from_hidden(h, params["wte"], labels, pcfg)
 
 
 # --------------------------- optimizer -------------------------------------
@@ -775,10 +1117,10 @@ def init_grad_accum(params):
 def setup(cfg: GPTConfig, pcfg: ParallelConfig, seed=0, device=None):
     """Returns (params, opt_state, train_step) on ``device`` (CUDA unless
     the caller says otherwise; raises when CUDA is missing). With a process
-    group initialized, each rank keeps its tp shards (``tp_shard``) of the
-    parameters drawn from ``seed``, which are broadcast over dp and laid
-    into flat buffers (``_bind_flat``), and the state and step are the
-    distributed ones."""
+    group initialized, each rank keeps its stage (``pp_stage``) and its tp
+    shards (``tp_shard``) of the parameters drawn from ``seed``, which are
+    broadcast over dp and laid into flat buffers (``_bind_flat``), and the
+    state and step are the distributed ones."""
     _validate(pcfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -786,6 +1128,7 @@ def setup(cfg: GPTConfig, pcfg: ParallelConfig, seed=0, device=None):
     if _distributed():
         from ..distributed import collective as C
         grid = _grid(pcfg)
+        params = pp_stage(params, cfg, pcfg, grid.pp_rank)
         if grid.tp > 1:
             params = tp_shard(params, grid.tp_rank, grid.tp)
         for b in _bind_flat(params, grid.dp):
@@ -866,21 +1209,28 @@ def _bind_flat(params, dp):
 
 
 class _Grid:
-    """This rank's place in the (dp, tp) grid of the job's ranks, tp
-    innermost (the reference's build_mesh order): rank = dp_rank * tp +
-    tp_rank. A group spanning the job is the job's group; a group of this
-    rank alone has no torch group (its collectives are the identity), and
-    neither has the job before ``init_parallel_env`` (``world`` None)."""
+    """This rank's place in the (dp, pp, tp) grid of the job's ranks, tp
+    innermost (the reference's build_mesh order): rank = (dp_rank * pp +
+    pp_rank) * tp + tp_rank. A group spanning the job is the job's group; a
+    group of this rank alone has no torch group (its collectives are the
+    identity), and neither has the job before ``init_parallel_env``
+    (``world`` None)."""
 
-    def __init__(self, world, tp, tp_branch):
+    def __init__(self, world, tp, tp_branch, pp=1):
         from ..distributed.env import Group, new_group
         world = world or Group(0, [0])
         n, rank = world.nranks, world.rank
-        if n % tp:
-            raise ValueError(f"tp={tp} does not divide the job's {n} ranks")
-        self.world, self.tp, self.dp = world, tp, n // tp
-        self.dp_rank, self.tp_rank = divmod(rank, tp)
+        if n % (tp * pp):
+            raise ValueError(f"pp={pp} x tp={tp} does not divide the job's "
+                             f"{n} ranks")
+        self.world, self.tp, self.pp = world, tp, pp
+        self.dp = n // (tp * pp)
+        self.dp_rank, rest = divmod(rank, pp * tp)
+        self.pp_rank, self.tp_rank = divmod(rest, tp)
         self.tp_branch = tp_branch
+
+        def at(d, p, j):
+            return (d * pp + p) * tp + j
 
         def group(all_ranks):
             mine = next(r for r in all_ranks if rank in r)
@@ -890,26 +1240,28 @@ class _Grid:
                 return Group(rank, mine)
             made = [new_group(r) for r in all_ranks]
             return made[all_ranks.index(mine)]
-        self.tp_group = group([[d * tp + j for j in range(tp)]
-                               for d in range(self.dp)])
-        self.dp_group = group([[d * tp + j for d in range(self.dp)]
-                               for j in range(tp)])
+        self.tp_group = group([[at(d, p, j) for j in range(tp)]
+                               for d in range(self.dp) for p in range(pp)])
+        self.dp_group = group([[at(d, p, j) for d in range(self.dp)]
+                               for p in range(pp) for j in range(tp)])
+        self.pp_group = group([[at(d, p, j) for p in range(pp)]
+                               for d in range(self.dp) for j in range(tp)])
 
 
 _GRIDS: Dict[Any, _Grid] = {}
 
 
 def _grid(pcfg) -> _Grid:
-    """The (dp, tp) grid of the current process group (made once a group;
-    every rank makes its torch groups in the same order). The tp branch
-    runs at tp > 1, and at any tp under sp or collective_matmul."""
+    """The (dp, pp, tp) grid of the current process group (made once a
+    group; every rank makes its torch groups in the same order). The tp
+    branch runs at tp > 1, and at any tp under sp or collective_matmul."""
     from ..distributed.env import init_parallel_env, is_initialized
     world = init_parallel_env() if is_initialized() else None
     tp_branch = pcfg.tp > 1 or pcfg.sp or pcfg.collective_matmul
-    key = (pcfg.tp, tp_branch)
+    key = (pcfg.tp, pcfg.pp, tp_branch)
     g = _GRIDS.get(key)
     if g is None or world is None or g.world is not world:
-        g = _GRIDS[key] = _Grid(world, pcfg.tp, tp_branch)
+        g = _GRIDS[key] = _Grid(world, pcfg.tp, tp_branch, pcfg.pp)
     return g
 
 
@@ -970,6 +1322,14 @@ def _detached_value_and_grad(params, batch, cfg, pcfg):
                 else v.detach().requires_grad_(True) for k, v in tree.items()}
     tree = detach(params)
     grid = _grid(pcfg)
+    if grid.pp > 1:
+        loss, grads = _train_grads_1f1b(tree, batch, cfg, pcfg)
+        grads = _leaves(grads)
+        if pcfg.sp:
+            grads = _sum_sp_grads(grads,
+                                  _sp_leaf_indices(tree, cfg, grid.tp),
+                                  grid.tp_group)
+        return loss.detach(), grads
     if not grid.tp_branch:
         loss = loss_fn(tree, batch, cfg, pcfg)
         return loss.detach(), torch.autograd.grad(loss, _leaves(tree))
@@ -1083,10 +1443,25 @@ def _dp_accum_steps(cfg, pcfg, lr):
     return grad_step, apply_step
 
 
+def _pp_gather(tree, grid):
+    """The reference's stage-stacked block leaves ([pp, ...]) from every pp
+    rank's stage, the rest as they are."""
+    from ..distributed import collective as C
+    if grid.pp <= 1:
+        return tree
+    out = dict(tree)
+    out["blocks"] = {k: C._gather_along(x[None], grid.pp_group, 0)
+                     for k, x in tree["blocks"].items()}
+    return out
+
+
 def gather_params(params, cfg, pcfg):
     """The parameters in the reference's global layout on every rank (the
-    tp shards all-gathered; at tp = 1 a copy)."""
-    return _tp_gather(params, _grid(pcfg).tp_group, cfg.vocab_size)
+    tp shards all-gathered, the pp stages stacked as the reference's
+    ``shard_params`` stacks them; at tp = pp = 1 a copy)."""
+    grid = _grid(pcfg)
+    return _pp_gather(_tp_gather(params, grid.tp_group, cfg.vocab_size),
+                      grid)
 
 
 def gather_opt_state(params, opt_state, pcfg, cfg=None):
@@ -1124,6 +1499,7 @@ def gather_opt_state(params, opt_state, pcfg, cfg=None):
             if cfg is None:
                 raise ValueError("gather_opt_state at tp > 1 needs cfg")
             out[name] = _tp_gather(out[name], grid.tp_group, cfg.vocab_size)
+        out[name] = _pp_gather(out[name], grid)
     return out
 
 
@@ -1133,12 +1509,14 @@ def opt_state_shards(params, opt_state, pcfg):
     ``ShardedTensor`` of the bucket's global flat shape, so that another
     dp world size can load them (``load_opt_state_shards``). At tp > 1
     each tp rank's buckets are entries of their own (``<dtype>.tp<r>``),
-    loaded at the same tp."""
+    and at pp > 1 each stage's (``<dtype>.pp<s>``), loaded at the same tp
+    and pp."""
     from ..core.tensor import Tensor
     from ..distributed.checkpoint import ShardedTensor
     grid = _grid(pcfg)
     dp, rank = grid.dp, grid.dp_rank
-    suffix = f".tp{grid.tp_rank}" if grid.tp > 1 else ""
+    suffix = (f".pp{grid.pp_rank}" if grid.pp > 1 else "") + \
+        (f".tp{grid.tp_rank}" if grid.tp > 1 else "")
     out = {"step": opt_state["step"]}
     for name in ("m", "v"):
         out[name] = {}

@@ -24,9 +24,11 @@ matmul outputs, and "names" saves the outputs of the run's one addmm
 the attention op ("attn_out"), and recomputes the LayerNorms, the GELU and
 the residual adds.
 
-``train_grads_zb_manual_tp`` (the zero-bubble pipelines) comes with the
-pipeline slice, and the manual expert-parallel bodies with the expert-
-parallel slice: they raise ``NotImplementedError`` naming them.
+``train_grads_zb_manual_tp`` is the zero-bubble pipelines (and 1F1B with
+the ring collective matmuls) over this stage body, gpt_hybrid's pipeline
+with the reference's vocab-parallel head. The manual expert-parallel
+bodies come with the expert-parallel slice: they raise
+``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -51,7 +53,8 @@ def _remat_wrap(fn, pcfg, addmm_name=None, mm_name=None):
     if not pcfg.remat:
         return fn
     if pcfg.remat_policy == "full":
-        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False) \
+            if torch.is_grad_enabled() else fn(*a)
     names = set(pcfg.remat_save_names)
 
     def policy(ctx, func, *args, **kwargs):
@@ -71,7 +74,8 @@ def _remat_wrap(fn, pcfg, addmm_name=None, mm_name=None):
     def context():
         return create_selective_checkpoint_contexts(policy)
     return lambda *a: checkpoint(fn, *a, use_reentrant=False,
-                                 context_fn=context)
+                                 context_fn=context) \
+        if torch.is_grad_enabled() else fn(*a)
 
 
 def _mm(x, w):
@@ -214,16 +218,37 @@ def _unreshape_qkv_grads(bgrads, like):
     return g
 
 
-# ------------------- entries that later slices bring -------------------
-_PP = "the pipeline slice (ROADMAP queue 1, item 5c)"
-_EP = "the expert-parallel slice (ROADMAP queue 1, item 5d)"
-
-
+# ------------------------ zero-bubble pipelines ------------------------
 def train_grads_zb_manual_tp(params, batch, cfg: GPTConfig, pcfg, mesh=None):
-    """The zero-bubble pipelines with the manual-tp stage body."""
-    raise NotImplementedError(
-        f"train_grads_zb_manual_tp (zero-bubble pipelines at tp > 1) comes "
-        f"with {_PP}")
+    """Loss and gradients (trees) of this rank's stage through the
+    zero-bubble pipelines (and 1F1B with the ring collective matmuls) with
+    the manual-tp stage body: the reference's embedding-outside,
+    head-as-last-stage-seed structure, a rank at a time (gpt_hybrid's
+    pipeline over the (dp, pp, tp) grid). The head is the vocab-parallel
+    CE (``ce_vocab_parallel``; a vocab that tp does not divide is padded
+    to a multiple of tp and its pad rows masked). ``mesh`` is accepted
+    for the reference's signature; the groups are the grid's."""
+    from .gpt_hybrid import _grid, _pp_loss_and_grads
+    b, s = batch[0].shape
+    if pcfg.sp and s % pcfg.tp:
+        raise ValueError(f"sp requires seq len {s} % tp {pcfg.tp} == 0")
+    if cfg.num_heads % pcfg.tp:
+        raise ValueError(
+            f"manual-tp stage needs num_heads {cfg.num_heads} % tp "
+            f"{pcfg.tp} == 0 (heads are the column-parallel unit)")
+    if pcfg.fused_ce:
+        import warnings
+        warnings.warn(
+            "fused_ce is not available on the manual-tp pipeline "
+            "route; using the vocab-parallel CE head (identical math, "
+            "materializes [tokens, vocab/tp] logits per microbatch)",
+            stacklevel=3)
+    return _pp_loss_and_grads(params, batch, cfg, pcfg, _grid(pcfg),
+                              vocab_parallel=True)
+
+
+# ------------------- entries that a later slice brings -------------------
+_EP = "the expert-parallel slice (ROADMAP queue 1, item 5d)"
 
 
 def _ep(name):

@@ -127,8 +127,8 @@ def test_every_fleet_utils_test_is_bound_or_restated():
 
 def test_namespace_exports():
     """The reference's test of that name, restated: the same __all__ and
-    submodules (sequence_parallel_utils re-exported from fleet), but
-    pp_parallel_adaptor (a later slice) raises naming it."""
+    submodules (sequence_parallel_utils and pp_parallel_adaptor
+    re-exported from fleet)."""
     from paddle_tpu_torch.distributed import fleet as fleet_mod
     from paddle_tpu_torch.distributed.fleet import utils as fleet_utils
     assert fleet_utils.__all__ == [
@@ -137,8 +137,7 @@ def test_namespace_exports():
         fs, hybrid_parallel_util, log_util, mix_precision_utils, ps_util,
         sequence_parallel_utils, timer_helper)
     assert sequence_parallel_utils is fleet_mod.sequence_parallel_utils
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        getattr(fleet_utils, "pp_parallel_adaptor")
+    assert fleet_utils.pp_parallel_adaptor is fleet_mod.pp_parallel_adaptor
 
 
 # ------------------------------------- test_gradient_merge.py, restated
@@ -205,22 +204,20 @@ def test_fleet_strategy_gradient_merge_wires_up():
 
 
 def test_fleet_refuses_the_degrees_of_later_slices():
-    """pp_degree waits for the pipeline slice; mp_degree and sep_degree are
-    ported, and at world 1 a degree of 2 spans more ranks than the job."""
-    strategy = fleet.DistributedStrategy()
-    strategy.hybrid_configs["pp_degree"] = 2
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        fleet.init(is_collective=True, strategy=strategy)
-    for degree in ("mp_degree", "sep_degree"):
+    """pp_degree, mp_degree and sep_degree are ported: at world 1 a degree
+    of 2 spans more ranks than the job; the parameter server and its role
+    makers still wait for their slice."""
+    for degree in ("pp_degree", "mp_degree", "sep_degree"):
         strategy = fleet.DistributedStrategy()
         strategy.hybrid_configs[degree] = 2
         with pytest.raises(ValueError, match="spans 2 ranks"):
             fleet.init(is_collective=True, strategy=strategy)
     with pytest.raises(NotImplementedError, match="parameter-server"):
         fleet.init(is_collective=False)
-    for name in ("LayerDesc", "PipelineLayer", "PaddleCloudRoleMaker"):
+    for name in ("PaddleCloudRoleMaker", "UtilBase"):
         with pytest.raises(NotImplementedError, match="queue 1, item 5"):
             getattr(fleet, name)
+    assert fleet.PipelineLayer is fleet.pp_layers.PipelineLayer
 
 
 # ---------------------------------------------------------- world 4

@@ -256,8 +256,8 @@ def test_zero1_ranks_hold_one_nth_of_the_moments(runs, world):
 
 
 @pytest.mark.parametrize("bad,slice_", [
-    (dict(tp=2, pp=2), "pipeline"),
-    (dict(pp=2), "pipeline"),
+    (dict(tp=2, pp=2, num_experts=2), "expert-parallel"),
+    (dict(pp=2, num_experts=2), "expert-parallel"),
     (dict(sp=True, num_experts=2), "expert-parallel"),
     (dict(collective_matmul=True, num_experts=2), "expert-parallel"),
     (dict(dp=2, num_experts=2), "expert-parallel"),

@@ -247,7 +247,7 @@ def test_params_from_jax_shards_qkv_per_matrix():
 
 
 @pytest.mark.parametrize("bad,where", [
-    (dict(tp=2, pp=2), "pipeline"),
+    (dict(tp=2, pp=2, pp_schedule="1f1b", num_experts=2), "expert-parallel"),
     (dict(tp=2, num_experts=2), "expert-parallel"),
     (dict(sp=True, num_experts=2), "expert-parallel"),
 ])
@@ -259,9 +259,12 @@ def test_later_slices_are_refused_naming_them(bad, where):
 
 
 def test_zero_bubble_and_manual_ep_entries_name_their_slices():
-    with pytest.raises(NotImplementedError, match="pipeline slice"):
-        TMT.train_grads_zb_manual_tp({}, None, GPTConfig(**SIZE),
-                                     TH.ParallelConfig(tp=2))
+    """The zero-bubble manual-tp entry is ported (it checks its shapes as
+    the reference does); the manual-ep bodies name their slice."""
+    with pytest.raises(ValueError, match="num_heads 4 % tp 3"):
+        TMT.train_grads_zb_manual_tp(
+            {}, (np.zeros((2, 6)),) * 2, GPTConfig(**SIZE),
+            TH.ParallelConfig(tp=3, pp=2, pp_schedule="zbh1"))
     for fn in (TMT.train_grads_zb_manual_ep, TMT.block_manual_ep,
                TMT.moe_ffn_manual_ep, TMT.stack_apply_manual_ep):
         with pytest.raises(NotImplementedError, match="expert-parallel"):

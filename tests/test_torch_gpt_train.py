@@ -239,11 +239,11 @@ def test_setup_on_cpu_runs_and_learns():
                                  dict(dp=2, num_experts=4),
                                  dict(tp=2, collective_matmul=True)])
 def test_multi_device_configs_raise(bad):
-    """What later slices bring (pp, experts beside dp) is refused; dp=2 and
-    tp=2 (ported) need a process group of two ranks, which this process has
-    not."""
+    """What a later slice brings (experts beside dp) is refused; dp=2, tp=2
+    and pp=2 (ported) need a process group of two ranks, which this
+    process has not."""
     _, tp = _pcfgs(**bad)
-    later = bad.get("pp", 1) > 1 or "num_experts" in bad
+    later = "num_experts" in bad
     with pytest.raises(NotImplementedError if later else RuntimeError):
         TH.build_train_step(TCFG, tp)
 

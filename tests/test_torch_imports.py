@@ -328,9 +328,11 @@ def test_distributed_names_of_later_slices_raise_naming_their_queue_item():
                  "fleet_executor", "TCPStore"):
         with pytest.raises(NotImplementedError, match="queue 1, item 5"):
             getattr(distributed, name)
-    for name in ("LayerDesc", "PipelineLayer", "UtilBase"):
+    for name in ("UtilBase", "PaddleCloudRoleMaker"):
         with pytest.raises(NotImplementedError, match="queue 1, item 5"):
             getattr(distributed.fleet, name)
+    with pytest.raises(NotImplementedError, match="queue 1, item 5e"):
+        distributed.auto_parallel.Engine  # noqa: B018
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         elastic.TCPKVStore("localhost", 0)
     with pytest.raises(AttributeError):

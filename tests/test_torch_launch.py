@@ -13,8 +13,10 @@ refused), ``tests/test_checkpoint_profiler.py::test_launcher_cpu_sim``,
 ``test_checkpoint_reshards_across_mesh_change`` (the reference shards one
 process's array over its mesh; here each rank of a gloo job saves its own
 block as a ``ShardedTensor`` and another world size loads other blocks),
-and a ZeRO-1 gpt_hybrid state saved at dp=2 and resumed at dp=4. Each
-launch has its own timeout, past which its whole process group is killed.
+and a ZeRO-1 gpt_hybrid state saved at dp=2 and resumed at dp=4; and
+concurrent launches, each of which joins the store its own launcher hosts.
+Each launch has its own timeout, past which its whole process group is
+killed.
 """
 import json
 import os
@@ -71,6 +73,50 @@ def test_launcher_cpu_sim(tmp_path):
     out = out.decode()
     assert "rank 0 world 2 torch 0 2" in out and \
         "rank 1 world 2 torch 1 2" in out
+
+
+JOIN = r'''
+import json, os, sys
+from paddle_tpu_torch._testing import force_cpu
+force_cpu()
+import torch
+import paddle_tpu_torch.distributed as dist
+out, job = sys.argv[1], int(sys.argv[2])
+dist.init_parallel_env()
+t = torch.tensor([float(job)])
+dist.all_reduce(t)
+with open(os.path.join(out, f"join.{job}.{dist.get_rank()}.json"), "w") as f:
+    json.dump({"sum": float(t[0]), "world": dist.get_world_size(),
+               "port": os.environ["MASTER_PORT"],
+               "hosted": os.environ["PADDLE_STORE_HOSTED"]}, f)
+dist.destroy_process_group()
+'''
+
+
+def test_concurrent_launches_each_join_their_own_job(tmp_path):
+    """Four 2-rank jobs launched at once: the launcher hosts each job's
+    rendezvous store on a port it holds from before the workers start, so
+    every job gets its own port and each rank joins its own job (its
+    all-reduce sums its own job's values only)."""
+    from concurrent.futures import ThreadPoolExecutor
+    script = tmp_path / "join.py"
+    script.write_text(JOIN)
+    jobs = (1, 10, 100, 1000)
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        res = list(pool.map(lambda j: run_workers(script, 2, [tmp_path, j],
+                                                  timeout=120), jobs))
+    for r in res:
+        assert r.returncode == 0, r.stderr[-3000:]
+    ports = set()
+    for j in jobs:
+        got = [json.loads((tmp_path / f"join.{j}.{r}.json").read_text())
+               for r in range(2)]
+        for g in got:
+            assert g["sum"] == 2.0 * j and g["world"] == 2, (j, g)
+            assert g["hosted"] == "1"
+        assert got[0]["port"] == got[1]["port"]
+        ports.add(got[0]["port"])
+    assert len(ports) == len(jobs)
 
 
 def test_launcher_kills_job_on_worker_failure(tmp_path):

@@ -18,8 +18,8 @@ reference's own tests (2e-4 outputs; gradients 3e-4 ring, 2e-3 rtol and
 2e-4 atol Ulysses), outputs and gradients from one input at the
 reference's output shape; the sp linears 1e-5 of each value's scale.
 
-The reference's two pipeline tests of that file wait for the pipeline
-slice (ROADMAP queue 1, item 5c).
+The reference's two pipeline tests of that file are restated in
+``tests/test_torch_pp_schedule.py`` (``pipeline_apply``).
 """
 from concurrent.futures import ThreadPoolExecutor
 
