@@ -283,8 +283,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      phase alone;
  18. pipelines at the same Llama-7B widths, 16 layers in 2 stages, B4 S2048
      in 4 microbatches (the workload's B2 does not split into its 4): (a)
-     parallel.pp_schedule.run_schedule in this process with 1F1B, ZBH1, the
-     interleaved schedule (v = 2) and ZB-V, each schedule's loss and every
+     gpt_hybrid.schedule_value_and_grad (the pipeline's stage, head and
+     embedding backward over parallel.pp_schedule.run_schedule) in this
+     process with 1F1B, ZBH1, the interleaved schedule (v = 2) and ZB-V,
+     each schedule's loss and every
      gradient against the unpipelined single-device step within bf16's
      2e-2 of the scale, causal_attention's launches against the count the
      schedule and the recompute imply (``pp_expected_launches``), ms/step,
@@ -5277,18 +5279,19 @@ def _pp_ids(torch, cfg):
         0, cfg.vocab_size, (PP_BATCH, TP_SEQ))).cuda()
 
 
-def pp_expected_launches(kind, layers, micro, ticks=None):
-    """causal_attention's launches (fwd, bwd) a step, written down before
-    the run. A forward cell runs each layer's forward once (no autograd);
-    a fused B recomputes the stage forward (1 forward a layer; remat
-    "names" saves the attention output, so its checkpoints recompute no
-    attention) and back-propagates once (1 backward); a zero-bubble B
-    recomputes it without the checkpoints and back-propagates for the
-    input gradient, and W back-propagates through the same graph again
-    (2 backwards). GPipe runs every tick of its rotation, masked ones
-    included: ``ticks`` = M + N - 1 stage forwards and backwards."""
+def pp_expected_launches(kind, layers, micro):
+    """causal_attention's launches (fwd, bwd) a step on a stage of
+    ``layers`` layers, written down before the run. A forward cell runs
+    each layer's forward once (no autograd); a fused B recomputes the stage
+    forward (1 forward a layer; remat "names" saves the attention output,
+    so its checkpoints recompute no attention) and back-propagates once (1
+    backward); a zero-bubble B recomputes it without the checkpoints and
+    back-propagates for the input gradient, and W back-propagates through
+    the same graph again (2 backwards). GPipe runs each of a stage's
+    microbatches once forward, keeping the graph, and once backward; a
+    tick without a microbatch runs nothing."""
     if kind == "gpipe":
-        return ticks * layers, ticks * layers
+        return layers * micro, layers * micro
     if kind in ("zbh1", "ZBH1", "ZB-V"):
         return 2 * layers * micro, 2 * layers * micro
     return 2 * layers * micro, layers * micro
@@ -5296,23 +5299,19 @@ def pp_expected_launches(kind, layers, micro, ticks=None):
 
 def drive_pp_schedules(run, TH, GPTConfig, torch):
     """18a: pp_schedule.run_schedule on the card in one process, every stage
-    here: 1F1B, ZBH1, the interleaved schedule (v = 2) and ZB-V over the
-    16-layer Llama-7B-width model split in 2 stages, B4 S2048 in 4
-    microbatches, against the unpipelined single-device step's loss and
-    gradients."""
-    import torch.nn.functional as F
+    here (gpt_hybrid.schedule_value_and_grad): 1F1B, ZBH1, the interleaved
+    schedule (v = 2) and ZB-V over the 16-layer Llama-7B-width model split
+    in 2 stages, B4 S2048 in 4 microbatches, against the unpipelined
+    single-device step's loss and gradients."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.ops.hopper import causal_attention as ca
     from paddle_tpu_torch.parallel import pp_schedule as PS
     cfg = GPTConfig(**TP_LLAMA)
     L, m = cfg.num_layers, PP_MICRO
     pcfg = _tp_pcfg(TH, torch)
-    flat_pcfg = _tp_pcfg(TH, torch, remat=False)
-    cdt = pcfg.compute_dtype
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = TH.init_params(cfg, pcfg, gen, "cuda")
     ids = _pp_ids(torch, cfg)
-    names = sorted(params["blocks"])
     # the unpipelined single-device step: its loss and gradients
     ca.reset_launch_counts()
     torch.cuda.synchronize()
@@ -5332,99 +5331,12 @@ def drive_pp_schedules(run, TH, GPTConfig, torch):
            base_launches, "schedules": {}}
 
     def one_step(sched):
-        """Loss and gradients (f32, by leaf name) of one run_schedule."""
-        n, v = sched.n_stages, sched.n_chunks
-        per = L // (n * v)
-        wte = params["wte"].detach().requires_grad_(True)
-        wpe = params["wpe"].detach().requires_grad_(True)
-        x = F.embedding(ids, wte).to(cdt) + wpe[:TP_SEQ][None].to(cdt)
-        mbs = list(x.detach().chunk(m))
-        lbls = ids.chunk(m)
-        grads = {k: torch.zeros((L,) + tuple(p.shape[1:]),
-                                dtype=torch.float32, device="cuda")
-                 for k, p in params["blocks"].items()}
-        head = {"wte": torch.zeros_like(params["wte"], dtype=torch.float32),
-                "lnf_g": torch.zeros_like(params["lnf_g"],
-                                          dtype=torch.float32),
-                "lnf_b": torch.zeros_like(params["lnf_b"],
-                                          dtype=torch.float32)}
-        loss = [0.0]
-        dx0 = {}
-        seen = [0]
-
-        def layers(stage, chunk):
-            vi = sched.virtual_index(stage, chunk)
-            return vi, slice(vi * per, (vi + 1) * per)
-
-        def blocks(sl, leaves=None):
-            src = leaves or [params["blocks"][k][sl].to(cdt) for k in names]
-            return dict(zip(names, src))
-
-        def forward(stage, chunk, xin):
-            vi, sl = layers(stage, chunk)
-            with torch.no_grad():
-                y = TH._stack_apply(blocks(sl), xin, cfg, pcfg)
-            ctx = {"x": xin, "sl": sl, "vi": vi}
-            if vi == 0:
-                ctx["mb"] = seen[0]
-                seen[0] += 1
-            return y, ctx
-
-        def recompute(ctx, graph):
-            leaves = [params["blocks"][k][ctx["sl"]].to(cdt).detach()
-                      .requires_grad_(True) for k in names]
-            xg = ctx["x"].detach().requires_grad_(True)
-            y = TH._stack_apply(blocks(ctx["sl"], leaves), xg, cfg,
-                                flat_pcfg if graph else pcfg)
-            return y, xg, leaves
-
-        def add(sl, leaves_grads):
-            for k, g in zip(names, leaves_grads):
-                grads[k][sl] += g.float()
-
-        def backward(stage, chunk, ctx, gy):
-            split = sched._has_w()
-            with torch.enable_grad():
-                y, xg, leaves = recompute(ctx, split)
-                if split:
-                    (gx,) = torch.autograd.grad(y, [xg], gy,
-                                                retain_graph=True)
-                    ctx["graph"] = (y, leaves)
-                else:
-                    gx, *gl = torch.autograd.grad(y, [xg] + leaves, gy)
-                    add(ctx["sl"], gl)
-            if ctx["vi"] == 0:
-                dx0[ctx["mb"]] = gx
-            return gx
-
-        def weight_grad(stage, chunk, ctx, gy):
-            y, leaves = ctx.pop("graph")
-            add(ctx["sl"], torch.autograd.grad(y, leaves, gy))
-
-        def loss_grads(mb, y):
-            with torch.enable_grad():
-                hp = {k: params[k].detach().requires_grad_(True)
-                      for k in ("wte", "lnf_g", "lnf_b")}
-                yg = y.detach().requires_grad_(True)
-                h = TH._layer_norm(yg, hp["lnf_g"].to(cdt),
-                                   hp["lnf_b"].to(cdt))
-                lv = TH._ce_from_hidden(h, hp["wte"], lbls[mb], pcfg) / m
-                gy, *gh = torch.autograd.grad(lv, [yg] + [hp[k] for k in
-                                                          sorted(hp)])
-            for k, g in zip(sorted(hp), gh):
-                head[k] += g.float()
-            loss[0] += float(lv)
-            return gy
-
-        PS.run_schedule(sched, forward, backward,
-                        weight_grad if sched._has_w() else None, mbs,
-                        loss_grads)
-        dwte, dwpe = torch.autograd.grad(
-            x, [wte, wpe], torch.cat([dx0[i] for i in range(m)]))
-        out_g = {"wte": head["wte"] + dwte.float(), "wpe": dwpe.float(),
-                 "lnf_g": head["lnf_g"], "lnf_b": head["lnf_b"]}
-        out_g.update({f"blocks.{k}": g for k, g in grads.items()})
-        return loss[0], out_g
+        """Loss and gradients (by leaf name) of one step through the
+        schedule, every stage here: the port's pipeline stage, head seed
+        and embedding backward (gpt_hybrid.schedule_value_and_grad)."""
+        loss, grads = TH.schedule_value_and_grad(params, (ids, ids), cfg,
+                                                 pcfg, sched)
+        return float(loss), dict(zip(TH._leaf_names(params), grads))
 
     for label, builder in PP_SCHEDULES:
         sched = getattr(PS, builder)(PP_STAGES, m, 2) if label == "VPP2" \
@@ -5593,8 +5505,7 @@ def drive_pp_two_ranks(run, TH, GPTConfig, torch):
     for kind in PP2_SCHEDULES:
         got = [r[kind] for r in ranks]
         diff = max(abs(a - b) for r in got for a, b in zip(r["losses"], one))
-        want = pp_expected_launches(kind, per_rank, PP_MICRO,
-                                    ticks=PP_MICRO + 2 - 1)
+        want = pp_expected_launches(kind, per_rank, PP_MICRO)
         want = {TP_KERNELS[0]: want[0] * PP2_STEPS,
                 TP_KERNELS[1]: want[1] * PP2_STEPS}
         run.check(diff <= 2e-2,

@@ -8,7 +8,9 @@ Layers and optimizers built afterwards live on the CPU, as a CUDA-less
 test or worker process needs (and ``distributed.init_parallel_env`` then
 picks gloo). ``run_workers`` starts a script in N ranks through the
 port's launcher with a timeout; ``spawn_probe`` is a worker for
-``distributed.spawn``.
+``distributed.spawn``; ``pipeline_apply_probe`` and ``gpt_hybrid_worker``
+are the ranks of the pipeline tests' jobs; ``share_the_cores_fixture``
+gives a torch test module its worker's share of the cores.
 """
 from __future__ import annotations
 
@@ -24,6 +26,28 @@ def force_cpu(num_devices: int | None = None,
     from .jit import set_default_backend
     set_device("cpu")
     set_default_backend("aot_eager")
+
+
+def share_the_cores_fixture():
+    """A module-scoped autouse pytest fixture for a torch test module
+    (``_share_the_cores = share_the_cores_fixture()``): under pytest-xdist
+    each worker's torch would start an intra-op thread a core, and
+    OpenMP's barriers then wait on descheduled threads (a torch test file
+    ran twice as long beside five other workers); while the module runs,
+    torch takes its worker's share of the cores, and gets its count back
+    after it. Alone (no xdist), nothing changes."""
+    import pytest
+
+    @pytest.fixture(scope="module", autouse=True)
+    def _share_the_cores():
+        import os
+        import torch
+        threads = torch.get_num_threads()
+        workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+        yield
+        torch.set_num_threads(threads)
+    return _share_the_cores
 
 
 def run_workers(script, nprocs, args=(), env=None, timeout=120,
@@ -79,6 +103,30 @@ def spawn_probe(out_dir):
         json.dump([dist.get_rank(), dist.get_world_size(), float(t[0]),
                    dist.get_backend()], f)
     dist.destroy_process_group()
+
+
+def pipeline_apply_probe(out):
+    """A rank of a pipeline_apply parity job: joins the job (each rank a
+    stage of the world group), runs ``parallel.pipeline_apply`` of the
+    stage tanh(x @ w) on ``out/papply.npz`` (its stacked stage weights "w"
+    [n, d, d] and microbatches "x" [M, b, d]), and writes
+    ``out/papply.<rank>.npz``: the outputs and the gradients of
+    sum(out ** 2) with respect to this rank's stage weight and the input."""
+    import os
+    import numpy as np
+    import torch
+    from . import distributed as dist
+    from .parallel import pipeline_apply
+    force_cpu()
+    group = dist.init_parallel_env()
+    with np.load(os.path.join(out, "papply.npz")) as f:
+        w = torch.from_numpy(f["w"][group.rank]).requires_grad_(True)
+        x = torch.from_numpy(f["x"]).requires_grad_(True)
+    y = pipeline_apply(lambda p, h: torch.tanh(h @ p["w"]), {"w": w}, x,
+                       group)
+    gw, gx = torch.autograd.grad((y ** 2).sum(), [w, x])
+    np.savez(os.path.join(out, f"papply.{group.rank}.npz"),
+             out=y.detach().numpy(), gw=gw.numpy(), gx=gx.numpy())
 
 
 def gpt_hybrid_worker(out, configs, batch, seq, steps):

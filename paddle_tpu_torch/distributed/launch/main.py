@@ -20,8 +20,8 @@ each launch of the job, and every worker joins it as a client
 start until the job's attempt ends, so no other process on the machine can
 take it in between, and a worker never outlives the store it talks to.
 ``PADDLE_TRAINER_ENDPOINTS`` and ``PADDLE_CURRENT_ENDPOINT`` name the
-workers (host:store port, with the rank after a slash); nothing listens at
-them.
+workers as the reference's launcher does (host:port, the ports after the
+store's, one a rank); nothing listens at them.
 """
 from __future__ import annotations
 
@@ -87,7 +87,9 @@ def _spawn(args, attempt, nprocs=None):
         args.store = None          # the last attempt's port is free again
         args.store, port = _host_store(host, port, world)
     master = f"{host}:{port}"
-    endpoints = ",".join(f"{host}:{port}/{r}" for r in range(world))
+    # the reference's placeholders: host:port a rank, after the store's port
+    base_port = int(port) + 1
+    endpoints = ",".join(f"{host}:{base_port + r}" for r in range(world))
     if args.log_dir:
         os.makedirs(args.log_dir, exist_ok=True)
     procs = []
@@ -102,7 +104,7 @@ def _spawn(args, attempt, nprocs=None):
             "PADDLE_LOCAL_RANK": str(local),
             "PADDLE_JOB_ID": args.job_id,
             "PADDLE_TRAINER_ENDPOINTS": endpoints,
-            "PADDLE_CURRENT_ENDPOINT": f"{host}:{port}/{rank}",
+            "PADDLE_CURRENT_ENDPOINT": f"{host}:{base_port + rank}",
             "PADDLE_STORE_HOSTED": "1",
             "PADDLE_RESTART_COUNT": str(attempt),
             "RANK": str(rank),

@@ -801,6 +801,57 @@ def _head_loss(y, hp, labels, cfg, pcfg, grid, vocab_parallel=False):
     return _ce_from_hidden(h, hp["wte"], labels, pcfg)
 
 
+def _head_seed(lbl_mb, cfg, pcfg, grid, vocab_parallel=False):
+    """The last virtual stage's seed of the schedules: ``last_grad(y, hp,
+    mb) -> (loss, dy, head gradients)``, microbatch mb's head loss (over M
+    of the batch: the sum over the microbatches is the batch's mean)."""
+    m = len(lbl_mb)
+
+    def last_grad(yv, hp, mb_idx):
+        with torch.enable_grad():
+            leaves = [p.detach().requires_grad_(True) for p in _leaves(hp)]
+            yg = yv.detach().requires_grad_(True)
+            hp_ = dict(zip(sorted(hp), leaves))
+            lv = _head_loss(yg, hp_, lbl_mb[mb_idx], cfg, pcfg, grid,
+                            vocab_parallel) / m
+            gy, *gh = torch.autograd.grad(lv, [yg] + leaves)
+        return lv.detach(), gy, dict(zip(sorted(hp), gh))
+    return last_grad
+
+
+def _graph_stage_fn(cfg, pcfg, grid):
+    """The zero-bubble B's stage: it keeps its recomputed graph for W's
+    second backward, so it runs without the per-block checkpoints, which
+    allow one backward only."""
+    return _stage_fn(cfg, ParallelConfig(**{**pcfg.__dict__,
+                                            "remat": False}), grid)
+
+
+def _head_params(params):
+    return {"wte": params["wte"], "lnf_g": params["lnf_g"],
+            "lnf_b": params["lnf_b"]}
+
+
+def _pp_grads(params, x, dx0, hg, bgrads, cfg, pcfg, grid,
+              vocab_parallel=False):
+    """The gradient tree from the pipeline's parts: the embedding's
+    backward from dx0 (the same on every rank), the tied wte's two
+    shares, the head's and the blocks' gradients."""
+    from ..distributed import collective as C
+    dwte, dwpe = torch.autograd.grad(x, [params["wte"], params["wpe"]],
+                                     dx0.to(x.dtype))
+    hwte = hg["wte"].float()
+    if vocab_parallel and not pcfg.sp and \
+            not _vocab_sharded(cfg.vocab_size, grid.tp):
+        # the padded head's rows of a replicated wte: one share a tp rank
+        hwte = hwte.contiguous()
+        C.all_reduce_flat(hwte.view(-1), C.ReduceOp.SUM, grid.tp_group)
+    return {"wte": dwte.float() + hwte,
+            "wpe": dwpe.float(),
+            "lnf_g": hg["lnf_g"], "lnf_b": hg["lnf_b"],
+            "blocks": bgrads}
+
+
 def _pp_loss_and_grads(params, batch, cfg, pcfg, grid, vocab_parallel=False):
     """(loss, gradient tree) of the global ``batch`` (this rank's dp rows)
     through this rank's stage of the pipeline: the reference's
@@ -816,16 +867,14 @@ def _pp_loss_and_grads(params, batch, cfg, pcfg, grid, vocab_parallel=False):
         x = _embed(params, input_ids, cfg, pcfg, grid)
     x_in = x.detach()
     mb = pipeline_microbatch(x_in, m)
-    lbl_mb = pipeline_microbatch(labels, m)
-    head_params = {"wte": params["wte"], "lnf_g": params["lnf_g"],
-                   "lnf_b": params["lnf_b"]}
+    head_params = _head_params(params)
+    blocks = {k: p.to(cdt) for k, p in params["blocks"].items()}
     if pcfg.pp_schedule == "gpipe":
-        # forward by hops, backward by autograd across the hops; every rank
-        # runs the head on the broadcast outputs, so its head gradients are
+        # forward by hops, backward by the reverse hops; every rank runs
+        # the head on the broadcast outputs, so its head gradients are
         # already whole and only dx0 is summed over pp
         with torch.enable_grad():
             mbg = mb.detach().requires_grad_(True)
-            blocks = {k: p.to(cdt) for k, p in params["blocks"].items()}
             out = pipeline_apply(stage_fn, blocks, mbg, grid.pp_group)
             y = out.reshape(x_in.shape)
             loss = _head_loss(y, head_params, labels, cfg, pcfg, grid)
@@ -840,48 +889,64 @@ def _pp_loss_and_grads(params, batch, cfg, pcfg, grid, vocab_parallel=False):
         bgrads = dict(zip(sorted(params["blocks"]), g[1 + len(hl):]))
         loss = loss.detach()
     else:
-        def last_grad(yv, hp, mb_idx):
-            with torch.enable_grad():
-                leaves = [p.detach().requires_grad_(True)
-                          for p in _leaves(hp)]
-                yg = yv.detach().requires_grad_(True)
-                hp_ = dict(zip(sorted(hp), leaves))
-                lv = _head_loss(yg, hp_, lbl_mb[mb_idx], cfg, pcfg, grid,
-                                vocab_parallel) / m
-                gy, *gh = torch.autograd.grad(lv, [yg] + leaves)
-            return lv.detach(), gy, dict(zip(sorted(hp), gh))
-
-        blocks = {k: p.to(cdt) for k, p in params["blocks"].items()}
-        args = (stage_fn, blocks, mb, last_grad, head_params, grid.pp_group)
+        args = (stage_fn, blocks, mb, _head_seed(
+            pipeline_microbatch(labels, m), cfg, pcfg, grid, vocab_parallel),
+            head_params, grid.pp_group)
         if pcfg.vpp_chunks > 1:
             loss, bgrads, hg, dx0 = P1.pipeline_train_interleaved(
                 *args, num_chunks=pcfg.vpp_chunks)
         elif pcfg.pp_schedule == "1f1b":
             loss, bgrads, hg, dx0 = P1.pipeline_train_1f1b(*args)
         else:
-            # the zero-bubble B keeps its recomputed stage's graph for W's
-            # second backward: without the per-block checkpoints, which
-            # allow one backward only
             run = {"zbh1": P1.pipeline_train_zbh1,
                    "zbvpp": P1.pipeline_train_zbvpp}[pcfg.pp_schedule]
-            loss, bgrads, hg, dx0 = run(*args, graph_stage_fn=_stage_fn(
-                cfg, ParallelConfig(**{**pcfg.__dict__, "remat": False}),
-                grid))
+            loss, bgrads, hg, dx0 = run(
+                *args, graph_stage_fn=_graph_stage_fn(cfg, pcfg, grid))
         dx0 = dx0.reshape(x_in.shape)
-    # the embedding's backward from dx0 (the same on every rank)
-    dwte, dwpe = torch.autograd.grad(x, [params["wte"], params["wpe"]],
-                                     dx0.to(x.dtype))
-    hwte = hg["wte"].float()
-    if vocab_parallel and not pcfg.sp and \
-            not _vocab_sharded(cfg.vocab_size, grid.tp):
-        # the padded head's rows of a replicated wte: one share a tp rank
-        hwte = hwte.contiguous()
-        C.all_reduce_flat(hwte.view(-1), C.ReduceOp.SUM, grid.tp_group)
-    grads = {"wte": dwte.float() + hwte,
-             "wpe": dwpe.float(),
-             "lnf_g": hg["lnf_g"], "lnf_b": hg["lnf_b"],
-             "blocks": bgrads}
-    return loss, grads
+    return loss, _pp_grads(params, x, dx0, hg, bgrads, cfg, pcfg, grid,
+                           vocab_parallel)
+
+
+def schedule_value_and_grad(params, batch, cfg: GPTConfig,
+                            pcfg: ParallelConfig, sched):
+    """(the loss, its gradients in ``_leaves`` order) of the one-device
+    ``params`` (pp = 1, tp = 1) through the host schedule ``sched``
+    (``parallel.pp_schedule``), every stage in this process: the pipeline
+    path's stage function, head seed and embedding backward, run by
+    ``pipeline_1f1b.run_all_stages``. Virtual stage i (``sched``'s chain
+    depth) holds layers [i L / (n v), (i + 1) L / (n v))."""
+    from ..parallel import pipeline_1f1b as P1
+    from ..parallel.pipeline import pipeline_microbatch
+    grid = _grid(pcfg)
+    if grid.pp > 1 or grid.tp > 1:
+        raise ValueError("schedule_value_and_grad runs every stage in one "
+                         "process: pp = 1 and tp = 1")
+    tree = _detach(params)
+    input_ids, labels = batch
+    cdt = pcfg.compute_dtype
+    m, L = sched.n_microbatches, cfg.num_layers
+    per = L // (sched.n_stages * sched.n_chunks)
+    with torch.enable_grad():
+        x = _embed(tree, input_ids, cfg, pcfg, grid)
+    bgrads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+              for k, p in tree["blocks"].items()}
+    chunks, accs = {}, {}
+    for s in range(sched.n_stages):
+        for c in range(sched.n_chunks):
+            sl = slice(sched.virtual_index(s, c) * per,
+                       (sched.virtual_index(s, c) + 1) * per)
+            chunks[(s, c)] = {k: p[sl].to(cdt)
+                              for k, p in tree["blocks"].items()}
+            accs[(s, c)] = {k: g[sl] for k, g in bgrads.items()}
+    loss, _, hg, dx0 = P1.run_all_stages(
+        sched, _stage_fn(cfg, pcfg, grid), chunks,
+        pipeline_microbatch(x.detach(), m),
+        _head_seed(pipeline_microbatch(labels, m), cfg, pcfg, grid),
+        _head_params(tree), graph_stage_fn=_graph_stage_fn(cfg, pcfg, grid),
+        grads=accs)
+    grads = _pp_grads(tree, x, dx0.reshape(x.shape), hg, bgrads, cfg, pcfg,
+                      grid)
+    return loss, _leaves(grads)
 
 
 def _train_grads_1f1b(params, batch, cfg, pcfg):
@@ -1312,15 +1377,19 @@ def _local_rows(batch, dp, rank):
     return tuple(x[rank * n:(rank + 1) * n] for x in batch)
 
 
+def _detach(tree):
+    """Detached views of the parameter tree's leaves, asking for their
+    gradients."""
+    return {k: _detach(v) if isinstance(v, dict)
+            else v.detach().requires_grad_(True) for k, v in tree.items()}
+
+
 def _detached_value_and_grad(params, batch, cfg, pcfg):
     """(loss, gradients in ``_leaves`` order) of ``batch`` with respect to
     detached views of the parameters (the buffers' views stay untouched by
     autograd). On the tp branch: this rank's shards' gradients, the sp
     leaves' summed over tp."""
-    def detach(tree):
-        return {k: detach(v) if isinstance(v, dict)
-                else v.detach().requires_grad_(True) for k, v in tree.items()}
-    tree = detach(params)
+    tree = _detach(params)
     grid = _grid(pcfg)
     if grid.pp > 1:
         loss, grads = _train_grads_1f1b(tree, batch, cfg, pcfg)

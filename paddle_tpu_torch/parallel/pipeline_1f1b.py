@@ -21,7 +21,9 @@ input and back-propagates through it (stage-granular recompute), so at
 most 2(N - 1 - s) + 1 stage inputs are live on stage s. Under the
 zero-bubble schedules B computes the input gradient only and keeps the
 recomputed graph; the deferred W back-propagates through the same graph a
-second time, for the weight gradients, and frees it.
+second time, for the weight gradients, and frees it. ``run_all_stages``
+runs the same cells for every stage in one process, in
+``pp_schedule.run_schedule``'s order.
 """
 from __future__ import annotations
 
@@ -265,6 +267,57 @@ def _tree_unflatten(like, leaves):
     return _tree_map(lambda _: next(it), like)
 
 
+def _zero_grads(chunk_params, grad_dtype):
+    return _tree_map(lambda p: torch.zeros(p.shape, dtype=grad_dtype,
+                                           device=p.device), chunk_params)
+
+
+def _add_grads(acc_tree, dps):
+    for acc, d in zip(_tree_leaves(acc_tree), dps):
+        if d is not None:
+            acc.add_(d.to(acc.dtype))
+
+
+def _backward_cell(fn, params, x, gy, split):
+    """A B cell: recompute the stage ``fn`` from its stashed input ``x``
+    and back-propagate ``gy``. Returns (dx, the parameter gradients, None)
+    or, ``split`` (zero-bubble), (dx, None, the graph that W
+    back-propagates through a second time)."""
+    ps = [p.detach().requires_grad_(True) for p in _tree_leaves(params)]
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        y = fn(_tree_unflatten(params, ps), xg)
+        if split:
+            (dx,) = torch.autograd.grad(y, [xg], gy.to(y.dtype),
+                                        retain_graph=True)
+            return dx, None, (y, ps, gy)
+        dx, *dps = torch.autograd.grad(y, [xg] + ps, gy.to(y.dtype),
+                                       allow_unused=True)
+    return dx, dps, None
+
+
+def _weight_cell(kept):
+    """A W cell: the weight gradients through B's kept graph."""
+    y, ps, gy = kept
+    return torch.autograd.grad(y, ps, gy.to(y.dtype), allow_unused=True)
+
+
+class _HeadSum:
+    """The head's loss and gradients summed over the microbatches."""
+
+    def __init__(self, grad_dtype):
+        self.dtype, self.loss, self.grads = grad_dtype, None, None
+
+    def add(self, l_mb, hg):
+        l_mb = l_mb.detach().to(self.dtype)
+        self.loss = l_mb if self.loss is None else self.loss + l_mb
+        if hg is not None:
+            self.grads = _tree_map(
+                lambda g: g.detach().to(self.dtype).clone(), hg) \
+                if self.grads is None else _tree_map(
+                    lambda a, g: a.add_(g.to(a.dtype)), self.grads, hg)
+
+
 def run_stage(sched: Schedule, group, stage_fn: Callable, chunk_params,
               x_microbatches, last_stage_grad: Callable, head_params=None,
               grad_dtype=torch.float32, graph_stage_fn=None):
@@ -303,11 +356,8 @@ def run_stage(sched: Schedule, group, stage_fn: Callable, chunk_params,
     v = sched.n_chunks
     my_chunks = [c for c in range(v) if (s, c) in pos_of]
 
-    grads = [_tree_map(lambda p: torch.zeros(p.shape, dtype=grad_dtype,
-                                             device=p.device),
-                       chunk_params[c]) for c in range(v)]
-    head = None
-    loss = None
+    grads = [_zero_grads(chunk_params[c], grad_dtype) for c in range(v)]
+    head = _HeadSum(grad_dtype)
     dx0 = None
     inbox: Dict = {}       # ("F"|"B", mb, chunk) -> tensor
     stash: Dict = {}       # (mb, chunk) -> stage input
@@ -351,15 +401,6 @@ def run_stage(sched: Schedule, group, stage_fn: Callable, chunk_params,
         for i, g in zip(order, got):
             inbox[keys[i]] = g
 
-    def leaves_of(c):
-        return [p.detach().requires_grad_(True)
-                for p in _tree_leaves(chunk_params[c])]
-
-    def add_grads(c, dps):
-        for acc, d in zip(_tree_leaves(grads[c]), dps):
-            if d is not None:
-                acc.add_(d.to(acc.dtype))
-
     t_now = [0]
     for op in ops:
         t = _grid_ticks(sched, op)
@@ -377,32 +418,19 @@ def run_stage(sched: Schedule, group, stage_fn: Callable, chunk_params,
                 y = stage_fn(chunk_params[c], x)
             if sigma == ng - 1:
                 l_mb, dy, hg = last_stage_grad(y, head_params, mb)
-                loss = l_mb.detach().to(grad_dtype) if loss is None \
-                    else loss + l_mb.detach().to(grad_dtype)
-                if hg is not None:
-                    head = _tree_map(lambda g: g.detach().to(grad_dtype)
-                                     .clone(), hg) if head is None else \
-                        _tree_map(lambda a, g: a.add_(g.to(a.dtype)),
-                                  head, hg)
+                head.add(l_mb, hg)
                 inbox[("B", mb, c)] = dy.to(dtype)
             else:
                 send(y.to(dtype), "F", mb, chain[sigma + 1])
         elif op.kind == "B":
-            x = stash.pop((mb, c))
-            gy = inbox.pop(("B", mb, c))
-            ps = leaves_of(c)
-            with torch.enable_grad():
-                xg = x.detach().requires_grad_(True)
-                fn = (graph_stage_fn or stage_fn) if split else stage_fn
-                y = fn(_tree_unflatten(chunk_params[c], ps), xg)
-                if split:
-                    (dx,) = torch.autograd.grad(y, [xg], gy.to(y.dtype),
-                                                retain_graph=True)
-                    wstash[(mb, c)] = (y, ps, gy)
-                else:
-                    dx, *dps = torch.autograd.grad(
-                        y, [xg] + ps, gy.to(y.dtype), allow_unused=True)
-                    add_grads(c, dps)
+            fn = (graph_stage_fn or stage_fn) if split else stage_fn
+            dx, dps, kept = _backward_cell(fn, chunk_params[c],
+                                           stash.pop((mb, c)),
+                                           inbox.pop(("B", mb, c)), split)
+            if split:
+                wstash[(mb, c)] = kept
+            else:
+                _add_grads(grads[c], dps)
             dx = dx.to(dtype)
             if sigma == 0:
                 if dx0 is None:
@@ -412,11 +440,7 @@ def run_stage(sched: Schedule, group, stage_fn: Callable, chunk_params,
             else:
                 send(dx, "B", mb, chain[sigma - 1])
         else:                                                   # W
-            y, ps, gy = wstash.pop((mb, c))
-            dps = torch.autograd.grad(y, ps, gy.to(y.dtype),
-                                      allow_unused=True)
-            add_grads(c, dps)
-            del y
+            _add_grads(grads[c], _weight_cell(wstash.pop((mb, c))))
     last = max(ticks) if ticks else -1
     while t_now[0] <= last + 1:
         exchange(t_now[0])
@@ -424,7 +448,59 @@ def run_stage(sched: Schedule, group, stage_fn: Callable, chunk_params,
     if inbox or stash or wstash or outbox:
         raise RuntimeError(f"schedule {sched.name!r}: stage {s} ended with "
                            "cells' data left over")
-    return loss, grads, head, dx0
+    return head.loss, grads, head.grads, dx0
+
+
+def run_all_stages(sched: Schedule, stage_fn: Callable, chunk_params,
+                   x_microbatches, last_stage_grad: Callable,
+                   head_params=None, grad_dtype=torch.float32,
+                   graph_stage_fn=None, grads=None):
+    """Every stage of ``sched`` in this process, in
+    ``pp_schedule.run_schedule``'s order, with ``run_stage``'s cells: F
+    without autograd, B recomputing the stage (input gradient only under
+    a zero-bubble schedule, whose W then takes the weight gradients).
+
+    ``chunk_params[(stage, chunk)]`` is that virtual stage's parameter
+    tree; ``grads`` (default zeros in ``grad_dtype``) trees like it that
+    the gradients are summed into; the rest is ``run_stage``'s contract.
+    Returns (the summed loss, ``grads``, the summed head gradients, the
+    first virtual stage's input cotangents [M, ...])."""
+    from .pp_schedule import run_schedule
+    split = sched._has_w()
+    if grads is None:
+        grads = {k: _zero_grads(t, grad_dtype)
+                 for k, t in chunk_params.items()}
+    head = _HeadSum(grad_dtype)
+    dx0 = torch.zeros_like(x_microbatches)
+
+    def forward(stage, chunk, x):
+        # the first virtual stage's inputs come as (microbatch, input)
+        mb, x = x if isinstance(x, tuple) else (None, x)
+        with torch.no_grad():
+            y = stage_fn(chunk_params[(stage, chunk)], x)
+        return y, {"x": x, "mb": mb}
+
+    def backward(stage, chunk, ctx, gy):
+        fn = (graph_stage_fn or stage_fn) if split else stage_fn
+        dx, dps, ctx["kept"] = _backward_cell(
+            fn, chunk_params[(stage, chunk)], ctx.pop("x"), gy, split)
+        if not split:
+            _add_grads(grads[(stage, chunk)], dps)
+        if ctx["mb"] is not None:
+            dx0[ctx["mb"]] = dx
+        return dx
+
+    def weight_grad(stage, chunk, ctx, gy):
+        _add_grads(grads[(stage, chunk)], _weight_cell(ctx.pop("kept")))
+
+    def loss_grads(mb, y):
+        l_mb, dy, hg = last_stage_grad(y, head_params, mb)
+        head.add(l_mb, hg)
+        return dy.to(y.dtype)
+
+    run_schedule(sched, forward, backward, weight_grad if split else None,
+                 list(enumerate(x_microbatches)), loss_grads)
+    return head.loss, grads, head.grads, dx0
 
 
 def _pipeline_epilogue(group, loss, head, dx0, probe_head, x_microbatches,

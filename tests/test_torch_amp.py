@@ -17,6 +17,9 @@ from paddle_tpu_torch.amp import debugging as port_dbg
 from paddle_tpu_torch.amp import grad_scaler as port_grad_scaler
 from paddle_tpu_torch.core import dispatch as port_dispatch
 from paddle_tpu_torch.core import flags as port_flags
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 PAIRS = ((ref, ref_dispatch, ref_dbg, ref_flags),
          (port, port_dispatch, port_dbg, port_flags))

@@ -30,6 +30,9 @@ import re
 import pytest
 
 from paddle_tpu_torch._testing import force_cpu
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # file -> its top-level tests that are bound

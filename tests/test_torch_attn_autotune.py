@@ -21,6 +21,9 @@ from paddle_tpu.ops.pallas import autotune as jat
 from paddle_tpu.ops.pallas import simple_attention as jsa
 from paddle_tpu_torch.core import flags
 from paddle_tpu_torch.ops.hopper import autotune
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 
 @pytest.fixture(autouse=True)

@@ -16,6 +16,9 @@ import paddle_tpu as ref
 import paddle_tpu_torch as port
 from paddle_tpu.models import bert as jbert
 from paddle_tpu_torch.models import bert as tbert
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 B, S = 3, 16
 

@@ -28,6 +28,9 @@ import paddle_tpu as P
 import paddle_tpu._C_ops as PC
 import paddle_tpu_torch as T
 import paddle_tpu_torch._C_ops as TC
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SWEEPS = ("test_ops_sweep", "test_ops_sweep2", "test_ops_sweep3",

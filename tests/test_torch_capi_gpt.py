@@ -24,6 +24,9 @@ import paddle_tpu_torch as T
 import paddle_tpu_torch._C_ops as TC
 from paddle_tpu_torch.models import gpt_hybrid as TH
 from paddle_tpu_torch.models.gpt import GPTConfig
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, S = 2, 32

@@ -13,6 +13,9 @@ import jax.numpy as jnp
 
 from paddle_tpu.ops.pallas import causal_attention as jca
 from paddle_tpu_torch.ops.hopper import causal_attention as tca
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 B, H = 1, 2
 

@@ -24,6 +24,9 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
 from paddle_tpu_torch._testing import run_workers
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 WORLDS = (2, 4)
 

@@ -22,6 +22,9 @@ from paddle_tpu_torch.ops.hopper import causal_attention as tca
 from paddle_tpu_torch.ops.hopper import flash_attention as tfa
 from paddle_tpu_torch.ops.hopper import simple_attention as tsa
 from paddle_tpu_torch.ops.hopper import simple_attention2 as tsa2
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 _KERNEL_MODULES = (tsa, tca, tbf, tsa2)
 

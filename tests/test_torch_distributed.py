@@ -23,6 +23,9 @@ import paddle_tpu.distributed as pdist
 import paddle_tpu_torch as T
 import paddle_tpu_torch.distributed as tdist
 from paddle_tpu_torch._testing import run_workers
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 WORLDS = (2, 4)
 DP_STEPS = 3

@@ -27,6 +27,9 @@ import pytest
 import paddle_tpu_torch
 import paddle_tpu_torch as paddle
 from paddle_tpu_torch._testing import force_cpu
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FILES = ("test_ops_numeric.py", "test_ops_sweep.py", "test_ops_sweep2.py",

@@ -16,6 +16,9 @@ import pytest
 
 import paddle_tpu as P
 import paddle_tpu_torch as T
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 TOL = 1e-5
 

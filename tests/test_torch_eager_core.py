@@ -13,6 +13,9 @@ import torch
 
 import paddle_tpu as P
 import paddle_tpu_torch as T
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAMES = ["bool", "uint8", "int8", "int16", "int32", "int64", "float16",

@@ -30,6 +30,9 @@ import paddle_tpu_torch as T
 from paddle_tpu_torch.models import gpt_hybrid as TH
 from paddle_tpu_torch.models.gpt import GPTConfig
 from paddle_tpu_torch.ops.hopper import autotune as tat
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

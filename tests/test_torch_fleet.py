@@ -34,6 +34,9 @@ import paddle_tpu_torch as T
 import paddle_tpu_torch.distributed as tdist
 from paddle_tpu_torch._testing import run_workers
 from paddle_tpu_torch.distributed import fleet
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 KEEP = (

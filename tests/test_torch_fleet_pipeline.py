@@ -25,6 +25,9 @@ from paddle_tpu_torch._testing import run_workers
 from paddle_tpu_torch.distributed.fleet import pp_layers as TL
 from paddle_tpu_torch.distributed.fleet import pp_parallel_adaptor as TA
 import paddle_tpu_torch as tpaddle
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 MODES = ("1F1B", "ZBH1", "ZBV")
 STEPS = 3

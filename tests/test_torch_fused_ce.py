@@ -11,6 +11,9 @@ import jax.numpy as jnp
 
 from paddle_tpu.ops import fused_ce as jfc
 from paddle_tpu_torch.ops import fused_ce as tfc
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 
 def _inputs(t, v, h, zero_weights=False, seed=0):

@@ -31,6 +31,9 @@ from paddle_tpu_torch._testing import run_workers
 from paddle_tpu_torch.models import gpt_hybrid as TH
 from paddle_tpu_torch.models import gpt_manual_tp as TMT
 from paddle_tpu_torch.models.gpt import GPTConfig
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 SIZE = dict(vocab_size=64, hidden_size=32, num_layers=4, num_heads=4,
             max_seq_len=16)

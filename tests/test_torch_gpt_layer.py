@@ -18,6 +18,9 @@ from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from paddle_tpu.models.gpt import GPTForCausalLM as JaxGPT
 import paddle_tpu_torch as T
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 
 @pytest.fixture(autouse=True)

@@ -29,6 +29,9 @@ from paddle_tpu_torch.ops.hopper import causal_attention as tca
 from paddle_tpu_torch.ops.hopper import flash_attention as tfa
 from paddle_tpu_torch.ops.hopper import simple_attention as tsa
 from paddle_tpu_torch.ops.hopper import simple_attention2 as tsa2
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 SIZE = dict(vocab_size=256, hidden_size=128, num_layers=2, num_heads=2,
             max_seq_len=64)

@@ -26,6 +26,9 @@ import subprocess
 import sys
 
 import torch
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -29,6 +29,9 @@ import paddle_tpu.inference as pinf
 import paddle_tpu_torch as T
 import paddle_tpu_torch.inference as tinf
 from paddle_tpu_torch._testing import force_cpu
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 
 @pytest.fixture(autouse=True)

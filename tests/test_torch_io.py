@@ -24,6 +24,9 @@ import paddle_tpu_torch as T
 from paddle_tpu import io as pio
 from paddle_tpu_torch import io as tio
 from paddle_tpu_torch import observability as tobs
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 
 @pytest.fixture(autouse=True)

@@ -20,6 +20,9 @@ import re
 import pytest
 
 import paddle_tpu_torch
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FILES = ("test_dataloader_mp.py",)

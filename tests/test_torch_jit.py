@@ -42,6 +42,9 @@ import paddle_tpu_torch as T
 import paddle_tpu_torch.observability as obs
 from paddle_tpu_torch._testing import force_cpu
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 EPS = 1e-8     # AdamW's default epsilon
 LR = 1e-3

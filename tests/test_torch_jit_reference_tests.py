@@ -33,6 +33,9 @@ import pytest
 
 import paddle_tpu_torch
 from paddle_tpu_torch._testing import force_cpu
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # file -> its top-level tests (functions or classes) that are bound

@@ -21,6 +21,7 @@ killed.
 import json
 import os
 import pathlib
+import re
 import signal
 import subprocess
 import sys
@@ -31,6 +32,9 @@ import pytest
 
 import paddle_tpu_torch as T
 from paddle_tpu_torch._testing import run_workers
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -86,9 +90,12 @@ dist.init_parallel_env()
 t = torch.tensor([float(job)])
 dist.all_reduce(t)
 with open(os.path.join(out, f"join.{job}.{dist.get_rank()}.json"), "w") as f:
+    env = dist.ParallelEnv()
     json.dump({"sum": float(t[0]), "world": dist.get_world_size(),
                "port": os.environ["MASTER_PORT"],
-               "hosted": os.environ["PADDLE_STORE_HOSTED"]}, f)
+               "hosted": os.environ["PADDLE_STORE_HOSTED"],
+               "current": env.current_endpoint,
+               "endpoints": env.trainer_endpoints}, f)
 dist.destroy_process_group()
 '''
 
@@ -97,7 +104,9 @@ def test_concurrent_launches_each_join_their_own_job(tmp_path):
     """Four 2-rank jobs launched at once: the launcher hosts each job's
     rendezvous store on a port it holds from before the workers start, so
     every job gets its own port and each rank joins its own job (its
-    all-reduce sums its own job's values only)."""
+    all-reduce sums its own job's values only). Each rank's endpoint is a
+    "host:port" string, as the reference's launcher gives, and its entry
+    of the trainer endpoints."""
     from concurrent.futures import ThreadPoolExecutor
     script = tmp_path / "join.py"
     script.write_text(JOIN)
@@ -111,9 +120,12 @@ def test_concurrent_launches_each_join_their_own_job(tmp_path):
     for j in jobs:
         got = [json.loads((tmp_path / f"join.{j}.{r}.json").read_text())
                for r in range(2)]
-        for g in got:
+        for r, g in enumerate(got):
             assert g["sum"] == 2.0 * j and g["world"] == 2, (j, g)
             assert g["hosted"] == "1"
+            assert re.fullmatch(r"[\w.]+:\d+", g["current"]), g
+            assert len(g["endpoints"]) == 2 and \
+                g["endpoints"][r] == g["current"], g
         assert got[0]["port"] == got[1]["port"]
         ports.add(got[0]["port"])
     assert len(ports) == len(jobs)

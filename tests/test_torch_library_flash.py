@@ -21,6 +21,9 @@ from jax.experimental.pallas.ops.tpu.flash_attention import (
     BlockSizes, flash_attention as jax_library_flash, mha_reference)
 
 from paddle_tpu_torch.ops.hopper import flash_attention as tfa
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 # (causal, Sq, Skv)
 CASES = [(True, 128, 384), (True, 384, 128), (True, 256, 256),

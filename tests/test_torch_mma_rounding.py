@@ -29,6 +29,9 @@ from paddle_tpu_torch.ops.hopper import blocked_flash as tbf
 from paddle_tpu_torch.ops.hopper import causal_attention as tca
 from paddle_tpu_torch.ops.hopper import lse_backward as tlse
 from paddle_tpu_torch.ops.hopper import simple_attention as tsa
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 B, H = 1, 2
 NEG_INF = -1e30

@@ -22,6 +22,9 @@ from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from paddle_tpu_torch.models import gpt_hybrid as TH
 from paddle_tpu_torch.models import moe as tmoe
 from paddle_tpu_torch.models.gpt import GPTConfig
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 JCFG, TCFG = JaxGPTConfig.tiny(), GPTConfig.tiny()
 B, S, E = 4, 32, 2

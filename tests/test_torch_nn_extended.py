@@ -14,6 +14,9 @@ import pytest
 import paddle_tpu as P
 import paddle_tpu.nn.quant  # noqa: F401  (a lazy submodule there)
 import paddle_tpu_torch as T
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 OUT_RTOL, OUT_ATOL, GRAD_TOL = 1e-5, 1e-6, 1e-4
 

@@ -23,6 +23,9 @@ import yaml
 import paddle_tpu_torch as T
 from paddle_tpu_torch.core import infermeta as im
 from paddle_tpu_torch.ops.yaml import generator as gen
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)

@@ -19,7 +19,9 @@ reference's own tests (2e-4 outputs; gradients 3e-4 ring, 2e-3 rtol and
 reference's output shape; the sp linears 1e-5 of each value's scale.
 
 The reference's two pipeline tests of that file are restated in
-``tests/test_torch_pp_schedule.py`` (``pipeline_apply``).
+``tests/test_torch_pp_schedule.py`` (``pipeline_apply``), and
+``tests/test_torch_pipeline.py`` holds ``pipeline_apply`` over gloo ranks
+against the reference's.
 """
 from concurrent.futures import ThreadPoolExecutor
 
@@ -32,6 +34,9 @@ from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 
 from paddle_tpu_torch._testing import run_workers
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 WORLDS = (2, 4)
 

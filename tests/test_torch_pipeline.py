@@ -1,7 +1,8 @@
 """gpt_hybrid's pipeline-parallel step at pp = 2 (GPipe, 1F1B, interleaved
 1F1B, ZBH1, ZB-V) over gloo ranks against the reference's
 ``setup(cfg, ParallelConfig(pp=2, ...))`` on the CPU, its eval relayout and
-the reference's schedule refusals.
+the reference's schedule refusals; and ``parallel.pipeline_apply`` over the
+same ranks against the reference's.
 
 The reference runs one program over pp of the 8 virtual devices, the
 stages stacked on a leading axis. The port runs a process a stage
@@ -31,6 +32,9 @@ from paddle_tpu.models import gpt_hybrid as GH
 from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from paddle_tpu_torch._testing import run_workers
 from paddle_tpu_torch.models import gpt_hybrid as TH
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 SIZE = dict(vocab_size=64, hidden_size=32, num_layers=4, num_heads=4,
             max_seq_len=16)
@@ -47,8 +51,10 @@ CONFIGS = (
     ("pp2_zbh1", dict(pp=2, microbatches=4, pp_schedule="zbh1")),
     ("pp2_zbvpp", dict(pp=2, microbatches=4, pp_schedule="zbvpp")),
 )
-WORKER = ("from paddle_tpu_torch._testing import gpt_hybrid_worker\n"
+WORKER = ("from paddle_tpu_torch._testing import (gpt_hybrid_worker,\n"
+          "                                       pipeline_apply_probe)\n"
           "import json, sys\n"
+          "pipeline_apply_probe(sys.argv[1])\n"
           "gpt_hybrid_worker(sys.argv[1], json.loads(sys.argv[2]), "
           "*map(int, sys.argv[3:6]))\n")
 
@@ -128,11 +134,44 @@ def _reference(jp, mesh, params, opt, step):
     return losses, ev, out, int(opt["step"])
 
 
+def _papply_inputs(out):
+    """pipeline_apply's probe: two stages tanh(x @ w), 4 microbatches."""
+    rng = np.random.RandomState(0)
+    w = (rng.randn(WORLD, 4, 4) * 0.3).astype(np.float32)
+    x = rng.randn(4, 2, 4).astype(np.float32)
+    np.savez(out / "papply.npz", w=w, x=x)
+    return w, x
+
+
+def _papply_reference(w, x):
+    """The reference's pipeline_apply over pp of the virtual devices: its
+    outputs and the gradients of sum(out ** 2) (stacked weights, input)."""
+    from functools import partial
+    from jax import shard_map
+    from jax.sharding import Mesh, PartitionSpec as P
+    from paddle_tpu.parallel import pipeline_apply
+    mesh = Mesh(np.array(jax.devices()[:WORLD]), ("pp",))
+    pipe = shard_map(
+        partial(pipeline_apply, lambda p, h: jnp.tanh(h @ p["w"]),
+                axis_name="pp"),
+        mesh=mesh, in_specs=({"w": P("pp", None, None)}, P(None)),
+        out_specs=P(None))
+    def loss(p, xs):
+        out = pipe(p, xs)
+        return jnp.sum(out ** 2), out
+    (_, out), (gw, gx) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True))({"w": jnp.asarray(w)},
+                                             jnp.asarray(x))
+    return np.asarray(out), np.asarray(gw["w"]), np.asarray(gx)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The port's worker group (every configuration) and, while it runs,
-    the reference's steps from the same parameters."""
+    """The port's worker group (pipeline_apply's probe, then every
+    configuration) and, while it runs, the reference's from the same
+    inputs and parameters."""
     out = tmp_path_factory.mktemp("pp")
+    papply = _papply_inputs(out)
     setups = {}
     for name, fields in CONFIGS:
         setups[name] = _setup(fields)
@@ -149,13 +188,15 @@ def runs(tmp_path_factory):
     th = threading.Thread(target=launch)
     th.start()
     ref = {n: _reference(jp, *rest) for n, (jp, rest) in setups.items()}
+    ref["papply"] = _papply_reference(*papply)
     th.join()
     assert res["port"].returncode == 0, res["port"].stderr[-3000:]
     return out, ref
 
 
-def _port(out, name, rank=0):
-    with np.load(out / f"{name}.{WORLD}.{rank}.npz") as f:
+def _port(out, name, rank=0, world=True):
+    path = f"{name}.{WORLD}.{rank}.npz" if world else f"{name}.{rank}.npz"
+    with np.load(out / path) as f:
         return {k: f[k] for k in f.files}
 
 
@@ -184,6 +225,23 @@ def test_pp_step_matches_reference(runs, name):
     for k in got:
         if k[:2] in ("p.", "m.", "v."):
             np.testing.assert_array_equal(got[k], last[k])
+
+
+def test_pipeline_apply_matches_reference(runs):
+    """``parallel.pipeline_apply`` over two gloo ranks (the hops through
+    torch.distributed) against the reference's on two virtual devices:
+    every rank's outputs (rtol and atol 1e-5), each rank's stage-weight
+    gradient of sum(out ** 2) and the input gradients summed over the
+    ranks (rtol 1e-4, atol 1e-5: the reference's test's tolerances)."""
+    out, ref = runs
+    want_out, want_gw, want_gx = ref["papply"]
+    got = [_port(out, "papply", r, world=False) for r in range(WORLD)]
+    for r, g in enumerate(got):
+        np.testing.assert_allclose(g["out"], want_out, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(g["gw"], want_gw[r], rtol=1e-4,
+                                   atol=1e-5)
+    np.testing.assert_allclose(sum(g["gx"] for g in got), want_gx,
+                               rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("name", ["pp2_1f1b_vpp2", "pp2_zbvpp",

@@ -29,6 +29,9 @@ import jax.numpy as jnp
 from paddle_tpu.models import gpt_hybrid as GH
 from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from paddle_tpu_torch._testing import run_workers
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 SIZE = dict(vocab_size=64, hidden_size=32, num_layers=4, num_heads=4,
             max_seq_len=16)

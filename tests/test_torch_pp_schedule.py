@@ -23,6 +23,9 @@ from paddle_tpu.parallel import pp_schedule as RS
 from paddle_tpu_torch.distributed import collective as C
 from paddle_tpu_torch.parallel import pipeline_1f1b as P1
 from paddle_tpu_torch.parallel import pp_schedule as PS
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 GEOMETRIES = [(2, 4, 1), (4, 8, 1), (2, 4, 2), (4, 8, 2)]
 
@@ -207,6 +210,33 @@ def test_run_schedule_refuses_mismatched_weight_grads():
         with pytest.raises(ValueError, match="contains W cells"):
             mod.run_schedule(mod.schedule_zbh1(2, 2), f, f, None, [0, 0],
                              [0, 0])
+
+
+@pytest.mark.parametrize("builder,dims", [
+    ("schedule_1f1b", (2, 4)), ("schedule_zbh1", (2, 4)),
+    ("schedule_interleaved", (2, 4, 2)), ("schedule_zbvpp", (2, 4))])
+def test_gpt_schedule_value_and_grad_matches_unpipelined(builder, dims):
+    """gpt_hybrid's ``schedule_value_and_grad`` (its pipeline stage, head
+    seed and embedding backward, every stage in this process through
+    ``run_all_stages``) gives the unpipelined step's loss and gradients:
+    the tiny GPT (vocab 64, h32, 4 layers, 4 heads, S16, B8, f32, remat
+    "names", so that the zero-bubble B takes the stage without its
+    checkpoints); rtol 1e-5, and atol 1e-5 of each leaf's largest value."""
+    from paddle_tpu_torch.models import gpt_hybrid as TH
+    cfg = TH.GPTConfig(vocab_size=64, hidden_size=32, num_layers=4,
+                       num_heads=4, max_seq_len=16)
+    pcfg = TH.ParallelConfig(remat=True, remat_policy="names",
+                             compute_dtype=torch.float32)
+    params = TH.init_params(cfg, pcfg, torch.Generator().manual_seed(0),
+                            "cpu")
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 64, (8, 16)))
+    want_loss, want = TH._value_and_grad(params, (ids, ids), cfg, pcfg)
+    loss, got = TH.schedule_value_and_grad(params, (ids, ids), cfg, pcfg,
+                                           getattr(PS, builder)(*dims))
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+    assert len(got) == len(want)
+    for name, g, w in zip(TH._leaf_names(params), got, want):
+        _close(g.float(), w.float(), name)
 
 
 class _Group:

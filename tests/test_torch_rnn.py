@@ -23,6 +23,9 @@ import pytest
 import paddle_tpu as P
 import paddle_tpu_torch as T
 from paddle_tpu_torch.nn.layer import rnn as trnn
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 I, H, L, B, S = 12, 16, 2, 3, 7
 OUT_RTOL, OUT_ATOL, GRAD_TOL = 1e-5, 1e-6, 1e-4

@@ -38,6 +38,9 @@ from paddle_tpu_torch.inference import decode as tdec
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM,
                                            apply_rotary_pos_emb)
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 
 @pytest.fixture(autouse=True)

@@ -12,6 +12,9 @@ import jax.numpy as jnp
 
 from paddle_tpu.ops.pallas import simple_attention as jsa
 from paddle_tpu_torch.ops.hopper import simple_attention as tsa
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 B, H = 1, 2
 

@@ -13,6 +13,9 @@ import jax.numpy as jnp
 
 from paddle_tpu.ops.pallas import simple_attention2 as jsa2
 from paddle_tpu_torch.ops.hopper import simple_attention2 as tsa2
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 B, H = 1, 2
 

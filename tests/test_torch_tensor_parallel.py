@@ -17,6 +17,9 @@ import numpy as np
 import pytest
 
 from paddle_tpu_torch._testing import run_workers
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 WORLDS = (2, 4)
 

@@ -53,6 +53,9 @@ from paddle_tpu_torch import hapi as thapi
 from paddle_tpu_torch import training as ttraining
 from paddle_tpu_torch.distributed import checkpoint as dc
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch._testing import share_the_cores_fixture
+
+_share_the_cores = share_the_cores_fixture()
 
 EPS = 1e-8     # AdamW's default epsilon
 LR = 1e-3

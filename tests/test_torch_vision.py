@@ -47,6 +47,7 @@ from paddle_tpu.vision import datasets as pds
 from paddle_tpu.vision import transforms as ptr
 from paddle_tpu_torch.vision import datasets as tds
 from paddle_tpu_torch.vision import transforms as ttr
+from paddle_tpu_torch._testing import share_the_cores_fixture
 
 F32_TOL = 1e-5
 RESNET_TOL = {"resnet18": 1e-4, "resnet50": 1e-3}
@@ -59,17 +60,8 @@ def _port_on_cpu():
     yield
 
 
-@pytest.fixture(scope="module", autouse=True)
-def _share_the_cores():
-    """Under pytest-xdist each worker's torch would start an intra-op thread
-    a core, and OpenMP's barriers then wait on descheduled threads (a
-    resnet18 step ran ~60x slower beside five other workers): this module
-    takes its worker's share of the cores."""
-    threads = torch.get_num_threads()
-    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
-    yield
-    torch.set_num_threads(threads)
+# a resnet18 step ran ~60x slower beside five other workers without it
+_share_the_cores = share_the_cores_fixture()
 
 
 def _rel(got, want):
