@@ -295,7 +295,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
      launcher with gpipe, 1f1b and zbh1: global losses within 2e-2 of the
      world-1 step's, each rank's launches, ms/step and pipeline hops. A
      {"pipeline": {...}} line. ``--phase18`` runs the build and this phase
-     alone.
+     alone;
+ 19. expert parallelism and the semi-auto API over torch.distributed: (c)
+     gpt_hybrid's ep branch at dp = 2 and (d) the manual-ep zero-bubble
+     route (zbh1, dp2 x pp2) as 2 and 4 gloo ranks on the one card, both
+     jobs started together at moe_ep's widths (h1024, 8 heads of 128,
+     vocab 50304, B4 S1024) at 4 layers with 4 experts: global losses
+     within 2e-2 of the world-1 step's, each rank's attention launches and
+     all-to-alls against the counts written down before the run, the
+     all-to-alls' bytes and host seconds, collective.host_staged; then at
+     world 1 over NCCL: (a) global_scatter/global_gather, the ep
+     all-to-all and the ep MoE FFN in f32 and bf16 against their plain
+     forms; (b) moe_ep.py's full configuration (24 layers, E = 2, bf16,
+     remat "names", ZeRO-1) through the ep branch against phase 10b's
+     single-device losses, 24 launches a step of simple_attention's two
+     kernels, 96 all-to-alls a step, ms/step, MFU, peak, NCCL ms and idle
+     share; (e) the Layer GPT at GPT-3 Medium's widths (B4 S2048, bf16)
+     through shard_tensor (Replicate) and to_static -> DistModel against
+     its eager steps, 24 launches a step of each library kernel, ms/step
+     beside phase 13b's; (f) auto_parallel.Engine(...).fit on it, the plan,
+     the Planner's predicted ms/step beside phase 4's and 19e's measured,
+     and auto_tuner.tune over the world-1 candidates with a trials file in
+     a temporary directory. {"expert_parallel": {...}} and
+     {"auto_parallel": {...}} lines. ``--phase19`` runs the build and this
+     phase alone.
 The script sets FLAGS_matmul_precision to "highest", which the flag's
 default gives a user: f32 products and convolutions run in f32.
 Phases 2-6 keep the autotuner's table in a fresh temporary
@@ -304,8 +327,9 @@ default: phases 2-5 (and 7, 8, 10 and 11, each on a table of its own) run
 the configuration a user gets on a new checkout.
 Prints {"serving": {...}}, {"moe_gpt": {...}}, {"bert": {...}},
 {"resnet50": {...}}, {"model_fit": {...}}, {"jit": {...}},
-{"eager_api": {...}}, {"distributed": {...}}, {"tensor_parallel": {...}}
-and {"pipeline": {...}} lines, the
+{"eager_api": {...}}, {"distributed": {...}}, {"tensor_parallel": {...}},
+{"pipeline": {...}}, {"expert_parallel": {...}} and {"auto_parallel": {...}}
+lines, the
 script's seconds, the card line, then one {"kernels": [...]} line (each row with its design),
 then as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -5558,6 +5582,581 @@ def drive_pipeline(run, paddle, TH, GPTConfig, torch):
     return out
 
 
+# --------------------------------------------------------------- phase 19
+# Expert parallelism and the semi-auto API over torch.distributed. The card
+# holds one NCCL rank (19a, 19b, 19e, 19f: the code N ranks run, at world 1)
+# and gloo ranks (19c, 19d: NCCL refuses two ranks on one device; their
+# all-to-alls of the card's tensors go through the host, counted in
+# collective.HOST_STAGED).
+# 19b: benchmarks/workloads/moe_ep.py:29-38's full configuration, phase
+# 10b's MOE_PATH (vocab 50304, h1024, 24 layers, 8 heads of 128, B4 S1024,
+# E = 2, bf16, remat "names", fused CE, ZeRO-1) through the ep branch.
+# 19c, 19d: the same widths at 4 layers with E = 4 (two experts a dp rank),
+# B4 S1024 over the job; depth is the only cut (six ranks share the card
+# and its host's eight cores beside this process).
+EP_STEPS = 3
+EP_SMALL_LAYERS, EP_SMALL_EXPERTS, EP_ZB_MICRO = 4, 4, 2
+# the ep branch's all-to-alls a layer: 2 forward, 2 backward; none sits
+# inside a checkpoint, so remat re-issues none
+EP_ALLTOALLS_PER_LAYER = 4
+
+
+def _ep_pcfg(TH, torch, **fields):
+    return TH.ParallelConfig(**{
+        "remat": True, "remat_policy": "names", "fused_ce": True,
+        "zero1": True, "param_dtype": torch.bfloat16,
+        "compute_dtype": torch.bfloat16, **fields})
+
+
+def _ep_ids(torch, cfg, batch, seq):
+    return torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (batch, seq))).cuda()
+
+
+def _single_losses(TH, GPTConfig, torch, fields, experts, batch, seq,
+                   steps):
+    """The single-device step's losses (no process group may exist)."""
+    cfg = GPTConfig(**fields)
+    params, opt_state, step = TH.setup(
+        cfg, _ep_pcfg(TH, torch, num_experts=experts), seed=0)
+    ids = _ep_ids(torch, cfg, batch, seq)
+    losses = [float(step(params, opt_state, (ids, ids))[2])
+              for _ in range(steps)]
+    del params, opt_state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return losses
+
+
+def _alltoall_counts(C):
+    return dict(C.ALLTOALL_STATS), dict(C.HOST_STAGED)
+
+
+def _launch_check(launches, want_fwd, want_bwd):
+    """One attention tier launched: its forward kernel ``want_fwd`` times,
+    each of its backward kernels ``want_bwd`` times, no other kernel."""
+    used = {n: c for n, c in launches.items() if c}
+    fwd = [n for n in used if n.endswith("_fwd")]
+    return len(fwd) == 1 and all(
+        c == (want_fwd if n in fwd else want_bwd) for n, c in used.items())
+
+
+def check_ep_primitives(run, paddle, TH, world, torch):
+    """19a: global_scatter/global_gather and the ep branch's all-to-all and
+    MoE FFN at world 1 over NCCL, f32 and bf16, each against its plain form
+    (the reference's world-1 value: the exchange with itself; the MoE FFN
+    on one device, gpt_hybrid._moe_ffn)."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed.utils import (global_gather,
+                                                    global_scatter)
+    from paddle_tpu_torch.models.gpt_manual_tp import moe_ffn_manual_ep
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    h, m, e, b, s = 1024, 4096, 2, 4, 1024
+    C.HOST_STAGED.clear()
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+
+        def randn(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device="cuda")
+                    * scale).to(dtype)
+        x = randn(b * s, h)
+        counts = [1024, 2048, 1024]
+        sc = global_scatter(paddle.Tensor(x), counts, counts, group=world)
+        back = global_gather(sc, counts, counts, group=world)
+        xs = randn(e, b * s, h)
+        a2a = C._AllToAll.apply(xs, world, 0, 1, True)
+        lp = {"gate_w": randn(h, e, scale=0.02),
+              "fc1_w": randn(e, h, m, scale=0.02),
+              "fc1_b": randn(e, m, scale=0.02),
+              "fc2_w": randn(e, m, h, scale=0.02),
+              "fc2_b": randn(e, h, scale=0.02)}
+        pcfg = _ep_pcfg(TH, torch, num_experts=e, remat=False)
+        hx = randn(b, s, h)
+        got = moe_ffn_manual_ep(hx, lp, e, world, pcfg)
+        want = TH._moe_ffn(hx, lp, pcfg)
+        torch.cuda.synchronize()
+        err = max_err(got, want)[1]
+        exact = (bool(torch.equal(sc._data, x))
+                 and bool(torch.equal(back._data, x))
+                 and bool(torch.equal(a2a, xs)))
+        run.check(exact and err <= TOL[name],
+                  f"19a {name}: global_scatter, global_gather and the ep "
+                  f"all-to-all over NCCL at world 1 give their plain form "
+                  f"exactly ({exact}); the ep MoE FFN ({e} experts, "
+                  f"B{b} S{s} h{h}) is within {TOL[name]} of the "
+                  f"one-device FFN: {err:.3e}")
+        out[name] = {"exchange_exact": exact, "moe_ffn_rel_err": err}
+    run.check(not C.HOST_STAGED,
+              f"19a: nothing went through the host: {dict(C.HOST_STAGED)}")
+    return out
+
+
+def drive_ep_gpt(run, TH, GPTConfig, mods, cost_model, torch, single):
+    """19b: moe_ep's full configuration through the ep branch at world 1
+    over NCCL, against the single-device step (phase 10b's)."""
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.observability import metrics as met
+    label, fields, batch, seq, tier, kernels, *_ = MOE_PATH
+    cfg = GPTConfig(**fields)
+    L = cfg.num_layers
+    pcfg = _ep_pcfg(TH, torch, num_experts=MOE_EXPERTS)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state, step = TH.setup(cfg, pcfg, seed=0)
+    ids = _ep_ids(torch, cfg, batch, seq)
+    torch.cuda.synchronize()
+    for mod in mods:
+        mod.reset_launch_counts()
+    C.ALLTOALL_STATS.clear()
+    C.HOST_STAGED.clear()
+    losses = [float(step(params, opt_state, (ids, ids))[2])
+              for _ in range(EP_STEPS)]
+    torch.cuda.synchronize()
+    launches = {n: c for mod in mods for n, c in mod.LAUNCHES.items()}
+    a2a, staged = _alltoall_counts(C)
+    times = []
+    for _ in range(EP_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(params, opt_state, (ids, ids))[2]
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    ms = float(np.median(times))
+    tok_s = batch * seq / (ms / 1e3)
+    fpt = moe_flops_per_token(cfg, seq, MOE_EXPERTS, MOE_EXPERTS,
+                              cost_model)
+    mfu = cost_model.mfu(tok_s, fpt, "H100")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt_state, (ids, ids))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = _device_rows(prof)
+    nccl_ops = sorted({e.key for e in prof.key_averages()
+                       if e.key.startswith("nccl:")})
+    nccl_ms = sum(r[1] for r in _nccl_rows(rows))
+    busy = sum(r[1] for r in rows) - nccl_ms
+    idle = max(0.0, 1 - busy / wall_ms)
+    n = min(len(single), EP_STEPS)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[:n], single[:n]))
+    want_a2a = EP_ALLTOALLS_PER_LAYER * L * EP_STEPS
+    print(f"19b {label} ({MOE_EXPERTS} experts) through the ep branch at "
+          f"world 1 over NCCL: losses {[round(x, 4) for x in losses]}; "
+          f"single-device {[round(x, 4) for x in single[:n]]}", flush=True)
+    run.check(rel <= TOL["bfloat16"],
+              f"19b: the ep branch's {n} losses equal the single-device "
+              f"step's within {TOL['bfloat16']} relative: worst {rel:.3e}")
+    run.check(launches == {k: L * EP_STEPS if k in kernels else 0
+                           for k in launches},
+              f"19b: {L} launches a step of each of {list(kernels)} over "
+              f"{EP_STEPS} steps, no other attention kernel: {launches}")
+    run.check(a2a.get("calls") == want_a2a and not staged,
+              f"19b: {EP_ALLTOALLS_PER_LAYER} all-to-alls a layer a step "
+              f"({want_a2a} over {EP_STEPS} steps, written down before the "
+              f"run), none through the host: {a2a}, {staged}")
+    run.check(10.0 <= losses[0] <= 11.5 and losses[-1] < losses[0]
+              and all(map(math.isfinite, losses)),
+              f"19b: step-0 loss {losses[0]:.4f} in [10, 11.5] and the loss "
+              f"falls to {losses[-1]:.4f}")
+    print(f"19b: {ms:.2f} ms/step (device events, median of {EP_STEPS}, "
+          f"spread {max(times) - min(times):.2f}); {tok_s:.1f} tokens/s, MFU "
+          f"{mfu:.4f} at {fpt:.4e} FLOP/token (the dense dispatch's); peak "
+          f"memory {peak_gb:.2f} GB; profiled step {wall_ms:.2f} ms wall, "
+          f"{busy:.2f} ms kernel time, NCCL {nccl_ms:.3f} ms ({nccl_ops}), "
+          f"idle share {idle:.3f}; all-to-alls {a2a}", flush=True)
+    for key, kms, count in rows[:8]:
+        print(f"  {kms:9.3f} ms {count:6d}x  {key[:100]}")
+    del params, opt_state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "single_device_losses": single[:n],
+            "loss_rel_err": rel, "ms_per_step": ms,
+            "ms_per_step_spread": max(times) - min(times),
+            "tokens_per_s": tok_s, "mfu": mfu, "flops_per_token": fpt,
+            "peak_memory_gb": peak_gb, "profiled_ms": wall_ms,
+            "kernel_ms": busy, "nccl_ms": nccl_ms, "nccl_ops": nccl_ops,
+            "idle_share": idle, "alltoall": a2a,
+            "expected_alltoalls": want_a2a, "launches": launches}
+
+
+def phase19_worker(out_dir, kind):
+    """One rank of 19c ("dp2": dp = 2) or 19d ("zbh1": dp2 x pp2 under ZBH1,
+    the manual-ep route), started by the port's launcher over gloo with the
+    card's tensors: EP_STEPS steps of the small MoE GPT; rank by rank the
+    losses, host-clock ms/step, attention launches and all-to-alls."""
+    import torch
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.models import gpt_hybrid as TH
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.ops.hopper import (blocked_flash, causal_attention,
+                                             flash_attention,
+                                             simple_attention,
+                                             simple_attention2)
+    mods = (simple_attention, causal_attention, blocked_flash,
+            simple_attention2, flash_attention)
+    paddle.set_device("gpu:0")
+    dist.init_parallel_env(backend="gloo")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    label, fields, batch, seq, *_ = MOE_PATH
+    cfg = GPTConfig(**dict(fields, num_layers=EP_SMALL_LAYERS))
+    extra = {"dp": 2} if kind == "dp2" else {
+        "dp": 2, "pp": 2, "microbatches": EP_ZB_MICRO, "pp_schedule": "zbh1"}
+    pcfg = _ep_pcfg(TH, torch, num_experts=EP_SMALL_EXPERTS, **extra)
+    params, opt_state, step = TH.setup(cfg, pcfg, seed=0)
+    ids = _ep_ids(torch, cfg, batch, seq)
+    for mod in mods:
+        mod.reset_launch_counts()
+    C.ALLTOALL_STATS.clear()
+    C.HOST_STAGED.clear()
+    losses, step_ms = [], []
+    for _ in range(EP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(params, opt_state, (ids, ids))[2]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    a2a, staged = _alltoall_counts(C)
+    res = {"world": world, "losses": losses, "step_ms": step_ms,
+           "launches": {n: c for mod in mods
+                        for n, c in mod.LAUNCHES.items()},
+           "alltoall": a2a, "host_staged": staged,
+           "grid": [TH._grid(pcfg).dp_rank, TH._grid(pcfg).pp_rank]}
+    with open(os.path.join(out_dir, f"ep.{kind}.{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def start_ep_ranks():
+    """19c and 19d's jobs, started together through the launcher: (the
+    directory, {kind: (process, ranks, start time)})."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = tempfile.mkdtemp(dir=os.path.join(root, ".cache"))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    jobs = {}
+    for kind, n in (("dp2", 2), ("zbh1", 4)):
+        jobs[kind] = (subprocess.Popen(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node", str(n), os.path.abspath(__file__),
+             "--phase19-worker", d, kind],
+            cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, start_new_session=True),
+            n, time.perf_counter())
+    return d, jobs
+
+
+def finish_ep_ranks(run, d, jobs, single):
+    """19c and 19d: waits for the two jobs and holds each against the
+    world-1 step with all four experts (``single``)."""
+    out = {}
+    L = EP_SMALL_LAYERS
+    stage = L // 2
+    fw, bw = pp_expected_launches("zbh1", stage, EP_ZB_MICRO)
+    want = {
+        "dp2": (L * EP_STEPS, L * EP_STEPS,
+                EP_ALLTOALLS_PER_LAYER * L * EP_STEPS),
+        # a zbh1 stage: per layer a microbatch, the F cell's 2 all-to-alls,
+        # B's recompute and input backward 4, W's weight backward 2
+        "zbh1": (fw * EP_STEPS, bw * EP_STEPS,
+                 8 * stage * EP_ZB_MICRO * EP_STEPS),
+    }
+    try:
+        for kind, (proc, n, t0) in jobs.items():
+            try:
+                _, err = proc.communicate(timeout=400)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, 9)
+                _, err = proc.communicate()
+            wall = time.perf_counter() - t0
+            files = [os.path.join(d, f"ep.{kind}.{r}.json")
+                     for r in range(n)]
+            ok = proc.returncode == 0 and all(map(os.path.exists, files))
+            tag = {"dp2": "19c dp = 2", "zbh1": "19d dp2 x pp2 zbh1"}[kind]
+            run.check(ok, f"{tag}: {n} gloo ranks on the one card ran (rc "
+                      f"{proc.returncode}, {wall:.1f} s)"
+                      f"{'' if ok else ': ' + err[-1500:]}")
+            if not ok:
+                out[kind] = {"rc": proc.returncode}
+                continue
+            ranks = []
+            for path in files:
+                with open(path) as f:
+                    ranks.append(json.load(f))
+            diff = max(abs(a - b) for r in ranks
+                       for a, b in zip(r["losses"], single))
+            wf, wb, wa = want[kind]
+            run.check(diff <= 2e-2,
+                      f"{tag}: the global losses "
+                      f"{[round(x, 4) for x in ranks[0]['losses']]} are "
+                      f"within 2e-2 of the world-1 step's with all "
+                      f"{EP_SMALL_EXPERTS} experts "
+                      f"{[round(x, 4) for x in single]} (worst {diff:.3e})")
+            run.check(all(_launch_check(r["launches"], wf, wb)
+                          for r in ranks),
+                      f"{tag}: each rank launched one attention tier, its "
+                      f"forward {wf} and each backward kernel {wb} times "
+                      f"over {EP_STEPS} steps (written down before the run): "
+                      f"{[{k: c for k, c in r['launches'].items() if c} for r in ranks]}")
+            run.check(all(r["alltoall"].get("calls") == wa for r in ranks),
+                      f"{tag}: {wa} all-to-alls a rank over {EP_STEPS} steps: "
+                      f"{[r['alltoall'] for r in ranks]}")
+            res = {"losses": ranks[0]["losses"], "loss_abs_err": diff,
+                   "ms_per_step": [float(np.median(r["step_ms"][1:]))
+                                   for r in ranks],
+                   "launches": [{k: c for k, c in r["launches"].items() if c}
+                                for r in ranks],
+                   "expected_launches": [wf, wb],
+                   "alltoall": [r["alltoall"] for r in ranks],
+                   "expected_alltoalls": wa,
+                   "host_staged": [r["host_staged"] for r in ranks],
+                   "launcher_s": wall}
+            out[kind] = res
+            print(f"{tag}: h1024 at {L} layers, {EP_SMALL_EXPERTS} experts, "
+                  f"B{MOE_PATH[2]} S{MOE_PATH[3]} over {n} gloo ranks: "
+                  f"losses {[round(x, 4) for x in res['losses']]}; ms/step "
+                  f"by rank {[round(x, 1) for x in res['ms_per_step']]} "
+                  f"(host clock, median of steps 2-{EP_STEPS}); all-to-alls "
+                  f"by rank {res['alltoall']}; host-staged "
+                  f"{res['host_staged']}; launches {res['launches']}",
+                  flush=True)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def _medium_layer_gpt(paddle, GPTConfig, GPTForCausalLM, torch):
+    """Phase 14c's Layer GPT at MEDIUM's widths (GPT-2's initialisation,
+    bf16) and its AdamW(1e-4, multi_precision)."""
+    cfg = GPTConfig(**MEDIUM)
+    paddle.seed(0)
+    model = GPTForCausalLM(cfg)
+    _gpt_normal_init(model, 19, torch)
+    model.bfloat16()
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters(),
+                                 multi_precision=True)
+    return cfg, model, opt
+
+
+def _timed_calls(torch, fa, fn, n):
+    """(values, ms by CUDA events, library launches) of n calls of fn."""
+    vals, times, launches = [], [], []
+    for _ in range(n):
+        fa.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        v = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        vals.append(float(v))
+        launches.append(dict(fa.LAUNCHES))
+    return vals, times, launches
+
+
+def drive_dist_model(run, paddle, dist, GPTConfig, GPTForCausalLM, fa,
+                     torch, fit_ms=None):
+    """19e: the Layer GPT at GPT-3 Medium's widths (phase 13's MEDIUM),
+    bf16, AdamW(1e-4, multi_precision), B4 S2048: eager steps, then the
+    same model through shard_tensor (Replicate at world 1) and
+    to_static -> DistModel over NCCL."""
+    b, s = MEDIUM_BATCH, MEDIUM_SEQ
+    L = MEDIUM["num_layers"]
+    loss_fn = _lm_loss(paddle)
+    ids = paddle.to_tensor(np.random.RandomState(19).randint(
+        0, MEDIUM["vocab_size"], (b, s)))
+    cfg, model, opt = _medium_layer_gpt(paddle, GPTConfig, GPTForCausalLM,
+                                         torch)
+
+    def eager():
+        loss = loss_fn(model(ids), ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    want, etimes, _ = _timed_calls(torch, fa, eager, EP_STEPS)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, model, opt = _medium_layer_gpt(paddle, GPTConfig, GPTForCausalLM,
+                                         torch)
+    mesh = dist.ProcessMesh([0], dim_names=["dp"])
+    for p in model.parameters():
+        dist.shard_tensor(p, mesh, [dist.Replicate()])
+    placed = all(p.placements == [dist.Replicate()]
+                 for p in model.parameters())
+    dm = dist.to_static(model, None, loss_fn, dist.shard_optimizer(opt))
+    got, times, launches = _timed_calls(torch, fa, lambda: dm(ids, ids),
+                                        EP_STEPS)
+    rel = max(abs(a - w) / abs(w) for a, w in zip(got, want))
+    lib = {n: L if n in fa.LAUNCHES else 0 for n in launches[0]}
+    run.check(placed and rel <= TOL["bfloat16"]
+              and 10.0 <= got[0] <= 11.5,
+              f"19e: DistModel's losses {[round(x, 4) for x in got]} equal "
+              f"the eager Layer GPT's {[round(x, 4) for x in want]} within "
+              f"{TOL['bfloat16']} relative (worst {rel:.3e}), the first near "
+              f"ln(50304) = 10.826, every parameter Replicate on the mesh")
+    run.check(all(x == lib for x in launches),
+              f"19e: {L} launches a step of each library kernel: "
+              f"{launches}")
+    ms = float(np.median(times[1:]))
+    ems = float(np.median(etimes[1:]))
+    print(f"19e: DistModel {ms:.2f} ms/step (device events, median of "
+          f"steps 2-{EP_STEPS}) beside the eager steps' {ems:.2f} just "
+          f"before and phase 13b's Model.fit "
+          f"{fit_ms if fit_ms is None else round(fit_ms, 2)}", flush=True)
+    del dm, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": got, "eager_losses": want, "loss_rel_err": rel,
+            "ms_per_step": ms, "eager_ms_per_step": ems,
+            "model_fit_ms_per_step": fit_ms, "launches": launches[0]}
+
+
+def drive_engine(run, paddle, GPTConfig, GPTForCausalLM, fa, torch,
+                 eager_losses, dist_ms, flagship_ms=None):
+    """19f: auto_parallel.Engine(...).fit on 19e's model at world 1, the
+    Planner's predictions beside the measured times, and auto_tuner.tune
+    over the world-1 candidates with a trials file in a temporary
+    directory."""
+    from paddle_tpu_torch.distributed import auto_tuner
+    from paddle_tpu_torch.distributed.auto_parallel import (Engine,
+                                                            ModelSpec,
+                                                            Planner)
+    b, s = MEDIUM_BATCH, MEDIUM_SEQ
+    L = MEDIUM["num_layers"]
+    ids = paddle.to_tensor(np.random.RandomState(19).randint(
+        0, MEDIUM["vocab_size"], (b, s)))
+    cfg, model, opt = _medium_layer_gpt(paddle, GPTConfig, GPTForCausalLM,
+                                         torch)
+    engine = Engine(model, _lm_loss(paddle), opt)
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = engine.fit([(ids, ids)] * EP_STEPS, epochs=1, batch_size=b)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    plan = engine._plan.short()
+    mean = float(np.mean(eager_losses))
+    rel = abs(hist[0]["loss"] - mean) / mean
+    run.check(plan.startswith("dp1xtp1xpp1") and rel <= TOL["bfloat16"],
+              f"19f: Engine.fit planned {plan} at world 1 and its epoch's "
+              f"mean loss {hist[0]['loss']:.4f} equals the eager steps' "
+              f"{mean:.4f} within {TOL['bfloat16']} (relative {rel:.3e})")
+    run.check(launches == {n: L * EP_STEPS for n in launches},
+              f"19f: {L} launches a step of each library kernel over "
+              f"{EP_STEPS} steps: {launches}")
+    planner = Planner("H100")
+    flagship = ModelSpec.gpt(1.3e9, 24, 2048, 16, 1024, 50304)
+    medium = ModelSpec.from_config(cfg)
+
+    def predicted(spec, batch, remat):
+        c = next(c for c in planner.plan(spec, 1, batch, top_k=8)
+                 if c.remat == remat)
+        return c.est_step_s * 1e3
+    pred = {"flagship_remat_ms": predicted(flagship, 4, True),
+            "medium_noremat_ms": predicted(medium, b, False)}
+    print(f"19f: Engine.fit {plan}, {EP_STEPS} steps in {fit_s:.2f} s, "
+          f"losses by epoch {hist}; the Planner (H100, mfu "
+          f"{planner.mfu:.4f}) predicts {pred['flagship_remat_ms']:.2f} "
+          f"ms/step for phase 4's flagship (measured "
+          f"{flagship_ms if flagship_ms is None else round(flagship_ms, 2)})"
+          f" and {pred['medium_noremat_ms']:.2f} for 19e's model (measured "
+          f"{dist_ms:.2f})", flush=True)
+    runs = []
+
+    def run_fn(c):
+        runs.append(c.key)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(2):
+            engine._step(engine._rows(ids), engine._rows(ids))
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 2e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trials.jsonl")
+        cands = auto_tuner.generate_candidates(1, L, b, num_heads=16)
+        best = auto_tuner.tune(run_fn, cands, verbose=False,
+                               trials_path=path)
+        again = auto_tuner.tune(run_fn, auto_tuner.generate_candidates(
+            1, L, b, num_heads=16), verbose=False, trials_path=path)
+    run.check(best.key == again.key and len(runs) == 1
+              and best.time_s > 0,
+              f"19f: auto_tuner.tune measured {runs} ({best.time_s * 1e3:.2f}"
+              f" ms/step) and the second sweep warm-started from the trials "
+              f"file")
+    del engine, model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"plan": plan, "history": hist, "fit_s": fit_s,
+            "loss_rel_err": rel, "launches": launches,
+            "planner_mfu": planner.mfu, "predicted": pred,
+            "measured_flagship_ms": flagship_ms,
+            "measured_medium_ms": dist_ms, "tuned": best.key,
+            "tuned_ms_per_step": best.time_s * 1e3}
+
+
+def drive_phase19(run, paddle, TH, GPTConfig, GPTForCausalLM, mods, fa,
+                  cost_model, torch, moe=None, flagship=None, fit=None):
+    """Phase 19: the gloo jobs of 19c and 19d start first and run while this
+    process computes their world-1 reference; then 19a, 19b, 19e and 19f
+    over NCCL at world 1, once the jobs have left the card."""
+    import paddle_tpu_torch.distributed as dist
+    t_phase = time.perf_counter()
+    paddle.set_device("gpu:0")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    d, jobs = start_ep_ranks()
+    label, fields, batch, seq, *_ = MOE_PATH
+    small = _single_losses(TH, GPTConfig, torch,
+                           dict(fields, num_layers=EP_SMALL_LAYERS),
+                           EP_SMALL_EXPERTS, batch, seq, EP_STEPS)
+    t0 = time.perf_counter()
+    ep = {"small_world1_losses": small}
+    ep.update(finish_ep_ranks(run, d, jobs, small))
+    print(f"19c+19d: {time.perf_counter() - t0:.1f} s after the world-1 "
+          f"reference", flush=True)
+    single = moe["losses"] if moe is not None else _single_losses(
+        TH, GPTConfig, torch, fields, MOE_EXPERTS, batch, seq, EP_STEPS)
+    world = dist.init_parallel_env()
+    t0 = time.perf_counter()
+    ep["primitives"] = check_ep_primitives(run, paddle, TH, world, torch)
+    print(f"19a: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    ep["moe_ep"] = drive_ep_gpt(run, TH, GPTConfig, mods, cost_model, torch,
+                                single)
+    print(f"19b: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    ap = {"dist_model": drive_dist_model(
+        run, paddle, dist, GPTConfig, GPTForCausalLM, fa, torch,
+        fit["ms_per_step"] if fit else None)}
+    print(f"19e: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    ap["engine"] = drive_engine(
+        run, paddle, GPTConfig, GPTForCausalLM, fa, torch,
+        ap["dist_model"]["eager_losses"], ap["dist_model"]["ms_per_step"],
+        flagship["ms_per_step"] if flagship else None)
+    print(f"19f: {time.perf_counter() - t0:.1f} s", flush=True)
+    dist.destroy_process_group()
+    ep["phase_19_s"] = ap["phase_19_s"] = time.perf_counter() - t_phase
+    print(f"expert/auto parallel phase: {ep['phase_19_s']:.1f} s",
+          flush=True)
+    return ep, ap
+
+
 def main():
     if sys.argv[1:2] == ["--phase16d-worker"]:
         phase16d_worker(sys.argv[2])
@@ -5567,6 +6166,9 @@ def main():
         return 0
     if sys.argv[1:2] == ["--phase18b-worker"]:
         phase18b_worker(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--phase19-worker"]:
+        phase19_worker(sys.argv[2], sys.argv[3])
         return 0
     try:
         import torch
@@ -5621,6 +6223,21 @@ def main():
                               ".cache")
     os.makedirs(cache_root, exist_ok=True)
     mods = (sa, ca, bf, sa2, fa)
+    if "--phase19" in sys.argv[1:]:
+        # phase 19 alone (no kernels line, no ok line): for work on it
+        with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+            os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+            at._table = None
+            ep, ap = drive_phase19(run, paddle, TH, GPTConfig,
+                                   GPTForCausalLM, mods, fa, cost_model,
+                                   torch)
+        print(json.dumps({"expert_parallel": ep}))
+        print(json.dumps({"auto_parallel": ap}))
+        print(f"chip_smoke --phase19: {time.perf_counter() - t_script:.1f} "
+              f"s, {len(run.failures)} check(s) failed", flush=True)
+        for what in run.failures:
+            print(f"  {what[:300]}", file=sys.stderr)
+        return 1 if run.failures else 0
     if "--phase18" in sys.argv[1:]:
         # phase 18 alone (no kernels line, no ok line): for work on it
         with tempfile.TemporaryDirectory(dir=cache_root) as cache:
@@ -5801,6 +6418,14 @@ def main():
         os.environ["PADDLE_TPU_CACHE_DIR"] = cache
         at._table = None
         pp = drive_pipeline(run, paddle, TH, GPTConfig, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+        os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+        at._table = None
+        ep, ap = drive_phase19(run, paddle, TH, GPTConfig, GPTForCausalLM,
+                               mods, fa, cost_model, torch, moe,
+                               paths["flagship"], fit)
 
     kernels = []
     for kern in KERNELS:
@@ -5846,6 +6471,8 @@ def main():
     print(json.dumps({"distributed": dd}))
     print(json.dumps({"tensor_parallel": tp}))
     print(json.dumps({"pipeline": pp}))
+    print(json.dumps({"expert_parallel": ep}))
+    print(json.dumps({"auto_parallel": ap}))
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s", flush=True)
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed:",

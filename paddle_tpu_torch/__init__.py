@@ -54,11 +54,12 @@ What is ported so far:
 - collective parallelism over ``torch.distributed`` (``distributed``:
   process groups, collectives, ``DataParallel``, the ZeRO stages, fleet's
   dp and sharding, the launcher, sharded checkpoints) and
-  ``models/gpt_hybrid``'s data-parallel step with ZeRO-1.
+  ``models/gpt_hybrid``'s data-parallel step with ZeRO-1; its tensor,
+  sequence, pipeline and expert-parallel branches; the semi-auto API
+  (``distributed.api``, ``auto_parallel``'s Engine, the planner).
 
 Use it as ``import paddle_tpu_torch as paddle``. Names of later slices
-(``vision.ops``, ``fft``, tensor, pipeline and expert parallelism, ...)
-are not here.
+(``vision.ops``, ``fft``, the parameter server, ...) are not here.
 """
 from __future__ import annotations
 

@@ -314,9 +314,14 @@ class Tensor:
 
     # ------------------------------------------------------------- transfer
     def numpy(self) -> np.ndarray:
-        """The values as numpy; bfloat16/float8 as float32 (core/dtype.py)."""
+        """The values as numpy; bfloat16/float8 as float32 (core/dtype.py).
+        A distributed array (``distributed.shard_tensor``) gives its global
+        value, gathered on every rank."""
         _no_host_read("numpy")
-        return dtype_mod.to_numpy(self._data)
+        a = self._data
+        if hasattr(a, "full_tensor"):
+            a = a.full_tensor()
+        return dtype_mod.to_numpy(a)
 
     def __array__(self, dtype=None, copy=None):
         a = self.numpy()

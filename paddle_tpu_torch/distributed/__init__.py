@@ -8,9 +8,13 @@ differentiable mesh-axis ``ops`` (``collective``, ``communication``),
 (``parallel``), the ZeRO stages (``sharding``), fleet's data-, tensor-,
 sequence-parallel and sharding surface (``fleet``: the mp layers and the
 sequence-parallel linears), ``split``, the launcher (``launch``),
-``spawn``, ``checkpoint`` (with sharded entries), ``watchdog`` and
-``elastic``. The names still missing raise ``NotImplementedError`` naming
-the slice of ROADMAP queue 1, item 5 (or item 6) that brings them.
+``spawn``, ``checkpoint`` (with sharded entries), ``watchdog``,
+``elastic``, the MoE exchange (``utils``: ``global_scatter``,
+``global_gather``) and the semi-auto API over DTensor (``api``:
+``shard_tensor``, ``reshard``, ``to_static`` -> ``DistModel`` and the rest),
+with the ``planner`` and the ``auto_tuner``. The names still missing raise
+``NotImplementedError`` naming the slice of ROADMAP queue 1, item 5 (or item
+6) that brings them.
 """
 from __future__ import annotations
 
@@ -50,6 +54,16 @@ from . import auto_parallel  # noqa: F401
 from . import communication  # noqa: F401
 from . import io  # noqa: F401
 from .communication import stream  # noqa: F401
+from . import utils  # noqa: F401
+from . import api  # noqa: F401
+from .api import (  # noqa: F401
+    DistAttr, DistModel, ShardingStage1, ShardingStage2, ShardingStage3,
+    Strategy, dtensor_from_fn, dtensor_from_local, reshard, shard_dataloader,
+    shard_layer, shard_optimizer, shard_scaler, shard_tensor, to_static,
+    unshard_dtensor,
+)
+from . import planner  # noqa: F401
+from . import auto_tuner  # noqa: F401
 
 
 def _spawn_entry(rank, func, args, nprocs, master, backend):
@@ -183,23 +197,13 @@ def split(x, size, operation, axis=0, num_partitions=1, gather_out=True,
     return layer(x)
 
 
-_AUTO = "the auto-parallel slice"
 _PS = "the parameter-server slice"
 #: the reference's other public names, and the slice that brings each
 _LATER = {
-    "ShardingStage1": _AUTO, "ShardingStage2": _AUTO,
-    "ShardingStage3": _AUTO, "dtensor_from_fn": _AUTO,
-    "dtensor_from_local": _AUTO, "reshard": _AUTO, "shard_layer": _AUTO,
-    "shard_optimizer": _AUTO, "shard_tensor": _AUTO,
-    "shard_dataloader": _AUTO, "shard_scaler": _AUTO, "to_static": _AUTO,
-    "unshard_dtensor": _AUTO, "Strategy": _AUTO, "DistModel": _AUTO,
-    "DistAttr": _AUTO, "api": _AUTO, "planner": _AUTO,
-    "auto_tuner": _AUTO,
     "rpc": "the rpc slice", "ps": _PS, "QueueDataset": _PS,
     "InMemoryDataset": _PS, "ProbabilityEntry": _PS,
     "CountFilterEntry": _PS, "ShowClickEntry": _PS,
     "fleet_executor": "the fleet-executor slice",
-    "utils": "the expert-parallel slice",
     "TCPStore": "the native TCPStore (ROADMAP queue 1, item 6)",
 }
 

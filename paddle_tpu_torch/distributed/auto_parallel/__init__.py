@@ -1,26 +1,27 @@
-"""paddle.distributed.auto_parallel: the port of
-``paddle_tpu/distributed/auto_parallel/``, its pipeline part.
+"""paddle.distributed.auto_parallel (and fleet.auto): the port of
+``paddle_tpu/distributed/auto_parallel/``.
 
-``partitioner.find_pipeline_blocks`` and ``partitioner.PipelinePartition``
-(a model's homogeneous block run as pipeline stages, the rest as the
-prologue and the epilogue; fleet's ``PipelineParallel`` runs on it) are
-ported. The Engine, the semi-auto API (``shard_tensor``, ``reshard``,
-``ProcessMesh`` placements), the planner and ``partitioner.annotate_tp``
-come with the auto-parallel slice (ROADMAP queue 1, item 5e) and raise
-``NotImplementedError`` naming it.
+The semi-auto API (``shard_tensor``, ``reshard``, ``to_static`` ->
+``DistModel``; ``distributed/api.py``, over DTensor), the planner
+(``distributed/planner.py``: a calibrated cost-model search), the
+partitioner (``partitioner.annotate_tp`` for tensor parallelism over any
+model's Linear and Embedding layers, ``PipelinePartition`` for a model's
+homogeneous block chain) and the ``Engine`` that ties them into the
+reference's fit/evaluate/predict/cost surface.
 """
+from ..api import (DistAttr, DistModel, Strategy,  # noqa: F401
+                   dtensor_from_fn, reshard, shard_dataloader, shard_layer,
+                   shard_optimizer, shard_scaler, shard_tensor, to_static)
+from ..mesh import (Partial, Placement, ProcessMesh,  # noqa: F401
+                    Replicate, Shard)
+from ..planner import ModelSpec, PlanCandidate, Planner  # noqa: F401
 from . import partitioner  # noqa: F401
+from .engine import Engine  # noqa: E402
 
-_5E = ("Engine", "Strategy", "DistModel", "DistAttr", "to_static",
-       "shard_tensor", "shard_layer", "shard_optimizer", "shard_dataloader",
-       "shard_scaler", "reshard", "dtensor_from_fn", "ProcessMesh",
-       "Placement", "Shard", "Replicate", "Partial", "Planner", "ModelSpec",
-       "PlanCandidate", "engine")
-
-
-def __getattr__(name):
-    if name in _5E:
-        raise NotImplementedError(
-            f"paddle_tpu_torch.distributed.auto_parallel.{name} comes with "
-            "the auto-parallel slice (ROADMAP queue 1, item 5e)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+__all__ = [
+    "Engine", "Strategy", "DistModel", "DistAttr", "to_static",
+    "shard_tensor", "shard_layer", "shard_optimizer", "shard_dataloader",
+    "shard_scaler", "reshard", "dtensor_from_fn",
+    "ProcessMesh", "Placement", "Shard", "Replicate", "Partial",
+    "Planner", "ModelSpec", "PlanCandidate",
+]

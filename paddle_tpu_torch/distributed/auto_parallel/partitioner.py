@@ -1,6 +1,19 @@
-"""The generic-model partitioner, its pipeline part: the port of
-``paddle_tpu/distributed/auto_parallel/partitioner.py``
-(``find_pipeline_blocks``, ``PipelinePartition``).
+"""The generic-model partitioner: the port of
+``paddle_tpu/distributed/auto_parallel/partitioner.py`` (``annotate_tp``,
+``find_pipeline_blocks``, ``PipelinePartition``).
+
+Tensor parallelism (``annotate_tp``). The reference annotates the
+parameters of any model's Linear and Embedding layers with mp-axis
+shardings and lets GSPMD propagate them and insert the collectives. Here
+each rank of the mp group keeps its slice of those parameters and the
+layer's forward gets the collectives that make its output the unsharded
+one, Megatron's way (fleet's mp layers): a Linear whose output features
+divide by tp is column-parallel (a pvary'd input times this rank's columns
+plus its bias, all-gathered on the feature dim), else one whose input
+features divide is row-parallel (this rank's slice of the input times its
+rows, psum'd, plus the bias); an Embedding whose width divides is split on
+it (this rank's columns looked up, all-gathered). Every rank computes the
+same output, so the rest of the model (replicated) needs no change.
 
 The reference stacks the model's homogeneous blocks by stage and compiles
 their chain onto its pipelines; the computation before the blocks (the
@@ -13,9 +26,6 @@ epilogue every block is the identity but the last, which returns the
 pipeline's output. Every rank ends with the gradients of every parameter
 (the stages' blocks summed over pp, the prologue's and epilogue's from the
 epilogue's sums), so that each rank's optimizer updates the same model.
-
-``annotate_tp`` (tensor-parallel completion) comes with the auto-parallel
-slice (ROADMAP queue 1, item 5e).
 """
 from __future__ import annotations
 
@@ -26,12 +36,96 @@ import torch
 from ...core.tensor import Tensor
 
 
+def _keep_slice(p, dim, group):
+    """``p`` (a Parameter holding the global value) keeps this rank's slice
+    along ``dim``."""
+    n, r = group.nranks, group.rank
+    p._assign_array(p._data.detach().chunk(n, dim)[r].contiguous())
+    p.is_distributed = True
+
+
+def _column_forward(layer, group):
+    from ...core.dispatch import run_op
+    from .. import collective as C
+
+    def forward(x):
+        def f(a, w, *b):
+            out = torch.matmul(C._Pvary.apply(a, group), w)
+            if b:
+                out = out + b[0]
+            return C._GatherInvariant.apply(out, group, out.dim() - 1)
+        args = (x, layer.weight) + ((layer.bias,)
+                                    if layer.bias is not None else ())
+        return run_op("column_parallel_linear", f, *args)
+    return forward
+
+
+def _row_forward(layer, group):
+    from ...core.dispatch import run_op
+    from .. import collective as C
+
+    def forward(x):
+        def f(a, w, *b):
+            out = torch.matmul(C._Split.apply(a, group, a.dim() - 1), w)
+            out = C._Psum.apply(out, group)
+            return out + b[0] if b else out
+        args = (x, layer.weight) + ((layer.bias,)
+                                    if layer.bias is not None else ())
+        return run_op("row_parallel_linear", f, *args)
+    return forward
+
+
+def _embedding_forward(layer, group):
+    import torch.nn.functional as F
+    from ...core.dispatch import run_op
+    from .. import collective as C
+    pad = getattr(layer, "_padding_idx", None)
+
+    def forward(x):
+        def f(ids, w):
+            out = F.embedding(ids, w, pad)
+            return C._GatherInvariant.apply(out, group, out.dim() - 1)
+        return run_op("embedding_tp", f, x, layer.weight)
+    return forward
+
+
 def annotate_tp(model, mesh, axis: str = "mp"):
-    """The reference's tensor-parallel completion of Linear and Embedding
-    parameters; comes with the auto-parallel slice."""
-    raise NotImplementedError(
-        "partitioner.annotate_tp comes with the auto-parallel slice "
-        "(ROADMAP queue 1, item 5e)")
+    """Shards the Linear and Embedding parameters of any model over the mp
+    axis of ``mesh`` (a ProcessMesh, or the mp Group itself): column-
+    parallel where the output features divide by tp, else row-parallel
+    where the input features do; Embeddings on their width. Each rank keeps
+    its slices (the model must hold the same global parameters on every
+    rank of the group) and the layers' forwards get their collectives, so
+    the model's output is the unsharded one. Returns the number of
+    parameters sharded, as the reference's does."""
+    from ...nn.layer.common import Embedding, Linear
+    from ..env import Group
+    group = mesh if isinstance(mesh, Group) else mesh.get_group(axis)
+    tp = group.nranks
+    if tp <= 1:
+        return 0
+    n = 0
+    for _, sub in model.named_sublayers():
+        if isinstance(sub, Linear):
+            din, dout = sub.weight.shape
+            if dout % tp == 0:
+                _keep_slice(sub.weight, 1, group)
+                if sub.bias is not None:
+                    _keep_slice(sub.bias, 0, group)
+                    n += 1
+                sub.__dict__["forward"] = _column_forward(sub, group)
+            elif din % tp == 0:
+                _keep_slice(sub.weight, 0, group)
+                sub.__dict__["forward"] = _row_forward(sub, group)
+            else:
+                continue
+            n += 1
+        elif isinstance(sub, Embedding):
+            if sub.weight.shape[1] % tp == 0:
+                _keep_slice(sub.weight, 1, group)
+                sub.__dict__["forward"] = _embedding_forward(sub, group)
+                n += 1
+    return n
 
 
 def _signature(layer):

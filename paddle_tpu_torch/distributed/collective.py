@@ -473,6 +473,21 @@ def batch_isend_irecv(p2p_op_list):
 #: the pipeline's hops: calls, bytes sent and received, and the host
 #: clock around them (``p2p_exchange`` and ``ppermute``), by this process
 P2P_STATS = collections.Counter()
+#: the all-to-alls over a group of ranks (the MoE exchanges: ``ops.
+#: all_to_all`` and ``utils.global_scatter``/``global_gather``): calls, bytes
+#: sent, and the host clock around them, by this process
+ALLTOALL_STATS = collections.Counter()
+
+
+def _alltoall(out, a, group_pg, out_splits=None, in_splits=None):
+    """``all_to_all_single`` of ``a`` into ``out``, counted in
+    ``ALLTOALL_STATS``."""
+    import time
+    t0 = time.perf_counter()
+    dist.all_to_all_single(out, a, out_splits, in_splits, group=group_pg)
+    ALLTOALL_STATS["calls"] += 1
+    ALLTOALL_STATS["bytes"] += a.numel() * a.element_size()
+    ALLTOALL_STATS["seconds"] += time.perf_counter() - t0
 
 
 def p2p_exchange(sends, recvs, group):
@@ -658,7 +673,7 @@ def _exchange(x, group, split_axis, concat_axis, tiled=True):
     else:
         a, staged = _host_route("alltoall", pg, parts)
         got = torch.empty_like(a, memory_format=torch.contiguous_format)
-        dist.all_to_all_single(got, a, group=pg)
+        _alltoall(got, a, pg)
         got = got.to(x.device) if staged else got
     if tiled:
         return torch.cat(got.unbind(0), concat_axis)

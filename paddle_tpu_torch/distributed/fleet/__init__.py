@@ -63,11 +63,14 @@ _LATER = {
     "MultiSlotStringDataGenerator": _PS, "is_server": _PS,
     "is_worker": _PS, "init_server": _PS, "run_server": _PS,
     "init_worker": _PS, "stop_worker": _PS, "ps": _PS,
-    "auto": "the auto-parallel slice",
 }
 
 
 def __getattr__(name):
+    if name == "auto":
+        # the reference fleet's re-export of distributed.auto_parallel
+        from .. import auto_parallel
+        return auto_parallel
     if name in _LATER:
         raise NotImplementedError(
             f"paddle_tpu_torch.distributed.fleet.{name} comes with "

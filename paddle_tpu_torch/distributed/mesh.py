@@ -11,7 +11,7 @@ torch's ``new_group`` requires) and gives one ``Group`` per dim name: the
 ranks that differ from this one along that dim only. Placements and the
 spec conversions are plain data: a spec is a tuple with one entry per
 tensor dim (None, a dim name, or a tuple of names). Distributed tensors
-(``shard_tensor``, ``reshard``) come with the auto-parallel slice (ROADMAP).
+(``shard_tensor``, ``reshard``) are in ``api.py``.
 """
 from __future__ import annotations
 

@@ -1,9 +1,10 @@
 """paddle.incubate on the port: ``nn.functional``'s
 ``masked_multihead_attention`` (the serving slice), ``fused_rms_norm``,
 ``fused_layer_norm`` and ``swiglu``, ``jit``'s ``inference`` decorator, the
-fused softmax-mask ops and the segment ops (``ops.extra``, ``geometric``);
-the rest of the reference's ``incubate`` waits for a later slice (ROADMAP
-queue 1)."""
+fused softmax-mask ops and the segment ops (``ops.extra``, ``geometric``)
+and ``distributed.models.moe`` (the MoE layers and gates); the rest of the
+reference's ``incubate`` waits for a later slice (ROADMAP queue 1)."""
+from . import distributed  # noqa: F401
 from . import jit  # noqa: F401
 from . import nn  # noqa: F401
 from ..ops.extra import (  # noqa: F401

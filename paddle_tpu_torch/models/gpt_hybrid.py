@@ -4,8 +4,7 @@ The reference compiles one SPMD program over a (dp, pp, tp) mesh; this port
 runs its single-device case eagerly on one CUDA card, and its data-, tensor-
 and pipeline-parallel cases over ``torch.distributed``, one process a GPU,
 the ranks a (dp, pp, tp) grid with tp innermost (see "data parallel",
-"tensor parallel" and "pipeline parallel" below; experts beside any of dp,
-pp, tp or sp wait for their slice):
+"tensor parallel", "pipeline parallel" and "expert parallel" below):
 
 - parameters are the reference's dict of stacked ``[L, ...]`` block leaves
   in the ``x @ W`` orientation, so ``params_from_jax`` is a plain copy (at
@@ -18,7 +17,9 @@ pp, tp or sp wait for their slice):
   einsum where dispatch returns None;
 - ``num_experts`` > 0 makes each block's MLP the reference's GShard
   dense-dispatch switch MoE (``_moe_ffn``: top-1 routing, every expert
-  run over the dispatched [E, T, H] tokens);
+  run over the dispatched [E, T, H] tokens); with a process group, the
+  experts shard over dp (``gpt_manual_tp.moe_ffn_manual_ep``: two
+  all-to-alls a layer);
 - remat is ``torch.utils.checkpoint`` per block; the ``"names"`` and
   ``"dots"`` policies are selective-checkpoint policies over aten ops and
   the attention op;
@@ -60,10 +61,9 @@ class ParallelConfig:
     a rank each, run as ``pp_schedule`` ("gpipe", "1f1b", "zbh1", "zbvpp")
     over ``microbatches`` microbatches; ``vpp_chunks`` > 1 (with "1f1b")
     gives each stage that many interleaved chunks (``_validate_pp_schedule``
-    has the reference's rules). ``num_experts`` > 0 beside dp, pp or tp > 1,
-    ``sp`` or ``collective_matmul`` raises NotImplementedError naming the
-    expert-parallel slice. ``scan_unroll`` (lax.scan unrolling) has no
-    effect in eager PyTorch."""
+    has the reference's rules). ``num_experts`` > 0 beside a process group
+    shards the experts over dp (each dp rank holds E / dp of them).
+    ``scan_unroll`` (lax.scan unrolling) has no effect in eager PyTorch."""
     dp: int = 1
     pp: int = 1
     tp: int = 1
@@ -89,17 +89,15 @@ class ParallelConfig:
 
 
 def _validate(pcfg: ParallelConfig):
-    """Refuses what a later slice brings (naming it), the reference's
-    pipeline refusals (``_validate_pp_schedule``), and dp x pp x tp > 1
-    unless a process group of exactly that many ranks exists."""
-    if pcfg.num_experts > 0 and (pcfg.dp > 1 or pcfg.pp > 1 or pcfg.tp > 1
-                                 or pcfg.sp or pcfg.collective_matmul):
-        raise NotImplementedError(
-            "paddle_tpu_torch runs the single-device, data-, tensor- and "
-            f"pipeline-parallel steps; num_experts={pcfg.num_experts} "
-            "beside dp, pp or tp > 1, sp or collective_matmul waits for the "
-            "expert-parallel slice (ROADMAP queue 1, item 5d)")
+    """The reference's pipeline refusals (``_validate_pp_schedule``), its
+    refusal of an expert dim that dp does not divide (which its
+    ``param_specs`` shard over dp), and dp x pp x tp > 1 unless a process
+    group of exactly that many ranks exists."""
     _validate_pp_schedule(pcfg)
+    if pcfg.num_experts > 0 and pcfg.dp > 1 and pcfg.num_experts % pcfg.dp:
+        raise ValueError(
+            f"expert parallelism shards experts over dp: num_experts "
+            f"{pcfg.num_experts} must divide by dp {pcfg.dp}")
     ranks = pcfg.dp * pcfg.pp * pcfg.tp
     if ranks > 1:
         from ..distributed.env import get_world_size, is_initialized
@@ -179,6 +177,12 @@ def _distributed() -> bool:
     return is_initialized()
 
 
+def _ep(pcfg) -> bool:
+    """Whether the experts shard over dp (the expert-parallel branch): with
+    experts and a process group, at any dp (a group of one included)."""
+    return pcfg.num_experts > 0 and _distributed()
+
+
 # ------------------------------ init ---------------------------------------
 def init_params(cfg: GPTConfig, pcfg: ParallelConfig,
                 generator: torch.Generator, device=None) -> Dict:
@@ -243,14 +247,16 @@ def _to_torch(x, device):
     return torch.from_numpy(np.array(arr)).to(device)
 
 
-def params_from_jax(np_tree, device=None, tp_rank=0, tp=1, pp_rank=0, pp=1):
+def params_from_jax(np_tree, device=None, tp_rank=0, tp=1, pp_rank=0, pp=1,
+                    dp_rank=0, dp=1):
     """The reference's parameter (or moment) dict, as numpy arrays, to
     torch tensors with the same keys and dtypes; at ``pp`` > 1 its block
     leaves are the reference's stage-stacked ones ([pp, L / pp, ...], or
     [pp, v, Lc, ...] interleaved, or [pp, 2, Lc, ...] in the ZB-V
     placement) and this rank keeps stage ``pp_rank``'s entry; at ``tp`` > 1
     this rank's shards of them, as the reference's ``param_specs`` shards
-    them (``tp_shard``)."""
+    them (``tp_shard``); with experts at ``dp`` > 1, this rank's experts
+    (``ep_shard``)."""
     dev = resolve_device(device)
 
     def convert(t, stage):
@@ -261,7 +267,8 @@ def params_from_jax(np_tree, device=None, tp_rank=0, tp=1, pp_rank=0, pp=1):
         return _to_torch(t, dev)
     tree = {k: convert(v, k == "blocks" and pp > 1)
             for k, v in np_tree.items()}
-    return tp_shard(tree, tp_rank, tp) if tp > 1 else tree
+    tree = tp_shard(tree, tp_rank, tp) if tp > 1 else tree
+    return ep_shard(tree, dp_rank, dp)
 
 
 # --------------------------- pipeline layout -------------------------------
@@ -385,6 +392,47 @@ def _tp_gather(tree, group, vocab):
            for k, v in tree.items() if k != "blocks"}
     out["blocks"] = {k: _tp_gather_leaf(k, v, group)
                      for k, v in tree["blocks"].items()}
+    return out
+
+
+# --------------------------- expert-parallel layout ------------------------
+# The reference's param_specs shard the expert dim of the MoE leaves over dp
+# (EP = DP, fc1_w P(pp, "dp", None, "tp") and the like); the gate is
+# replicated. A dp rank holds its E / dp experts: the leaves' E dim is the
+# third from last for the weights ([..., E, h, m]) and the second from last
+# for the biases ([..., E, m]), in every stage layout.
+_EP_LEAVES = ("fc1_w", "fc1_b", "fc2_w", "fc2_b")
+
+
+def _moe(tree):
+    return "gate_w" in tree.get("blocks", {})
+
+
+def _ep_dim(name, x):
+    return x.dim() - (3 if name.endswith("_w") else 2)
+
+
+def ep_shard(tree, dp_rank, dp):
+    """This dp rank's experts of a parameter (or moment) tree (the tree
+    itself without experts or at dp = 1)."""
+    if dp <= 1 or not _moe(tree):
+        return tree
+    out = dict(tree)
+    out["blocks"] = {
+        k: v.chunk(dp, _ep_dim(k, v))[dp_rank].contiguous()
+        if k in _EP_LEAVES else v for k, v in tree["blocks"].items()}
+    return out
+
+
+def _ep_gather(tree, group):
+    """Every dp rank's experts concatenated back (eager all-gathers)."""
+    from ..distributed import collective as C
+    if group.nranks == 1 or not _moe(tree):
+        return tree
+    out = dict(tree)
+    out["blocks"] = {
+        k: C._gather_along(v, group, _ep_dim(k, v)) if k in _EP_LEAVES
+        else v for k, v in tree["blocks"].items()}
     return out
 
 
@@ -572,7 +620,11 @@ def forward_hidden(params, input_ids, cfg: GPTConfig, pcfg: ParallelConfig):
     x = F.embedding(input_ids, params["wte"]).to(cdt) + \
         params["wpe"][:s][None].to(cdt)
     blocks = {k: p.to(cdt) for k, p in params["blocks"].items()}
-    x = _stack_apply(blocks, x, cfg, pcfg)
+    if _ep(pcfg):
+        from .gpt_manual_tp import stack_apply_manual_ep
+        x = stack_apply_manual_ep(blocks, x, cfg, pcfg, _grid(pcfg).dp_group)
+    else:
+        x = _stack_apply(blocks, x, cfg, pcfg)
     return _layer_norm(x, params["lnf_g"].to(cdt), params["lnf_b"].to(cdt))
 
 
@@ -602,6 +654,8 @@ def _ce_from_hidden(h, wte, labels, pcfg):
 def loss_fn(params, batch, cfg, pcfg):
     if pcfg.pp > 1:
         return loss_fn_pp(params, batch, cfg, pcfg)
+    if _distributed() and _grid(pcfg).tp_branch:
+        return loss_fn_tp(params, batch, cfg, pcfg, _grid(pcfg).tp_group)
     input_ids, labels = batch
     # forward_hidden already applies the final layer norm
     x = forward_hidden(params, input_ids, cfg, pcfg)
@@ -678,7 +732,8 @@ def loss_fn_tp(params, batch, cfg, pcfg, group):
     cdt = pcfg.compute_dtype
     x = _embed_tp(params, input_ids, cfg, pcfg, group)
     blocks = {k: p.to(cdt) for k, p in params["blocks"].items()}
-    x = stack_apply_manual_tp(blocks, x, cfg, pcfg, group)
+    ep = _grid(pcfg).dp_group if _ep(pcfg) else None
+    x = stack_apply_manual_tp(blocks, x, cfg, pcfg, group, ep)
     h = _layer_norm(x, params["lnf_g"].to(cdt), params["lnf_b"].to(cdt))
     return _ce_tp(h, params["wte"], labels, pcfg, group,
                   _vocab_sharded(cfg.vocab_size, group.nranks))
@@ -719,8 +774,10 @@ def _leaf_names(params, prefix=""):
 
 
 def _sp_leaf_indices(params, cfg, tp):
-    """The ``_leaves`` positions whose gradients sp leaves partial."""
-    names = set(_SP_TOP_LEAVES) | {f"blocks.{n}" for n in _SP_BLOCK_LEAVES}
+    """The ``_leaves`` positions whose gradients sp leaves partial (an
+    expert's fc2_b is added on the expert side, over every token)."""
+    names = set(_SP_TOP_LEAVES) | {f"blocks.{n}" for n in _SP_BLOCK_LEAVES
+                                   if not (_moe(params) and n == "fc2_b")}
     if not _vocab_sharded(cfg.vocab_size, tp):
         names.add("wte")
     return [i for i, n in enumerate(_leaf_names(params)) if n in names]
@@ -754,10 +811,14 @@ def _sum_sp_grads(grads, idx, group):
 # tp branch gpt_manual_tp's block over the tp group. Every rank of a tp
 # group runs the same cells, so their tp collectives pair up.
 def _stage_fn(cfg, pcfg, grid):
+    ep = grid.dp_group if _ep(pcfg) else None
     if grid.tp_branch:
         from .gpt_manual_tp import stack_apply_manual_tp
         return lambda p, x: stack_apply_manual_tp(p, x, cfg, pcfg,
-                                                  grid.tp_group)
+                                                  grid.tp_group, ep)
+    if ep is not None:
+        from .gpt_manual_tp import stack_apply_manual_ep
+        return lambda p, x: stack_apply_manual_ep(p, x, cfg, pcfg, ep)
     return lambda p, x: _stack_apply(p, x, cfg, pcfg)
 
 
@@ -953,7 +1014,12 @@ def _train_grads_1f1b(params, batch, cfg, pcfg):
     """Loss and gradients (trees) of this rank's stage through the
     pipeline schedule: the reference's routing, where the zero-bubble
     schedules at tp > 1 take the manual-tp route
-    (gpt_manual_tp.train_grads_zb_manual_tp)."""
+    (gpt_manual_tp.train_grads_zb_manual_tp) and, with experts at tp = 1
+    and dp > 1, the manual-ep route (``train_grads_zb_manual_ep``)."""
+    if pcfg.pp_schedule in ("zbh1", "zbvpp") and pcfg.tp == 1 \
+            and pcfg.num_experts > 0 and pcfg.dp > 1:
+        from .gpt_manual_tp import train_grads_zb_manual_ep
+        return train_grads_zb_manual_ep(params, batch, cfg, pcfg)
     use_manual_tp = pcfg.tp > 1 and pcfg.num_experts == 0 and (
         pcfg.pp_schedule in ("zbh1", "zbvpp")
         or (pcfg.pp_schedule == "1f1b" and pcfg.vpp_chunks == 1
@@ -1196,9 +1262,11 @@ def setup(cfg: GPTConfig, pcfg: ParallelConfig, seed=0, device=None):
         params = pp_stage(params, cfg, pcfg, grid.pp_rank)
         if grid.tp > 1:
             params = tp_shard(params, grid.tp_rank, grid.tp)
+        params = ep_shard(params, grid.dp_rank, grid.dp)
         for b in _bind_flat(params, grid.dp):
-            C.broadcast(b.flat, src=grid.dp_group.ranks[0],
-                        group=grid.dp_group)
+            if not b.local:
+                C.broadcast(b.flat, src=grid.dp_group.ranks[0],
+                            group=grid.dp_group)
         opt_state = dp_adamw_init(params, pcfg)
     else:
         opt_state = adamw_init(params, pcfg)
@@ -1219,18 +1287,34 @@ def setup(cfg: GPTConfig, pcfg: ParallelConfig, seed=0, device=None):
 # whole buffer with whole moments. The update is elementwise, so any
 # partition of the elements gives the reference's numbers; the padding
 # stays 0 (p = g = m = v = 0 gives a 0 step) and never reaches a parameter.
+#
+# Expert parallel: the expert leaves (_EP_LEAVES, with experts under a
+# process group) are this dp rank's experts, different on every dp rank, so
+# they live in buckets of their own ("<dtype>.ep", ``local``) that never
+# enter the dp reductions: each rank updates its experts whole, with whole
+# moments. Their gradients arrive through the backward all-to-all summed
+# over every dp rank's local mean loss, dp times the gradient of the
+# reference's mean over the global batch, and are divided by dp.
 class _Bucket:
-    """The leaves of one dtype, as views of one flat buffer."""
+    """The leaves of one dtype, as views of one flat buffer, split over
+    ``span`` ranks (dp, or 1 for the expert leaves: ``local``)."""
 
-    def __init__(self, dtype, refs, flat, numel, chunk):
+    def __init__(self, dtype, refs, flat, numel, chunk, local=False):
         self.dtype, self.refs, self.flat = dtype, refs, flat
-        self.numel, self.chunk = numel, chunk
+        self.numel, self.chunk, self.local = numel, chunk, local
 
     @property
     def key(self):
-        return str(self.dtype).replace("torch.", "")
+        return str(self.dtype).replace("torch.", "") + \
+            (".ep" if self.local else "")
+
+    @property
+    def span(self):
+        return self.flat.numel() // self.chunk
 
     def owned(self, t, rank):
+        if self.local:
+            return t
         return t[rank * self.chunk:(rank + 1) * self.chunk]
 
 
@@ -1245,31 +1329,35 @@ def _leaf_refs(tree):
 
 def _bind_flat(params, dp):
     """One ``_Bucket`` a dtype (in order of first appearance in
-    ``_leaves``). Leaves that are not yet views of their bucket's buffer
-    are copied into a new one and replaced in ``params`` by views of it."""
+    ``_leaves``), and one a dtype for the expert leaves (``local``). Leaves
+    that are not yet views of their bucket's buffer are copied into a new
+    one and replaced in ``params`` by views of it."""
+    experts = params["blocks"] if _moe(params) else {}
     groups = {}
     for d, k in _leaf_refs(params):
-        groups.setdefault(d[k].dtype, []).append((d, k))
+        local = d is experts and k in _EP_LEAVES
+        groups.setdefault((d[k].dtype, local), []).append((d, k))
     buckets = []
-    for dtype, refs in groups.items():
+    for (dtype, local), refs in groups.items():
+        span = 1 if local else dp
         leaves = [d[k] for d, k in refs]
         numel = sum(x.numel() for x in leaves)
-        chunk = -(-numel // dp)
+        chunk = -(-numel // span)
         base = leaves[0]._base
         offs = np.cumsum([0] + [x.numel() for x in leaves[:-1]])
-        bound = (base is not None and base.numel() == chunk * dp
+        bound = (base is not None and base.numel() == chunk * span
                  and base.dim() == 1 and all(
                      x._base is base and x.storage_offset() == int(o)
                      and x.is_contiguous() for x, o in zip(leaves, offs)))
         if not bound:
-            base = torch.zeros(chunk * dp, dtype=dtype,
+            base = torch.zeros(chunk * span, dtype=dtype,
                                device=leaves[0].device)
             for (d, k), x, o in zip(refs, leaves, offs):
                 o = int(o)
                 view = base[o:o + x.numel()].view(x.shape)
                 view.copy_(x)
                 d[k] = view
-        buckets.append(_Bucket(dtype, refs, base, numel, chunk))
+        buckets.append(_Bucket(dtype, refs, base, numel, chunk, local))
     return buckets
 
 
@@ -1341,7 +1429,7 @@ def dp_adamw_init(params, pcfg):
     dp, _ = _dp(pcfg)
     m, v = {}, {}
     for b in _bind_flat(params, dp):
-        n = b.chunk if pcfg.zero1 else b.chunk * dp
+        n = b.chunk if pcfg.zero1 else b.flat.numel()
         mdt = pcfg.moment_dtype or b.dtype
         m[b.key] = torch.zeros(n, dtype=mdt, device=b.flat.device)
         v[b.key] = torch.zeros(n, dtype=mdt, device=b.flat.device)
@@ -1363,7 +1451,7 @@ def _flat_state(params, opt_state, pcfg, buckets):
         for b in buckets:
             parts = [refs[id(d[k])].reshape(-1) for d, k in b.refs]
             full = torch.cat(parts + [parts[0].new_zeros(
-                b.chunk * dp - b.numel)])
+                b.flat.numel() - b.numel)])
             flat[b.key] = (b.owned(full, rank) if pcfg.zero1
                            else full).clone()
         opt_state[name] = flat
@@ -1426,12 +1514,17 @@ def _flat_grads(buckets, grads, params):
 def _dp_update(buckets, flat_grads, opt_state, pcfg, lr):
     """Reduce each bucket's gradient over dp (AVG), update this rank's
     slice (or, without zero1, the whole buffer) in place and rebuild the
-    parameters with an all-gather."""
+    parameters with an all-gather. An expert bucket's gradient is divided
+    by dp and its buffer updated whole, with no collective."""
     from ..distributed import collective as C
     grid = _grid(pcfg)
     rank, group = grid.dp_rank, grid.dp_group
     step = opt_state["step"] + 1
     for b, g in zip(buckets, flat_grads):
+        if b.local:
+            _adamw_pieces(b.flat, opt_state["m"][b.key],
+                          opt_state["v"][b.key], g / grid.dp, step, lr)
+            continue
         if pcfg.zero1:
             gs = torch.empty(b.chunk, dtype=g.dtype, device=g.device)
             C.reduce_scatter_flat(gs, g, C.ReduceOp.AVG, group)
@@ -1526,10 +1619,12 @@ def _pp_gather(tree, grid):
 
 def gather_params(params, cfg, pcfg):
     """The parameters in the reference's global layout on every rank (the
-    tp shards all-gathered, the pp stages stacked as the reference's
-    ``shard_params`` stacks them; at tp = pp = 1 a copy)."""
+    tp shards and the dp ranks' experts all-gathered, the pp stages stacked
+    as the reference's ``shard_params`` stacks them; at tp = pp = 1 without
+    experts a copy)."""
     grid = _grid(pcfg)
-    return _pp_gather(_tp_gather(params, grid.tp_group, cfg.vocab_size),
+    return _pp_gather(_ep_gather(_tp_gather(params, grid.tp_group,
+                                            cfg.vocab_size), grid.dp_group),
                       grid)
 
 
@@ -1547,7 +1642,7 @@ def gather_opt_state(params, opt_state, pcfg, cfg=None):
         by_leaf = {}
         for b in buckets:
             part = opt_state[name][b.key]
-            if pcfg.zero1:
+            if pcfg.zero1 and not b.local:
                 full = torch.empty(b.chunk * dp, dtype=part.dtype,
                                    device=part.device)
                 C.all_gather_flat(full, part, grid.dp_group)
@@ -1563,7 +1658,7 @@ def gather_opt_state(params, opt_state, pcfg, cfg=None):
         def tree_of(t):
             return {k: tree_of(v) if isinstance(v, dict) else by_leaf[id(v)]
                     for k, v in t.items()}
-        out[name] = tree_of(params)
+        out[name] = _ep_gather(tree_of(params), grid.dp_group)
         if grid.tp > 1:
             if cfg is None:
                 raise ValueError("gather_opt_state at tp > 1 needs cfg")
@@ -1579,7 +1674,8 @@ def opt_state_shards(params, opt_state, pcfg):
     dp world size can load them (``load_opt_state_shards``). At tp > 1
     each tp rank's buckets are entries of their own (``<dtype>.tp<r>``),
     and at pp > 1 each stage's (``<dtype>.pp<s>``), loaded at the same tp
-    and pp."""
+    and pp. An expert bucket (``<dtype>.ep``) is this dp rank's piece of
+    the dp ranks' buckets laid end to end, loaded at the same dp."""
     from ..core.tensor import Tensor
     from ..distributed.checkpoint import ShardedTensor
     grid = _grid(pcfg)
@@ -1591,6 +1687,10 @@ def opt_state_shards(params, opt_state, pcfg):
         out[name] = {}
         for b in _bind_flat(params, dp):
             t = opt_state[name][b.key]
+            if b.local:
+                out[name][b.key + suffix] = ShardedTensor(
+                    Tensor._wrap(t), (b.numel * dp,), (rank * b.numel,))
+                continue
             lo = rank * b.chunk if pcfg.zero1 else 0
             hi = min(lo + t.numel(), b.numel)
             out[name][b.key + suffix] = ShardedTensor(

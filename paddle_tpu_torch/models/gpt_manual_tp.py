@@ -26,9 +26,21 @@ the residual adds.
 
 ``train_grads_zb_manual_tp`` is the zero-bubble pipelines (and 1F1B with
 the ring collective matmuls) over this stage body, gpt_hybrid's pipeline
-with the reference's vocab-parallel head. The manual expert-parallel
-bodies come with the expert-parallel slice: they raise
-``NotImplementedError`` naming it.
+with the reference's vocab-parallel head.
+
+The manual expert-parallel bodies (the reference's zero-bubble x MoE stage,
+``moe_ffn_manual_ep``) are gpt_hybrid's ep branch at every (dp, pp, tp):
+each dp rank holds E / dp experts, routes its own tokens and exchanges the
+dispatched [E, T, h] tokens for its experts' [E / dp, dp T, h] with one
+all-to-all over dp, and back with another. With experts beside tp the
+expert's inner dim is split over tp (the reference's fc1_w P(pp, "dp",
+None, "tp")): the exchanged tokens enter the column-parallel fc1 through a
+pvary, fc2's partial outputs are psum'd over tp on the expert side, once,
+before the bias and the reverse exchange, and under sp the tokens are the
+whole sequence, gathered before the gate and split again after the
+combine. The same rule as the tp collectives holds: each all-to-all sits
+between two checkpointed runs, never inside one, so backward re-issues
+none; a step issues 4 a layer a microbatch pass (2 forward, 2 backward).
 """
 from __future__ import annotations
 
@@ -91,7 +103,7 @@ def _use_cm(pcfg):
     return bool(pcfg.collective_matmul) and pcfg.sp
 
 
-def block_manual_tp(x, lp, cfg: GPTConfig, pcfg, tp_axis="tp"):
+def block_manual_tp(x, lp, cfg: GPTConfig, pcfg, tp_axis="tp", ep_axis=None):
     """One transformer block with explicit tp collectives over ``tp_axis``
     (a mesh axis or a Group).
 
@@ -105,7 +117,9 @@ def block_manual_tp(x, lp, cfg: GPTConfig, pcfg, tp_axis="tp"):
     input is pvary'd and each row output psum'd. sp: x [b, s / tp, h] this
     rank's slice of the sequence; all_gather before the column matmuls,
     psum_scatter after the row matmuls (Megatron-LM SP). sp +
-    collective_matmul: those pairs are the ring collective matmuls.
+    collective_matmul: those pairs are the ring collective matmuls. With
+    experts the MLP is ``moe_ffn_manual_ep`` over ``ep_axis`` (the dp
+    group) with the experts' inner dim split over tp.
     """
     g = C._axis_group(tp_axis)
     sp, cm = pcfg.sp, _use_cm(pcfg)
@@ -140,6 +154,9 @@ def block_manual_tp(x, lp, cfg: GPTConfig, pcfg, tp_axis="tp"):
         r = sp_row_matmul_local(attn, lp["proj_w"], g)            # "proj"
         x, hx = run(residual_ln2, pcfg)(x, r, lp["proj_b"], lp["ln2_g"],
                                         lp["ln2_b"])
+        if pcfg.num_experts > 0:
+            return x + moe_ffn_manual_ep(hx, lp, pcfg.num_experts, ep_axis,
+                                         pcfg, g)
         f1 = sp_column_matmul_local(hx, lp["fc1_w"], g)           # "ffn1"
         act = run(lambda f, b: F.gelu(f + b, approximate="tanh"),
                   pcfg)(f1, lp["fc1_b"])
@@ -156,18 +173,24 @@ def block_manual_tp(x, lp, cfg: GPTConfig, pcfg, tp_axis="tp"):
         gather(hx), lp["qkv_w"], lp["qkv_b"], lp["proj_w"])
     x, hx = run(residual_ln2, pcfg)(x, reduce(part), lp["proj_b"],
                                     lp["ln2_g"], lp["ln2_b"])
+    if pcfg.num_experts > 0:
+        return x + moe_ffn_manual_ep(hx, lp, pcfg.num_experts, ep_axis, pcfg,
+                                     g)
     part = run(mlp, pcfg, "ffn1", "ffn2")(
         gather(hx), lp["fc1_w"], lp["fc1_b"], lp["fc2_w"])
     return run(residual, pcfg)(x, reduce(part), lp["fc2_b"])
 
 
-def stack_apply_manual_tp(blocks, x, cfg, pcfg, tp_axis="tp"):
+def stack_apply_manual_tp(blocks, x, cfg, pcfg, tp_axis="tp",
+                          ep_axis=None):
     """The layer loop over this rank's stacked [L, ...] shards (the manual-tp
     ``_stack_apply``); ``unbind`` hands out per-layer views whose gradients
-    are stacked back once."""
+    are stacked back once. With experts, ``ep_axis`` is the dp group they
+    shard over."""
     names = sorted(blocks)
     for leaves in zip(*(torch.unbind(blocks[n], 0) for n in names)):
-        x = block_manual_tp(x, dict(zip(names, leaves)), cfg, pcfg, tp_axis)
+        x = block_manual_tp(x, dict(zip(names, leaves)), cfg, pcfg, tp_axis,
+                            ep_axis)
     return x
 
 
@@ -247,20 +270,125 @@ def train_grads_zb_manual_tp(params, batch, cfg: GPTConfig, pcfg, mesh=None):
                               vocab_parallel=True)
 
 
-# ------------------- entries that a later slice brings -------------------
-_EP = "the expert-parallel slice (ROADMAP queue 1, item 5d)"
+# ------------------- manual-ep MoE stage (zb x MoE) -------------------
+def _route(x, gate_w, e):
+    """Top-1 routing of x's tokens: (dispatch [E, T, 1], gate [T], the
+    dispatched tokens [E, T, h]); the reference's one-hot dispatch einsum
+    written as a broadcast product (gpt_hybrid._moe_ffn)."""
+    tokens = x.reshape(-1, x.shape[-1])
+    probs = torch.softmax(tokens.float() @ gate_w.float(), -1)
+    gate = probs.max(-1).values.to(x.dtype)
+    disp = F.one_hot(probs.argmax(-1), e).to(x.dtype).t()[:, :, None]
+    return disp, gate, disp * tokens
 
 
-def _ep(name):
-    def entry(*args, **kwargs):
-        raise NotImplementedError(f"{name} (the manual expert-parallel body) "
-                                  f"comes with {_EP}")
-    entry.__name__ = name
-    entry.__doc__ = "The manual expert-parallel body; comes with " + _EP + "."
-    return entry
+def _experts(xin, w1, b1, w2):
+    """The local experts over their tokens [E_l, T, h], before fc2's bias
+    (a partial sum over tp when the inner dim is split)."""
+    hmid = F.gelu(torch.einsum("eth,ehm->etm", xin, w1) + b1[:, None, :],
+                  approximate="tanh")
+    return torch.einsum("etm,emh->eth", hmid, w2)
 
 
-moe_ffn_manual_ep = _ep("moe_ffn_manual_ep")
-block_manual_ep = _ep("block_manual_ep")
-stack_apply_manual_ep = _ep("stack_apply_manual_ep")
-train_grads_zb_manual_ep = _ep("train_grads_zb_manual_ep")
+def _combine(disp, hout, gate):
+    return (disp * hout).sum(0) * gate[:, None]
+
+
+def moe_ffn_manual_ep(x, lp, num_experts, ep_axis="dp", pcfg=None,
+                      tp_axis=None):
+    """GShard switch MoE with the experts sharded over ``ep_axis`` (a mesh
+    axis or the dp Group) and explicit all-to-alls: the port of the
+    reference's ``moe_ffn_manual_ep``, run under ``pcfg``'s remat policy
+    (each computation between two collectives a checkpointed run).
+
+    Local shapes: x [bl, s, h] (this rank's rows; under sp at tp > 1 its
+    slice of the sequence); fc1_w [E_l, h, m_l], fc1_b [E_l, m_l], fc2_w
+    [E_l, m_l, h], fc2_b [E_l, h] (E_l = E / ep ranks, m_l = m / tp);
+    gate_w [h, E] replicated. ``tp_axis`` (with experts beside tp) is the
+    group the inner dim splits over."""
+    g_ep = C._axis_group(ep_axis)
+    g_tp = C._axis_group(tp_axis) if tp_axis is not None else None
+    if pcfg is None:
+        from .gpt_hybrid import ParallelConfig
+        pcfg = ParallelConfig(num_experts=num_experts, remat=False)
+    run = _remat_wrap
+    sp = bool(pcfg.sp) and g_tp is not None
+    # under sp the whole sequence routes on every tp rank: its gradient
+    # here is whole on each, so the gather's backward keeps this rank's
+    # slice (no sum)
+    full = C._GatherInvariant.apply(x, g_tp, 1) if sp else x
+    disp, gate, xin = run(_route, pcfg)(full, lp["gate_w"], num_experts)
+    # expert shards out, token shards in: [E_l, ep * T, h]
+    xin = C._AllToAll.apply(xin, g_ep, 0, 1, True)
+    if g_tp is not None:
+        xin = C._Pvary.apply(xin, g_tp)
+    hout = run(_experts, pcfg)(xin, lp["fc1_w"], lp["fc1_b"], lp["fc2_w"])
+    if g_tp is not None:
+        hout = C._Psum.apply(hout, g_tp)
+    hout = hout + lp["fc2_b"][:, None, :]
+    # token shards out, expert shards in: [E, T, h]
+    hout = C._AllToAll.apply(hout, g_ep, 1, 0, True)
+    out = run(_combine, pcfg)(disp, hout, gate).reshape(full.shape)
+    return C._Split.apply(out, g_tp, 1) if sp else out
+
+
+def block_manual_ep(x, lp, cfg: GPTConfig, pcfg, ep_axis="dp"):
+    """The transformer block of the zero-bubble x MoE stage (tp = 1): local
+    attention, then ``moe_ffn_manual_ep``. ``lp["qkv_w"]`` is the flat
+    [h, 3 h] weight (or the reference's [h, 3, h] reshape of it)."""
+    h = x.shape[-1]
+    qw, qb = lp["qkv_w"], lp["qkv_b"]
+
+    def attention(x, g1, b1, w, b, pw, pb, g2, b2):
+        hx = _layer_norm(x, g1, b1)
+        qkv = _linear(hx, w, b)                               # "qkv"
+        a = _attend(qkv[..., :h], qkv[..., h:2 * h], qkv[..., 2 * h:],
+                    cfg.num_heads)                            # "attn_out"
+        x = x + _mm(a, pw) + pb                               # "proj"
+        return x, _layer_norm(x, g2, b2)
+
+    x, hx = _remat_wrap(attention, pcfg, "qkv", "proj")(
+        x, lp["ln1_g"], lp["ln1_b"], qw.reshape(h, -1), qb.reshape(-1),
+        lp["proj_w"], lp["proj_b"], lp["ln2_g"], lp["ln2_b"])
+    return x + moe_ffn_manual_ep(hx, lp, pcfg.num_experts, ep_axis, pcfg)
+
+
+def stack_apply_manual_ep(blocks, x, cfg, pcfg, ep_axis="dp"):
+    """The layer loop of ``block_manual_ep`` over this rank's stacked
+    [L, ...] leaves."""
+    names = sorted(blocks)
+    for leaves in zip(*(torch.unbind(blocks[n], 0) for n in names)):
+        x = block_manual_ep(x, dict(zip(names, leaves)), cfg, pcfg, ep_axis)
+    return x
+
+
+def train_grads_zb_manual_ep(params, batch, cfg: GPTConfig, pcfg, mesh=None):
+    """Loss and gradients (trees) of this rank's stage through the
+    zero-bubble pipelines with the manual-ep stage body (tp = 1, experts
+    over dp > 1): the reference's route, whose head is the plain CE
+    (fused_ce and sp are ignored, with its warning). ``batch`` is this dp
+    rank's rows; ``mesh`` is accepted for the reference's signature."""
+    from dataclasses import replace
+    from .gpt_hybrid import _grid, _pp_loss_and_grads
+    assert pcfg.tp == 1 and pcfg.num_experts > 0 and pcfg.dp > 1
+    if pcfg.num_experts % pcfg.dp:
+        raise ValueError(
+            f"manual-ep stage needs num_experts {pcfg.num_experts} % "
+            f"dp {pcfg.dp} == 0 (experts shard over the dp axis)")
+    if pcfg.fused_ce or pcfg.sp:
+        import warnings
+        warnings.warn(
+            "the manual-ep zero-bubble route supports neither fused_ce "
+            "(the head materializes [tokens, vocab] logits per "
+            "microbatch) nor sp — both are ignored on this route",
+            stacklevel=3)
+    m = pcfg.microbatches
+    b = batch[0].shape[0] * pcfg.dp
+    if b % m or (b // m) % pcfg.dp:
+        raise ValueError(
+            f"manual-ep needs batch {b} divisible by microbatches {m} "
+            f"and each microbatch's {b // m if b % m == 0 else '?'} "
+            f"rows divisible by dp {pcfg.dp} (the batch shards over "
+            "the manual dp axis)")
+    pcfg = replace(pcfg, fused_ce=False, sp=False, collective_matmul=False)
+    return _pp_loss_and_grads(params, batch, cfg, pcfg, _grid(pcfg))

@@ -8,8 +8,9 @@ combine, the experts as one stacked [E, ...] FFN, and the Switch
 Transformer load-balancing aux loss. Each step is one eager op under the
 reference's op name (``topk_gate``, ``expert_ffn``, ``moe_dispatch``,
 ``moe_combine``), so AMP casts and op stats see what the reference's do.
-Expert parallelism (the expert dim sharded over dp, the all-to-alls) waits
-for the distributed slice.
+Expert parallelism (the expert dim sharded over dp, the all-to-alls) is
+gpt_hybrid's ep branch (``gpt_manual_tp.moe_ffn_manual_ep``) and
+``distributed.utils``' ``global_scatter``/``global_gather``.
 """
 from __future__ import annotations
 

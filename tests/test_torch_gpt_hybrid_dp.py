@@ -259,16 +259,28 @@ def test_zero1_ranks_hold_one_nth_of_the_moments(runs, world):
 
 
 @pytest.mark.parametrize("bad,slice_", [
-    (dict(tp=2, pp=2, num_experts=2), "expert-parallel"),
-    (dict(pp=2, num_experts=2), "expert-parallel"),
-    (dict(sp=True, num_experts=2), "expert-parallel"),
-    (dict(collective_matmul=True, num_experts=2), "expert-parallel"),
-    (dict(dp=2, num_experts=2), "expert-parallel"),
+    pytest.param(dict(tp=2, pp=2, num_experts=2), "init_parallel_env",
+                 id="bad0-expert-parallel"),
+    pytest.param(dict(pp=2, num_experts=2), "init_parallel_env",
+                 id="bad1-expert-parallel"),
+    pytest.param(dict(sp=True, num_experts=2), None,
+                 id="bad2-expert-parallel"),
+    pytest.param(dict(collective_matmul=True, num_experts=2), None,
+                 id="bad3-expert-parallel"),
+    pytest.param(dict(dp=2, num_experts=2), "init_parallel_env",
+                 id="bad4-expert-parallel"),
 ])
 def test_validate_refuses_later_slices_naming_them(bad, slice_):
+    """Experts beside dp, pp, tp, sp or collective_matmul, which the
+    expert-parallel slice brought: no longer refused. Without a process
+    group the multi-rank ones ask for one, as every multi-rank config
+    does, and the one-rank ones build."""
     pcfg = TH.ParallelConfig(**bad)
     for build in (TH.build_train_step, TH.build_accum_steps):
-        with pytest.raises(NotImplementedError, match=slice_):
+        if slice_ is None:
+            assert build(GPTConfig(**SIZE), pcfg) is not None
+            continue
+        with pytest.raises(RuntimeError, match=slice_):
             build(GPTConfig(**SIZE), pcfg)
 
 

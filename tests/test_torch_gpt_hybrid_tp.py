@@ -250,28 +250,52 @@ def test_params_from_jax_shards_qkv_per_matrix():
 
 
 @pytest.mark.parametrize("bad,where", [
-    (dict(tp=2, pp=2, pp_schedule="1f1b", num_experts=2), "expert-parallel"),
-    (dict(tp=2, num_experts=2), "expert-parallel"),
-    (dict(sp=True, num_experts=2), "expert-parallel"),
+    pytest.param(dict(tp=2, pp=2, pp_schedule="1f1b", num_experts=2),
+                 "init_parallel_env", id="bad0-expert-parallel"),
+    pytest.param(dict(tp=2, num_experts=2), "init_parallel_env",
+                 id="bad1-expert-parallel"),
+    pytest.param(dict(sp=True, num_experts=2), None,
+                 id="bad2-expert-parallel"),
 ])
 def test_later_slices_are_refused_naming_them(bad, where):
+    """Experts beside tp or sp, which the expert-parallel slice brought:
+    no longer refused; without a process group tp = 2 asks for one and sp
+    at one rank builds (tests/test_torch_gpt_hybrid_ep.py runs them)."""
     pcfg = TH.ParallelConfig(**bad)
     for build in (TH.build_train_step, TH.build_accum_steps):
-        with pytest.raises(NotImplementedError, match=where):
+        if where is None:
+            assert build(GPTConfig(**SIZE), pcfg) is not None
+            continue
+        with pytest.raises(RuntimeError, match=where):
             build(GPTConfig(**SIZE), pcfg)
 
 
 def test_zero_bubble_and_manual_ep_entries_name_their_slices():
-    """The zero-bubble manual-tp entry is ported (it checks its shapes as
-    the reference does); the manual-ep bodies name their slice."""
+    """The zero-bubble manual-tp and manual-ep entries are ported and check
+    their shapes as the reference does; the manual-ep FFN over a group of
+    one is the one-device FFN."""
+    import torch
+    from paddle_tpu_torch.distributed.env import Group
     with pytest.raises(ValueError, match="num_heads 4 % tp 3"):
         TMT.train_grads_zb_manual_tp(
             {}, (np.zeros((2, 6)),) * 2, GPTConfig(**SIZE),
             TH.ParallelConfig(tp=3, pp=2, pp_schedule="zbh1"))
-    for fn in (TMT.train_grads_zb_manual_ep, TMT.block_manual_ep,
-               TMT.moe_ffn_manual_ep, TMT.stack_apply_manual_ep):
-        with pytest.raises(NotImplementedError, match="expert-parallel"):
-            fn()
+    with pytest.raises(ValueError, match="num_experts 3 % dp 2"):
+        TMT.train_grads_zb_manual_ep(
+            {}, (np.zeros((2, 6)),) * 2, GPTConfig(**SIZE),
+            TH.ParallelConfig(dp=2, pp=2, num_experts=3,
+                              pp_schedule="zbh1"))
+    g = torch.Generator().manual_seed(0)
+    lp = {"gate_w": torch.randn(8, 2, generator=g),
+          "fc1_w": torch.randn(2, 8, 16, generator=g),
+          "fc1_b": torch.randn(2, 16, generator=g),
+          "fc2_w": torch.randn(2, 16, 8, generator=g),
+          "fc2_b": torch.randn(2, 8, generator=g)}
+    x = torch.randn(2, 3, 8, generator=g)
+    pcfg = TH.ParallelConfig(num_experts=2, remat=False)
+    torch.testing.assert_close(
+        TMT.moe_ffn_manual_ep(x, lp, 2, Group(0, [0]), pcfg),
+        TH._moe_ffn(x, lp, pcfg))
 
 
 def test_tp_needs_a_process_group_of_dp_x_tp_ranks():

@@ -242,12 +242,11 @@ def test_setup_on_cpu_runs_and_learns():
                                  dict(dp=2, num_experts=4),
                                  dict(tp=2, collective_matmul=True)])
 def test_multi_device_configs_raise(bad):
-    """What a later slice brings (experts beside dp) is refused; dp=2, tp=2
-    and pp=2 (ported) need a process group of two ranks, which this
+    """dp=2, tp=2 and pp=2, and experts beside dp (ported with the
+    expert-parallel slice), need a process group of two ranks, which this
     process has not."""
     _, tp = _pcfgs(**bad)
-    later = "num_experts" in bad
-    with pytest.raises(NotImplementedError if later else RuntimeError):
+    with pytest.raises(RuntimeError, match="init_parallel_env"):
         TH.build_train_step(TCFG, tp)
 
 
