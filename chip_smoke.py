@@ -217,10 +217,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      from the same seed, the next two losses, then 20 steps: the first
      call's trace and compile seconds, ms/step (host clock, median and
      spread), images/s, the data wait, the idle share of one profiled
-     step, the peak memory; (c) GPT-3 Medium's widths (phase 13's MEDIUM,
-     GPT-2's N(0, 0.02) initialisation), bf16, ``AdamW(1e-4,
-     multi_precision=True)``, B4 S2048, the step compiled: 24 launches a
-     step of each library kernel and no other attention kernel (nor in
+     step, the peak memory; (c) GPT-3 Medium's widths (phase 13's MEDIUM
+     at 12 of its 24 layers, for the compile's time; GPT-2's N(0, 0.02)
+     initialisation), bf16, ``AdamW(1e-4, multi_precision=True)``, B4
+     S2048, the step compiled: 12 launches a step of each library kernel
+     and no other attention kernel (nor in
      the profile), ``nn.sdpa{library_flash}`` ticking only while traced,
      no aten SDPA node, the step-0 loss in [10, 11.5] and equal to the
      eager forward's, a falling loss; prints the trace and compile
@@ -229,7 +230,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      model's eval scoring forward with ``InputSpec([None, 2048],
      "int64")``, served by ``create_predictor(Config(path))`` at B1, B2
      and B4 from one program: logits against the eager forward's at the
-     bf16 bound, 24 library forward launches a run; prints the file's
+     bf16 bound, 12 library forward launches a run; prints the file's
      size, the save and load seconds and ms a run; a {"jit": {...}} line.
      ``--phase14`` runs the build and this phase alone, for work on it;
  15. the rest of the eager API, on a fresh empty autotune table: (a) every
@@ -319,6 +320,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
      a temporary directory. {"expert_parallel": {...}} and
      {"auto_parallel": {...}} lines. ``--phase19`` runs the build and this
      phase alone.
+ 20. the host runtime: (a) the native library (built with g++ from
+     paddle_tpu_torch/native/src): collate of phase 12's ResNet-50 batch
+     bit-equal to np.stack, the fused u8 HWC -> f32 CHW transform against
+     its numpy form, TCPStore set/get/add/barrier from two client
+     processes, the tracer's cost a span; (b) the parameter-server CTR loop
+     at the widths of PaddleRec's Criteo DNN (26 slots of one id into
+     1,000,001 ids, dim 9, 13 dense features, MLP 247-512-256-128-32-1,
+     sigmoid CE): 2^14 Zipf(1.1) rows in a MultiSlot file loaded by
+     InMemoryDataset's native parser, two servers started through fleet's
+     PS flow, an Adam sparse table and the MLP in a dense table split over
+     both, B512 for a pass of 32 steps on the card and an evaluation pass;
+     the first 4 steps' losses and pushed gradients against the CPU's plain
+     path on a second pair of tables, the second pass's loss below the
+     first's, sparse_size equal to the distinct ids; examples/s, pull and
+     push ms, the card step's ms, the idle share of a step profiled
+     through the port's Profiler (its GEMM rows checked), the parsers' ms; (c) 2 gloo ranks under launch --elastic_store tcp://
+     with their heartbeats in the store; (d) FleetExecutor: the Layer GPT
+     at MEDIUM's widths (bf16, S2048) in two TaskNode stages (embedding +
+     blocks 0-11; blocks 12-23 + norm + loss) over 4 microbatches of B1
+     through source, compute and sink interceptors, against the unsplit
+     forward, 24 lf_fwd launches a microbatch and no other attention
+     kernel; (e) rpc_sync/rpc_async round trips to a second process (a
+     small call, 4 MB), a callee's card matmul against the local call;
+     (f) the Profiler (CPU and GPU targets, scheduler closed=1 ready=1
+     record=2, two windows) over 8 training steps of (d)'s model:
+     RecordEvent, op:: and kernel rows in the exported trace, 24 launches
+     of each library kernel a recorded step and every kernel launch of the
+     recorded steps with its device row; a Profiler without a scheduler
+     over 2 steps, whose rows short of those counts must each be reported
+     as a launch without a row; summary(), the step's ms with the
+     profiler on and off. A {"host_runtime": {...}} line. ``--phase20`` runs the build and
+     this phase alone.
 The script sets FLAGS_matmul_precision to "highest", which the flag's
 default gives a user: f32 products and convolutions run in f32.
 Phases 2-6 keep the autotuner's table in a fresh temporary
@@ -328,8 +361,8 @@ the configuration a user gets on a new checkout.
 Prints {"serving": {...}}, {"moe_gpt": {...}}, {"bert": {...}},
 {"resnet50": {...}}, {"model_fit": {...}}, {"jit": {...}},
 {"eager_api": {...}}, {"distributed": {...}}, {"tensor_parallel": {...}},
-{"pipeline": {...}}, {"expert_parallel": {...}} and {"auto_parallel": {...}}
-lines, the
+{"pipeline": {...}}, {"expert_parallel": {...}}, {"auto_parallel": {...}}
+and {"host_runtime": {...}} lines, the
 script's seconds, the card line, then one {"kernels": [...]} line (each row with its design),
 then as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -338,9 +371,11 @@ Importing this module runs nothing: ``eager_gpt_loss`` is the tests' too.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2950,6 +2985,9 @@ JIT_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 5e-2)}
 JIT_RESNET_TOL = {"loss": 1e-4, "buffers": 1e-4, "later_loss": 5e-2}
 ADAM_EPS = 1e-8
 JIT_MEDIUM_STEPS = 6
+# 14c-d at 12 of MEDIUM's 24 layers: inductor's compile of the 24-layer step
+# took 190 s of a 1250 s script on a slow host (the widths stay)
+JIT_MEDIUM_LAYERS = 12
 JIT_MEDIUM_LOSS_TOL = 1e-2
 PREDICT_BATCHES = (1, 2, 4)
 # kernel names of the port's attention (every other attention kernel in a
@@ -3345,11 +3383,13 @@ def drive_jit_resnet50(run, paddle, torch):
 
 def drive_jit_medium(run, paddle, fa, mods, torch, eager_ms=None):
     """Phase 14c: GPT-3 Medium's widths as the Layer GPT (phase 13's
-    MEDIUM), bf16, AdamW(1e-4, multi_precision), B4 S2048, its train step
-    compiled with to_static(objs=[model, opt]) and inductor."""
+    MEDIUM at JIT_MEDIUM_LAYERS layers), bf16, AdamW(1e-4,
+    multi_precision), B4 S2048, its train step compiled with
+    to_static(objs=[model, opt]) and inductor."""
+    from paddle_tpu_torch.cost_model.cost_model import gpt_flops_per_token
     from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
-    cfg = GPTConfig(**MEDIUM)
-    b, s, L = MEDIUM_BATCH, MEDIUM_SEQ, MEDIUM["num_layers"]
+    cfg = GPTConfig(**dict(MEDIUM, num_layers=JIT_MEDIUM_LAYERS))
+    b, s, L = MEDIUM_BATCH, MEDIUM_SEQ, cfg.num_layers
     paddle.set_device("gpu:0")
     paddle.seed(0)
     model = GPTForCausalLM(cfg)
@@ -3420,17 +3460,18 @@ def drive_jit_medium(run, paddle, fa, mods, torch, eager_ms=None):
     timed = times[1:]
     ms = float(np.median(timed))
     tok_s = b * s / (ms / 1e3)
-    mfu = tok_s * MEDIUM_FLOPS_PER_TOKEN / PEAK_BF16_FLOPS
+    mfu = tok_s * gpt_flops_per_token(cfg, s) / PEAK_BF16_FLOPS
     g = next(iter(step_fn._cache.values()))["specs"][0].jitted
     graph = next(iter(g._graphs.values()))
-    print(f"jit medium (GPT-3 Medium widths, {n_params} parameters, bf16 + "
+    print(f"jit medium (GPT-3 Medium widths at {L} of "
+          f"{MEDIUM['num_layers']} layers, {n_params} parameters, bf16 + "
           f"AdamW multi_precision, B{b} S{s}, inductor): first call (trace "
           f"+ compile + step) {compile_s:.1f} s (trace {graph.trace_s:.1f} "
           f"s, {len(graph.gm.graph.nodes)} nodes; compile "
           f"{graph.compile_s:.1f} s); {ms:.2f} ms/step (host "
           f"clock with float(loss), median of steps 2-{JIT_MEDIUM_STEPS}, "
           f"spread {max(timed) - min(timed):.2f}), {tok_s:.1f} tokens/s, "
-          f"MFU {mfu:.4f}; eager Model.fit (phase 13b) "
+          f"MFU {mfu:.4f}; eager Model.fit (phase 13b, all layers) "
           f"{eager_ms if eager_ms is None else round(eager_ms, 2)} ms/step; "
           f"profiled step {wall_ms:.2f} ms wall, {busy:.2f} ms kernel time, "
           f"idle share {idle:.3f}; peak memory {peak_gb:.2f} GB", flush=True)
@@ -3444,16 +3485,17 @@ def drive_jit_medium(run, paddle, fa, mods, torch, eager_ms=None):
         "ms_per_step": ms, "ms_per_step_spread": max(timed) - min(timed),
         "tokens_per_s": tok_s, "mfu": mfu, "eager_fit_ms_per_step": eager_ms,
         "profiled_ms": wall_ms, "kernel_ms": busy, "idle_share": idle,
-        "peak_memory_gb": peak_gb, "parameters": n_params,
+        "peak_memory_gb": peak_gb, "parameters": n_params, "layers": L,
         "launches_per_step": per_step[-1]}
 
 
 def drive_jit_predictor(run, paddle, fa, mods, torch, model, cfg, root):
-    """Phase 14d: jit.save of GPT-3 Medium's eval scoring forward with a
-    dynamic batch, served through create_predictor at B1, B2 and B4."""
+    """Phase 14d: jit.save of 14c's GPT-3 Medium-width eval scoring forward
+    with a dynamic batch, served through create_predictor at B1, B2 and
+    B4."""
     from paddle_tpu_torch.inference import Config, create_predictor
     from paddle_tpu_torch.jit import InputSpec
-    s, L = MEDIUM_SEQ, MEDIUM["num_layers"]
+    s, L = MEDIUM_SEQ, cfg.num_layers
     model.eval()
     path = os.path.join(root, "gpt_medium")
     torch.cuda.synchronize()
@@ -6157,6 +6199,943 @@ def drive_phase19(run, paddle, TH, GPTConfig, GPTForCausalLM, mods, fa,
     return ep, ap
 
 
+# ---------------------------------------------------------------- phase 20
+# 20b's configuration: the layer widths of PaddleRec's Criteo DNN
+# (models/rank/dnn): 26 sparse slots of one id hashed into 1,000,001 ids,
+# embedding dim 9, 13 dense features, an MLP 247 -> 512 -> 256 -> 128 -> 32
+# -> 1 with a sigmoid cross-entropy loss; 2^14 rows of ids drawn from a Zipf
+# law of exponent 1.1 (2^15 cut to half, to fit the phase's time), B512,
+# one pass of 32 steps, then an evaluation pass
+CTR_IDS, CTR_DIM, CTR_SLOTS, CTR_DENSE = 1000001, 9, 26, 13
+CTR_MLP = (CTR_SLOTS * CTR_DIM + CTR_DENSE, 512, 256, 128, 32, 1)
+CTR_ROWS, CTR_BATCH, CTR_ZIPF = 1 << 14, 512, 1.1
+CTR_PARSE_ROWS = 4096        # the head the Python parser reads
+CTR_GEMMS = 3 * (len(CTR_MLP) - 1)   # a Linear's forward and 2 gradients
+CTR_LR = 1e-3                # PaddleRec dnn's Adam learning rate
+CTR_CHECK_STEPS = 4          # steps held against the CPU's plain path
+CTR_TOL = 1e-5               # f32, FLAGS_matmul_precision "highest"
+CTR_SERVERS = 2
+# table ids: the card's pair, then the CPU check's pair (same seeds)
+CTR_SPARSE, CTR_DENSE_T, CPU_SPARSE, CPU_DENSE_T = 0, 1, 2, 3
+# 20a: phase 12's ResNet-50 batch (B256, 3 x 32 x 32 f32), a batch of
+# ImageNet-sized samples (B64, 3 x 224 x 224 f32: io's collation takes the
+# native collate there, np.stack at phase 12's), the TCPStore clients and
+# the ops each client times
+COLLATE_BATCH, COLLATE_SHAPE = 256, (3, 32, 32)
+COLLATE_BIG_BATCH, COLLATE_BIG_SHAPE = 64, (3, 224, 224)
+STORE_CLIENTS, STORE_OPS, STORE_BARRIERS = 2, 2000, 200
+TRACER_SPANS = 100000
+# 20d: the Layer GPT at MEDIUM's widths in two TaskNode stages
+FE_SPLIT, FE_MICRO = 12, 4
+# 20e: round trips timed; the large call's bytes
+RPC_CALLS, RPC_BIG_BYTES = 200, 4 << 20
+# 20f: the profiler's window over 4 steps (closed, ready, 2 recorded),
+# repeated; then a profiler without a scheduler over 2 steps
+PROF_STEPS, PROF_WINDOWS, PROF_PLAIN_STEPS = 4, 2, 2
+
+
+def _ms_median(xs):
+    return float(np.median(xs)) * 1e3
+
+
+def _standalone_native():
+    """paddle_tpu_torch/native loaded from its file alone (no torch): the
+    TCPStore clients of 20a start in a fraction of a second."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "paddle_tpu_torch", "native", "__init__.py")
+    spec = importlib.util.spec_from_file_location("paddle_native_alone",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase20a_client(port, rank, out):
+    """A TCPStore client of 20a: times set, get and add over STORE_OPS
+    calls each and STORE_BARRIERS barriers of the two clients."""
+    native = _standalone_native()
+    st = native.TCPStore("127.0.0.1", int(port), world_size=STORE_CLIENTS)
+    val = b"x" * 64
+    st.barrier("start")
+    res = {}
+    for name, fn in (("set", lambda i: st.set(f"k{rank}/{i}", val)),
+                     ("get", lambda i: st.get(f"k{rank}/{i}")),
+                     ("add", lambda i: st.add(f"c{rank}", 1))):
+        t0 = time.perf_counter()
+        for i in range(STORE_OPS):
+            fn(i)
+        res[name] = (time.perf_counter() - t0) / STORE_OPS * 1e6
+    t0 = time.perf_counter()
+    for _ in range(STORE_BARRIERS):
+        st.barrier("loop")
+    res["barrier"] = (time.perf_counter() - t0) / STORE_BARRIERS * 1e6
+    res["count"] = int(st.get(f"c{rank}"))
+    st.close()
+    with open(out, "w") as f:
+        json.dump(res, f)
+
+
+def drive_native(run, paddle, torch):
+    """20a: the native collate on phase 12's ResNet-50 batch against
+    np.stack, the fused u8 HWC -> f32 CHW transform against its numpy form,
+    TCPStore set/get/add/barrier from two client processes, and the
+    tracer's cost a span."""
+    from paddle_tpu_torch import io as pio
+    from paddle_tpu_torch import native
+    from paddle_tpu_torch import profiler
+    out = {}
+    t0 = time.perf_counter()
+    native.build()
+    out["build_s"] = time.perf_counter() - t0
+    rs = np.random.RandomState(20)
+    batch = [rs.randn(*COLLATE_SHAPE).astype(np.float32)
+             for _ in range(COLLATE_BATCH)]
+
+    def timed(fn, n=5):
+        ts = []
+        for _ in range(n):
+            t = time.perf_counter()
+            r = fn()
+            ts.append(time.perf_counter() - t)
+        return r, _ms_median(ts)
+    got, out["collate_ms"] = timed(lambda: native.collate(batch))
+    want, out["np_stack_ms"] = timed(lambda: np.stack(batch))
+    run.check(got.dtype == want.dtype and np.array_equal(got, want),
+              f"20a: native.collate of {COLLATE_BATCH} x {COLLATE_SHAPE} f32 "
+              f"bit-equal to np.stack ({out['collate_ms']:.3f} ms against "
+              f"{out['np_stack_ms']:.3f})")
+    big = [rs.randn(*COLLATE_BIG_SHAPE).astype(np.float32)
+           for _ in range(COLLATE_BIG_BATCH)]
+    got, out["collate_big_ms"] = timed(lambda: native.collate(big))
+    want, out["np_stack_big_ms"] = timed(lambda: np.stack(big))
+    gate = pio.NATIVE_COLLATE_MIN_BYTES
+    run.check(np.array_equal(got, want) and batch[0].nbytes < gate
+              <= big[0].nbytes,
+              f"20a: native.collate of {COLLATE_BIG_BATCH} x "
+              f"{COLLATE_BIG_SHAPE} f32 bit-equal to np.stack "
+              f"({out['collate_big_ms']:.3f} ms against "
+              f"{out['np_stack_big_ms']:.3f}); io's gate ({gate} B a "
+              f"sample) sends these to the native collate, phase 12's "
+              f"({batch[0].nbytes} B) to np.stack")
+    del big, got, want
+    imgs = [rs.randint(0, 256, COLLATE_SHAPE[1:] + COLLATE_SHAPE[:1],
+                       dtype=np.uint8) for _ in range(COLLATE_BATCH)]
+    mean, std = (0.4914, 0.4822, 0.4465), (0.2470, 0.2435, 0.2616)
+    got, out["u8_chw_ms"] = timed(
+        lambda: native.u8hwc_to_f32chw_batch(imgs, mean, std))
+    want, out["u8_chw_numpy_ms"] = timed(
+        lambda: native.u8hwc_to_f32chw_batch_py(imgs, mean, std))
+    err = float(np.abs(got - want).max())
+    run.check(got.shape == (COLLATE_BATCH,) + COLLATE_SHAPE and err <= 1e-5,
+              f"20a: u8 HWC -> f32 CHW of {COLLATE_BATCH} images within 1e-5 "
+              f"of its numpy form (max err {err:.2e}; {out['u8_chw_ms']:.3f} "
+              f"ms against {out['u8_chw_numpy_ms']:.3f})")
+    port = _free_port()
+    master = native.TCPStore("127.0.0.1", port, is_master=True)
+    with tempfile.TemporaryDirectory() as d:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase20a-client",
+             str(port), str(r), os.path.join(d, f"{r}.json")])
+            for r in range(STORE_CLIENTS)]
+        codes = [p.wait(timeout=120) for p in procs]
+        res = [json.load(open(os.path.join(d, f"{r}.json")))
+               if c == 0 else None for r, c in enumerate(codes)]
+    master.close()
+    ok = all(r is not None and r["count"] == STORE_OPS for r in res)
+    run.check(ok, f"20a: {STORE_CLIENTS} TCPStore clients ran {STORE_OPS} "
+                  f"set/get/add and {STORE_BARRIERS} barriers each (exit "
+                  f"codes {codes})")
+    if ok:
+        out["store_us"] = {k: float(np.mean([r[k] for r in res]))
+                           for k in ("set", "get", "add", "barrier")}
+    prof = profiler.Profiler(targets=[profiler.ProfilerTarget.CPU])
+    prof.start()
+    t0 = time.perf_counter()
+    for _ in range(TRACER_SPANS):
+        with profiler.RecordEvent("span"):
+            pass
+    on = (time.perf_counter() - t0) / TRACER_SPANS * 1e6
+    prof.stop()
+    spans = sum(1 for s in prof._all_spans() if s.name == "span")
+    t0 = time.perf_counter()
+    for _ in range(TRACER_SPANS):
+        with profiler.RecordEvent("span"):
+            pass
+    off = (time.perf_counter() - t0) / TRACER_SPANS * 1e6
+    run.check(spans == TRACER_SPANS,
+              f"20a: the native tracer kept {spans} of {TRACER_SPANS} spans")
+    out["tracer_us_per_span"] = {"recording": on, "not_recording": off}
+    print(f"20a: collate {out['collate_ms']:.3f} ms (np.stack "
+          f"{out['np_stack_ms']:.3f}), at {COLLATE_BIG_SHAPE} "
+          f"{out['collate_big_ms']:.3f} ms (np.stack "
+          f"{out['np_stack_big_ms']:.3f}), u8->f32 CHW {out['u8_chw_ms']:.3f} ms "
+          f"(numpy {out['u8_chw_numpy_ms']:.3f}), TCPStore us "
+          f"{out.get('store_us')}, RecordEvent {on:.3f} us a span "
+          f"recording, {off:.3f} not", flush=True)
+    return out
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ctr_data(path, seed):
+    """A MultiSlot file of CTR_ROWS rows: 26 slots of one id (Zipf(1.1)
+    draws folded into the id space, each slot at its own offset), 13 dense
+    features (multiples of 1/1024 in [0, 8), exact in f32 and in 12
+    digits) and a label from
+    a logistic model of the dense features and the first slot's id. Returns
+    the distinct ids."""
+    rs = np.random.RandomState(seed)
+    z = rs.zipf(CTR_ZIPF, (CTR_ROWS, CTR_SLOTS)) - 1
+    ids = (z % CTR_IDS + np.arange(CTR_SLOTS) * (CTR_IDS // CTR_SLOTS)) \
+        % CTR_IDS
+    dense = rs.randint(0, 8192, (CTR_ROWS, CTR_DENSE)) / 1024.0
+    logit = (dense - 4.0) @ rs.randn(CTR_DENSE) / 4.0 + \
+        np.where(ids[:, 0] % 2 == 0, 1.0, -1.0)
+    label = (rs.rand(CTR_ROWS) < 1.0 / (1.0 + np.exp(-logit))).astype(
+        np.int64)
+    row = " ".join(["1 %d"] * CTR_SLOTS + [str(CTR_DENSE)]
+                   + ["%.12g"] * CTR_DENSE + ["1 %d"])
+    table = np.concatenate([ids, dense, label[:, None]], 1).tolist()
+    with open(path, "w") as f:
+        f.write("\n".join(row % tuple(r) for r in table) + "\n")
+    return np.unique(ids).size
+
+
+def phase20b_server():
+    """A parameter server of 20b, started as the reference's fleet PS flow
+    starts one: the role from TRAINING_ROLE=PSERVER and the PADDLE_*
+    variables, fleet.init(role, is_collective=False), init_server,
+    run_server (until the trainer's stop_worker)."""
+    from paddle_tpu_torch._testing import force_cpu
+    force_cpu()
+    import paddle_tpu_torch.distributed.fleet as fleet
+    role = fleet.PaddleCloudRoleMaker()
+    assert role.is_server()
+    fleet.init(role, is_collective=False)
+    fleet.init_server()
+    fleet.run_server()
+
+
+def start_ps_servers():
+    """The two server processes; returns (their endpoints, the Popens)."""
+    ports = [_free_port() for _ in range(CTR_SERVERS)]
+    eps = [f"127.0.0.1:{p}" for p in ports]
+    procs = []
+    for p in ports:
+        env = dict(os.environ, TRAINING_ROLE="PSERVER", PADDLE_PORT=str(p),
+                   PADDLE_PSERVERS_IP_PORT_LIST=",".join(eps),
+                   PADDLE_TRAINERS_NUM="1", CUDA_VISIBLE_DEVICES="")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase20b-server"],
+            env=env))
+    return eps, procs
+
+
+def _wait_listening(eps, procs, timeout=120):
+    import socket
+    deadline = time.time() + timeout
+    for ep in eps:
+        host, port = ep.rsplit(":", 1)
+        while True:
+            try:
+                socket.create_connection((host, int(port)), timeout=1).close()
+                break
+            except OSError:
+                if time.time() > deadline or any(p.poll() is not None
+                                                  for p in procs):
+                    raise RuntimeError(f"PS server {ep} did not start")
+                time.sleep(0.1)
+
+
+def _ctr_mlp(paddle):
+    from paddle_tpu_torch import nn
+    layers = []
+    for i, (a, b) in enumerate(zip(CTR_MLP[:-1], CTR_MLP[1:])):
+        layers.append(nn.Linear(a, b))
+        if i < len(CTR_MLP) - 2:
+            layers.append(nn.ReLU())
+    return nn.Sequential(*layers)
+
+
+class _CtrTrainer:
+    """The trainer of 20b: a step pulls the MLP's parameters (a dense table
+    over both servers) and the batch's embedding rows (an Adam sparse
+    table), runs forward and backward on the current place, and pushes
+    both gradients back."""
+
+    def __init__(self, paddle, torch, client, sparse_id, dense_id):
+        self.paddle, self.torch = paddle, torch
+        self.client, self.sparse_id, self.dense_id = client, sparse_id, \
+            dense_id
+        paddle.seed(20)
+        self.mlp = _ctr_mlp(paddle)
+        self.params = list(self.mlp.parameters())
+        self.sizes = [int(np.prod(p.shape)) for p in self.params]
+        self.n = sum(self.sizes)
+        self.times = {k: [] for k in ("pull_sparse", "pull_dense",
+                                      "card_step", "push_sparse",
+                                      "push_dense")}
+        self.cuda = paddle.get_device().startswith("gpu")
+
+    def init_flat(self):
+        return np.concatenate([p.numpy().ravel() for p in self.params])
+
+    def step(self, batch, train=True):
+        paddle, torch, c = self.paddle, self.torch, self.client
+        F = paddle.nn.functional
+        keys = np.concatenate([t.numpy() for t in batch[:CTR_SLOTS]], 1)
+        b = keys.shape[0]
+        t0 = time.perf_counter()
+        rows = c.pull_sparse(self.sparse_id, keys.ravel())
+        t1 = time.perf_counter()
+        flat = c.pull_dense(self.dense_id, self.n)
+        t2 = time.perf_counter()
+        off = 0
+        for p, n in zip(self.params, self.sizes):
+            p.set_value(flat[off:off + n].reshape(p.shape))
+            off += n
+        if self.cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        emb = paddle.to_tensor(rows.reshape(b, CTR_SLOTS * CTR_DIM),
+                               stop_gradient=not train)
+        x = paddle.concat([emb, batch[CTR_SLOTS].astype("float32")], 1)
+        logit = self.mlp(x).squeeze(-1)
+        loss = F.binary_cross_entropy_with_logits(
+            logit, batch[CTR_SLOTS + 1].squeeze(-1).astype("float32"))
+        if not train:
+            return float(loss), None
+        loss.backward()
+        g_emb = emb.grad.numpy().reshape(-1, CTR_DIM)
+        g_dense = np.concatenate([p.grad.numpy().ravel()
+                                  for p in self.params])
+        if self.cuda:
+            ev[1].record()
+            torch.cuda.synchronize()
+            self.times["card_step"].append(ev[0].elapsed_time(ev[1]) / 1e3)
+        for p in self.params:
+            p.clear_gradient()
+        t3 = time.perf_counter()
+        c.push_sparse(self.sparse_id, keys.ravel(), g_emb)
+        t4 = time.perf_counter()
+        c.push_dense(self.dense_id, g_dense)
+        t5 = time.perf_counter()
+        for k, dt in (("pull_sparse", t1 - t0), ("pull_dense", t2 - t1),
+                      ("push_sparse", t4 - t3), ("push_dense", t5 - t4)):
+            self.times[k].append(dt)
+        return float(loss), (g_emb, g_dense)
+
+
+def _profile_ctr_step(torch, card, batch):
+    """One training step of 20b under the port's Profiler, after a READY
+    step that starts its device tracer: (the step's host ms, its kernel
+    rows)."""
+    from paddle_tpu_torch import profiler
+    prof = profiler.Profiler(
+        targets=[profiler.ProfilerTarget.CPU, profiler.ProfilerTarget.GPU],
+        scheduler=profiler.make_scheduler(ready=1, record=1))
+    prof.start()
+    card.step(batch)
+    prof.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card.step(batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.stop()
+    return wall_ms, [k for k in prof._all_spans() if k.pid == 1], \
+        prof.device_launches_unrecorded
+
+
+def _busy_ms(spans):
+    """The union of the spans' intervals, in ms."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((k.start_us, k.end_us) for k in spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def _rel(a, b):
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max()
+                 / max(np.abs(np.asarray(b)).max(), 1e-30))
+
+
+def drive_ps_ctr(run, paddle, torch, eps, procs):
+    """20b: the parameter-server CTR loop at the Criteo DNN's widths: the
+    data through InMemoryDataset's native parser, the two servers, then
+    the CPU check (4 steps on the CPU through the plain path against a
+    second pair of tables), one training pass of 32 steps on the card and
+    an evaluation pass."""
+    import paddle_tpu_torch.distributed as dist
+    import paddle_tpu_torch.distributed.fleet as fleet
+    from paddle_tpu_torch import native
+    out = {"servers": CTR_SERVERS, "rows": CTR_ROWS, "batch": CTR_BATCH,
+           "mlp": list(CTR_MLP), "ids": CTR_IDS, "dim": CTR_DIM}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "part-0")
+        t0 = time.perf_counter()
+        distinct = ctr_data(path, 20)
+        out["data_gen_s"] = time.perf_counter() - t0
+
+        class Var:
+            def __init__(self, dtype):
+                self.dtype = dtype
+        use = [Var("int64")] * CTR_SLOTS + [Var("float32"), Var("int64")]
+        ds = dist.InMemoryDataset()
+        ds.set_filelist([path])
+        ds.set_use_var(use)
+        t0 = time.perf_counter()
+        ds.load_into_memory()
+        out["native_parse_ms"] = (time.perf_counter() - t0) * 1e3
+        out["file_mb"] = os.path.getsize(path) / 1e6
+        # the Python parser against the native one on the file's head
+        head = os.path.join(d, "head")
+        with open(path) as src, open(head, "w") as dst:
+            dst.writelines(itertools.islice(src, CTR_PARSE_ROWS))
+        is_float = [False] * CTR_SLOTS + [True, False]
+        t0 = time.perf_counter()
+        fast = native.parse_multislot_file(head, is_float)
+        out["native_parse_head_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        plain = native.parse_multislot_file_py(head, is_float)
+        out["python_parse_head_ms"] = (time.perf_counter() - t0) * 1e3
+    same = all(np.array_equal(v, pv) and np.array_equal(o, po)
+               for (v, o), (pv, po) in zip(fast, plain))
+    # the whole file's first rows are the head's
+    same = same and all(
+        np.array_equal(o[:CTR_PARSE_ROWS + 1], po)
+        and np.array_equal(v[:po[-1]], pv)
+        for (v, o), (pv, po) in zip(ds.slot_arrays(), plain))
+    run.check(same and ds.get_memory_data_size() == CTR_ROWS,
+              f"20b: InMemoryDataset's native parse of {CTR_ROWS} rows "
+              f"({out['file_mb']:.1f} MB, {out['native_parse_ms']:.1f} ms) "
+              f"begins with the Python parser's {CTR_PARSE_ROWS} rows of "
+              f"the file's head, which the native parser reads equal "
+              f"({out['native_parse_head_ms']:.1f} ms against "
+              f"{out['python_parse_head_ms']:.1f})")
+    _wait_listening(eps, procs)
+    role = fleet.UserDefinedRoleMaker(role=fleet.Role.WORKER, worker_num=1,
+                                      server_endpoints=eps)
+    fleet.init(role, is_collective=False)
+    fleet.init_worker()
+    client = fleet.ps_client
+    try:
+        for sid, did in ((CTR_SPARSE, CTR_DENSE_T),
+                         (CPU_SPARSE, CPU_DENSE_T)):
+            client.create_sparse_table(sid, dim=CTR_DIM, optimizer="adam",
+                                       lr=CTR_LR, seed=20)
+        paddle.set_device("cpu")
+        cpu = _CtrTrainer(paddle, torch, client, CPU_SPARSE, CPU_DENSE_T)
+        init = cpu.init_flat()
+        for did in (CTR_DENSE_T, CPU_DENSE_T):
+            client.create_dense_table(did, cpu.n, optimizer="adam",
+                                      lr=CTR_LR)
+            client.set_dense(did, init)
+        want = [cpu.step(b) for _, b in zip(
+            range(CTR_CHECK_STEPS), ds.batch_generator(CTR_BATCH))]
+        paddle.set_device("gpu:0")
+        card = _CtrTrainer(paddle, torch, client, CTR_SPARSE, CTR_DENSE_T)
+        losses, got = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, b in enumerate(ds.batch_generator(CTR_BATCH)):
+            loss, grads = card.step(b)
+            losses.append(loss)
+            if i < CTR_CHECK_STEPS:
+                got.append((loss, grads))
+        pass_s = time.perf_counter() - t0
+        eval_losses = [card.step(b, train=False)[0]
+                       for b in ds.batch_generator(CTR_BATCH)]
+        wall_ms, kernels, unrecorded = _profile_ctr_step(
+            torch, card, next(ds.batch_generator(CTR_BATCH)))
+        size = client.sparse_size(CTR_SPARSE)
+    finally:
+        fleet.stop_worker()
+    codes = [p.wait(timeout=60) for p in procs]
+    worst = max(max(_rel(g[0], w[0]), _rel(g[1][0], w[1][0]),
+                    _rel(g[1][1], w[1][1])) for g, w in zip(got, want))
+    run.check(len(got) == CTR_CHECK_STEPS and worst <= CTR_TOL,
+              f"20b: the first {CTR_CHECK_STEPS} steps' losses and pushed "
+              f"gradients (sparse and dense) on the card equal the CPU's "
+              f"plain path within {CTR_TOL} relative (worst {worst:.3e}; "
+              f"card {[round(g[0], 6) for g in got]}, CPU "
+              f"{[round(w[0], 6) for w in want]})")
+    first, second = float(np.mean(losses)), float(np.mean(eval_losses))
+    run.check(len(losses) == CTR_ROWS // CTR_BATCH and second < first
+              and np.isfinite(losses).all(),
+              f"20b: {len(losses)} steps; the evaluation pass's mean loss "
+              f"{second:.5f} below the training pass's {first:.5f}")
+    run.check(size == distinct and codes == [0] * CTR_SERVERS,
+              f"20b: sparse_size {size} equals the {distinct} distinct ids "
+              f"of the data; the servers stopped with {codes}")
+    gemms = [k for k in kernels if re.search("gemm|gemv", k.name, re.I)]
+    kernel_ms = _busy_ms(kernels)
+    run.check(len(gemms) >= CTR_GEMMS and not unrecorded,
+              f"20b: the profiled step's trace holds {len(kernels)} kernel "
+              f"rows, {len(gemms)} of them GEMM or GEMV, at least the "
+              f"MLP's {CTR_GEMMS} (forward, input and weight gradients); "
+              f"its launches without a row: {unrecorded}")
+    for k, ts in card.times.items():
+        out[f"{k}_ms"] = _ms_median(ts[1:])
+    step_ms = pass_s / len(losses) * 1e3
+    out.update({
+        "steps": len(losses), "loss_train_pass": first,
+        "loss_eval_pass": second, "cpu_check_rel_err": worst,
+        "examples_per_s": CTR_ROWS / pass_s, "pass_s": pass_s,
+        "sparse_size": size, "distinct_ids": distinct,
+        "idle_share": 1.0 - kernel_ms / wall_ms,
+        "idle_share_events_bound": 1.0 - out["card_step_ms"] / step_ms,
+        "profiled_step_ms": wall_ms, "profiled_kernel_ms": kernel_ms,
+        "profiled_kernel_rows": len(kernels), "profiled_gemm_rows":
+        len(gemms), "profiled_launches_without_a_row": len(unrecorded),
+        "phase_s": time.perf_counter() - t_phase})
+    print(f"20b: {out['examples_per_s']:.1f} examples/s ({len(losses)} steps "
+          f"of B{CTR_BATCH} in {pass_s:.2f} s); medians: pull sparse "
+          f"{out['pull_sparse_ms']:.2f} ms, pull dense "
+          f"{out['pull_dense_ms']:.2f}, card step {out['card_step_ms']:.3f} "
+          f"(CUDA events), push sparse {out['push_sparse_ms']:.2f}, push "
+          f"dense {out['push_dense_ms']:.2f}; idle share of a profiled step "
+          f"{out['idle_share']:.4f} ({kernel_ms:.3f} ms of kernels busy, "
+          f"{len(kernels)} rows, in {wall_ms:.2f}), at least "
+          f"{out['idle_share_events_bound']:.4f} from the CUDA events' card "
+          f"step over the pass's mean step of {step_ms:.2f} ms; parse "
+          f"native {out['native_parse_ms']:.1f} ms (its {CTR_PARSE_ROWS}-row "
+          f"head {out['native_parse_head_ms']:.1f}"
+          f" ms, Python {out['python_parse_head_ms']:.1f})", flush=True)
+    return out
+
+
+def phase20c_worker(port, out):
+    """A rank of 20c's gloo job: joins the job, heartbeats its membership
+    into the launcher's TCP elastic store (ElasticManager), all-reduces,
+    waits to see both members, and rank 0 writes the store's keys."""
+    from paddle_tpu_torch._testing import force_cpu
+    force_cpu()
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed.elastic import (ElasticManager,
+                                                      TCPKVStore)
+    dist.init_parallel_env()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    kv = TCPKVStore("127.0.0.1", int(port))
+    m = ElasticManager(kv, "smoke", rank, heartbeat_s=0.2, ttl_s=10).start()
+    t = torch.tensor([rank + 1.0])
+    dist.all_reduce(t)
+    kv.put(f"smoke/sum/{rank}", str(float(t[0])))
+    deadline = time.time() + 60
+    while m.world() != list(range(world)) and time.time() < deadline:
+        time.sleep(0.05)
+    dist.barrier()
+    if rank == 0:
+        with open(out, "w") as f:
+            json.dump(kv.get_prefix(""), f)
+    dist.barrier()
+    m.stop()
+    dist.destroy_process_group()
+
+
+def start_elastic_job(d):
+    """20c's job: 2 gloo ranks under the launcher with a tcp:// elastic
+    store; returns (the store's port, the Popen)."""
+    port = _free_port()
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=os.path.dirname(
+        os.path.abspath(__file__)))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "2", "--np_range", "2:2", "--elastic_store",
+         f"tcp://127.0.0.1:{port}", os.path.abspath(__file__),
+         "--phase20c-worker", str(port), os.path.join(d, "keys.json")],
+        env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return port, proc
+
+
+def finish_elastic_job(run, d, port, proc):
+    try:
+        _, err = proc.communicate(timeout=180)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        _, err = proc.communicate()
+    path = os.path.join(d, "keys.json")
+    keys = json.load(open(path)) if os.path.exists(path) else {}
+    sums = {k: v for k, v in keys.items() if k.startswith("smoke/sum/")}
+    nodes = sorted(k for k in keys if k.startswith("elastic/smoke/nodes/"))
+    run.check(proc.returncode == 0 and sorted(sums.values()) == ["3.0"] * 2
+              and nodes == ["elastic/smoke/nodes/0", "elastic/smoke/nodes/1"],
+              f"20c: 2 gloo ranks under launch --elastic_store "
+              f"tcp://127.0.0.1:{port} ran to completion (exit "
+              f"{proc.returncode}); both heartbeats and all-reduced sums "
+              f"3.0 in the store: {sorted(keys)}"
+              + ("" if proc.returncode == 0 else f"; {err[-600:]}"))
+    print(f"20c: the elastic store's keys: {sorted(keys)}", flush=True)
+    return {"store_port": port, "keys": sorted(keys), "sums": sums}
+
+
+def _gpt_stages(paddle, model, split):
+    """Two programs over the Layer GPT: (ids) -> the hidden state after
+    block ``split - 1`` (the embedding and blocks 0..split-1); (hidden,
+    labels) -> the LM loss (the other blocks, the final norm, the head)."""
+    gpt = model.gpt
+
+    def stage0(ids):
+        pos = paddle.arange(ids.shape[1], dtype="int64").unsqueeze(0)
+        x = gpt.drop(gpt.wte(ids) + gpt.wpe(pos))
+        for blk in gpt.blocks[:split]:
+            x = blk(x)
+        return x
+
+    def stage1(x, labels):
+        for blk in gpt.blocks[split:]:
+            x = blk(x)
+        x = gpt.ln_f(x)
+        logits = paddle.matmul(x, gpt.wte.weight, transpose_y=True) \
+            if gpt.cfg.tie_embeddings else gpt.lm_head(x)
+        return model.loss_fn(logits[:, :-1].reshape([-1, logits.shape[-1]]),
+                             labels[:, 1:].reshape([-1]))
+    return stage0, stage1
+
+
+def drive_fleet_executor(run, paddle, GPTConfig, GPTForCausalLM, mods, fa,
+                         torch):
+    """20d: distributed inference of the Layer GPT at MEDIUM's widths
+    (bf16, S2048) through FleetExecutor: stage 0 the embedding and blocks
+    0-11 (a Source interceptor), stage 1 blocks 12-23, the final norm and
+    the LM loss (Compute), a Sink that collects the losses; 4 microbatches
+    of B1, against the unsplit forward. Returns (result, the model)."""
+    from paddle_tpu_torch.distributed import fleet_executor as fe
+    paddle.set_device("gpu:0")
+    cfg = GPTConfig(**MEDIUM)
+    paddle.seed(0)
+    model = GPTForCausalLM(cfg)
+    _gpt_normal_init(model, 20, torch)
+    model.bfloat16()
+    model.eval()
+    L = cfg.num_layers
+    ids = np.random.RandomState(20).randint(0, cfg.vocab_size,
+                                            (FE_MICRO, 1, MEDIUM_SEQ))
+    micro = [paddle.to_tensor(m) for m in ids]
+    stage0, stage1 = _gpt_stages(paddle, model, FE_SPLIT)
+
+    def no_grad(fn):
+        # grad mode is a thread's own: the interceptors' threads set theirs
+        def run_it(*args):
+            with paddle.no_grad():
+                return fn(*args)
+        return run_it
+    stage0, stage1 = no_grad(stage0), no_grad(stage1)
+
+    def launches():
+        return _launches(mods)
+
+    def zero():
+        for mod in mods:
+            mod.reset_launch_counts()
+
+    def split_run():
+        losses = []
+        nodes = [
+            fe.TaskNode(task_id=0, max_run_times=FE_MICRO,
+                        node_type="Source",
+                        program=lambda s, i: (stage0(micro[s]), micro[s])),
+            fe.TaskNode(task_id=1, max_run_times=FE_MICRO,
+                        program=lambda s, i: stage1(*i[0])),
+            fe.TaskNode(task_id=2, max_run_times=FE_MICRO, node_type="Sink",
+                        program=lambda s, i: losses.append(float(i[1]))),
+        ]
+        for up, down in ((0, 1), (1, 2)):
+            nodes[up].add_downstream_task(down, 2)
+            nodes[down].add_upstream_task(up, 2)
+        ex = fe.FleetExecutor()
+        ex.init(0, nodes)
+        try:
+            ex.run(timeout=300)
+        finally:
+            ex.stop()
+        return losses
+
+    with paddle.no_grad():
+        [float(model(m, m)) for m in micro[:1]]          # warm-up
+        split_run()
+        torch.cuda.synchronize()
+        zero()
+        t0 = time.perf_counter()
+        whole = [float(model(m, m)) for m in micro]
+        whole_ms = (time.perf_counter() - t0) * 1e3
+        whole_launches = launches()
+        zero()
+        t0 = time.perf_counter()
+        got = split_run()
+        torch.cuda.synchronize()
+        split_ms = (time.perf_counter() - t0) * 1e3
+        got_launches = launches()
+    rel = max(abs(a - w) / abs(w) for a, w in zip(got, whole)) \
+        if len(got) == FE_MICRO else float("inf")
+    want = {n: (L * FE_MICRO if n == "library_flash_fwd" else 0)
+            for n in got_launches}
+    run.check(len(got) == FE_MICRO and rel <= TOL["bfloat16"]
+              and 10.0 <= got[0] <= 11.5,
+              f"20d: FleetExecutor's {FE_MICRO} microbatch losses "
+              f"{[round(x, 5) for x in got]} equal the unsplit forward's "
+              f"{[round(x, 5) for x in whole]} within {TOL['bfloat16']} "
+              f"relative (worst {rel:.3e}; bit-equal: {got == whole})")
+    run.check(got_launches == want and whole_launches == want,
+              f"20d: {L} launches of lf_fwd a microbatch and no other "
+              f"attention kernel, split and unsplit: {got_launches}")
+    print(f"20d: FleetExecutor {split_ms:.2f} ms for {FE_MICRO} microbatches "
+          f"of B1 S{MEDIUM_SEQ} (host clock, synchronized) against "
+          f"{whole_ms:.2f} unsplit", flush=True)
+    return {"losses": got, "unsplit_losses": whole, "loss_rel_err": rel,
+            "bit_equal": got == whole, "split_ms": split_ms,
+            "unsplit_ms": whole_ms, "launches": got_launches}, model
+
+
+def phase20e_worker(master):
+    """20e's peer: init_rpc as "peer" (rank 1) on the card; serves calls
+    until the trainer releases it."""
+    from paddle_tpu_torch._testing import rpc_peer
+    import paddle_tpu_torch as paddle
+    paddle.set_device("gpu:0")
+    rpc_peer("peer", 1, 2, master)
+
+
+def start_rpc_peer():
+    """The trainer's init_rpc (rank 0) and the peer process."""
+    from paddle_tpu_torch.distributed import rpc
+    master = f"127.0.0.1:{_free_port()}"
+    rpc.init_rpc("trainer", rank=0, world_size=2, master_endpoint=master)
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--phase20e-worker", master])
+    return proc
+
+
+def drive_rpc(run, paddle, torch, proc):
+    """20e: rpc_sync and rpc_async round trips to the peer process, a small
+    call and a 4 MB array, and a callee that runs a matmul on the card."""
+    import operator
+    from paddle_tpu_torch._testing import rpc_matmul, rpc_release
+    from paddle_tpu_torch.distributed import rpc
+    deadline = time.time() + 120
+    while len(rpc.get_all_worker_infos()) < 2:
+        if time.time() > deadline or proc.poll() is not None:
+            run.check(False, "20e: the rpc peer registered")
+            return {}
+        time.sleep(0.05)
+    out = {}
+    big = np.random.RandomState(20).randn(RPC_BIG_BYTES // 8)
+
+    def sync_us(fn, args, n):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            r = rpc.rpc_sync("peer", fn, args=args)
+        return (time.perf_counter() - t0) / n * 1e6, r
+
+    def async_us(fn, args, n):
+        t0 = time.perf_counter()
+        futs = [rpc.rpc_async("peer", fn, args=args) for _ in range(n)]
+        r = [f.wait() for f in futs][-1]
+        return (time.perf_counter() - t0) / n * 1e6, r
+    sync_us(operator.add, (1, 2), 10)
+    out["sync_small_us"], small = sync_us(operator.add, (1, 2), RPC_CALLS)
+    out["async_small_us"], small_a = async_us(operator.add, (1, 2),
+                                              RPC_CALLS)
+    n_big = max(RPC_CALLS // 10, 5)
+    out["sync_4mb_us"], echo = sync_us(np.negative, (big,), n_big)
+    out["async_4mb_us"], echo_a = async_us(np.negative, (big,), n_big)
+    run.check(small == small_a == 3 and np.array_equal(echo, -big)
+              and np.array_equal(echo_a, -big),
+              f"20e: rpc_sync and rpc_async return the callee's values (a "
+              f"small call and a {RPC_BIG_BYTES >> 20} MB array)")
+    rs = np.random.RandomState(21)
+    a = rs.randn(1024, 1024).astype(np.float32)
+    b = rs.randn(1024, 1024).astype(np.float32)
+    remote = rpc.rpc_sync("peer", rpc_matmul, args=(a, b))
+    local = rpc_matmul(a, b)
+    rel = _rel(remote, local)
+    run.check(rel <= 1e-5,
+              f"20e: a callee's card matmul (1024^2, f32) equals the local "
+              f"call within 1e-5 relative (worst {rel:.3e}, bit-equal "
+              f"{np.array_equal(remote, local)})")
+    rpc.rpc_sync("peer", rpc_release)
+    code = proc.wait(timeout=60)
+    rpc.shutdown()
+    run.check(code == 0, f"20e: the rpc peer exited with {code}")
+    out["matmul_rel_err"] = rel
+    print(f"20e: rpc round trips (us): sync {out['sync_small_us']:.1f}, "
+          f"async {out['async_small_us']:.1f} (small); sync "
+          f"{out['sync_4mb_us']:.1f}, async {out['async_4mb_us']:.1f} "
+          f"({RPC_BIG_BYTES >> 20} MB each way)", flush=True)
+    return out
+
+
+LF_KERNELS = {"mma_online_fwd_kernel": "library_flash_fwd",
+              "mma_dq_kernel": "library_flash_bwd_dq",
+              "mma_dkv_kernel": "library_flash_bwd_dkv"}
+
+
+def drive_profiler(run, paddle, fa, torch, model):
+    """20f: Profiler(targets=[CPU, GPU], scheduler=make_scheduler(closed=1,
+    ready=1, record=2, repeat=2)) over 8 training steps of 20d's Layer GPT
+    (B4 S2048, AdamW(1e-4, multi_precision)): the chrome trace's
+    RecordEvent, op:: and kernel rows; a Profiler without a scheduler over
+    2 steps; the step's ms with the profiler on and off."""
+    from paddle_tpu_torch import profiler
+    model.train()
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters(),
+                                 multi_precision=True)
+    loss_fn = _lm_loss(paddle)
+    ids = paddle.to_tensor(np.random.RandomState(20).randint(
+        0, MEDIUM["vocab_size"], (MEDIUM_BATCH, MEDIUM_SEQ)))
+    L = MEDIUM["num_layers"]
+
+    def step():
+        with profiler.RecordEvent("train_step"):
+            loss = loss_fn(model(ids), ids)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return float(loss)
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        return loss, (time.perf_counter() - t0) * 1e3
+    off = [timed() for _ in range(PROF_STEPS)]
+    targets = [profiler.ProfilerTarget.CPU, profiler.ProfilerTarget.GPU]
+    prof = profiler.Profiler(targets=targets,
+                             scheduler=profiler.make_scheduler(
+                                 closed=1, ready=1, record=2,
+                                 repeat=PROF_WINDOWS))
+    prof.start()
+    on, states = [], []
+    for _ in range(PROF_STEPS * PROF_WINDOWS):
+        states.append(prof.current_state.name)
+        on.append(timed())
+        prof.step(num_samples=MEDIUM_BATCH)
+    prof.stop()
+    # no scheduler: the device tracer starts with the first recorded step
+    plain = profiler.Profiler(targets=targets)
+    plain.start()
+    for _ in range(PROF_PLAIN_STEPS):
+        timed()
+        plain.step()
+    plain.stop()
+    plain_counts = {lib: sum(1 for e in plain._all_spans()
+                             if e.pid == 1 and k in e.name)
+                    for k, lib in LF_KERNELS.items()}
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export(path)
+        events = profiler.load_profiler_result(path)["traceEvents"]
+        trace_mb = os.path.getsize(path) / 1e6
+    recorded = [i for i, s in enumerate(states) if s.startswith("RECORD")]
+    spans = [e for e in events if e.get("ph") == "X"]
+    steps = sum(1 for e in spans if e["name"] == "train_step")
+    ops = sum(1 for e in spans if e["name"].startswith("op::"))
+    kernels = [e for e in spans if e.get("cat") == "kernel"]
+    counts = {lib: sum(1 for e in kernels if k in e["name"])
+              for k, lib in LF_KERNELS.items()}
+    want = {lib: L * len(recorded) for lib in LF_KERNELS.values()}
+    table = prof.summary()
+    run.check(states == ["CLOSED", "READY", "RECORD", "RECORD_AND_RETURN"]
+              * PROF_WINDOWS and steps == len(recorded) and ops > 0
+              and counts == want and not prof.device_launches_unrecorded,
+              f"20f: the exported trace of {PROF_WINDOWS} windows holds "
+              f"{steps} RecordEvent spans of the recorded steps {recorded}, "
+              f"{ops} op:: spans and {len(kernels)} kernel rows, the library "
+              f"kernels {counts} ({L} a recorded step each); launches "
+              f"without a row: {prof.device_launches_unrecorded[:8]}")
+    # without a READY step the window's first driver-API launches can lack
+    # their rows late in a long process (ROADMAP queue 3): none may go
+    # unreported
+    short = sum(L * PROF_PLAIN_STEPS - n for n in plain_counts.values())
+    lost = plain.device_launches_unrecorded
+    run.check(all(n <= L * PROF_PLAIN_STEPS for n in plain_counts.values())
+              and short <= len(lost),
+              f"20f: a profiler without a scheduler over {PROF_PLAIN_STEPS} "
+              f"steps holds the library kernels {plain_counts} ({L} a step "
+              f"each) and reports {len(lost)} launches without a row, at "
+              f"least the {short} rows short (the call, us after the "
+              f"recording began: {lost[:8]})")
+    on_ms = float(np.median([t for i, (_, t) in enumerate(on)
+                             if i in recorded]))
+    off_ms = float(np.median([t for _, t in off[1:]]))
+    print(f"20f: a training step {off_ms:.2f} ms with the profiler off "
+          f"(median of steps 2-{PROF_STEPS}), {on_ms:.2f} ms recorded "
+          f"(steps {recorded}); trace {trace_mb:.1f} MB", flush=True)
+    del opt
+    return {"states": states, "recorded_steps": recorded,
+            "record_event_spans": steps, "op_spans": ops,
+            "kernel_rows": len(kernels), "library_kernel_rows": counts,
+            "library_kernel_rows_no_scheduler": plain_counts,
+            "launches_without_a_row": [
+                len(prof.device_launches_unrecorded), len(lost)],
+            "library_rows_short_no_scheduler": short,
+            "step_ms_off": off_ms, "step_ms_recorded": on_ms,
+            "losses": [x for x, _ in off + on], "trace_mb": trace_mb,
+            "summary_top": table.splitlines()[:6]}
+
+
+def drive_phase20(run, paddle, GPTConfig, GPTForCausalLM, mods, fa, torch):
+    """Phase 20, the host runtime: 20a alone (its timings on a quiet
+    host); then the PS servers, the rpc peer and 20c's gloo job start, and
+    come up while 20b writes and parses its data; then 20b-20f."""
+    t_phase = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    out["native"] = drive_native(run, paddle, torch)
+    print(f"20a: {time.perf_counter() - t0:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        eps, servers = start_ps_servers()
+        peer = start_rpc_peer()
+        port, job = start_elastic_job(d)
+        try:
+            t0 = time.perf_counter()
+            out["ps_ctr"] = drive_ps_ctr(run, paddle, torch, eps, servers)
+            print(f"20b: {time.perf_counter() - t0:.1f} s", flush=True)
+            t0 = time.perf_counter()
+            out["elastic_tcp"] = finish_elastic_job(run, d, port, job)
+            print(f"20c: {time.perf_counter() - t0:.1f} s after 20b",
+                  flush=True)
+        finally:
+            for p in servers + [job]:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    try:
+        t0 = time.perf_counter()
+        out["fleet_executor"], model = drive_fleet_executor(
+            run, paddle, GPTConfig, GPTForCausalLM, mods, fa, torch)
+        print(f"20d: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        out["rpc"] = drive_rpc(run, paddle, torch, peer)
+        print(f"20e: {time.perf_counter() - t0:.1f} s", flush=True)
+    finally:
+        if peer.poll() is None:
+            peer.kill()
+            peer.wait()
+    t0 = time.perf_counter()
+    out["profiler"] = drive_profiler(run, paddle, fa, torch, model)
+    print(f"20f: {time.perf_counter() - t0:.1f} s", flush=True)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["phase_20_s"] = time.perf_counter() - t_phase
+    print(f"host runtime phase: {out['phase_20_s']:.1f} s", flush=True)
+    return out
+
+
 def main():
     if sys.argv[1:2] == ["--phase16d-worker"]:
         phase16d_worker(sys.argv[2])
@@ -6169,6 +7148,18 @@ def main():
         return 0
     if sys.argv[1:2] == ["--phase19-worker"]:
         phase19_worker(sys.argv[2], sys.argv[3])
+        return 0
+    if sys.argv[1:2] == ["--phase20a-client"]:
+        phase20a_client(*sys.argv[2:5])
+        return 0
+    if sys.argv[1:2] == ["--phase20b-server"]:
+        phase20b_server()
+        return 0
+    if sys.argv[1:2] == ["--phase20c-worker"]:
+        phase20c_worker(sys.argv[2], sys.argv[3])
+        return 0
+    if sys.argv[1:2] == ["--phase20e-worker"]:
+        phase20e_worker(sys.argv[2])
         return 0
     try:
         import torch
@@ -6223,6 +7214,19 @@ def main():
                               ".cache")
     os.makedirs(cache_root, exist_ok=True)
     mods = (sa, ca, bf, sa2, fa)
+    if "--phase20" in sys.argv[1:]:
+        # phase 20 alone (no kernels line, no ok line): for work on it
+        with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+            os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+            at._table = None
+            hr = drive_phase20(run, paddle, GPTConfig, GPTForCausalLM, mods,
+                               fa, torch)
+        print(json.dumps({"host_runtime": hr}))
+        print(f"chip_smoke --phase20: {time.perf_counter() - t_script:.1f} "
+              f"s, {len(run.failures)} check(s) failed", flush=True)
+        for what in run.failures:
+            print(f"  {what[:300]}", file=sys.stderr)
+        return 1 if run.failures else 0
     if "--phase19" in sys.argv[1:]:
         # phase 19 alone (no kernels line, no ok line): for work on it
         with tempfile.TemporaryDirectory(dir=cache_root) as cache:
@@ -6426,6 +7430,13 @@ def main():
         ep, ap = drive_phase19(run, paddle, TH, GPTConfig, GPTForCausalLM,
                                mods, fa, cost_model, torch, moe,
                                paths["flagship"], fit)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+        os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+        at._table = None
+        hr = drive_phase20(run, paddle, GPTConfig, GPTForCausalLM, mods, fa,
+                           torch)
 
     kernels = []
     for kern in KERNELS:
@@ -6473,6 +7484,7 @@ def main():
     print(json.dumps({"pipeline": pp}))
     print(json.dumps({"expert_parallel": ep}))
     print(json.dumps({"auto_parallel": ap}))
+    print(json.dumps({"host_runtime": hr}))
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s", flush=True)
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed:",

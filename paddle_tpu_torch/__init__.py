@@ -141,7 +141,7 @@ __version__ = "0.1.0"
 
 _LAZY = {"vision", "hapi", "metric", "callbacks", "training",
          "distributed", "static", "inference", "incubate", "base",
-         "tensorrt", "tensor", "text", "geometric"}
+         "tensorrt", "tensor", "text", "geometric", "profiler"}
 
 
 def __getattr__(name):

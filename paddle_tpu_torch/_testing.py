@@ -10,7 +10,9 @@ picks gloo). ``run_workers`` starts a script in N ranks through the
 port's launcher with a timeout; ``spawn_probe`` is a worker for
 ``distributed.spawn``; ``pipeline_apply_probe`` and ``gpt_hybrid_worker``
 are the ranks of the pipeline tests' jobs; ``share_the_cores_fixture``
-gives a torch test module its worker's share of the cores.
+gives a torch test module its worker's share of the cores; ``rpc_peer``,
+``rpc_release`` and ``rpc_matmul`` are a process of the rpc tests and the
+functions they call through it.
 """
 from __future__ import annotations
 
@@ -429,3 +431,89 @@ def moe_exchange_worker(out):
     res.update(back=back.numpy(), back_grad=x2.grad.numpy())
     np.savez(os.path.join(out, f"moe.{rank}.npz"), **res)
     dist.destroy_process_group()
+
+
+_RPC_RELEASED = None
+
+
+def rpc_peer(name, rank, world_size, master):
+    """A process of an rpc test: ``init_rpc`` as ``name``, serve calls
+    until a peer calls ``rpc_release`` on it, then ``shutdown``."""
+    import threading
+    from .distributed import rpc
+    global _RPC_RELEASED
+    _RPC_RELEASED = threading.Event()
+    rpc.init_rpc(name, rank=rank, world_size=world_size,
+                 master_endpoint=master)
+    try:
+        if not _RPC_RELEASED.wait(120):
+            raise TimeoutError(f"rpc_peer {name}: never released")
+    finally:
+        rpc.shutdown()
+
+
+def rpc_release():
+    """Called through rpc on an ``rpc_peer``: lets it shut down."""
+    _RPC_RELEASED.set()
+    return True
+
+
+def rpc_matmul(a, b):
+    """Called through rpc: ``a @ b`` on the callee's default place, as
+    numpy."""
+    import numpy as np
+    from . import to_tensor
+    return np.asarray((to_tensor(a) @ to_tensor(b)).numpy())
+
+
+def numpy_initializers(jax):
+    """A context manager, given the caller's ``jax`` module: while it is
+    open, ``jax.random.normal``, ``uniform`` and ``truncated_normal`` draw
+    from numpy (a ``RandomState`` seeded from the key's words) into float32
+    jax arrays. A reference Layer model then builds without compiling one
+    random kernel a parameter shape, which takes tens of seconds for a
+    vision model on a CPU. The distributions are the reference's, drawn
+    from another stream; a parity test copies the weights into the port,
+    so both sides hold the same values."""
+    import contextlib
+
+    import numpy as np
+
+    def seed(key):
+        if jax.dtypes.issubdtype(key.dtype, jax.dtypes.prng_key):
+            key = jax.random.key_data(key)
+        words = [int(w) for w in np.asarray(key).ravel()]
+        return (words[0] * 2654435761 + words[-1]) % (1 << 32)
+
+    def f32(x):
+        return jax.numpy.asarray(x, np.float32)
+
+    def normal(key, shape=(), dtype=None):
+        return f32(np.random.RandomState(seed(key)).standard_normal(
+            tuple(shape)))
+
+    def uniform(key, shape=(), dtype=None, minval=0.0, maxval=1.0):
+        return f32(np.random.RandomState(seed(key)).uniform(
+            float(minval), float(maxval), tuple(shape)))
+
+    def truncated_normal(key, lower, upper, shape=None, dtype=None):
+        rs = np.random.RandomState(seed(key))
+        z = rs.standard_normal(tuple(shape or ()))
+        out = (z < lower) | (z > upper)
+        while out.any():                       # redraw, not clip
+            z[out] = rs.standard_normal(int(out.sum()))
+            out = (z < lower) | (z > upper)
+        return f32(z)
+
+    @contextlib.contextmanager
+    def patched():
+        names = ("normal", "uniform", "truncated_normal")
+        saved = {n: getattr(jax.random, n) for n in names}
+        jax.random.normal, jax.random.uniform = normal, uniform
+        jax.random.truncated_normal = truncated_normal
+        try:
+            yield
+        finally:
+            for n, fn in saved.items():
+                setattr(jax.random, n, fn)
+    return patched()

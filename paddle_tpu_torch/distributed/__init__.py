@@ -12,11 +12,13 @@ sequence-parallel linears), ``split``, the launcher (``launch``),
 ``elastic``, the MoE exchange (``utils``: ``global_scatter``,
 ``global_gather``) and the semi-auto API over DTensor (``api``:
 ``shard_tensor``, ``reshard``, ``to_static`` -> ``DistModel`` and the rest),
-with the ``planner`` and the ``auto_tuner``. The names still missing raise
-``NotImplementedError`` naming the slice of ROADMAP queue 1, item 5 (or item
-6) that brings them.
+with the ``planner`` and the ``auto_tuner``; the parameter server (``ps``,
+fleet's PS mode, ``InMemoryDataset`` over the native MultiSlot parser),
+``rpc``, ``fleet_executor`` and the native ``TCPStore``.
 """
 from __future__ import annotations
+
+import numpy as np
 
 from . import checkpoint  # noqa: F401
 from .checkpoint import save_state_dict, load_state_dict  # noqa: F401
@@ -197,20 +199,114 @@ def split(x, size, operation, axis=0, num_partitions=1, gather_out=True,
     return layer(x)
 
 
-_PS = "the parameter-server slice"
-#: the reference's other public names, and the slice that brings each
-_LATER = {
-    "rpc": "the rpc slice", "ps": _PS, "QueueDataset": _PS,
-    "InMemoryDataset": _PS, "ProbabilityEntry": _PS,
-    "CountFilterEntry": _PS, "ShowClickEntry": _PS,
-    "fleet_executor": "the fleet-executor slice",
-    "TCPStore": "the native TCPStore (ROADMAP queue 1, item 6)",
-}
+# --- PS-style datasets (reference fluid DataFeed/Dataset shells over the C++
+# MultiSlot feed) ---
+
+class QueueDataset:
+    def __init__(self):
+        self._files = []
+        self.proto_desc = type("D", (), {"pipe_command": "cat"})()
+
+    def set_filelist(self, files):
+        self._files = list(files)
+
+    def set_use_var(self, vars_):
+        self._vars = vars_
+
+    def set_batch_size(self, bs):
+        self._bs = bs
 
 
-def __getattr__(name):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"paddle_tpu_torch.distributed.{name} comes with "
-            f"{_LATER[name]} (ROADMAP queue 1, item 5)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+class InMemoryDataset(QueueDataset):
+    """reference InMemoryDataset over the C++ MultiSlot DataFeed
+    (fluid/framework/data_feed.cc): with slots set by ``set_use_var``,
+    ``load_into_memory`` parses each file with the native threaded parser
+    (``native.parse_multislot_file``; a slot is float32 where its var's
+    dtype names a float, else int64) into a slot's (values, offsets) ragged
+    arrays, the files' offsets merged end to end; without slots it keeps
+    the raw lines."""
+
+    def load_into_memory(self):
+        slots = getattr(self, "_vars", None)
+        self._data = []
+        self._slot_data = []
+        if not slots:
+            for f in self._files:
+                with open(f) as fh:
+                    self._data += fh.readlines()
+            return
+        from .. import native
+        is_float = ["float" in str(getattr(v, "dtype", "int64"))
+                    for v in slots]
+        merged = None
+        for f in self._files:
+            parsed = native.parse_multislot_file(f, is_float)
+            if merged is None:
+                merged = [[v, o] for v, o in parsed]
+                continue
+            for s, (v, o) in enumerate(parsed):
+                mv, mo = merged[s]
+                merged[s] = [np.concatenate([mv, v]),
+                             np.concatenate([mo, o[1:] + mo[-1]])]
+        self._slot_data = [(v, o) for v, o in (merged or [])]
+
+    def get_memory_data_size(self):
+        if getattr(self, "_slot_data", None):
+            return int(self._slot_data[0][1].shape[0] - 1)
+        return len(getattr(self, "_data", []))
+
+    def slot_arrays(self):
+        """A slot's (values, offsets) ragged arrays, the native layout."""
+        return getattr(self, "_slot_data", [])
+
+    def batch_generator(self, batch_size=None, pad_value=0):
+        """Yield, a batch of rows at a time, one dense ``[b, max_len]``
+        Tensor a slot (padded with ``pad_value``) on the default place: the
+        feed the PS trainer consumes."""
+        from ..core.tensor import Tensor
+        bs = batch_size or getattr(self, "_bs", 32)
+        data = getattr(self, "_slot_data", [])
+        if not data:
+            return
+        rows = data[0][1].shape[0] - 1
+        for start in range(0, rows, bs):
+            stop = min(start + bs, rows)
+            batch = []
+            for vals, offs in data:
+                lens = np.diff(offs[start:stop + 1])
+                dense = np.full((stop - start, max(int(lens.max()), 1)),
+                                pad_value, vals.dtype)
+                cols = np.arange(dense.shape[1])
+                dense[cols[None, :] < lens[:, None]] = \
+                    vals[offs[start]:offs[stop]]
+                batch.append(Tensor(dense))
+            yield batch
+
+    def local_shuffle(self):
+        import random
+        random.shuffle(getattr(self, "_data", []))
+
+    def release_memory(self):
+        self._data = []
+        self._slot_data = []
+
+
+class ProbabilityEntry:
+    def __init__(self, probability):
+        self.probability = probability
+
+
+class CountFilterEntry:
+    def __init__(self, count_filter):
+        self.count_filter = count_filter
+
+
+class ShowClickEntry:
+    def __init__(self, show_name, click_name):
+        self.show_name, self.click_name = show_name, click_name
+
+
+from . import ps  # noqa: E402,F401
+from . import rpc  # noqa: E402,F401
+from . import fleet_executor  # noqa: E402,F401
+from ..native import TCPStore  # noqa: E402,F401

@@ -5,11 +5,8 @@ membership, scale in/out, trainer relaunch).
 The heartbeat/membership state machine against a pluggable KV store
 (file-based store for single-host + tests, etcd-style interface for
 clusters), the relaunch decision logic and the in-process restart
-supervisor ``run_resilient``. Pure Python, as in the reference.
-
-``TCPKVStore`` needs the native ``TCPStore`` (``native/src/store.cc``),
-which the port has not built yet (ROADMAP queue 1, item 6): it raises
-``NotImplementedError``.
+supervisor ``run_resilient``. Pure Python, as in the reference, but for
+``TCPKVStore``, which rides the native ``TCPStore`` (``native/src/store.cc``).
 """
 from __future__ import annotations
 
@@ -116,14 +113,33 @@ class FileKVStore(KVStore):
 
 
 class TCPKVStore(KVStore):
-    """KVStore over the native C++ TCPStore — waits for the port's native
-    build (ROADMAP queue 1, item 6)."""
+    """KVStore over the native C++ TCPStore (``native/src/store.cc``): the
+    in-cluster etcd stand-in where no shared filesystem exists. TTLs are
+    enforced read-side from an expiry stamp in the payload, as
+    ``FileKVStore`` does."""
 
     def __init__(self, host: str, port: int, is_master: bool = False):
-        raise NotImplementedError(
-            "TCPKVStore needs the native TCPStore, which comes with the "
-            "port's native build (ROADMAP queue 1, item 6); use "
-            "FileKVStore on a shared filesystem")
+        from ..native import TCPStore
+        self._store = TCPStore(host, port, is_master=is_master)
+
+    def put(self, key, value, ttl_s=None):
+        self._store.set(key, _wrap_ttl(value, ttl_s))
+
+    def get_prefix(self, prefix):
+        out = {}
+        for key, raw in self._store.list(prefix).items():
+            value, expired = _decode_ttl(raw)
+            if value is not None:
+                out[key] = value
+            elif expired:
+                # lazy GC, as FileKVStore's: only well-formed expired
+                # entries go; racing a concurrent re-put is benign (the
+                # next heartbeat restores the key)
+                self._store.delete_key(key)
+        return out
+
+    def delete(self, key):
+        self._store.delete_key(key)
 
 
 def run_resilient(fn: Callable[[int], object], *, max_restarts: int = 3,

@@ -13,9 +13,12 @@ order pp -> sep -> mp -> sharding -> dp; the tensor-parallel layers of
 group; ``distributed_model`` wraps a ``PipelineLayer`` in
 ``meta_parallel.PipelineParallel``, whose ``train_batch`` runs the
 ``pipeline_configs`` schedule), gradient merge and AMP O2 as the strategy
-wires them. The parameter server and the role makers come with a later
-slice of ROADMAP queue 1, item 5: they raise ``NotImplementedError``
-naming it.
+wires them. Parameter-server mode: ``fleet.init(role_maker,
+is_collective=False)`` (only with a role maker; without one ``init`` takes
+the collective path, as the reference's does), the role makers,
+``init_server``/``run_server`` (a ``ps.PsServer`` on ``0.0.0.0`` at the
+role's port), ``init_worker``/``stop_worker`` (a ``ps.PsClient`` of the
+role's servers), ``UtilBase`` and the MultiSlot data generators.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from .sequence_parallel_utils import (  # noqa: F401
     ColumnSequenceParallelLinear, RowSequenceParallelLinear,
     mark_as_sequence_parallel_parameter,
     register_sequence_parallel_allreduce_hooks)
+from ..ps import PaddleCloudRoleMaker
 
 __all__ = [
     "init", "DistributedStrategy", "distributed_model",
@@ -52,30 +56,90 @@ __all__ = [
     "get_rng_state_tracker", "ColumnSequenceParallelLinear",
     "RowSequenceParallelLinear", "mark_as_sequence_parallel_parameter",
     "register_sequence_parallel_allreduce_hooks", "LayerDesc",
-    "PipelineLayer", "SharedLayerDesc",
+    "PipelineLayer", "SharedLayerDesc", "PaddleCloudRoleMaker",
+    "UserDefinedRoleMaker", "Role", "UtilBase", "MultiSlotDataGenerator",
+    "MultiSlotStringDataGenerator", "is_server", "is_worker", "init_server",
+    "run_server", "init_worker", "stop_worker",
 ]
-
-_PS = "the parameter-server slice"
-#: the reference's fleet names that later slices bring, and which
-_LATER = {
-    "PaddleCloudRoleMaker": _PS, "UserDefinedRoleMaker": _PS, "Role": _PS,
-    "UtilBase": _PS, "MultiSlotDataGenerator": _PS,
-    "MultiSlotStringDataGenerator": _PS, "is_server": _PS,
-    "is_worker": _PS, "init_server": _PS, "run_server": _PS,
-    "init_worker": _PS, "stop_worker": _PS, "ps": _PS,
-}
-
 
 def __getattr__(name):
     if name == "auto":
         # the reference fleet's re-export of distributed.auto_parallel
         from .. import auto_parallel
         return auto_parallel
-    if name in _LATER:
-        raise NotImplementedError(
-            f"paddle_tpu_torch.distributed.fleet.{name} comes with "
-            f"{_LATER[name]} (ROADMAP queue 1, item 5)")
+    if name == "ps_client":
+        return _fleet.ps_client
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+class Role:
+    """reference fleet/base/role_maker.py Role constants."""
+    WORKER = 1
+    SERVER = 2
+    HETER_WORKER = 3
+    ALL = 4
+    COORDINATOR = 5
+
+
+class UserDefinedRoleMaker(PaddleCloudRoleMaker):
+    """reference UserDefinedRoleMaker: the role and ranks given, not read
+    from the environment."""
+
+    def __init__(self, is_collective=False, init_gloo=False, **kwargs):
+        super().__init__(is_collective=is_collective)
+        names = {Role.WORKER: "TRAINER", Role.SERVER: "PSERVER"}
+        self._role = names.get(kwargs.get("current_id_role",
+                                          kwargs.get("role", Role.WORKER)),
+                               "TRAINER")
+        if "role" in kwargs:
+            self._role = names[kwargs["role"]]
+        self._worker_id = int(kwargs.get("current_id", 0))
+        self._num_workers = int(kwargs.get("worker_num", 1))
+        self._servers = list(kwargs.get("server_endpoints", []))
+
+
+class UtilBase:
+    """reference fleet UtilBase: barrier, all-reduce and file-shard helpers
+    for user scripts."""
+
+    def barrier(self, comm_world="worker"):
+        from ..env import barrier
+        barrier()
+
+    def all_reduce(self, input, mode="sum", comm_world="worker"):
+        return np.asarray(input)
+
+    def get_file_shard(self, files):
+        return [f for i, f in enumerate(files)
+                if i % get_world_size() == get_rank()]
+
+
+class MultiSlotDataGenerator:
+    """reference distributed/fleet/data_generator: a subclass's
+    ``generate_sample(line)`` yields samples of (slot_name, values) pairs;
+    ``run_from_stdin`` writes them in the MultiSlot text format the data
+    feed parses."""
+
+    def generate_sample(self, line):
+        raise NotImplementedError
+
+    def _format(self, sample):
+        out = []
+        for _name, values in sample:
+            out.append(str(len(values)))
+            out += [str(v) for v in values]
+        return " ".join(out)
+
+    def run_from_stdin(self):
+        import sys
+        for line in sys.stdin:
+            gen = self.generate_sample(line)
+            for sample in (gen() if callable(gen) else gen):
+                sys.stdout.write(self._format(sample) + "\n")
+
+
+class MultiSlotStringDataGenerator(MultiSlotDataGenerator):
+    pass
 
 
 class DistributedStrategy:
@@ -119,13 +183,19 @@ class _Fleet:
         self._strategy = None
         self._hcg = None
         self._is_init = False
+        self._role_maker = None
+        self._ps_server = None
+        self._ps_client = None
 
     def init(self, role_maker=None, is_collective=True, strategy=None,
              log_level="INFO"):
-        if not is_collective:
-            raise NotImplementedError(
-                "fleet.init(is_collective=False) is parameter-server mode, "
-                f"which comes with {_PS} (ROADMAP queue 1, item 5)")
+        if role_maker is not None and not is_collective:
+            # parameter-server mode (the reference's fleet PS flow); with no
+            # role maker the reference takes the collective path below
+            self._role_maker = role_maker
+            self._strategy = strategy or DistributedStrategy()
+            self._is_init = True
+            return self
         init_parallel_env()
         self._strategy = strategy or DistributedStrategy()
         hc = self._strategy.hybrid_configs
@@ -223,6 +293,43 @@ class _Fleet:
         return scaler
 
 
+    # --------------------------------------------- parameter-server mode
+    # (reference fleet.py init_server/run_server/init_worker/stop_worker)
+    def is_server(self):
+        return self._role_maker is not None and self._role_maker.is_server()
+
+    def is_worker(self):
+        return self._role_maker is None or self._role_maker.is_worker()
+
+    def init_server(self, *args, **kwargs):
+        from ..ps import PsServer
+        rm = self._role_maker
+        self._ps_server = PsServer(host="0.0.0.0", port=rm.server_port(),
+                                   num_workers=rm.worker_num())
+
+    def run_server(self):
+        """Serve until the first worker's ``stop_worker`` stops the
+        server."""
+        if self._ps_server is None:
+            self.init_server()
+        self._ps_server.run()
+
+    def init_worker(self, scopes=None):
+        from ..ps import PsClient
+        self._ps_client = PsClient(self._role_maker.server_endpoints())
+
+    def stop_worker(self):
+        if self._ps_client is not None:
+            if self._role_maker.is_first_worker():
+                self._ps_client.stop_servers()
+            self._ps_client.close()
+            self._ps_client = None
+
+    @property
+    def ps_client(self):
+        return self._ps_client
+
+
 class HybridParallelOptimizer:
     """reference hybrid_parallel_optimizer.py:258: with sharding_degree > 1
     the stage-1 sharding optimizer over the sharding group, else the
@@ -281,3 +388,27 @@ def worker_num():
 
 def worker_index():
     return _fleet.worker_index()
+
+
+def is_server():
+    return _fleet.is_server()
+
+
+def is_worker():
+    return _fleet.is_worker()
+
+
+def init_server(*args, **kwargs):
+    return _fleet.init_server(*args, **kwargs)
+
+
+def run_server():
+    return _fleet.run_server()
+
+
+def init_worker(scopes=None):
+    return _fleet.init_worker(scopes)
+
+
+def stop_worker():
+    return _fleet.stop_worker()

@@ -5,9 +5,10 @@ Failure policy (reference launch controllers): one worker exiting non-zero
 stops the job with its code, or with ``--max_restarts`` relaunches the
 whole job (``PADDLE_RESTART_COUNT`` counts the attempts); ``--np_range
 MIN:MAX`` relaunches at the surviving world size (scale-in) and, with
-``--elastic_store DIR`` (a ``FileKVStore``), at a larger one when workers
-announce themselves under ``join/`` (scale-out). A ``tcp://`` store needs
-the native ``TCPStore`` (ROADMAP queue 1, item 6) and is refused.
+``--elastic_store DIR`` (a ``FileKVStore``) or ``--elastic_store
+tcp://HOST:PORT`` (a ``TCPKVStore``, whose native ``TCPStore`` server this
+launcher hosts at that port), at a larger one when workers announce
+themselves under ``join/`` (scale-out).
 
 Every worker starts in a session of its own, and a stop kills each
 worker's whole process group (SIGTERM, then SIGKILL after 5 s), so no
@@ -18,7 +19,10 @@ torch ``TCPStore`` (at ``--master``'s port, or at a port the OS picks) for
 each launch of the job, and every worker joins it as a client
 (``PADDLE_STORE_HOSTED``). The port stays bound from before the workers
 start until the job's attempt ends, so no other process on the machine can
-take it in between, and a worker never outlives the store it talks to.
+take it in between, and a worker never outlives the store it talks to. The
+elastic ``tcp://`` store is another store, bound before the first
+rendezvous store: the two never share a port (``--master`` at the elastic
+store's port is refused).
 ``PADDLE_TRAINER_ENDPOINTS`` and ``PADDLE_CURRENT_ENDPOINT`` name the
 workers as the reference's launcher does (host:port, the ports after the
 store's, one a rank); nothing listens at them.
@@ -65,9 +69,11 @@ def _parse(argv=None):
                    help="elastic world size: on a worker failure, relaunch "
                         "at the surviving world size (>= MIN); with "
                         "--elastic_store, grow up to MAX on joins")
-    p.add_argument("--elastic_store", default=None, metavar="DIR",
-                   help="FileKVStore directory watched for join/<name> "
-                        "announcements (scale-out)")
+    p.add_argument("--elastic_store", default=None,
+                   metavar="DIR|tcp://HOST:PORT",
+                   help="the store watched for join/<name> announcements "
+                        "(scale-out): a FileKVStore directory, or a "
+                        "TCPKVStore this launcher hosts at PORT")
     p.add_argument("script")
     p.add_argument("script_args", nargs=argparse.REMAINDER)
     return p.parse_args(argv)
@@ -173,12 +179,24 @@ def main(argv=None):
     store = None
     if args.elastic_store:
         if args.elastic_store.startswith("tcp://"):
-            raise SystemExit(
-                f"--elastic_store {args.elastic_store!r}: a tcp:// store "
-                "needs the native TCPStore, which the port has not built "
-                "yet (ROADMAP queue 1, item 6); pass a shared directory")
-        from ..elastic import FileKVStore
-        store = FileKVStore(args.elastic_store)
+            from ..elastic import TCPKVStore
+            hostport = args.elastic_store[6:]
+            if ":" not in hostport or \
+                    not hostport.rsplit(":", 1)[1].isdigit():
+                raise SystemExit(
+                    f"--elastic_store {args.elastic_store!r}: expected "
+                    "tcp://HOST:PORT with a numeric port")
+            host, port = hostport.rsplit(":", 1)
+            if args.master is not None and \
+                    args.master.rsplit(":", 1)[1] == port:
+                raise SystemExit(
+                    f"--elastic_store {args.elastic_store!r} and --master "
+                    f"{args.master!r} share a port: the elastic store and "
+                    "the rendezvous store are two servers")
+            store = TCPKVStore(host, int(port), is_master=True)
+        else:
+            from ..elastic import FileKVStore
+            store = FileKVStore(args.elastic_store)
     attempt = 0            # spawn generation (PADDLE_RESTART_COUNT)
     restarts = 0           # failure relaunches (gated by --max_restarts)
     cur_np = args.nproc_per_node

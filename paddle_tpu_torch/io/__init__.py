@@ -18,9 +18,10 @@ Loading paths, as the reference splits them:
   the dataset, so a transform that builds a ``Tensor`` (``ToTensor``)
   builds it on the CPU, and items cross as numpy.
 
-Collation stacks with ``np.stack``; the reference's native threaded
-collate (``paddle_tpu.native``) is not loaded by the port (ROADMAP queue 1,
-item 7), and gives the same values.
+Collation stacks arrays of 64 KiB or more with the native threaded
+collate (``native.collate``, bit-equal to ``np.stack``), in the main
+process and in the forked workers; smaller ones with ``np.stack`` (the
+reference's gate is 4 KiB).
 """
 from __future__ import annotations
 
@@ -313,6 +314,21 @@ class DistributedBatchSampler(BatchSampler):
 
 
 # ------------------------------ collation ----------------------------------
+# The native collate gathers one pointer a sample in Python: for samples
+# under 64 KiB that costs more than np.stack's whole copy (the reference's
+# gate is 4 KiB; ROADMAP, deliberate differences)
+NATIVE_COLLATE_MIN_BYTES = 1 << 16
+
+
+def _stack(arrs):
+    """``np.stack``, through the native threaded collate for more than one
+    sample of at least ``NATIVE_COLLATE_MIN_BYTES``."""
+    if len(arrs) > 1 and arrs[0].nbytes >= NATIVE_COLLATE_MIN_BYTES:
+        from .. import native
+        return native.collate(arrs)
+    return np.stack(arrs)
+
+
 def default_collate_fn(batch):
     """A batch of samples as Tensors on the default place: arrays and
     Tensors stacked, ints as int64, floats as float32, strings kept as a
@@ -322,7 +338,7 @@ def default_collate_fn(batch):
         return Tensor._wrap(torch.stack([s._data.detach() for s in batch])
                             .to(place_mod.default_device()))
     if isinstance(sample, np.ndarray):
-        return Tensor(np.stack(batch))
+        return Tensor(_stack(batch))
     if isinstance(sample, (int, np.integer)):
         return Tensor(np.asarray(batch, np.int64))
     if isinstance(sample, (float, np.floating)):
@@ -643,7 +659,7 @@ def _np_collate(batch):
         return ("__t__", dtype_mod.to_numpy(
             torch.stack([s._data for s in batch])))
     if isinstance(sample, np.ndarray):
-        return ("__t__", np.stack(batch))
+        return ("__t__", _stack(batch))
     if isinstance(sample, (int, np.integer)):
         return ("__t__", np.asarray(batch, np.int64))
     if isinstance(sample, (float, np.floating)):

@@ -32,6 +32,7 @@ Errors propagate: a kernel that fails to build or launch raises.
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
@@ -95,9 +96,17 @@ def _gate_reason(q, k):
 
 
 # ------------------------------------------------------- the library tier
-# Kernel launches of the library tier since the last reset_launch_counts().
+# Kernel launches of the library tier since the last reset_launch_counts();
+# a lock makes each count exact when threads launch (a fleet executor's
+# interceptors run a model's stages on threads of one process)
 LAUNCHES = {"library_flash_fwd": 0, "library_flash_bwd_dq": 0,
             "library_flash_bwd_dkv": 0}
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def _count_launch(name):
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launch_counts():
@@ -141,7 +150,7 @@ def library_flash_fwd_cuda(q, k, v, sm_scale, causal):
     """Launches ``blocked_flash.cu``'s online forward through ``lf_fwd``
     (any Sq, Skv when causal): (o, lse)."""
     out = bf.fwd_launch("lf", q, k, v, sm_scale, causal)
-    LAUNCHES["library_flash_fwd"] += 1
+    _count_launch("library_flash_fwd")
     return out
 
 
@@ -149,7 +158,7 @@ def library_flash_bwd_dq_cuda(q, k, v, o, lse, do, sm_scale, causal):
     """Launches the lse backward's dq kernel through ``lf_bwd_dq``: (dq,
     delta)."""
     out = bf.dq_launch("lf", q, k, v, o, lse, do, sm_scale, causal)
-    LAUNCHES["library_flash_bwd_dq"] += 1
+    _count_launch("library_flash_bwd_dq")
     return out
 
 
@@ -158,7 +167,7 @@ def library_flash_bwd_dkv_cuda(q, k, v, lse, delta, do, sm_scale, causal):
     (dk, dv); a kv tile past the last q row (causal, Sq < Skv) gets
     zeros."""
     out = bf.dkv_launch("lf", q, k, v, lse, delta, do, sm_scale, causal)
-    LAUNCHES["library_flash_bwd_dkv"] += 1
+    _count_launch("library_flash_bwd_dkv")
     return out
 
 

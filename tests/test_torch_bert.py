@@ -12,10 +12,12 @@ frameworks, so training with dropout is held to determinism under
 import numpy as np
 import pytest
 
+import jax
 import paddle_tpu as ref
 import paddle_tpu_torch as port
 from paddle_tpu.models import bert as jbert
 from paddle_tpu_torch.models import bert as tbert
+from paddle_tpu_torch._testing import numpy_initializers
 from paddle_tpu_torch._testing import share_the_cores_fixture
 
 _share_the_cores = share_the_cores_fixture()
@@ -35,7 +37,8 @@ def _cfg(mod, dropout=0.0):
 
 def _pair(head):
     ref.seed(0)
-    jm = getattr(jbert, head)(_cfg(jbert))
+    with numpy_initializers(jax):
+        jm = getattr(jbert, head)(_cfg(jbert))
     tm = getattr(tbert, head)(_cfg(tbert))
     tm.set_state_dict({k: v.numpy() for k, v in jm.state_dict().items()})
     return jm, tm

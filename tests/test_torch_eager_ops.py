@@ -16,6 +16,7 @@ import zlib
 import numpy as np
 import pytest
 
+import jax
 import paddle_tpu as P
 import paddle_tpu_torch as T
 from paddle_tpu_torch._testing import share_the_cores_fixture
@@ -75,36 +76,59 @@ class Case:
         return self.id
 
 
-def _run(pd, case, arrays):
-    xs = []
-    for k, a in enumerate(arrays):
-        t = pd.to_tensor(a, stop_gradient=k not in case.diff)
-        if case.dtype is not None and np.issubdtype(a.dtype, np.floating):
-            t = t.astype(case.dtype)
-            t.stop_gradient = k not in case.diff
-        xs.append(t)
+def _forward_backward(pd, case, xs):
+    for k in case.diff:
+        xs[k].stop_gradient = False
     out = case.fn(pd, *xs)
     outs = list(out) if isinstance(out, (list, tuple)) else [out]
-    vals = [o.astype("float32").numpy()
-            if isinstance(o, pd.Tensor) and str(o.dtype) == "bfloat16"
-            else (o.numpy() if isinstance(o, pd.Tensor) else np.asarray(o))
-            for o in outs]
     grads = []
     if case.diff:
         r = _rng(99)
         loss = None
-        for o, v in zip(outs, vals):
-            if not isinstance(o, pd.Tensor) or not np.issubdtype(
-                    v.dtype, np.floating):
+        for o in outs:
+            if not isinstance(o, pd.Tensor) or "float" not in str(o.dtype):
                 continue
-            w = pd.to_tensor(np.asarray(r.randn(*v.shape), np.float32))
+            w = pd.to_tensor(np.asarray(r.randn(*o.shape), np.float32))
             term = (o.astype("float32") * w).sum()
             loss = term if loss is None else loss + term
         loss.backward()
-        for k in case.diff:
-            g = xs[k].grad
-            grads.append(None if g is None else g.astype("float32").numpy())
-    return vals, grads
+        grads = [xs[k].grad for k in case.diff]
+    return outs, grads
+
+
+def _run(pd, case, arrays):
+    """Outputs and the gradients of sum(out_i * w_i) with respect to the
+    inputs in ``case.diff``. A differentiated reference case runs as one
+    program through its ``jit.to_static`` (op by op it compiles a kernel
+    an op shape, the backward's too), which runs op by op where its trace
+    cannot follow the case; op by op too where the compiled backward
+    refuses an op (ValueError) or a boolean mask needs concrete values."""
+    if pd is P and case.diff:
+        try:
+            outs, grads = P.jit.to_static(
+                lambda *ts: _forward_backward(P, case, list(ts)))(
+                    *_inputs(P, case, arrays))
+        except (ValueError, jax.errors.NonConcreteBooleanIndexError):
+            outs, grads = _forward_backward(P, case,
+                                            _inputs(P, case, arrays))
+    else:
+        outs, grads = _forward_backward(pd, case, _inputs(pd, case, arrays))
+    vals = [o.astype("float32").numpy()
+            if isinstance(o, pd.Tensor) and str(o.dtype) == "bfloat16"
+            else (o.numpy() if isinstance(o, pd.Tensor) else np.asarray(o))
+            for o in outs]
+    return vals, [None if g is None else g.astype("float32").numpy()
+                  for g in grads]
+
+
+def _inputs(pd, case, arrays):
+    xs = []
+    for a in arrays:
+        t = pd.to_tensor(a)
+        if case.dtype is not None and np.issubdtype(a.dtype, np.floating):
+            t = t.astype(case.dtype)
+        xs.append(t)
+    return xs
 
 
 def _close(got, want, tol, what):

@@ -68,24 +68,44 @@ def _outs(out):
     return [out]
 
 
-def _run(pd, case):
-    xs = [pd.to_tensor(a, stop_gradient=k not in case.diff)
-          for k, a in enumerate(case.inputs)]
+def _forward_backward(pd, case, xs):
+    for k in case.diff:
+        xs[k].stop_gradient = False
     outs = _outs(case.fn(pd, *xs))
-    vals = [np.asarray(o.numpy()) if hasattr(o, "numpy") else np.asarray(o)
-            for o in outs]
     grads = []
     if case.diff:
         r = _r(99)
         total = None
-        for o, v in zip(outs, vals):
-            if np.issubdtype(v.dtype, np.floating):
-                w = pd.to_tensor(np.asarray(r.randn(*v.shape), np.float32))
+        for o in outs:
+            if "float" in str(getattr(o, "dtype", "")):
+                w = pd.to_tensor(np.asarray(r.randn(*o.shape), np.float32))
                 term = (o.astype("float32") * w).sum()
                 total = term if total is None else total + term
         total.backward()
-        grads = [xs[k].grad.numpy() for k in case.diff]
-    return vals, grads
+        grads = [xs[k].grad for k in case.diff]
+    return outs, grads
+
+
+def _run(pd, case):
+    """Outputs and the gradients of sum(out_i * w_i) with respect to the
+    inputs in ``case.diff``. The reference's runs as one program through
+    its ``jit.to_static`` (op by op it compiles a kernel an op shape), which
+    runs op by op where its trace cannot follow the case; op by op too
+    where the compiled backward refuses an op (the pools' reduce_window
+    under JAX's linearization raises ValueError)."""
+    xs = [pd.to_tensor(a) for a in case.inputs]
+    if pd is P:
+        try:
+            outs, grads = P.jit.to_static(
+                lambda *ts: _forward_backward(P, case, list(ts)))(*xs)
+        except ValueError:
+            outs, grads = _forward_backward(
+                P, case, [pd.to_tensor(a) for a in case.inputs])
+    else:
+        outs, grads = _forward_backward(pd, case, xs)
+    vals = [np.asarray(o.numpy()) if hasattr(o, "numpy") else np.asarray(o)
+            for o in outs]
+    return vals, [g.numpy() for g in grads]
 
 
 def _check(case):

@@ -208,18 +208,20 @@ def test_fleet_strategy_gradient_merge_wires_up():
 
 def test_fleet_refuses_the_degrees_of_later_slices():
     """pp_degree, mp_degree and sep_degree are ported: at world 1 a degree
-    of 2 spans more ranks than the job; the parameter server and its role
-    makers still wait for their slice."""
+    of 2 spans more ranks than the job. No slice is left: the parameter
+    server's role makers are there, and ``is_collective=False`` without a
+    role maker takes the collective path, as the reference's does."""
     for degree in ("pp_degree", "mp_degree", "sep_degree"):
         strategy = fleet.DistributedStrategy()
         strategy.hybrid_configs[degree] = 2
         with pytest.raises(ValueError, match="spans 2 ranks"):
             fleet.init(is_collective=True, strategy=strategy)
-    with pytest.raises(NotImplementedError, match="parameter-server"):
-        fleet.init(is_collective=False)
-    for name in ("PaddleCloudRoleMaker", "UtilBase"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-            getattr(fleet, name)
+    fleet.init(is_collective=False)
+    assert fleet.get_hybrid_communicate_group() is not None
+    assert fleet.is_worker() and not fleet.is_server()
+    from paddle_tpu_torch.distributed import ps
+    assert fleet.PaddleCloudRoleMaker is ps.PaddleCloudRoleMaker
+    assert callable(fleet.UtilBase().get_file_shard)
     assert fleet.PipelineLayer is fleet.pp_layers.PipelineLayer
 
 

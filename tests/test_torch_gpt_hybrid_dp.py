@@ -15,6 +15,8 @@ first steps may turn rounding noise in a gradient that is zero in exact
 arithmetic (the key bias) into up to 0.1 lr a step (as in
 test_torch_gpt_train.py).
 """
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 
@@ -188,8 +190,9 @@ def _reference_accum(dp):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The port's worker groups at world 2 and 4 (all configurations), and
-    the reference's parameters they start from."""
+    """The port's worker groups at world 2 and 4 (all configurations) from
+    the reference's parameters, both at once, and the reference's steps of
+    every configuration, computed while the groups run."""
     import json
     out = tmp_path_factory.mktemp("dp")
     mesh, params, _, _ = GH.setup(JaxGPTConfig(**SIZE), _jpcfg(1), seed=0,
@@ -197,13 +200,20 @@ def runs(tmp_path_factory):
     np.savez(out / "start.npz", **_flat(_np_tree(params)))
     script = out / "worker.py"
     script.write_text(WORKER)
-    for world in (2, 4):
+
+    def launch(world):
         configs = [(n, f) for n, w, f in CONFIGS if w == world]
-        res = run_workers(script, world, [
+        return run_workers(script, world, [
             out, json.dumps(SIZE), json.dumps(configs), B, S, STEPS,
-            ACCUM_K if world == 2 else 0], timeout=120)
-        assert res.returncode == 0, res.stderr[-3000:]
-    return out
+            ACCUM_K if world == 2 else 0], timeout=150)
+    with ThreadPoolExecutor(2) as pool:
+        jobs = pool.map(launch, (2, 4))
+        ref = {(name, world): _reference(world, **fields)
+               for name, world, fields in CONFIGS}
+        ref["accum"] = _reference_accum(2)
+        for res in jobs:
+            assert res.returncode == 0, res.stderr[-3000:]
+    return out, ref
 
 
 def _port(runs, name, world, rank=0):
@@ -223,8 +233,9 @@ def _assert_close(got, want, what, atol=0.0):
 @pytest.mark.parametrize("name,world,fields", CONFIGS,
                          ids=[f"{n}-dp{w}" for n, w, _ in CONFIGS])
 def test_dp_step_matches_reference(runs, name, world, fields):
-    want_l, want, want_step = _reference(world, **fields)
-    got = _port(runs, name, world)
+    out, ref = runs
+    want_l, want, want_step = ref[name, world]
+    got = _port(out, name, world)
     np.testing.assert_allclose(got["loss"], want_l, rtol=2e-5, atol=2e-6)
     assert int(got["step"]) == want_step == STEPS
     assert got["loss"][-1] < got["loss"][0]
@@ -232,8 +243,9 @@ def test_dp_step_matches_reference(runs, name, world, fields):
 
 
 def test_accum_steps_match_reference_at_dp2(runs):
-    want_l, want, want_step = _reference_accum(2)
-    got = _port(runs, "accum", 2)
+    out, ref = runs
+    want_l, want, want_step = ref["accum"]
+    got = _port(out, "accum", 2)
     np.testing.assert_allclose(got["loss"], want_l, rtol=2e-5, atol=2e-6)
     assert int(got["step"]) == want_step == STEPS
     _assert_close(got, want, "accum dp2", atol=STEPS * ADAM_NOISE)
@@ -243,6 +255,7 @@ def test_accum_steps_match_reference_at_dp2(runs):
 def test_zero1_ranks_hold_one_nth_of_the_moments(runs, world):
     """ZeRO-1: each rank's moment bucket is ceil(n / world) elements, n the
     parameter count; without it every rank holds all n (padded)."""
+    runs = runs[0]
     n = sum(v.size for k, v in _port(runs, "zero1", world).items()
             if k.startswith("p."))
     chunk = -(-n // world)

@@ -152,8 +152,9 @@ def _reference(size, **fields):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The port's worker groups at world 2 and 4 (all configurations), and
-    the reference's parameters they start from."""
+    """The port's worker groups at world 2 and 4 (all configurations) from
+    the reference's parameters, and the reference's steps of every
+    configuration, computed while the groups run."""
     import json
     out = tmp_path_factory.mktemp("tp")
     for size in (SIZE, ODD):
@@ -167,11 +168,15 @@ def runs(tmp_path_factory):
         configs = [(n, s, f) for n, w, s, f in CONFIGS if w == world]
         return run_workers(script, world, [out, json.dumps(configs), B, S,
                                            STEPS], timeout=150)
-    # the two worker groups run at once (each waits on its own imports)
+    # the two worker groups run at once (each waits on its own imports),
+    # and the reference computes every configuration meanwhile
     with ThreadPoolExecutor(2) as pool:
-        for res in pool.map(launch, (2, 4)):
+        jobs = pool.map(launch, (2, 4))
+        ref = {name: _reference(size, **fields)
+               for name, _, size, fields in CONFIGS}
+        for res in jobs:
             assert res.returncode == 0, res.stderr[-3000:]
-    return out
+    return out, ref
 
 
 def _port(runs, name, world, rank=0):
@@ -194,12 +199,13 @@ def test_tp_step_matches_reference(runs, name, world, size, fields):
     """Three steps: the losses, and the parameters and moments gathered
     from the ranks' shards, equal the reference's; every rank gathers the
     same state."""
-    want_l, want, want_step = _reference(size, **fields)
-    got = _port(runs, name, world)
+    out, ref = runs
+    want_l, want, want_step = ref[name]
+    got = _port(out, name, world)
     np.testing.assert_allclose(got["loss"], want_l, rtol=2e-5, atol=2e-5)
     assert int(got["step"]) == want_step == STEPS
     _assert_close(got, want, name, atol=STEPS * ADAM_NOISE)
-    last = _port(runs, name, world, world - 1)
+    last = _port(out, name, world, world - 1)
     for k in got:
         if k[:2] in ("p.", "m.", "v."):
             np.testing.assert_array_equal(got[k], last[k])
@@ -212,7 +218,7 @@ def test_ranks_hold_their_qkv_shard(runs, name, world, tp):
     k and v."""
     L, h = SIZE["num_layers"], SIZE["hidden_size"]
     for r in range(world):
-        assert _port(runs, name, world, r)["local.qkv_w"].tolist() == \
+        assert _port(runs[0], name, world, r)["local.qkv_w"].tolist() == \
             [L, h, 3 * h // tp]
 
 

@@ -11,13 +11,14 @@ over 8 AdamW steps.
 import numpy as np
 import pytest
 
-import jax  # noqa: F401  (the conftest keeps it on the CPU)
+import jax  # (the conftest keeps it on the CPU)
 
 import paddle_tpu as P
 from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from paddle_tpu.models.gpt import GPTForCausalLM as JaxGPT
 import paddle_tpu_torch as T
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch._testing import numpy_initializers
 from paddle_tpu_torch._testing import share_the_cores_fixture
 
 _share_the_cores = share_the_cores_fixture()
@@ -37,7 +38,8 @@ def _rel(got, want):
 
 def _pair(seed=0):
     P.seed(seed)
-    ref = JaxGPT(JaxGPTConfig.tiny())
+    with numpy_initializers(jax):
+        ref = JaxGPT(JaxGPTConfig.tiny())
     port = GPTForCausalLM(GPTConfig.tiny())
     state = {k: v.numpy() for k, v in ref.state_dict().items()}
     missing, unexpected = port.set_state_dict(state)

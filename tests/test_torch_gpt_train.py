@@ -106,10 +106,13 @@ def _assert_leaves_close(got, want, rel, what, atol=0.0):
 
 
 def _jax_value_and_grad(jpcfg, params, ids, jcfg=JCFG):
+    """The reference's loss and gradients, compiled as one program: run op
+    by op, the reference compiles a kernel an op shape (~8 s on a CPU for
+    the first tiny step, ~2 s again for each later one)."""
     mesh = GH.build_mesh(jpcfg, jax.devices()[:1])
     batch = (jnp.asarray(ids), jnp.asarray(ids))
-    loss, grads = jax.value_and_grad(
-        lambda p: GH.loss_fn(p, batch, jcfg, jpcfg, mesh))(params)
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: GH.loss_fn(p, batch, jcfg, jpcfg, mesh)))(params)
     return float(loss), _np_tree(grads)
 
 

@@ -320,24 +320,33 @@ def test_port_imports_and_runs_without_jax_or_the_jax_package():
 
 
 def test_distributed_names_of_later_slices_raise_naming_their_queue_item():
+    """The names the host-runtime slice brought resolve to the ported
+    modules; none is left to a later slice, and a name the reference does
+    not have still raises AttributeError."""
     import pytest
     import paddle_tpu_torch as paddle
-    from paddle_tpu_torch import distributed
-    from paddle_tpu_torch.distributed import elastic
+    from paddle_tpu_torch import distributed, native, profiler
+    from paddle_tpu_torch.distributed import (elastic, fleet_executor, ps,
+                                              rpc)
     assert paddle.Model.__module__ == "paddle_tpu_torch.hapi"
     assert distributed.save_state_dict is distributed.checkpoint.\
         save_state_dict
-    for name in ("rpc", "ps", "fleet_executor", "TCPStore",
-                 "QueueDataset"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-            getattr(distributed, name)
-    for name in ("UtilBase", "PaddleCloudRoleMaker"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-            getattr(distributed.fleet, name)
+    assert (distributed.rpc, distributed.ps, distributed.fleet_executor) == \
+        (rpc, ps, fleet_executor)
+    assert distributed.TCPStore is native.TCPStore
+    assert distributed.InMemoryDataset.__module__ == distributed.__name__
+    assert issubclass(distributed.InMemoryDataset, distributed.QueueDataset)
+    for name in ("ProbabilityEntry", "CountFilterEntry", "ShowClickEntry"):
+        assert getattr(distributed, name).__module__ == distributed.__name__
+    assert distributed.fleet.PaddleCloudRoleMaker is ps.PaddleCloudRoleMaker
+    assert distributed.fleet.UtilBase.__module__ == \
+        distributed.fleet.__name__
+    assert elastic.TCPKVStore.__module__ == elastic.__name__
+    assert paddle.profiler is profiler
     # the auto-parallel slice's names (item 5e) are there
     assert distributed.auto_parallel.Engine is distributed.fleet.auto.Engine
     assert distributed.shard_tensor is distributed.api.shard_tensor
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        elastic.TCPKVStore("localhost", 0)
     with pytest.raises(AttributeError):
         distributed.no_such_name  # noqa: B018
+    with pytest.raises(AttributeError):
+        distributed.fleet.no_such_name  # noqa: B018

@@ -28,12 +28,13 @@ Restated here: ``test_observability.py::test_compile_counter_on_toy_jit_fn``
 counts the compiles of a ``jax.jit`` function (and fails on the reference);
 here it counts those of a ``to_static`` function.
 """
+import contextlib
 import warnings
 
 import numpy as np
 import pytest
 
-import jax  # noqa: F401  (the conftest keeps it on the CPU)
+import jax  # (the conftest keeps it on the CPU)
 
 import paddle_tpu as P
 from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
@@ -42,6 +43,7 @@ import paddle_tpu_torch as T
 import paddle_tpu_torch.observability as obs
 from paddle_tpu_torch._testing import force_cpu
 from paddle_tpu_torch.models.gpt import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch._testing import numpy_initializers
 from paddle_tpu_torch._testing import share_the_cores_fixture
 
 _share_the_cores = share_the_cores_fixture()
@@ -69,7 +71,8 @@ def _params(net):
 # ------------------------------------------------------- the GPT step
 def _gpt_pair(seed):
     P.seed(seed)
-    ref = JaxGPT(JaxGPTConfig.tiny())
+    with numpy_initializers(jax):
+        ref = JaxGPT(JaxGPTConfig.tiny())
     port = GPTForCausalLM(GPTConfig.tiny())
     missing, unexpected = port.set_state_dict(
         {k: v.numpy() for k, v in ref.state_dict().items()})
@@ -173,7 +176,9 @@ def _resnet_run(pkg, state=None):
     N(0, 1) images), Momentum(0.1, 0.9, wd 5e-4), one compiled step; the
     state after it and the loss."""
     pkg.seed(1)
-    net = pkg.vision.models.resnet18(num_classes=10)
+    # the reference's weights come from ``state``: built with numpy draws
+    with numpy_initializers(jax) if pkg is P else contextlib.nullcontext():
+        net = pkg.vision.models.resnet18(num_classes=10)
     if state is not None:
         net.set_state_dict(state)
     opt = pkg.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
@@ -207,8 +212,9 @@ def test_compiled_resnet_momentum_step_with_batchnorm_buffers():
     port's second compiled call, from the cache, equals an eager second
     step from the same state exactly."""
     P.seed(1)
-    init = {k: v.numpy() for k, v in
-            P.vision.models.resnet18(num_classes=10).state_dict().items()}
+    with numpy_initializers(jax):
+        init = {k: v.numpy() for k, v in
+                P.vision.models.resnet18(num_classes=10).state_dict().items()}
     ref, rl, _, _, _ = _resnet_run(P, init)
     port, tl, step, eager_step, batches = _resnet_run(T, init)
     np.testing.assert_allclose(tl, rl, rtol=1e-4)

@@ -7,8 +7,8 @@ Restated from the reference's tests on the port (their scripts import
 failure``, ``test_launcher_relaunches_after_midrun_kill``,
 ``test_launcher_exhausts_restarts``,
 ``test_elastic_scale_{in,out}_resumes_from_checkpoint`` with a
-``FileKVStore``; a ``tcp://`` store waits for the native TCPStore and is
-refused), ``tests/test_checkpoint_profiler.py::test_launcher_cpu_sim``,
+``FileKVStore`` and with a ``tcp://`` store, a ``TCPKVStore`` the
+launcher hosts), ``tests/test_checkpoint_profiler.py::test_launcher_cpu_sim``,
 ``test_sharded_checkpoint_roundtrip`` and
 ``test_checkpoint_reshards_across_mesh_change`` (the reference shards one
 process's array over its mesh; here each rank of a gloo job saves its own
@@ -199,10 +199,47 @@ def test_launcher_exhausts_restarts(tmp_path):
 
 
 def test_launcher_refuses_a_tcp_store_until_the_native_store():
-    rc, _, err = _launch(["--nproc_per_node", 1, "--np_range", "1:2",
-                          "--elastic_store", "tcp://127.0.0.1:1",
-                          "x.py"], timeout=30)
-    assert rc != 0 and b"ROADMAP queue 1, item 6" in err
+    """The native store is ported: a ``tcp://`` store is taken (the elastic
+    test below runs one); what is refused is a port that is not a number,
+    and the rendezvous store's port given to the elastic store too."""
+    from paddle_tpu_torch.distributed.launch.main import main
+    with pytest.raises(SystemExit, match="numeric port"):
+        main(["--nproc_per_node", "1", "--np_range", "1:2",
+              "--elastic_store", "tcp://127.0.0.1:x", "x.py"])
+    with pytest.raises(SystemExit, match="share a port"):
+        main(["--nproc_per_node", "1", "--np_range", "1:2", "--master",
+              "127.0.0.1:29999", "--elastic_store", "tcp://127.0.0.1:29999",
+              "x.py"])
+
+
+def test_launcher_hosts_a_tcp_elastic_store(tmp_path):
+    """``--elastic_store tcp://`` (the reference's launch main.py:130-139):
+    the launcher hosts a TCPKVStore at that port, beside the rendezvous
+    store at another; two workers put their keys and read each other's."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = tmp_path / "kv.py"
+    script.write_text(
+        "import os, sys, time\n"
+        "from paddle_tpu_torch.distributed.elastic import TCPKVStore\n"
+        "rank = os.environ['PADDLE_TRAINER_ID']\n"
+        "kv = TCPKVStore('127.0.0.1', int(sys.argv[1]))\n"
+        "kv.put(f'job/nodes/{rank}', os.environ['MASTER_PORT'], ttl_s=60)\n"
+        "while len(kv.get_prefix('job/nodes/')) < 2:\n"
+        "    time.sleep(0.02)\n"
+        "print(sorted(kv.get_prefix('job/nodes/').items()))\n")
+    rc, out, err = _launch(["--nproc_per_node", 2, "--np_range", "2:2",
+                            "--elastic_store", f"tcp://127.0.0.1:{port}",
+                            script, port], timeout=60)
+    assert rc == 0, err[-800:]
+    lines = out.decode().splitlines()
+    assert len(lines) == 2 and lines[0] == lines[1]
+    rendezvous = eval(lines[0])[0][1]
+    assert eval(lines[0]) == [("job/nodes/0", rendezvous),
+                              ("job/nodes/1", rendezvous)]
+    assert int(rendezvous) != port
 
 
 ELASTIC = """

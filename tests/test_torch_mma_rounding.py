@@ -89,13 +89,19 @@ def _rel_err(got, want):
 
 
 def _reference_grads(module, q, k, v, do, scale, causal):
-    """jax.vjp of the reference op in interpret mode, bf16."""
+    """jax.vjp of the reference op in interpret mode, bf16, compiled as one
+    program (run op by op, the interpreter walks the grid in Python)."""
     op = jsa.simple_attention if module == "simple" else jsa2.qblock_attention
     jq, jk, jv, jdo = (jnp.asarray(x).astype(jnp.bfloat16)
                        for x in (q, k, v, do))
-    _, vjp = jax.vjp(lambda a, b, c: op(a, b, c, scale, causal, True),
-                     jq, jk, jv)
-    return [np.asarray(g.astype(jnp.float32)) for g in vjp(jdo)]
+
+    @jax.jit
+    def grads(a, b, c, o):
+        _, vjp = jax.vjp(lambda x, y, z: op(x, y, z, scale, causal, True),
+                         a, b, c)
+        return vjp(o)
+    return [np.asarray(g.astype(jnp.float32)) for g in grads(jq, jk, jv,
+                                                             jdo)]
 
 
 # qblock at S=256 runs two q blocks of 128 (bq forced on the reference, so
@@ -137,7 +143,8 @@ LSE_CASES = [("causal_attention", True, s, s, d)
 
 
 def _reference_lse_grads(module, q, k, v, do, scale, causal):
-    """jax.vjp of the reference op in interpret mode, bf16."""
+    """jax.vjp of the reference op in interpret mode, bf16, compiled as one
+    program."""
     if module == "causal_attention":
         def op(a, b, c):
             return jca.causal_attention(a, b, c, scale, True)
@@ -146,8 +153,12 @@ def _reference_lse_grads(module, q, k, v, do, scale, causal):
             return jbf.blocked_flash(a, b, c, scale, causal, True, 128, 128)
     jq, jk, jv, jdo = (jnp.asarray(x).astype(jnp.bfloat16)
                        for x in (q, k, v, do))
-    _, vjp = jax.vjp(op, jq, jk, jv)
-    return [np.asarray(g.astype(jnp.float32)) for g in vjp(jdo)]
+
+    @jax.jit
+    def grads(a, b, c, o):
+        return jax.vjp(op, a, b, c)[1](o)
+    return [np.asarray(g.astype(jnp.float32)) for g in grads(jq, jk, jv,
+                                                             jdo)]
 
 
 @pytest.mark.parametrize(

@@ -22,6 +22,7 @@ from paddle_tpu.models.gpt import GPTConfig as JaxGPTConfig
 from paddle_tpu_torch.models import gpt_hybrid as TH
 from paddle_tpu_torch.models import moe as tmoe
 from paddle_tpu_torch.models.gpt import GPTConfig
+from paddle_tpu_torch._testing import numpy_initializers
 from paddle_tpu_torch._testing import share_the_cores_fixture
 
 _share_the_cores = share_the_cores_fixture()
@@ -46,7 +47,8 @@ def _rel(got, want):
 # ------------------------------------------------------------- MoELayer
 def _moe_pair(gate, top_k):
     ref.seed(0)
-    jl = jmoe.MoELayer(32, 64, num_experts=4, top_k=top_k, gate=gate)
+    with numpy_initializers(jax):
+        jl = jmoe.MoELayer(32, 64, num_experts=4, top_k=top_k, gate=gate)
     tl = tmoe.MoELayer(32, 64, num_experts=4, top_k=top_k, gate=gate)
     tl.set_state_dict({k: v.numpy() for k, v in jl.state_dict().items()})
     return jl, tl
@@ -92,7 +94,8 @@ def test_topk_gate_dispatch_and_combine_match_reference():
 
 def test_moe_transformer_block_matches_reference():
     ref.seed(0)
-    jb = jmoe.MoETransformerBlock(32, 4, 64, num_experts=2)
+    with numpy_initializers(jax):
+        jb = jmoe.MoETransformerBlock(32, 4, 64, num_experts=2)
     tb = tmoe.MoETransformerBlock(32, 4, 64, num_experts=2)
     tb.set_state_dict({k: v.numpy() for k, v in jb.state_dict().items()})
     x = np.random.RandomState(4).randn(2, 8, 32).astype(np.float32)
@@ -165,10 +168,12 @@ def test_moe_params_have_the_reference_leaves():
 
 
 def _jax_value_and_grad(jpcfg, params, ids):
+    """The reference's loss and gradients, compiled as one program (run op
+    by op it compiles a kernel an op shape)."""
     mesh = GH.build_mesh(jpcfg, jax.devices()[:1])
     batch = (jnp.asarray(ids), jnp.asarray(ids))
-    loss, grads = jax.value_and_grad(
-        lambda p: GH.loss_fn(p, batch, JCFG, jpcfg, mesh))(params)
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: GH.loss_fn(p, batch, JCFG, jpcfg, mesh)))(params)
     return float(loss), _np_tree(grads)
 
 

@@ -12,15 +12,19 @@ mask, and ``scaled_dot_product_attention`` causal with Sq != Skv on the
 CPU, which is bottom-right aligned there in both packages. Random
 functionals (dropout, alpha_dropout, rrelu, gumbel_softmax) and the
 initializers are held to determinism under ``seed`` and to their moments,
-never to the reference's draws.
+never to the reference's draws. The reference's side of a comparison runs
+as one compiled program (its ``jit.to_static``), and its layers are built
+with numpy draws (``_testing.numpy_initializers``), whose values the port
+then loads.
 """
 import numpy as np
 import pytest
 
-import jax  # noqa: F401  (the conftest keeps it on the CPU)
+import jax  # (the conftest keeps it on the CPU)
 
 import paddle_tpu as P
 import paddle_tpu_torch as T
+from paddle_tpu_torch._testing import numpy_initializers
 from paddle_tpu_torch._testing import share_the_cores_fixture
 
 _share_the_cores = share_the_cores_fixture()
@@ -49,17 +53,10 @@ def _x(*shape, seed=0):
     return _rs(seed).randn(*shape).astype(np.float32)
 
 
-def _run(pkg, fn, arrays, dtype):
-    """Outputs and gradients of sum(out_i * w_i) with respect to the
-    floating inputs (cast to ``dtype``)."""
-    ts = []
-    for a in arrays:
+def _forward_backward(pkg, fn, arrays, dtype, ts, layer=None):
+    for t, a in zip(ts, arrays):
         if a.dtype.kind == "f":
-            t = pkg.to_tensor(a).astype(dtype)
             t.stop_gradient = False
-        else:
-            t = pkg.to_tensor(a)
-        ts.append(t)
     out = fn(pkg, *ts)
     outs = [o for o in (out if isinstance(out, (tuple, list)) else (out,))
             if o is not None]
@@ -70,17 +67,41 @@ def _run(pkg, fn, arrays, dtype):
         w = pkg.to_tensor(np.asarray(_rs(50 + i).randn(*o.shape), np.float32))
         term = (o.astype("float32") * w).sum()
         loss = term if loss is None else loss + term
-    grads = []
+    grads, pgrads = [], {}
     if loss is not None and not loss.stop_gradient:
         loss.backward()
-        grads = [t.grad.numpy() if t.grad is not None else None
-                 for t, a in zip(ts, arrays) if a.dtype.kind == "f"]
-    return [o.numpy() for o in outs], grads
+        grads = [t.grad for t, a in zip(ts, arrays) if a.dtype.kind == "f"]
+        if layer is not None:
+            pgrads = {n: q.grad for n, q in layer.named_parameters()
+                      if q.grad is not None}
+    return outs, grads, pgrads
+
+
+def _run(pkg, fn, arrays, dtype, layer=None):
+    """Outputs, gradients of sum(out_i * w_i) with respect to the floating
+    inputs (cast to ``dtype``), and ``layer``'s parameter gradients. The
+    reference's runs as one program, through its ``jit.to_static`` (which
+    threads ``layer``'s state): op by op it compiles a kernel an op shape,
+    ~5 s for a transformer layer's forward and backward on a CPU."""
+    ts = [pkg.to_tensor(a).astype(dtype) if a.dtype.kind == "f"
+          else pkg.to_tensor(a) for a in arrays]
+    if pkg is P:
+        step = P.jit.to_static(
+            lambda *xs: _forward_backward(P, fn, arrays, dtype, list(xs),
+                                          layer),
+            objs=[] if layer is None else [layer])
+        outs, grads, pgrads = step(*ts)
+    else:
+        outs, grads, pgrads = _forward_backward(pkg, fn, arrays, dtype, ts,
+                                                layer)
+    return [o.numpy() for o in outs], \
+        [None if g is None else g.numpy() for g in grads], \
+        {n: g.numpy() for n, g in pgrads.items()}
 
 
 def _compare(fn, arrays, dtype="float32"):
-    ro, rg = _run(P, fn, arrays, dtype)
-    to, tg = _run(T, fn, arrays, dtype)
+    ro, rg, _ = _run(P, fn, arrays, dtype)
+    to, tg, _ = _run(T, fn, arrays, dtype)
     tol = TOL[dtype]
     assert len(ro) == len(to)
     for r, t in zip(ro, to):
@@ -548,7 +569,9 @@ LAYERS = _layer_cases()
 
 def _layer_pair(build):
     P.seed(11)
-    ref, port = build(P.nn), build(T.nn)
+    with numpy_initializers(jax):
+        ref = build(P.nn)
+    port = build(T.nn)
     assert list(port.state_dict()) == list(ref.state_dict())
     port.set_state_dict({k: v.numpy() for k, v in ref.state_dict().items()})
     return ref, port
@@ -562,10 +585,7 @@ def _run_layer(pkg, layer, arrays, mask=None):
         if isinstance(layer, p.nn.MultiHeadAttention):
             return layer(*ts, attn_mask=m)
         return layer(*ts, m)
-    outs, grads = _run(pkg, fn, arrays, "float32")
-    pgrads = {n: q.grad.numpy() for n, q in layer.named_parameters()
-              if q.grad is not None}
-    return outs, grads, pgrads
+    return _run(pkg, fn, arrays, "float32", layer)
 
 
 def _compare_param_grads(tpg, rpg):

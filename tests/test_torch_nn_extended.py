@@ -45,23 +45,36 @@ def _outs(out):
     return [out]
 
 
-def _run(pd, fn, inputs, diff):
-    xs = [pd.to_tensor(a, stop_gradient=k not in diff)
-          for k, a in enumerate(inputs)]
+def _forward_backward(pd, fn, diff, xs):
+    for k in diff:
+        xs[k].stop_gradient = False
     outs = _outs(fn(pd, *xs))
-    vals = [o.numpy() for o in outs]
     grads = []
     if diff:
         r = np.random.RandomState(99)
         total = None
-        for o, v in zip(outs, vals):
-            if np.issubdtype(v.dtype, np.floating):
-                w = pd.to_tensor(np.asarray(r.randn(*v.shape), np.float32))
+        for o in outs:
+            if "float" in str(o.dtype):
+                w = pd.to_tensor(np.asarray(r.randn(*o.shape), np.float32))
                 term = (o * w).sum()
                 total = term if total is None else total + term
         total.backward()
-        grads = [xs[k].grad.numpy() for k in diff]
-    return vals, grads
+        grads = [xs[k].grad for k in diff]
+    return outs, grads
+
+
+def _run(pd, fn, inputs, diff):
+    """Outputs and the gradients of sum(out_i * w_i) with respect to the
+    inputs in ``diff``. The reference's runs as one program through its
+    ``jit.to_static`` (op by op it compiles a kernel an op shape), which
+    runs op by op where its trace cannot follow the function."""
+    xs = [pd.to_tensor(a) for a in inputs]
+    if pd is P:
+        outs, grads = P.jit.to_static(
+            lambda *ts: _forward_backward(P, fn, diff, list(ts)))(*xs)
+    else:
+        outs, grads = _forward_backward(pd, fn, diff, xs)
+    return [o.numpy() for o in outs], [g.numpy() for g in grads]
 
 
 def _close(got, want, what, grad=False):
