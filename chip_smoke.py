@@ -7,7 +7,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
   1. the card: its name and power limit; builds every Hopper kernel of the
      port from the sources in this checkout (nvcc, sm_90a, one process per
      source, all started together), and prints each source's and each
-     tensor-core kernel's registers and spilled bytes;
+     tensor-core kernel's registers and spilled bytes; the libraries link
+     torch's shared CUDA runtime (one libcudart in the process, checked);
   2. each kernel against its plain PyTorch version on the card, with q, k
      and v laid out as the step hands them over: simple_attention at the
      flagship's shape (B4 H16 S1024 D128, bf16 causal and not, f16, f32);
@@ -218,9 +219,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      call's trace and compile seconds, ms/step (host clock, median and
      spread), images/s, the data wait, the idle share of one profiled
      step, the peak memory; (c) GPT-3 Medium's widths (phase 13's MEDIUM
-     at 12 of its 24 layers, for the compile's time; GPT-2's N(0, 0.02)
+     at 4 of its 24 layers, for the compile's time; GPT-2's N(0, 0.02)
      initialisation), bf16, ``AdamW(1e-4, multi_precision=True)``, B4
-     S2048, the step compiled: 12 launches a step of each library kernel
+     S2048, the step compiled: 4 launches a step of each library kernel
      and no other attention kernel (nor in
      the profile), ``nn.sdpa{library_flash}`` ticking only while traced,
      no aten SDPA node, the step-0 loss in [10, 11.5] and equal to the
@@ -282,7 +283,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
      ms/step, the collectives' host-clock ms, collective.host_staged. A
      {"tensor_parallel": {...}} line. ``--phase17`` runs the build and this
      phase alone;
- 18. pipelines at the same Llama-7B widths, 16 layers in 2 stages, B4 S2048
+ 18. pipelines at the same Llama-7B widths, 4 layers in 2 stages, B4 S2048
      in 4 microbatches (the workload's B2 does not split into its 4): (a)
      gpt_hybrid.schedule_value_and_grad (the pipeline's stage, head and
      embedding backward over parallel.pp_schedule.run_schedule) in this
@@ -348,10 +349,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
      RecordEvent, op:: and kernel rows in the exported trace, 24 launches
      of each library kernel a recorded step and every kernel launch of the
      recorded steps with its device row; a Profiler without a scheduler
-     over 2 steps, whose rows short of those counts must each be reported
-     as a launch without a row; summary(), the step's ms with the
-     profiler on and off. A {"host_runtime": {...}} line. ``--phase20`` runs the build and
-     this phase alone.
+     over 2 steps with exactly 24 rows of each library kernel a step and
+     no launch without a row (each lost launch is printed with its
+     correlation id, its us after the recording's marker and the op that
+     made it); summary(), the step's
+     ms with the profiler on and off. A {"host_runtime": {...}} line.
+     ``--phase20`` runs the build and this phase alone.
+ 21. the breadth slice: (a) Faster R-CNN R50-C4's detection head at COCO
+     test size (an 800 x 1333 image: the C4 map [1, 1024, 50, 84], 15
+     anchors a position, generate_proposals 6000 -> NMS 0.7 -> 1000,
+     roi_align to 14 x 14 at 1/16, box_coder's decode of 1000 x 81 class
+     boxes, the class-aware nms at 0.5 after a 0.05 threshold keeping 100,
+     distribute_fpn_proposals over levels 2-5) on the card against the
+     CPU's plain path: identical index sets, floats within 1e-5, roi_align's
+     peak under 8 GB; each op's ms and nms's at 6000 boxes; (b) DCNv2's
+     deformable 3x3 convolutions at ResNet-50's conv3-conv5 widths (B2, 800
+     x 1333): forward and every gradient against the CPU within 1e-4,
+     static.nn.deform_conv2d against vision.ops'; (c) Llama-2-7B's prefill
+     written in incubate's fused functions on LlamaForCausalLM's weights
+     (bf16, B1 S2048): its logits against the model's forward within 2e-2,
+     32 lf_fwd launches a forward and no other attention kernel, a ragged
+     batch of 4 through the variable-length attention with lengths against
+     each sequence alone; (d) a fused_moe layer at Mixtral-8x7B's widths
+     against its top-2 gathered form in f32; (e) Whisper's log-mel front
+     end and MFCC at B32 x 30 s against the CPU within 1e-4, fft's round
+     trip; (f) the Layer GPT at MEDIUM's widths pruned 2:4 by asp and
+     trained by asp.decorate(LookAhead(AdamW)) for 6 steps with
+     ModelAverage beside it: density 0.5 after each step, the sync at step
+     5, falling losses, apply/restore bit-equal, 24 launches of each
+     library kernel a step. A {"breadth": {...}} line. ``--phase21`` runs
+     the build and this phase alone.
 The script sets FLAGS_matmul_precision to "highest", which the flag's
 default gives a user: f32 products and convolutions run in f32.
 Phases 2-6 keep the autotuner's table in a fresh temporary
@@ -361,8 +388,8 @@ the configuration a user gets on a new checkout.
 Prints {"serving": {...}}, {"moe_gpt": {...}}, {"bert": {...}},
 {"resnet50": {...}}, {"model_fit": {...}}, {"jit": {...}},
 {"eager_api": {...}}, {"distributed": {...}}, {"tensor_parallel": {...}},
-{"pipeline": {...}}, {"expert_parallel": {...}}, {"auto_parallel": {...}}
-and {"host_runtime": {...}} lines, the
+{"pipeline": {...}}, {"expert_parallel": {...}}, {"auto_parallel": {...}},
+{"host_runtime": {...}} and {"breadth": {...}} lines, the
 script's seconds, the card line, then one {"kernels": [...]} line (each row with its design),
 then as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -2985,9 +3012,11 @@ JIT_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 5e-2)}
 JIT_RESNET_TOL = {"loss": 1e-4, "buffers": 1e-4, "later_loss": 5e-2}
 ADAM_EPS = 1e-8
 JIT_MEDIUM_STEPS = 6
-# 14c-d at 12 of MEDIUM's 24 layers: inductor's compile of the 24-layer step
-# took 190 s of a 1250 s script on a slow host (the widths stay)
-JIT_MEDIUM_LAYERS = 12
+# 14c-d at 4 of MEDIUM's 24 layers: inductor's compile of the 24-layer step
+# took 190 s of a 1250 s script on a slow host, the 12-layer one 80 s of a
+# 1030 s script with phase 21, and the 8-layer phase 70 s of 1044 s (the
+# widths stay)
+JIT_MEDIUM_LAYERS = 4
 JIT_MEDIUM_LOSS_TOL = 1e-2
 PREDICT_BATCHES = (1, 2, 4)
 # kernel names of the port's attention (every other attention kernel in a
@@ -5328,12 +5357,13 @@ def drive_tensor_parallel(run, paddle, TH, GPTConfig, mods, cost_model,
 
 # Phase 18: pipelines at llama_tp_pp_sharding3.py's widths (TP_LLAMA: vocab
 # 32000, h4096, 32 heads of 128, S2048; bf16, remat "names", fused CE) at
-# 16 of its 32 layers (17b's depth, for the same memory reason) in 2 stages.
+# 4 of its 32 layers in 2 stages (16, 17b's depth, took 71.9 s of a 1030 s
+# script with phase 21, and 8 most of 101 s of 1044 s; the widths stay).
 # The batch is B4 in 4 microbatches: the workload's full configuration
 # (B = 2·dp = 2 at TP4 x PP2, 4 microbatches) is refused by the reference's
 # own pipeline_microbatch (a batch of 2 does not split into 4), so the card
 # runs the smallest batch its 4 microbatches divide.
-PP_BATCH, PP_MICRO, PP_STAGES = 4, 4, 2
+PP_BATCH, PP_MICRO, PP_STAGES, PP_LAYERS = 4, 4, 2, 4
 # 18a's schedules: (label, builder); 18b's pp_schedule values at 4 layers
 PP_SCHEDULES = (("1F1B", "schedule_1f1b"), ("ZBH1", "schedule_zbh1"),
                 ("VPP2", "schedule_interleaved"), ("ZB-V", "schedule_zbvpp"))
@@ -5366,13 +5396,13 @@ def pp_expected_launches(kind, layers, micro):
 def drive_pp_schedules(run, TH, GPTConfig, torch):
     """18a: pp_schedule.run_schedule on the card in one process, every stage
     here (gpt_hybrid.schedule_value_and_grad): 1F1B, ZBH1, the interleaved
-    schedule (v = 2) and ZB-V over the 16-layer Llama-7B-width model split
-    in 2 stages, B4 S2048 in 4 microbatches, against the unpipelined
-    single-device step's loss and gradients."""
+    schedule (v = 2) and ZB-V over the Llama-7B-width model at PP_LAYERS
+    layers split in 2 stages, B4 S2048 in 4 microbatches, against the
+    unpipelined single-device step's loss and gradients."""
     from torch.profiler import ProfilerActivity, profile
     from paddle_tpu_torch.ops.hopper import causal_attention as ca
     from paddle_tpu_torch.parallel import pp_schedule as PS
-    cfg = GPTConfig(**TP_LLAMA)
+    cfg = GPTConfig(**dict(TP_LLAMA, num_layers=PP_LAYERS))
     L, m = cfg.num_layers, PP_MICRO
     pcfg = _tp_pcfg(TH, torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -5612,7 +5642,7 @@ def drive_pipeline(run, paddle, TH, GPTConfig, torch):
     paddle.set_device("gpu:0")
     out = {"allocated_at_start_gb": torch.cuda.memory_allocated() / 1e9,
            "batch": PP_BATCH, "microbatches": PP_MICRO,
-           "layers": TP_LLAMA["num_layers"], "stages": PP_STAGES}
+           "layers": PP_LAYERS, "stages": PP_STAGES}
     t0 = time.perf_counter()
     out["run_schedule"] = drive_pp_schedules(run, TH, GPTConfig, torch)
     print(f"18a: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -7056,18 +7086,24 @@ def drive_profiler(run, paddle, fa, torch, model):
               f"{ops} op:: spans and {len(kernels)} kernel rows, the library "
               f"kernels {counts} ({L} a recorded step each); launches "
               f"without a row: {prof.device_launches_unrecorded[:8]}")
-    # without a READY step the window's first driver-API launches can lack
-    # their rows late in a long process (ROADMAP queue 3): none may go
-    # unreported
-    short = sum(L * PROF_PLAIN_STEPS - n for n in plain_counts.values())
+    # without a READY step: every launch of the recording has its row (the
+    # kernels link torch's shared CUDA runtime; their first launches of a
+    # window lost their rows late in a long process while each library
+    # carried a static runtime of its own)
+    want_plain = {lib: L * PROF_PLAIN_STEPS for lib in LF_KERNELS.values()}
+    short = {lib: want_plain[lib] - n for lib, n in plain_counts.items()
+             if n != want_plain[lib]}
     lost = plain.device_launches_unrecorded
-    run.check(all(n <= L * PROF_PLAIN_STEPS for n in plain_counts.values())
-              and short <= len(lost),
+    print(f"20f: without a scheduler, library kernel rows {plain_counts}; "
+          f"launches without a row (call, correlation id, us after the "
+          f"recording's marker, the op that made it): {lost[:16]}; "
+          f"kernels short: {short}",
+          flush=True)
+    run.check(plain_counts == want_plain and not lost,
               f"20f: a profiler without a scheduler over {PROF_PLAIN_STEPS} "
               f"steps holds the library kernels {plain_counts} ({L} a step "
-              f"each) and reports {len(lost)} launches without a row, at "
-              f"least the {short} rows short (the call, us after the "
-              f"recording began: {lost[:8]})")
+              f"each) and no launch without a row ({len(lost)}: "
+              f"{lost[:8]})")
     on_ms = float(np.median([t for i, (_, t) in enumerate(on)
                              if i in recorded]))
     off_ms = float(np.median([t for _, t in off[1:]]))
@@ -7082,6 +7118,7 @@ def drive_profiler(run, paddle, fa, torch, model):
             "launches_without_a_row": [
                 len(prof.device_launches_unrecorded), len(lost)],
             "library_rows_short_no_scheduler": short,
+            "launches_without_a_row_no_scheduler": lost[:16],
             "step_ms_off": off_ms, "step_ms_recorded": on_ms,
             "losses": [x for x, _ in off + on], "trace_mb": trace_mb,
             "summary_top": table.splitlines()[:6]}
@@ -7133,6 +7170,719 @@ def drive_phase20(run, paddle, GPTConfig, GPTForCausalLM, mods, fa, torch):
     torch.cuda.empty_cache()
     out["phase_20_s"] = time.perf_counter() - t_phase
     print(f"host runtime phase: {out['phase_20_s']:.1f} s", flush=True)
+    return out
+
+
+# --------------------------------------------------------------- phase 21
+# The breadth slice's modules at the widths their users run.
+# 21a: Faster R-CNN R50-C4's detection head at COCO test size (Ren et al.
+# 2015; Detectron's e2e_faster_rcnn_R-50-C4_1x: an 800 x 1333 image, the
+# C4 map at stride 16, 15 anchors a position (sizes 32-512, ratios 0.5, 1,
+# 2), RPN pre-NMS top 6000, post-NMS 1000 at IoU 0.7, RoIAlign 14 x 14 at
+# 1/16, 81 classes, box weights (10, 10, 5, 5), test NMS 0.5 after a 0.05
+# score threshold, 100 detections; FPN levels 2-5 at 224 / level 4).
+DET_IMAGE = (800, 1333)
+DET_MAP = (1024, 50, 84)
+DET_SIZES, DET_RATIOS = (32, 64, 128, 256, 512), (0.5, 1.0, 2.0)
+DET_PRE, DET_POST, DET_RPN_NMS = 6000, 1000, 0.7
+DET_POOL, DET_CLASSES, DET_NMS, DET_SCORE, DET_KEEP = 14, 81, 0.5, 0.05, 100
+# the CPU's plain roi_align on this many of the RoIs (each RoI's output is
+# a function of its box and the map alone; the card computes all of them)
+DET_CPU_ROIS = 128
+DET_ROI_PEAK_GB = 8.0
+# 21b: DCNv2 (Zhu et al. 2019): modulated deformable 3x3 convolutions in
+# ResNet-50's conv3-conv5 at B2 on 800 x 1333 inputs.
+DCN_BATCH = 2
+DCN_STAGES = (("conv3", 128, 100, 167), ("conv4", 256, 50, 84),
+              ("conv5", 512, 25, 42))
+# 21c: Llama-2-7B's prefill from the fused functions, bf16, B1 S2048; the
+# ragged check's lengths
+FUSED_BATCH, FUSED_SEQ = 1, 2048
+RAGGED_LENS = (512, 1024, 1536, 2048)
+# 21d: one fused_moe layer at Mixtral-8x7B's widths (Jiang et al. 2024)
+MOE_WIDTHS = dict(hidden=4096, experts=8, inner=14336, top_k=2)
+MOE_BATCH, MOE_SEQ = 1, 1024
+# 21e: Whisper's log-mel front end (Radford et al. 2022): 16 kHz, n_fft
+# 400, hop 160, 80 mel bins (f_min 0, f_max 8000), 30 s clips
+MEL = dict(sr=16000, n_fft=400, hop_length=160, n_mels=80, f_min=0.0,
+           top_db=80.0)
+MEL_BATCH, MEL_SAMPLES, MEL_MFCC = 32, 480000, 40
+# 21f: the Layer GPT at MEDIUM's widths, 2:4-pruned, LookAhead(AdamW)
+SPARSE_STEPS, SPARSE_K, SPARSE_LR = 6, 5, 1e-3
+
+
+def _event_ms(torch, fn, reps=5):
+    """The median over ``reps`` calls of fn's CUDA-event ms (each call
+    alone, synchronized after), after one warm-up call; and fn's last
+    value."""
+    out = fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        out = None                    # the last call's value, freed first
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), out
+
+
+def _rel_err(got, want):
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def detection_inputs(seed):
+    """The C4 map, the RPN's scores and deltas, its anchors [H, W, A, 4]
+    (A = 15) and unit variances, the image size, the second stage's class
+    logits and box deltas, all from ``seed``."""
+    rs = np.random.RandomState(seed)
+    c, h, w = DET_MAP
+    stride = 16
+    base = []
+    for size in DET_SIZES:
+        for ratio in DET_RATIOS:
+            bw, bh = size / np.sqrt(ratio), size * np.sqrt(ratio)
+            base.append((-bw / 2, -bh / 2, bw / 2, bh / 2))
+    base = np.asarray(base, np.float32)                    # [15, 4]
+    ys, xs = np.meshgrid((np.arange(h) + 0.5) * stride,
+                         (np.arange(w) + 0.5) * stride, indexing="ij")
+    shift = np.stack([xs, ys, xs, ys], -1).astype(np.float32)
+    anchors = shift[:, :, None, :] + base[None, None]      # [H, W, 15, 4]
+    a = len(base)
+    return {
+        "feat": rs.randn(1, c, h, w).astype(np.float32),
+        "scores": rs.rand(1, a, h, w).astype(np.float32),
+        "deltas": (rs.randn(1, 4 * a, h, w) * 0.3).astype(np.float32),
+        "anchors": anchors.astype(np.float32),
+        "variances": np.ones_like(anchors),
+        "im_info": np.asarray([DET_IMAGE], np.float32),
+        "cls_logits": (rs.randn(DET_POST, DET_CLASSES) * 2.5).astype(
+            np.float32),
+        "box_deltas": (rs.randn(DET_POST, DET_CLASSES, 4) * 0.5).astype(
+            np.float32),
+    }
+
+
+def detection_head(paddle, arrays, device, timings=None):
+    """The R50-C4 head's ops on ``device``: generate_proposals,
+    roi_align of the RoIs to 14 x 14, box_coder's decode of their class
+    boxes, the class-aware nms, distribute_fpn_proposals. Returns each
+    op's output as numpy (roi_align's on the first DET_CPU_ROIS RoIs where
+    ``device`` is the CPU). With ``timings`` (a dict), the card's ms of
+    each op (median of 5) are written there."""
+    import torch
+    V = paddle.vision.ops
+    paddle.set_device(device)
+    t = {k: paddle.to_tensor(v) for k, v in arrays.items()}
+
+    def timed(name, fn):
+        if timings is None:
+            return fn()
+        ms, out = _event_ms(torch, fn)
+        timings[name] = ms
+        return out
+
+    rois, _, nums = timed("generate_proposals_ms", lambda: V.generate_proposals(
+        t["scores"], t["deltas"], t["im_info"], t["anchors"],
+        t["variances"], pre_nms_top_n=DET_PRE, post_nms_top_n=DET_POST,
+        nms_thresh=DET_RPN_NMS, min_size=0.0, return_rois_num=True))
+    n_rois = int(nums.numpy()[0])
+    out = {"rois": rois.numpy(), "rois_num": nums.numpy()}
+    pool_rois = rois if device != "cpu" else rois[:DET_CPU_ROIS]
+    pool_num = paddle.to_tensor([pool_rois.shape[0]])
+
+    def pool():
+        with paddle.no_grad():
+            return V.roi_align(t["feat"], pool_rois, pool_num, DET_POOL,
+                               1.0 / 16, -1, True)
+    if device != "cpu":
+        # the peak above what is held, over one call alone
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        out["pooled"] = pool().numpy()[:DET_CPU_ROIS]
+        torch.cuda.synchronize()
+        out["roi_align_peak_gb"] = (torch.cuda.max_memory_allocated()
+                                    - held) / 1e9
+        timed("roi_align_ms", pool)
+    else:
+        out["pooled"] = pool().numpy()
+    # each RoI's class boxes (pixel boxes, Detectron's box weights)
+    decoded = timed("box_coder_ms", lambda: V.box_coder(
+        rois, [0.1, 0.1, 0.2, 0.2], t["box_deltas"][:n_rois],
+        "decode_center_size", box_normalized=False, axis=1))
+    out["decoded"] = decoded.numpy()
+    probs = paddle.nn.functional.softmax(t["cls_logits"][:n_rois], -1)
+    scores = probs[:, 1:].reshape([-1])
+    boxes = decoded[:, 1:].reshape([-1, 4])
+    cats = paddle.to_tensor(np.tile(np.arange(1, DET_CLASSES),
+                                    n_rois).astype(np.int64))
+    keep = paddle.nonzero(scores > DET_SCORE).reshape([-1])
+    cand = (paddle.gather(boxes, keep), paddle.gather(scores, keep),
+            paddle.gather(cats, keep))
+    out["nms_candidates"] = int(keep.shape[0])
+    kept = timed("nms_ms", lambda: V.nms(
+        cand[0], DET_NMS, cand[1], category_idxs=cand[2],
+        categories=list(range(1, DET_CLASSES)), top_k=DET_KEEP))
+    out["kept"] = kept.numpy()
+    levels = timed("distribute_fpn_proposals_ms",
+                   lambda: V.distribute_fpn_proposals(
+                       rois, 2, 5, 4, 224, rois_num=nums))
+    out["fpn_levels"] = [lv.numpy() for lv in levels[0]]
+    out["fpn_restore"] = levels[1].numpy()
+    return out
+
+
+def drive_detection(run, paddle, torch):
+    """21a: the detection head on the card against the CPU's plain path on
+    the same inputs: index sets (proposals, their counts, nms's kept
+    indices, the FPN levels) identical, floats within 1e-5 of their
+    largest value; roi_align's peak memory; each op's ms, and nms's at
+    6000 boxes."""
+    arrays = detection_inputs(21)
+    timings = {}
+    t0 = time.perf_counter()
+    card = detection_head(paddle, arrays, "gpu:0", timings)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = detection_head(paddle, arrays, "cpu")
+    t_cpu = time.perf_counter() - t0
+    paddle.set_device("gpu:0")
+    same = {k: bool(np.array_equal(card[k], cpu[k]))
+            for k in ("rois", "rois_num", "kept", "fpn_restore")}
+    same["fpn_levels"] = all(np.array_equal(a, b) for a, b in
+                             zip(card["fpn_levels"], cpu["fpn_levels"]))
+    errs = {k: float(np.abs(card[k] - cpu[k]).max()
+                     / max(np.abs(cpu[k]).max(), 1e-30))
+            for k in ("pooled", "decoded")}
+    n_rois = int(card["rois_num"][0])
+    run.check(all(same.values()) and n_rois == DET_POST,
+              f"21a: generate_proposals (top {DET_PRE} -> NMS "
+              f"{DET_RPN_NMS} -> {DET_POST}), the class-aware nms and "
+              f"distribute_fpn_proposals give the CPU's index sets on the "
+              f"card ({same}, {n_rois} RoIs)")
+    run.check(all(e <= 1e-5 for e in errs.values()),
+              f"21a: roi_align ({DET_POST} RoIs to {DET_POOL}x{DET_POOL}, "
+              f"the CPU on the first {DET_CPU_ROIS}) and box_coder's "
+              f"decode ({DET_POST} x {DET_CLASSES}) within 1e-5 of the "
+              f"CPU's largest value (f32): {errs}")
+    run.check(card["roi_align_peak_gb"] < DET_ROI_PEAK_GB,
+              f"21a: roi_align's peak {card['roi_align_peak_gb']:.2f} GB "
+              f"above what the phase holds, under {DET_ROI_PEAK_GB} GB "
+              "(its samples before the 2 x 2 mean are 3.2 GB in f32; a "
+              "copy of the map a box would be 17 GB)")
+    run.check(0 < card["nms_candidates"] and 0 < len(card["kept"])
+              <= DET_KEEP, f"21a: {card['nms_candidates']} class boxes "
+              f"over {DET_SCORE}, nms kept {len(card['kept'])}")
+    # nms alone at 6000 boxes: the RPN's top 6000 decoded proposals
+    V = paddle.vision.ops
+    s = arrays["scores"][0].transpose(1, 2, 0).reshape(-1)
+    order = np.argsort(-s)[:DET_PRE]
+    anc = arrays["anchors"].reshape(-1, 4)[order]
+    boxes6k = paddle.to_tensor(anc)
+    scores6k = paddle.to_tensor(s[order])
+    nms6k_ms, kept6k = _event_ms(torch, lambda: V.nms(boxes6k, DET_RPN_NMS,
+                                                      scores6k))
+    print(f"21a: ms (CUDA events, median of 5): {timings}; nms at "
+          f"{DET_PRE} boxes {nms6k_ms:.3f} ms ({kept6k.shape[0]} kept); "
+          f"roi_align peak {card['roi_align_peak_gb']:.2f} GB; the head "
+          f"on the card {t_card:.1f} s with its timings, on the CPU "
+          f"{t_cpu:.1f} s", flush=True)
+    return {"ms": timings, "nms_6000_ms": nms6k_ms,
+            "nms_6000_kept": int(kept6k.shape[0]), "rois": n_rois,
+            "nms_candidates": card["nms_candidates"],
+            "kept": int(len(card["kept"])),
+            "fpn_level_sizes": [int(len(x)) for x in card["fpn_levels"]],
+            "roi_align_peak_gb": card["roi_align_peak_gb"],
+            "rel_err": errs, "index_sets_equal": same}
+
+
+def _dcn_case(rs, c, h, w):
+    """DCNv2 inputs of one stage: x, offsets (18), masks (9, in (0, 1)),
+    the 3x3 weight (He's N(0, 2 / fan_in)) and bias."""
+    return [rs.randn(DCN_BATCH, c, h, w).astype(np.float32),
+            (rs.randn(DCN_BATCH, 18, h, w) * 2.0).astype(np.float32),
+            (1.0 / (1.0 + np.exp(-rs.randn(DCN_BATCH, 9, h, w)))).astype(
+                np.float32),
+            (rs.randn(c, c, 3, 3) * np.sqrt(2.0 / (9 * c))).astype(
+                np.float32),
+            (rs.randn(c) * 0.1).astype(np.float32)]
+
+
+def _dcn_forward_backward(paddle, arrays, device, cot):
+    """Forward and backward on ``device``: (output, [dx, doffset, dmask,
+    dweight, dbias]) as torch tensors."""
+    paddle.set_device(device)
+    x, off, mask, w, b = (paddle.to_tensor(a, stop_gradient=False)
+                          for a in arrays)
+    out = paddle.vision.ops.deform_conv2d(x, off, w, b, padding=1, mask=mask)
+    (out * paddle.to_tensor(cot)).sum().backward()
+    return out._data.detach(), [t.grad._data for t in (x, off, mask, w, b)]
+
+
+def drive_dcn(run, paddle, torch):
+    """21b: DCNv2's deformable convolutions at ResNet-50's conv3-conv5
+    widths, B2 at 800 x 1333: forward and every gradient on the card
+    against the CPU's plain path within 1e-4 of each one's largest value
+    (f32); static.nn.deform_conv2d equal to vision.ops'; each stage's
+    forward and forward+backward ms."""
+    rs = np.random.RandomState(22)
+    out, worst = {}, 0.0
+    for name, c, h, w in DCN_STAGES:
+        arrays = _dcn_case(rs, c, h, w)
+        cot = rs.randn(DCN_BATCH, c, h, w).astype(np.float32)
+        got, ggrads = _dcn_forward_backward(paddle, arrays, "gpu:0", cot)
+        want, wgrads = _dcn_forward_backward(paddle, arrays, "cpu", cot)
+        paddle.set_device("gpu:0")
+        errs = [_rel_err(got, want)] + [_rel_err(g, v)
+                                        for g, v in zip(ggrads, wgrads)]
+        worst = max(worst, max(errs))
+        run.check(max(errs) <= 1e-4,
+                  f"21b: {name} ({c}->{c}, {h}x{w}, B{DCN_BATCH}) forward "
+                  f"and its x, offset, mask, weight and bias gradients on "
+                  f"the card within 1e-4 of the CPU's largest value: "
+                  f"{[f'{e:.2e}' for e in errs]}")
+        x, off, mask, wt, bias = (paddle.to_tensor(a) for a in arrays)
+        leaves = [paddle.to_tensor(a, stop_gradient=False) for a in arrays]
+        V = paddle.vision.ops
+
+        def fwd():
+            with paddle.no_grad():
+                return V.deform_conv2d(x, off, wt, bias, padding=1,
+                                       mask=mask)
+
+        def fwd_bwd():
+            lx, lo, lm, lw, lb = leaves
+            V.deform_conv2d(lx, lo, lw, lb, padding=1,
+                            mask=lm).sum().backward()
+        fwd_ms, y = _event_ms(torch, fwd)
+        fb_ms, _ = _event_ms(torch, fwd_bwd)
+        attr = paddle.ParamAttr(
+            initializer=paddle.nn.initializer.Assign(arrays[3]))
+        battr = paddle.ParamAttr(
+            initializer=paddle.nn.initializer.Assign(arrays[4]))
+        with paddle.no_grad():
+            ys = paddle.static.nn.deform_conv2d(x, off, mask, c, 3,
+                                                padding=1, param_attr=attr,
+                                                bias_attr=battr)
+        # its own weight (a copy of the same values) may take another GEMM
+        # algorithm: f32 sums of 9 c products in another order
+        static_err = _rel_err(ys._data, y._data)
+        run.check(static_err <= 1e-5, f"21b: {name}: static.nn."
+                  f"deform_conv2d gives vision.ops.deform_conv2d's output "
+                  f"within 1e-5 of its largest value ({static_err:.2e})")
+        out[name] = {"fwd_ms": fwd_ms, "fwd_bwd_ms": fb_ms,
+                     "rel_err": errs, "static_rel_err": static_err}
+        print(f"21b: {name} {c}->{c} at {h}x{w} B{DCN_BATCH}: forward "
+              f"{fwd_ms:.3f} ms, forward+backward {fb_ms:.3f} ms (CUDA "
+              f"events, median of 5); worst error {max(errs):.2e}",
+              flush=True)
+        del leaves, got, ggrads, y, ys
+    out["worst_rel_err"] = worst
+    return out
+
+
+def fused_llama_logits(paddle, model, ids):
+    """Llama's forward written in incubate's fused functions, on the
+    model's own weights: fused_rms_norm -> fused_linear q/k/v ->
+    fused_rotary_position_embedding -> the variable-length attention
+    without lengths ([B, S, H, D], causal) -> fused_linear o -> residual
+    -> fused_rms_norm -> fused_linear gate, up -> swiglu -> fused_linear
+    down -> residual; then the norm and the head."""
+    IF = paddle.incubate.nn.functional
+    cfg = model.llama.cfg
+    eps, nh = cfg.rms_eps, cfg.num_heads
+    with paddle.no_grad():
+        x = model.llama.embed_tokens(ids)
+        b, s, h = x.shape
+        d = h // nh
+        for blk in model.llama.layers:
+            att, mlp = blk.self_attn, blk.mlp
+            n = IF.fused_rms_norm(x, blk.input_layernorm.weight,
+                                  epsilon=eps)[0]
+            q = IF.fused_linear(n, att.q_proj.weight).reshape([b, s, nh, d])
+            k = IF.fused_linear(n, att.k_proj.weight).reshape([b, s, nh, d])
+            v = IF.fused_linear(n, att.v_proj.weight).reshape([b, s, nh, d])
+            q, k, _ = IF.fused_rotary_position_embedding(
+                q, k, theta=cfg.rope_theta)
+            a = IF.variable_length_memory_efficient_attention(q, k, v,
+                                                              causal=True)
+            x = x + IF.fused_linear(a.reshape([b, s, h]), att.o_proj.weight)
+            n = IF.fused_rms_norm(x, blk.post_attention_layernorm.weight,
+                                  epsilon=eps)[0]
+            m = IF.swiglu(IF.fused_linear(n, mlp.gate_proj.weight),
+                          IF.fused_linear(n, mlp.up_proj.weight))
+            x = x + IF.fused_linear(m, mlp.down_proj.weight)
+        x = IF.fused_rms_norm(x, model.llama.norm.weight, epsilon=eps)[0]
+        return IF.fused_linear(x, model.llama.lm_head.weight)
+
+
+def llama_forward_flops_per_token(cfg, seq):
+    """Forward FLOPs a token: 2 per parameter of every product (the
+    layers and the head; not the embedding's lookup) and the causal
+    attention's 2 x 2 x L x (S / 2) x h."""
+    h, m, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    kv = cfg.num_kv_heads * h // cfg.num_heads
+    per_layer = h * h * 2 + h * kv * 2 + 3 * h * m
+    return 2 * (L * per_layer + h * cfg.vocab_size) + 2 * L * seq * h
+
+
+def drive_fused_llama(run, paddle, fa, mods, torch):
+    """21c: Llama-2-7B's prefill built from incubate's fused functions
+    on LlamaForCausalLM's own weights (random, seed 0, bf16) at B1 S2048:
+    its logits against the model's forward, 32 lf_fwd launches a forward
+    and no other attention kernel; the ragged batch through the branch
+    with lengths against each sequence alone; ms, tokens/s, MFU."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    IF = paddle.incubate.nn.functional
+    cfg = LlamaConfig.llama2_7b()
+    L = cfg.num_layers
+    paddle.set_device("gpu:0")
+    t0 = time.perf_counter()
+    paddle.seed(0)
+    model = LlamaForCausalLM(cfg)
+    model.bfloat16()
+    model.eval()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = paddle.to_tensor(np.random.RandomState(23).randint(
+        0, cfg.vocab_size, (FUSED_BATCH, FUSED_SEQ)))
+    with paddle.no_grad():
+        want = model(ids)._data
+    _reset(mods)
+    ticks0 = fa.dispatch_counts()
+    got = fused_llama_logits(paddle, model, ids)._data
+    torch.cuda.synchronize()
+    launches = _launches(mods)
+    dispatch = fa.dispatch_counts(ticks0)
+    err = _rel_err(got, want)
+    finite = bool(torch.isfinite(got).all())
+    del got, want
+    want_launches = {n: (L if n == "library_flash_fwd" else 0)
+                     for n in launches}
+    run.check(launches == want_launches and dispatch == {
+        ("nn.sdpa", "library_flash"): L},
+        f"21c: a forward of the fused-function Llama-2-7B launches lf_fwd "
+        f"{L} times and no other attention kernel (launches "
+        f"{ {k: v for k, v in launches.items() if v} }, dispatch "
+        f"{dispatch})")
+    run.check(finite and err <= 2e-2,
+              f"21c: its logits (B{FUSED_BATCH} S{FUSED_SEQ}, bf16) equal "
+              f"LlamaForCausalLM's forward within 2e-2 of the largest "
+              f"value ({err:.3e}), finite {finite}")
+    fused_ms, _ = _event_ms(torch, lambda: fused_llama_logits(
+        paddle, model, ids), reps=3)
+
+    def model_fwd():
+        with paddle.no_grad():
+            return model(ids)
+    model_ms, _ = _event_ms(torch, model_fwd, reps=3)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    tokens = FUSED_BATCH * FUSED_SEQ
+    flops = llama_forward_flops_per_token(cfg, FUSED_SEQ)
+    tps = tokens / (fused_ms / 1e3)
+    mfu = tps * flops / PEAK_BF16_FLOPS
+    # the ragged batch: 4 sequences padded to 2048, [B, H, S, D] with
+    # lengths, against each alone
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    nb, nh, d = len(RAGGED_LENS), cfg.num_heads, \
+        cfg.hidden_size // cfg.num_heads
+    q, k, v = (torch.randn(nb, nh, FUSED_SEQ, d, generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    lens = paddle.to_tensor(np.asarray(RAGGED_LENS, np.int32))
+    with paddle.no_grad():
+        batch = IF.variable_length_memory_efficient_attention(
+            paddle.Tensor(q), paddle.Tensor(k), paddle.Tensor(v), lens,
+            causal=True)._data
+        errs, pad_zero = [], True
+        for i, n in enumerate(RAGGED_LENS):
+            alone = IF.variable_length_memory_efficient_attention(
+                paddle.Tensor(q[i:i + 1, :, :n].contiguous()),
+                paddle.Tensor(k[i:i + 1, :, :n].contiguous()),
+                paddle.Tensor(v[i:i + 1, :, :n].contiguous()),
+                paddle.to_tensor(np.asarray([n], np.int32)),
+                causal=True)._data
+            errs.append(_rel_err(batch[i:i + 1, :, :n], alone))
+            pad_zero = pad_zero and not bool(batch[i, :, n:].any())
+    del q, k, v, batch
+    run.check(max(errs) <= 2e-2 and pad_zero,
+              f"21c: the ragged batch (lengths {list(RAGGED_LENS)}, padded "
+              f"to {FUSED_SEQ}, [B, H, S, D] with seq_lens, causal) equals "
+              f"each sequence alone within 2e-2 ({[f'{e:.2e}' for e in errs]})"
+              f", padded query rows exactly 0: {pad_zero}")
+    print(f"21c: Llama-2-7B from the fused functions, B{FUSED_BATCH} "
+          f"S{FUSED_SEQ} bf16: {fused_ms:.2f} ms a forward (CUDA events, "
+          f"median of 3; LlamaForCausalLM's own {model_ms:.2f}), "
+          f"{tps:.1f} tokens/s, MFU {mfu:.4f} at {flops:.4e} FLOP/token; "
+          f"built in {build_s:.1f} s", flush=True)
+    return {"ms": fused_ms, "model_forward_ms": model_ms,
+            "tokens_per_s": tps, "mfu": mfu, "flops_per_token": flops,
+            "logits_rel_err": err, "ragged_rel_err": errs,
+            "lf_fwd_launches": launches["library_flash_fwd"],
+            "build_s": build_s}
+
+
+def moe_gathered(torch, x, gw, w1, b1, w2, b2, top_k):
+    """fused_moe's function in its top-k gathered form, in f32: each token
+    through its k experts only, combined with the normalised top-k
+    probabilities."""
+    tokens = x.reshape(-1, x.shape[-1])
+    probs = torch.softmax(tokens @ gw, -1)
+    topv, topi = torch.topk(probs, top_k, -1)
+    topv = topv / topv.sum(-1, keepdim=True)
+    out = torch.zeros_like(tokens)
+    for e in range(gw.shape[-1]):
+        rows, slot = torch.nonzero(topi == e, as_tuple=True)
+        if rows.numel():
+            hid = torch.nn.functional.gelu(tokens[rows] @ w1[e] + b1[e],
+                                           approximate="tanh")
+            out.index_add_(0, rows, (hid @ w2[e] + b2[e])
+                           * topv[rows, slot][:, None])
+    return out.reshape(x.shape)
+
+
+def drive_fused_moe(run, paddle, torch):
+    """21d: one fused_moe layer at Mixtral-8x7B's widths (h4096, 8 experts
+    of 14336, top-2) with the reference's GELU-with-bias FFNs, bf16 at
+    B1 S1024, against the top-2 gathered form in f32 on the card."""
+    IF = paddle.incubate.nn.functional
+    h, e, m, k = (MOE_WIDTHS[n] for n in ("hidden", "experts", "inner",
+                                          "top_k"))
+    gen = torch.Generator(device="cuda").manual_seed(25)
+
+    def draw(*shape, std=0.02):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * std).to(torch.bfloat16)
+    x = draw(MOE_BATCH, MOE_SEQ, h, std=1.0)
+    params = [draw(h, e), draw(e, h, m), draw(e, m), draw(e, m, h),
+              draw(e, h)]
+    args = [paddle.Tensor(t) for t in [x] + params]
+    with paddle.no_grad():
+        ms, out = _event_ms(torch, lambda: IF.fused_moe(*args, top_k=k))
+    ref = moe_gathered(torch, x.float(), *(p.float() for p in params), k)
+    err = _rel_err(out._data, ref)
+    del ref, out, args, params
+    torch.cuda.empty_cache()
+    tokens = MOE_BATCH * MOE_SEQ
+    dense = 4 * e * h * m + 2 * h * e + 4 * e * h     # FFNs, gate, einsums
+    topk = 4 * k * h * m + 2 * h * e
+    run.check(err <= 2e-2,
+              f"21d: fused_moe at Mixtral-8x7B's widths (h{h}, {e} experts "
+              f"of {m}, top-{k}, bf16, B{MOE_BATCH} S{MOE_SEQ}) within 2e-2 "
+              f"of the top-{k} gathered form in f32 ({err:.3e})")
+    print(f"21d: fused_moe {ms:.3f} ms (CUDA events, median of 5); the "
+          f"dense dispatch issues {dense:.4e} FLOP/token "
+          f"({tokens * dense / ms / 1e9:.1f} TFLOP/s), the top-{k} count "
+          f"{topk:.4e}", flush=True)
+    return {"ms": ms, "rel_err": err, "dense_flops_per_token": dense,
+            "topk_flops_per_token": topk,
+            "dense_tflops": tokens * dense / ms / 1e9}
+
+
+def drive_logmel(run, paddle, torch):
+    """21e: Whisper's log-mel front end (LogMelSpectrogram, and MFCC of 40
+    coefficients) at B32 x 30 s on the card against the CPU's plain path
+    within 1e-4 of the largest value; paddle.fft's rfft/irfft round trip
+    of a clip; ms a batch and clips/s."""
+    A = paddle.audio.features
+    rs = np.random.RandomState(26)
+    clips = (rs.randn(MEL_BATCH, MEL_SAMPLES) * 0.1).astype(np.float32)
+    out = {}
+    errs = {}
+    for name, make in (("log_mel", lambda: A.LogMelSpectrogram(**MEL)),
+                       ("mfcc", lambda: A.MFCC(n_mfcc=MEL_MFCC, **MEL))):
+        paddle.set_device("cpu")
+        want = make()(paddle.to_tensor(clips))._data
+        paddle.set_device("gpu:0")
+        layer = make()
+        x = paddle.to_tensor(clips)
+        with paddle.no_grad():
+            ms, got = _event_ms(torch, lambda: layer(x))
+        errs[name] = _rel_err(got._data, want)
+        out[f"{name}_ms"] = ms
+        out[f"{name}_clips_per_s"] = MEL_BATCH / (ms / 1e3)
+        out[f"{name}_shape"] = list(got.shape)
+        del got, want
+    clip = paddle.to_tensor(clips[0])
+    back = paddle.fft.irfft(paddle.fft.rfft(clip), n=MEL_SAMPLES)
+    rt = float((back._data - clip._data).abs().max())
+    run.check(all(e <= 1e-4 for e in errs.values()) and rt <= 1e-5,
+              f"21e: LogMelSpectrogram and MFCC({MEL_MFCC}) at Whisper's "
+              f"widths (B{MEL_BATCH} x {MEL_SAMPLES} samples) on the card "
+              f"within 1e-4 of the CPU's largest value ({errs}); "
+              f"paddle.fft.irfft(rfft(clip)) within 1e-5 ({rt:.2e})")
+    print(f"21e: log-mel {out['log_mel_ms']:.3f} ms a batch "
+          f"({out['log_mel_clips_per_s']:.1f} clips/s), MFCC "
+          f"{out['mfcc_ms']:.3f} ms ({out['mfcc_clips_per_s']:.1f} clips/s)"
+          f", shapes {out['log_mel_shape']} {out['mfcc_shape']}",
+          flush=True)
+    out["rel_err"] = errs
+    out["fft_round_trip_err"] = rt
+    return out
+
+
+def drive_sparse_lookahead(run, paddle, GPTConfig, GPTForCausalLM, fa,
+                           mods, torch):
+    """21f: the Layer GPT at MEDIUM's widths (bf16, B4 S2048) pruned 2:4
+    by asp.prune_model, trained by asp.decorate(LookAhead(AdamW(lr 1e-3,
+    multi_precision), alpha 0.5, k 5)) for 6 steps with ModelAverage beside
+    it (a pure-bf16 AdamW rounds beta2 = 0.999 to 1, as the reference's
+    does, and its second step is NaN)."""
+    from paddle_tpu_torch.incubate import asp
+    from paddle_tpu_torch.incubate.optimizer import LookAhead, ModelAverage
+    L = MEDIUM["num_layers"]
+    cfg = GPTConfig(**MEDIUM)
+    paddle.seed(0)
+    model = GPTForCausalLM(cfg)
+    _gpt_normal_init(model, 21, torch)
+    model.bfloat16()
+    model.train()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    masks = asp.prune_model(model)
+    torch.cuda.synchronize()
+    mask_ms = (time.perf_counter() - t0) * 1e3
+    pruned = [p for p in model.parameters() if id(p) in masks]
+    masks0 = {id(p): masks[id(p)].clone() for p in pruned}
+    la = LookAhead(paddle.optimizer.AdamW(
+        learning_rate=SPARSE_LR, parameters=model.parameters(),
+        multi_precision=True), alpha=0.5, k=SPARSE_K)
+    opt = asp.decorate(la)
+    ma = ModelAverage(0.15, parameters=model.parameters())
+    # CUDA events around LookAhead's step and its inner AdamW's: the sync
+    # is the difference
+    events = {"lookahead": [], "inner": []}
+
+    def evented(fn, log):
+        def call(*a, **k):
+            pair = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            pair[0].record()
+            out = fn(*a, **k)
+            pair[1].record()
+            log.append(pair)
+            return out
+        return call
+    la.step = evented(la.step, events["lookahead"])
+    la.inner_optimizer.step = evented(la.inner_optimizer.step,
+                                      events["inner"])
+    loss_fn = _lm_loss(paddle)
+    ids = paddle.to_tensor(np.random.RandomState(27).randint(
+        0, MEDIUM["vocab_size"], (MEDIUM_BATCH, MEDIUM_SEQ)))
+    losses, step_ms = [], []
+    dens_ok = launch_ok = synced = True
+    want = {n: (L if n.startswith("library_flash") else 0)
+            for n in _launches(mods)}
+    for i in range(SPARSE_STEPS):
+        _reset(mods)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss = loss_fn(model(ids), ids)
+        loss.backward()
+        ev[1].record()
+        opt.step()
+        opt.clear_grad()
+        ma.step()
+        ev[2].record()
+        torch.cuda.synchronize()
+        losses.append(float(loss))
+        step_ms.append(ev[0].elapsed_time(ev[2]))
+        launch_ok = launch_ok and _launches(mods) == want
+        for p in pruned:
+            m = masks[id(p)]
+            dens = asp.calculate_density(p)
+            dens_ok = dens_ok and torch.equal(m, masks0[id(p)]) \
+                and not bool((p._data[~m] != 0).any()) \
+                and 0.5 - 1e-4 <= dens <= 0.5
+        if i + 1 < SPARSE_K:
+            synced = synced and not la._slow
+        elif i + 1 == SPARSE_K:
+            # the slow weights of this step's sync (f32, from the master
+            # weights) are the masters' and the parameters' values, the
+            # masks applied again after the sync
+            inner = la.inner_optimizer
+            synced = synced and len(la._slow) == len(inner._parameter_list)
+            for p in inner._parameter_list:
+                slow = la._slow[id(p)]
+                m = masks.get(id(p))
+                slow = slow * m if m is not None else slow
+                synced = synced and torch.equal(
+                    slow, inner._master_weight(p)._data) and torch.equal(
+                    slow.to(p._data.dtype), p._data)
+    before = [p._data.clone() for p in model.parameters()]
+    ma.apply()
+    moved = any(not torch.equal(a, p._data)
+                for a, p in zip(before, model.parameters()))
+    ma.restore()
+    restored = all(torch.equal(a, p._data)
+                   for a, p in zip(before, model.parameters()))
+    del before
+    finite = all(math.isfinite(x) for x in losses)
+    run.check(dens_ok, f"21f: every one of the {len(pruned)} pruned Linear "
+              f"weights has density 0.5 in 2:4 groups after each of "
+              f"{SPARSE_STEPS} steps, its mask unchanged")
+    run.check(bool(synced), f"21f: LookAhead (k={SPARSE_K}) synced its "
+              f"slow weights at step {SPARSE_K} (none before)")
+    run.check(finite and losses[-1] < losses[0],
+              f"21f: losses finite and falling: {losses}")
+    run.check(moved and restored, "21f: ModelAverage.apply() put the "
+              "averages in and restore() brought every parameter back bit "
+              f"for bit (moved {moved}, restored {restored})")
+    run.check(launch_ok, f"21f: {L} launches of each library kernel a step "
+              f"and no other attention kernel, every step")
+    outer, inner = ([a.elapsed_time(b) for a, b in events[k]]
+                    for k in ("lookahead", "inner"))
+    sync_ms = outer[SPARSE_K - 1] - inner[SPARSE_K - 1]
+    other_ms = float(np.median([o - i for j, (o, i) in
+                                enumerate(zip(outer, inner))
+                                if j + 1 != SPARSE_K]))
+    ms = float(np.median(step_ms[1:]))
+    print(f"21f: 2:4-sparse LookAhead GPT (MEDIUM, bf16, B{MEDIUM_BATCH} "
+          f"S{MEDIUM_SEQ}): {ms:.2f} ms a step (CUDA events, median of "
+          f"steps 2-{SPARSE_STEPS}), {MEDIUM_BATCH * MEDIUM_SEQ / ms * 1e3:.1f}"
+          f" tokens/s; prune_model {mask_ms:.2f} ms for {len(pruned)} "
+          f"weights; the LookAhead sync {sync_ms:.2f} ms (step {SPARSE_K}'s "
+          f"LookAhead.step less its AdamW step, CUDA events; "
+          f"{other_ms:.2f} at the other steps); losses {losses}",
+          flush=True)
+    del model, la, opt, ma
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"ms_per_step": ms, "step_ms": step_ms, "losses": losses,
+            "mask_ms": mask_ms, "sync_ms": sync_ms,
+            "no_sync_ms": other_ms,
+            "pruned_weights": len(pruned)}
+
+
+def drive_phase21(run, paddle, GPTConfig, GPTForCausalLM, mods, fa, torch):
+    """Phase 21, the breadth slice: 21a-21f, each timed."""
+    t_phase = time.perf_counter()
+    out = {}
+    for key, fn in (
+            ("detection", lambda: drive_detection(run, paddle, torch)),
+            ("dcn", lambda: drive_dcn(run, paddle, torch)),
+            ("fused_llama", lambda: drive_fused_llama(run, paddle, fa, mods,
+                                                      torch)),
+            ("fused_moe", lambda: drive_fused_moe(run, paddle, torch)),
+            ("log_mel", lambda: drive_logmel(run, paddle, torch)),
+            ("sparse_lookahead", lambda: drive_sparse_lookahead(
+                run, paddle, GPTConfig, GPTForCausalLM, fa, mods, torch))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key]["phase_s"] = time.perf_counter() - t0
+        print(f"21 {key}: {out[key]['phase_s']:.1f} s", flush=True)
+        paddle.set_device("gpu:0")
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_21_s"] = time.perf_counter() - t_phase
+    print(f"breadth phase: {out['phase_21_s']:.1f} s", flush=True)
     return out
 
 
@@ -7209,11 +7959,34 @@ def main():
             if kernel.startswith("mma_"):
                 print(f"    {kernel}: {regs} registers, {spill} bytes "
                       "spilled")
+    # the kernels' libraries launch through torch's CUDA runtime: one
+    # libcudart in the process (a static runtime in each library hid their
+    # launches' rows from a profile's first steps, phase 20f)
+    for name in _build.SOURCES:
+        _build.library(name)
+    with open("/proc/self/maps") as maps:
+        cudarts = sorted({line.split()[-1] for line in maps
+                          if "libcudart" in line})
+    run.check(len(cudarts) == 1, f"build: the kernels' libraries and torch "
+              f"share one CUDA runtime: {cudarts}")
 
     cache_root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               ".cache")
     os.makedirs(cache_root, exist_ok=True)
     mods = (sa, ca, bf, sa2, fa)
+    if "--phase21" in sys.argv[1:]:
+        # phase 21 alone (no kernels line, no ok line): for work on it
+        with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+            os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+            at._table = None
+            br = drive_phase21(run, paddle, GPTConfig, GPTForCausalLM, mods,
+                               fa, torch)
+        print(json.dumps({"breadth": br}))
+        print(f"chip_smoke --phase21: {time.perf_counter() - t_script:.1f} "
+              f"s, {len(run.failures)} check(s) failed", flush=True)
+        for what in run.failures:
+            print(f"  {what[:300]}", file=sys.stderr)
+        return 1 if run.failures else 0
     if "--phase20" in sys.argv[1:]:
         # phase 20 alone (no kernels line, no ok line): for work on it
         with tempfile.TemporaryDirectory(dir=cache_root) as cache:
@@ -7437,6 +8210,13 @@ def main():
         at._table = None
         hr = drive_phase20(run, paddle, GPTConfig, GPTForCausalLM, mods, fa,
                            torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+        os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+        at._table = None
+        br = drive_phase21(run, paddle, GPTConfig, GPTForCausalLM, mods, fa,
+                           torch)
 
     kernels = []
     for kern in KERNELS:
@@ -7485,6 +8265,7 @@ def main():
     print(json.dumps({"expert_parallel": ep}))
     print(json.dumps({"auto_parallel": ap}))
     print(json.dumps({"host_runtime": hr}))
+    print(json.dumps({"breadth": br}))
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s", flush=True)
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed:",

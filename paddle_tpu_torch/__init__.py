@@ -128,6 +128,7 @@ from . import optimizer  # noqa: F401
 from . import amp  # noqa: F401
 from . import jit  # noqa: F401
 from .nn.layer.layers import ParamAttr  # noqa: F401
+from . import fft  # noqa: F401
 from . import linalg  # noqa: F401
 from . import signal  # noqa: F401
 
@@ -141,7 +142,7 @@ __version__ = "0.1.0"
 
 _LAZY = {"vision", "hapi", "metric", "callbacks", "training",
          "distributed", "static", "inference", "incubate", "base",
-         "tensorrt", "tensor", "text", "geometric", "profiler"}
+         "tensorrt", "tensor", "text", "geometric", "profiler", "audio"}
 
 
 def __getattr__(name):

@@ -466,6 +466,16 @@ def rpc_matmul(a, b):
     return np.asarray((to_tensor(a) @ to_tensor(b)).numpy())
 
 
+def tensor_queue_child(q_in, q_out):
+    """A spawned process of ``incubate.multiprocessing``: takes two Tensors
+    from ``q_in`` (CPU), sends back the first doubled with its
+    stop_gradient, name and place, and the second as it came."""
+    from . import set_device
+    set_device("cpu")
+    t, other = q_in.get(), q_in.get()
+    q_out.put((t * 2, t.stop_gradient, t.name, str(t.place), other))
+
+
 def numpy_initializers(jax):
     """A context manager, given the caller's ``jax`` module: while it is
     open, ``jax.random.normal``, ``uniform`` and ``truncated_normal`` draw

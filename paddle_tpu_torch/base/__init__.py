@@ -1,10 +1,10 @@
 """paddle.base on torch: the port of ``paddle_tpu/base/__init__.py``
 (reference: python/paddle/base — the legacy fluid core). Re-exports the
 modern equivalents so code doing ``paddle.base.framework`` or
-``from paddle.base import Executor`` keeps working. The reference's
-``base.core`` (``paddle_tpu/framework/core.py``) re-exports the native
-``TCPStore``, which waits for ROADMAP queue 1, item 6, and is not here."""
+``from paddle.base import Executor`` keeps working; ``base.core`` is the
+port of ``paddle_tpu/framework/core.py``."""
 from .. import framework  # noqa: F401
+from . import core  # noqa: F401
 from ..core.place import (  # noqa: F401
     CPUPlace, CUDAPinnedPlace, CUDAPlace, TPUPlace,
 )

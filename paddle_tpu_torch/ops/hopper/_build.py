@@ -7,6 +7,13 @@ under ``csrc/`` (the sources and the ``.cuh`` headers they share) and the
 flags: an edit anywhere there rebuilds, an unchanged tree is loaded as it
 is. Nothing is built when the module is imported.
 
+The libraries link the CUDA runtime as a shared library (``-cudart
+shared``): their launches go through the ``libcudart`` that torch loaded
+(its SONAME resolves to torch's copy, so torch is imported first), and a
+profile reads them as runtime launches (``cudaLaunchKernel``) as it reads
+torch's. nvcc's default links a private static runtime into each library,
+whose launches a profile saw only as driver calls (``cuLaunchKernelEx``).
+
     python3 -c "from paddle_tpu_torch.ops.hopper import _build; _build.build_all()"
 """
 from __future__ import annotations
@@ -23,7 +30,8 @@ from typing import Dict, Iterable, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-cudart", "shared",
+              "-Xptxas", "-v")
 SOURCES = ("simple_attention", "causal_attention", "blocked_flash")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -98,6 +106,7 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<name>.cu``, built if needed."""
     lib = _loaded.get(name)
     if lib is None:
+        import torch   # noqa: F401  (loads the libcudart linked to)
         build_all([name])
         lib = ctypes.CDLL(str(_target(name)))
         _loaded[name] = lib

@@ -17,11 +17,16 @@ rows are taken only in steps whose state is ``RECORD`` or
 ``RECORD_AND_RETURN``; without a scheduler every step records. A ``READY``
 step starts the device tracer, so that its start (some ms; seconds the
 first time in a process) falls outside the recorded steps, and so do the
-first driver-API kernel launches of the tracer's window: late in a
-long-running process those (the first 6-8, some 5 ms) can lack their
-device rows, whatever time the tracer has run before. A recording
-without a READY step can lose them; a launch of the recording without its
-row is counted (``device_launches_unrecorded``) and warned of. A kernel
+first kernel launches of the tracer's window: late in a long-running
+process some of the launches of a window's first ms (torch's and the
+port's alike) lack their device rows, whatever time the tracer has run
+before. A recording that no READY step precedes (no scheduler, or
+``ready=0``) starts its tracer with a warm-up instead: a burst of small
+kernel launches (and one of the port's attention kernels where its
+library is loaded, counted as its launches are) before the recording's
+marker, as a READY step's launches precede it. A launch of the recording
+without its row is still counted (``device_launches_unrecorded``, with
+the host op that made it) and warned of. A kernel
 belongs to the recording when the runtime call that launched it
 (``cudaLaunchKernel`` and the like, matched by CUPTI's correlation id) comes
 after a marker the recording opens in the tracer's own clock; device
@@ -71,6 +76,7 @@ class _TraceEvent:
     start_us: float
     end_us: float
     device: int = 0
+    tid: int = 0
 
 
 @dataclass
@@ -161,6 +167,8 @@ _ALIGN = "paddle_profiler::align"
 _RECORD = "paddle_profiler::record"
 # the CUDA runtime and driver calls that launch or enqueue device work
 _RUNTIME_CALL = re.compile(r"^cu(da)?[A-Z]\w*$")
+# a window without a READY step: its warm-up's launches and seconds
+WARM_LAUNCHES, WARM_S = 4000, 0.05
 
 
 class _DeviceTracer:
@@ -185,6 +193,27 @@ class _DeviceTracer:
             pass
         self._t0 = (t0 + _now_us()) / 2
 
+    def warm_up(self):
+        """A READY step's part for a window opened without one: at least
+        WARM_LAUNCHES small kernel launches over WARM_S seconds
+        (elementwise, reduction, GEMM) and, where the port's attention
+        kernels are loaded, one library forward at a small shape, all
+        finished before the marker."""
+        torch = self._torch
+        x = torch.ones(64, 64, device="cuda")
+        launches, t_end = 0, time.perf_counter() + WARM_S
+        while launches < WARM_LAUNCHES or time.perf_counter() < t_end:
+            x = torch.addmm(x, x, x, beta=0.5, alpha=1e-3).clamp_(-1, 1)
+            x = x + torch.arange(64, device=x.device).mul(1e-3).sum()
+            launches += 5
+        from ..ops.hopper import _build
+        if "blocked_flash" in _build._loaded:
+            from ..ops.hopper import flash_attention
+            q = torch.zeros(1, 1, 128, 64, dtype=torch.bfloat16,
+                            device=x.device)
+            flash_attention.library_flash_fwd_cuda(q, q, q, 0.125, True)
+        torch.cuda.synchronize()
+
     def mark_record(self):
         """Kernels launched from here on are the recording's."""
         with self._torch.profiler.record_function(_RECORD):
@@ -203,7 +232,7 @@ class _DeviceTracer:
             out.append(_TraceEvent(e.name(), e.device_type() == cuda,
                                    e.correlation_id(), start,
                                    start + e.duration_ns() / 1e3,
-                                   e.device_index()))
+                                   e.device_index(), e.start_thread_id()))
         return out
 
     def stop(self) -> List[_Span]:
@@ -214,7 +243,7 @@ class _DeviceTracer:
         if not self._marked:
             return []
         events = self._events()
-        marks, launched, kernel_launches = {}, {}, {}
+        marks, launched, kernel_launches, ops = {}, {}, {}, []
         for e in events:
             if e.cuda:
                 continue
@@ -223,7 +252,9 @@ class _DeviceTracer:
             elif _RUNTIME_CALL.match(e.name):
                 launched[e.cid] = e.start_us
                 if "Launch" in e.name:
-                    kernel_launches[e.cid] = e.name
+                    kernel_launches[e.cid] = e
+            else:
+                ops.append(e)
         missing = [m for m in (_ALIGN, _RECORD) if m not in marks]
         if missing:
             raise RuntimeError(f"profiler: the device trace lacks its "
@@ -231,18 +262,47 @@ class _DeviceTracer:
                                "cannot be placed")
         offset = self._t0 - marks[_ALIGN]
         # launches of the recording that CUPTI gave no device row: (the
-        # call, its µs after the recording's marker)
+        # call, its correlation id, its µs after the recording's marker,
+        # the op that made it)
         rows = {e.cid for e in events if e.cuda}
-        self.unrecorded = sorted(
-            (name, launched[cid] - marks[_RECORD])
-            for cid, name in kernel_launches.items()
-            if launched[cid] >= marks[_RECORD] and cid not in rows)
+        lost = sorted((e for cid, e in kernel_launches.items()
+                       if e.start_us >= marks[_RECORD] and cid not in rows),
+                      key=lambda e: e.start_us)
+        op_of = _enclosing_ops(ops, lost)
+        self.unrecorded = [(e.name, e.cid, e.start_us - marks[_RECORD],
+                            op_of[e.cid]) for e in lost]
         # a kernel cannot start before its launch: one with no launch
         # call in the trace goes by its own start
         return [_Span(e.name, e.start_us + offset, e.end_us + offset,
                       e.device, pid=1)
                 for e in events if e.cuda
                 and launched.get(e.cid, e.start_us) >= marks[_RECORD]]
+
+
+def _enclosing_ops(ops, launches) -> Dict[int, str]:
+    """{correlation id: name of the innermost host op (on the launch's
+    thread) whose span holds the launch, or ""} for each of ``launches``:
+    one sweep a thread in time order, with the spans that are open (on one
+    thread they nest) on a stack."""
+    spans: Dict[int, List[_TraceEvent]] = {}
+    for o in sorted(ops, key=lambda o: o.start_us):
+        spans.setdefault(o.tid, []).append(o)
+    nxt: Dict[int, int] = {}
+    stacks: Dict[int, List[_TraceEvent]] = {}
+    out = {}
+    for e in sorted(launches, key=lambda e: e.start_us):
+        mine, stack = spans.get(e.tid, []), stacks.setdefault(e.tid, [])
+        i = nxt.get(e.tid, 0)
+        while i < len(mine) and mine[i].start_us <= e.start_us:
+            while stack and stack[-1].end_us < mine[i].start_us:
+                stack.pop()
+            stack.append(mine[i])
+            i += 1
+        nxt[e.tid] = i
+        while stack and stack[-1].end_us < e.start_us:
+            stack.pop()
+        out[e.cid] = stack[-1].name if stack else ""
+    return out
 
 
 class Profiler:
@@ -270,7 +330,8 @@ class Profiler:
         self._host_spans: List[_Span] = []
         self._device_spans: List[_Span] = []
         # kernel launches of the recorded steps with no device row: (the
-        # call, µs after its window's recording began)
+        # call, its correlation id, µs after its window's recording began,
+        # the host op that made it)
         self.device_launches_unrecorded: List[tuple] = []
         self._step_info = _StepInfo()
 
@@ -290,9 +351,13 @@ class Profiler:
     def _begin_recording(self):
         if self._recording or self.timer_only:
             return
+        if self._device is None:
+            # no READY step started the tracer: its warm-up stands in
+            self._start_device()
+            if self._device is not None:
+                self._device.warm_up()
         _native.tracer_enable(True)
         self._op_unhook = _dispatch.add_op_observer(self._op_span)
-        self._start_device()
         if self._device is not None:
             self._device.mark_record()
         self._recording = True

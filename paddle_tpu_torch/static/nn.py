@@ -240,9 +240,17 @@ def deform_conv2d(x, offset, mask, num_filters, filter_size, stride=1,
                   padding=0, dilation=1, groups=1, deformable_groups=1,
                   im2col_step=1, param_attr=None, bias_attr=None,
                   name=None):
-    raise NotImplementedError(
-        "static.nn.deform_conv2d needs vision.ops.deform_conv2d, which is "
-        "not ported yet (ROADMAP queue 1, item 6)")
+    """Deformable convolution v1/v2 with its own weight (and bias), over
+    ``vision.ops.deform_conv2d`` (reference static/nn.py:249)."""
+    from ..vision.ops import deform_conv2d as _dc
+    cin = x.shape[1]
+    ks = (filter_size,) * 2 if isinstance(filter_size, int) \
+        else tuple(filter_size)
+    w = _param([num_filters, cin // groups, ks[0], ks[1]], attr=param_attr)
+    b = None if bias_attr is False else _param(
+        [num_filters], attr=bias_attr, is_bias=True)
+    return _dc(x, offset, w, b, stride, padding, dilation,
+               deformable_groups, groups, mask)
 
 
 # ------------------------------------------------------------------

@@ -1,23 +1,12 @@
 """paddle.vision: the port of ``paddle_tpu/vision/__init__.py`` (datasets,
-the model zoo, transforms and the image backend switch).
-
-``vision.ops`` (the detection ops: nms, roi_align, deformable conv, ...) is
-not ported yet: asking for it raises, naming ROADMAP queue 1, item 7.
-"""
+the model zoo, the detection ops of ``ops``, transforms and the image
+backend switch)."""
 from . import datasets  # noqa: F401
 from . import models  # noqa: F401
+from . import ops  # noqa: F401
 from . import transforms  # noqa: F401
 
 _image_backend = "pil"
-
-
-def __getattr__(name):
-    if name == "ops":
-        raise NotImplementedError(
-            "paddle_tpu_torch.vision.ops (the detection ops of "
-            "paddle_tpu/vision/ops.py) is not ported yet: ROADMAP queue 1, "
-            "item 7")
-    raise AttributeError(name)
 
 
 def set_image_backend(backend):

@@ -1033,3 +1033,39 @@ def test_tiny_tp_sp_step_on_the_card():
         dist.destroy_process_group()
         paddle.set_device("cpu")
     assert dict(C.HOST_STAGED) == staged
+
+
+def test_profiler_without_a_ready_step_keeps_every_kernel_row():
+    """A Profiler without a scheduler warms its device window up before
+    the recording's marker: the library kernels of the recorded steps each
+    have their row, no launch of the recording lacks one, and the
+    warm-up's own kernels are not in the recording."""
+    _need_card()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import profiler
+    paddle.set_device("gpu:0")
+    try:
+        q = torch.randn(1, 1024, 8, 64, device="cuda",
+                        dtype=torch.bfloat16).requires_grad_(True)
+        x = paddle.Tensor(q)
+        x.stop_gradient = False
+
+        def step():
+            paddle.nn.functional.scaled_dot_product_attention(
+                x, x, x, is_causal=True).sum().backward()
+            torch.cuda.synchronize()
+        step()
+        p = profiler.Profiler(targets=[profiler.ProfilerTarget.GPU])
+        p.start()
+        for _ in range(2):
+            step()
+            p.step()
+        p.stop()
+        rows = [s.name for s in p._all_spans() if s.pid == 1]
+        assert p.device_launches_unrecorded == []
+        for kernel in ("mma_online_fwd_kernel", "mma_dq_kernel",
+                       "mma_dkv_kernel"):
+            assert sum(kernel in r for r in rows) == 2, kernel
+        assert len(rows) < 200    # the warm-up's thousands stay out
+    finally:
+        paddle.set_device("cpu")

@@ -17,7 +17,9 @@ collective parallelism: ``distributed``'s ``env``, ``collective``,
 ``launch``, with the data-parallel step of ``models.gpt_hybrid``, and
 tensor and sequence parallelism: ``fleet``'s ``mp_layers`` and
 ``sequence_parallel_utils``, ``split``, the ``parallel`` package,
-``models.gpt_manual_tp`` and gpt_hybrid's tp + sp step), and
+``models.gpt_manual_tp`` and gpt_hybrid's tp + sp step, and the breadth
+slice: ``vision.ops``, ``static.nn.deform_conv2d``, ``base.core``,
+``incubate``'s packages, ``fft`` and ``audio``), and
 its entry points default to CUDA:
 the training step's, and the eager API's, whose tensors land on gpu:0
 unless set_device("cpu") was called."""
@@ -294,6 +296,33 @@ tp_cfg = TH.ParallelConfig(sp=True, collective_matmul=True, remat=True,
 params, opt, step = TH.setup(cfg, tp_cfg, seed=0, device="cpu")
 assert abs(float(step(params, opt, (ids, ids))[2]) - single) < 1e-3 * single
 dist.destroy_process_group()
+
+# the breadth slice: vision.ops, static.nn's deform_conv2d, base.core,
+# incubate's packages, fft and audio
+from paddle_tpu_torch import audio, fft, incubate
+from paddle_tpu_torch.base import core as base_core
+from paddle_tpu_torch.incubate import (asp, multiprocessing as imp,
+                                       operators)
+from paddle_tpu_torch.incubate import autograd as iag
+from paddle_tpu_torch.vision import ops as vision_ops_mod
+feat = paddle.randn([1, 4, 8, 8])
+rois = paddle.to_tensor([[0.0, 0.0, 4.0, 4.0], [1.0, 2.0, 6.0, 7.0]])
+assert vision_ops_mod.roi_align(feat, rois, paddle.to_tensor([2]),
+                                2).shape == [2, 4, 2, 2]
+assert vision_ops_mod.nms(rois, 0.5).shape == [2]
+dcn = paddle.static.nn.deform_conv2d(feat, paddle.zeros([1, 18, 8, 8]),
+                                     None, 3, 3, padding=1)
+assert dcn.shape == [1, 3, 8, 8]
+assert base_core.get_cuda_device_count() == paddle.device.device_count()
+q_rot, _, _ = incubate.nn.functional.fused_rotary_position_embedding(
+    paddle.randn([1, 4, 2, 8]))
+assert q_rot.shape == [1, 4, 2, 8]
+assert asp.calculate_density(paddle.ones([4])) == 1.0
+assert iag.vjp(lambda t: t * t, [paddle.ones([2])])[1][0].shape == [2]
+assert fft.rfft(paddle.ones([8])).shape == [5] and paddle.fft is fft
+assert audio.features.MelSpectrogram(sr=8000, n_fft=64, n_mels=8)(
+    paddle.randn([1, 256])).shape[1] == 8
+assert callable(imp.Queue) and callable(operators.graph_send_recv)
 
 def foreign(name):
     return (name in ("jax", "jaxlib", "paddle_tpu")

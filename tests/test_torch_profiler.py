@@ -167,13 +167,16 @@ def test_device_rows_belong_to_the_recording_by_their_launch():
         _event("no_launch_before", 25.0, cid=7, cuda=True),
         _event("no_launch_after", 50.0, cid=3, cuda=True),
     ]
-    tracer = _tracer_over(events + [_event("cudaLaunchKernel", 60.0,
+    tracer = _tracer_over(events + [_event("aten::add", 58.0, 62.0),
+                                    _event("aten::mul", 59.0, 59.5),
+                                    _event("cudaLaunchKernel", 60.0,
                                            cid=9)])
     rows = tracer.stop()
     assert [r.name for r in rows] == ["launched_in_record", "no_launch_after"]
     assert (rows[0].start_us, rows[0].end_us, rows[0].pid) == (1019.0,
                                                                1023.0, 1)
-    assert tracer.unrecorded == [("cudaLaunchKernel", 30.0)]   # no row
+    # no row; the innermost op around the launch made it
+    assert tracer.unrecorded == [("cudaLaunchKernel", 9, 30.0, "aten::add")]
 
 
 @pytest.mark.parametrize("missing", ["paddle_profiler::align",
@@ -197,8 +200,9 @@ def test_an_unmarked_device_window_has_no_rows():
 
 def test_the_profiler_drives_its_device_tracer_in_order(monkeypatch):
     """Without a scheduler the device tracer starts with the recording,
-    which it marks; a launch without its row is kept and warned of; with a
-    READY step the tracer starts a step ahead."""
+    warms up and then marks it; a launch without its row is kept and
+    warned of; with a READY step the tracer starts a step ahead and marks
+    the recording without a warm-up."""
     calls = []
 
     class Tracer:
@@ -208,12 +212,15 @@ def test_the_profiler_drives_its_device_tracer_in_order(monkeypatch):
         def start(self):
             calls.append("start")
 
+        def warm_up(self):
+            calls.append("warm")
+
         def mark_record(self):
             calls.append("mark")
 
         def stop(self):
             calls.append("stop")
-            self.unrecorded = [("cuLaunchKernel", 12.0)]
+            self.unrecorded = [("cuLaunchKernel", 5, 12.0, "op")]
             return [profiler._Span("k", 1.0, 2.0, pid=1)]
 
     monkeypatch.setattr(profiler, "_DeviceTracer", Tracer)
@@ -223,8 +230,9 @@ def test_the_profiler_drives_its_device_tracer_in_order(monkeypatch):
     p.step()
     with pytest.warns(UserWarning, match="1 kernel launches"):
         p.stop()
-    assert calls == ["start", "mark", "stop"]
-    assert p.device_launches_unrecorded == [("cuLaunchKernel", 12.0)]
+    assert calls == ["start", "warm", "mark", "stop"]
+    assert p.device_launches_unrecorded == [("cuLaunchKernel", 5, 12.0,
+                                            "op")]
     assert [s.name for s in p._all_spans() if s.pid == 1] == ["k"]
     calls.clear()
     p = profiler.Profiler(scheduler=profiler.make_scheduler(ready=1,

@@ -200,11 +200,17 @@ def test_pretrained_weights_are_refused(name):
 
 
 def test_models_resnet_is_vision_models_resnet_and_vision_ops_waits():
+    """``vision.ops`` is the ported module (it waited for a later slice
+    until the detection ops were ported); a name vision lacks raises
+    AttributeError."""
     from paddle_tpu_torch import models
+    from paddle_tpu_torch.vision import ops
     from paddle_tpu_torch.vision.models import resnet
     assert models.resnet is resnet and "resnet" in models.__all__
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        T.vision.ops
+    assert T.vision.ops is ops and ops.__name__ == "paddle_tpu_torch.vision.ops"
+    assert T.vision.ops.nms.__module__ == ops.__name__
+    with pytest.raises(AttributeError):
+        T.vision.no_such_name  # noqa: B018
     T.vision.set_image_backend("cv2")
     assert T.vision.get_image_backend() == "cv2"
     T.vision.set_image_backend("pil")
