@@ -379,6 +379,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
      5, falling losses, apply/restore bit-equal, 24 launches of each
      library kernel a step. A {"breadth": {...}} line. ``--phase21`` runs
      the build and this phase alone.
+ 22. The tail of the breadth: (a) QAT of the Layer GPT at MEDIUM's widths
+     (bf16, AdamW multi_precision, B4 S2048), a channel-wise weight quanter
+     and an abs-max activation quanter on all 96 block Linears: 4 steps
+     with a falling loss from near ln(50304), 24 launches of each library
+     kernel a step, then convert and eval forwards (24 lf_fwd, the scales
+     frozen), ms/step beside the model without quanters; a 2-layer h256
+     copy under QAT on the card against the CPU (losses, gradients, the
+     learned scales); (b) PTQ of Llama-2-7B (bf16, 32 layers): 2
+     calibration forwards at B1 S2048, convert in place to 224
+     QuantedLinears, the converted forward on a held-out batch (32 lf_fwd,
+     its loss within 1e-2 of the bf16 model's), ms and peak memory; (c)
+     SECOND's voxel stem (SubmConv3D, BatchNorm, ReLU, strided Conv3D) at
+     the KITTI grid [41, 1600, 1408] with 16,000 voxels, forward and
+     backward, the submanifold sites kept, a [41, 200, 176] crop against
+     the CPU; a GCN at ogbn-arxiv's size (169,343 nodes, 1,166,243 edges)
+     through sparse.matmul, 3 Adam steps, step 0 against the CPU; (d)
+     every distribution's log_prob and entropy on 2^16 parameter sets
+     against the CPU, the moments of 2^20 draws; (e) run_check, a dlpack
+     round trip, cpp_extension and a custom op on the card, onnx.export,
+     version. A {"tail": {...}} line. ``--phase22`` runs the build and this
+     phase alone.
 The script sets FLAGS_matmul_precision to "highest", which the flag's
 default gives a user: f32 products and convolutions run in f32.
 Phases 2-6 keep the autotuner's table in a fresh temporary
@@ -389,7 +410,7 @@ Prints {"serving": {...}}, {"moe_gpt": {...}}, {"bert": {...}},
 {"resnet50": {...}}, {"model_fit": {...}}, {"jit": {...}},
 {"eager_api": {...}}, {"distributed": {...}}, {"tensor_parallel": {...}},
 {"pipeline": {...}}, {"expert_parallel": {...}}, {"auto_parallel": {...}},
-{"host_runtime": {...}} and {"breadth": {...}} lines, the
+{"host_runtime": {...}}, {"breadth": {...}} and {"tail": {...}} lines, the
 script's seconds, the card line, then one {"kernels": [...]} line (each row with its design),
 then as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -7886,6 +7907,798 @@ def drive_phase21(run, paddle, GPTConfig, GPTForCausalLM, mods, fa, torch):
     return out
 
 
+# ---------------------------------------------------------------- phase 22
+# the tail of the breadth: quantization, sparse, distribution and the small
+# modules. CARD is the phase's device, the CPU the plain path beside it.
+CARD, CARD_TYPE = "gpu:0", "cuda"
+QAT_STEPS, QAT_LR = 4, 1e-3
+PTQ_BATCH, PTQ_SEQ, PTQ_CALIB = 1, 2048, 2
+PTQ_LOSS_TOL = 1e-2      # the converted loss against the bf16 model's, rel.
+KITTI_GRID, KITTI_VOXELS, KITTI_CROP = (41, 1600, 1408), 16000, (41, 200, 176)
+ARXIV = dict(nodes=169343, edges=1166243, feats=128, hidden=256, classes=40,
+             train=90941)
+GCN_STEPS, GCN_LR = 3, 0.01
+DIST_SETS, DIST_DRAWS = 1 << 16, 1 << 20
+# f32 on the card against the CPU: the same arithmetic in another order
+# (cuDNN's and cuSPARSE's sums, the card's lgamma), relative to the largest
+# value
+TAIL_TOL = 1e-4
+# 22a's small copy under 8-bit QAT, card against CPU: (loss relative,
+# step-0 gradient of its leaf's scale, learned scale relative). A last-bit
+# difference before a quanter can put a / s on the other side of .5 and
+# move one activation by a step (1/127 of its tensor's abs-max): one such
+# rounding moves a weight gradient by up to ~1/127 of its scale, and the
+# step after it moves the next batch's abs-max (measured on an H100:
+# 4.85e-5, 4.31e-3 and 8.58e-4)
+QAT_SMALL_TOL = (1e-4, 1e-2, 2e-3)
+# 22c's GCN: the card's f32 first-layer weight gradient against the CPU's
+# f64 one, of its scale. At this size the CPU's own f32 gradient is 6.3e-4
+# from its f64 one (BatchNorm's backward subtracts means over 169,343 rows)
+GCN_GRAD_TOL = 2e-3
+
+
+def _qat_config(Q, linears):
+    """QAT's config of 22a: a channel-wise abs-max weight quanter and an
+    abs-max activation quanter on each of ``linears``."""
+    cfg = Q.QuantConfig()
+    cfg.add_layer_config(linears,
+                         activation=Q.quanter(Q.FakeQuanterWithAbsMax),
+                         weight=Q.quanter(Q.FakeQuanterChannelWiseAbsMax))
+    return cfg
+
+
+def _block_linears(paddle, model):
+    """The Linear layers of a model's blocks: every one but the head."""
+    return [layer for name, layer in model.named_sublayers()
+            if type(layer) is paddle.nn.Linear
+            and not name.endswith("lm_head")]
+
+
+def _act_scales(model):
+    return {n: float(l.act_quanter._scale.numpy()[0])
+            for n, l in model.named_sublayers() if hasattr(l, "act_quanter")}
+
+
+def check_small_qat(run, paddle, GPTConfig, GPTForCausalLM, mods, torch):
+    """22a's small copy: the 2-layer h256 Layer GPT under QAT (f32) on the
+    card (the library kernels) against the CPU (plain attention), from one
+    state_dict (GPT-2's N(0, 0.02)): the losses of 2 SGD steps, step 0's
+    gradients and the learned activation scales."""
+    Q = paddle.quantization
+    cfg = GPTConfig(**SMALL_LAYER_GPT)
+    L = cfg.num_layers
+    rs = np.random.RandomState(22)
+    ids = rs.randint(0, cfg.vocab_size, (2, 256))
+    paddle.seed(0)
+    paddle.set_device("cpu")
+    state = {k: (rs.randn(*v.shape) * 0.02).astype(np.float32)
+             if v.ndim >= 2 else v.numpy()
+             for k, v in GPTForCausalLM(cfg).state_dict().items()}
+    out, secs = {}, {}
+    for dev in ("cpu", CARD):
+        t0 = time.perf_counter()
+        paddle.set_device(dev)
+        model = GPTForCausalLM(cfg)
+        model.set_state_dict(state)
+        Q.QAT(_qat_config(Q, _block_linears(paddle, model))).quantize(
+            model, inplace=True)
+        opt = paddle.optimizer.SGD(0.1, parameters=model.parameters())
+        losses = []
+        for step in range(2):
+            _reset(mods)
+            t = paddle.to_tensor(ids)
+            loss = model(t, t)
+            loss.backward()
+            if step == 0:
+                grads = {n: p.grad.numpy()
+                         for n, p in model.named_parameters()}
+                launches = _launches(mods)
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss))
+        out[dev] = (losses, grads, _act_scales(model), launches)
+        secs[dev] = time.perf_counter() - t0
+    (lc, gc_, sc, _), (lg, gg, sg, launches) = out["cpu"], out[CARD]
+    tol = QAT_SMALL_TOL
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    grad_err = max(_leaf_err(gg[n], gc_[n]) for n in gc_)
+    scale_err = max(abs(sg[n] - sc[n]) / sc[n] for n in sc)
+    tag = "22a small (QAT Layer GPT, 2 layers h256, f32, B2 S256)"
+    run.check(launches == {n: L if n.startswith("library_flash") else 0
+                           for n in launches},
+              f"{tag}: {L} launches of each library kernel a step on the "
+              f"card and no other ({launches})")
+    run.check(loss_err <= tol[0] and grad_err <= tol[1]
+              and scale_err <= tol[2] and len(sc) == 4 * L,
+              f"{tag}: card against CPU: losses {lg} vs {lc} (worst "
+              f"{loss_err:.2e}, tolerance {tol[0]}), step-0 gradients worst "
+              f"{grad_err:.2e} of their leaf's scale (tolerance {tol[1]}), "
+              f"the {len(sc)} learned activation scales worst "
+              f"{scale_err:.2e} (tolerance {tol[2]})")
+    paddle.set_device(CARD)
+    print(f"22a small: {secs['cpu']:.1f} s on the CPU, {secs[CARD]:.1f} s "
+          f"on the card (two steps each)", flush=True)
+    return {"loss_rel_err": loss_err, "grad_err": grad_err,
+            "scale_rel_err": scale_err, "cpu_s": secs["cpu"],
+            "card_s": secs[CARD]}
+
+
+def drive_qat_medium(run, paddle, GPTConfig, GPTForCausalLM, mods, torch):
+    """22a: QAT of the Layer GPT at MEDIUM's widths (bf16, AdamW
+    multi_precision, B4 S2048): a channel-wise weight quanter and an
+    abs-max activation quanter on all 96 block Linears, 4 steps; then
+    convert and eval forwards; ms/step beside the same model unquantized."""
+    Q = paddle.quantization
+    cfg = GPTConfig(**MEDIUM)
+    L = cfg.num_layers
+    paddle.set_device(CARD)
+    ids = paddle.to_tensor(np.random.RandomState(22).randint(
+        0, cfg.vocab_size, (MEDIUM_BATCH, MEDIUM_SEQ)))
+
+    def build():
+        paddle.seed(0)
+        model = GPTForCausalLM(cfg)
+        _gpt_normal_init(model, 22, torch)
+        model.bfloat16()
+        model.train()
+        opt = paddle.optimizer.AdamW(learning_rate=QAT_LR,
+                                     parameters=model.parameters(),
+                                     multi_precision=True)
+        return model, opt
+
+    def steps(model, opt, n, want=None):
+        losses, ms, ok = [], [], True
+        for _ in range(n):
+            _reset(mods)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            loss = model(ids, ids)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            ev[1].record()
+            torch.cuda.synchronize()
+            losses.append(float(loss))
+            ms.append(ev[0].elapsed_time(ev[1]))
+            ok = ok and (want is None or _launches(mods) == want)
+        return losses, ms, ok
+
+    model, opt = build()
+    linears = _block_linears(paddle, model)
+    qat = Q.QAT(_qat_config(Q, linears))
+    qat.quantize(model, inplace=True)
+    quanted = [l for _, l in model.named_sublayers()
+               if isinstance(l, Q.QuantedLinear)]
+    want = {n: (L if n.startswith("library_flash") else 0)
+            for n in _launches(mods)}
+    losses, qms, launch_ok = steps(model, opt, QAT_STEPS, want)
+    scales = [q.act_quanter._scale._data for q in quanted]
+    on_card = all(s.device.type == CARD_TYPE for s in scales) and all(
+        q.inner.weight._data.device.type == CARD_TYPE for q in quanted)
+    run.check(len(linears) == 4 * L and len(quanted) == 4 * L and on_card,
+              f"22a: QAT wraps all {4 * L} block Linears of the MEDIUM GPT "
+              f"({len(quanted)}), its quanters and weights on the card: "
+              f"{on_card}")
+    run.check(all(math.isfinite(x) for x in losses)
+              and 10.0 <= losses[0] <= 11.5 and losses[-1] < losses[0],
+              f"22a: QAT losses finite, step 0 near ln({cfg.vocab_size}) = "
+              f"{math.log(cfg.vocab_size):.3f} (in [10, 11.5]) and falling: "
+              f"{losses}")
+    run.check(launch_ok, f"22a: each QAT step launches lf_fwd, lf_bwd_dq "
+              f"and lf_bwd_dkv {L} times each and no other attention kernel")
+    qat.convert(model, inplace=True)
+    before = [s.clone() for s in scales]
+    eval_ok = True
+    with paddle.no_grad():
+        for _ in range(2):
+            _reset(mods)
+            logits = model(ids)
+            torch.cuda.synchronize()
+            eval_ok = eval_ok and _launches(mods) == {
+                n: (L if n == "library_flash_fwd" else 0)
+                for n in _launches(mods)}
+            finite = bool(torch.isfinite(logits._data).all())
+            del logits
+    frozen = all(torch.equal(a, q.act_quanter._scale._data)
+                 for a, q in zip(before, quanted))
+    run.check(eval_ok and frozen and finite and not model.training,
+              f"22a: after convert, eval forwards launch lf_fwd {L} times "
+              f"and no other attention kernel ({eval_ok}), the scales no "
+              f"longer move ({frozen}), logits finite ({finite})")
+    del model, opt, quanted, scales, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain, popt = build()
+    _, pms, _ = steps(plain, popt, QAT_STEPS)
+    del plain, popt
+    gc.collect()
+    torch.cuda.empty_cache()
+    q_ms, p_ms = float(np.median(qms[1:])), float(np.median(pms[1:]))
+    tps = MEDIUM_BATCH * MEDIUM_SEQ / q_ms * 1e3
+    print(f"22a: QAT GPT (MEDIUM, bf16, B{MEDIUM_BATCH} S{MEDIUM_SEQ}, "
+          f"{4 * L} quanted Linears): {q_ms:.2f} ms a step (CUDA events, "
+          f"median of steps 2-{QAT_STEPS}), {tps:.1f} tokens/s; the same "
+          f"model without quanters {p_ms:.2f} ms (the same steps); "
+          f"losses {losses}", flush=True)
+    return {"ms_per_step": q_ms, "step_ms": qms, "plain_ms_per_step": p_ms,
+            "plain_step_ms": pms, "tokens_per_s": tps, "losses": losses,
+            "quanted_linears": 4 * L}
+
+
+def drive_ptq_llama(run, paddle, fa, mods, torch):
+    """22b: PTQ of Llama-2-7B (bf16, all 32 layers): quantize, 2
+    calibration forwards at B1 S2048, convert in place; the converted
+    forward on a held-out batch against the unquantized loss."""
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    Q = paddle.quantization
+    cfg = LlamaConfig.llama2_7b()
+    L = cfg.num_layers
+    paddle.set_device(CARD)
+    held_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    paddle.seed(0)
+    model = LlamaForCausalLM(cfg)
+    model.bfloat16()
+    model.eval()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    rs = np.random.RandomState(22)
+    batches = [paddle.to_tensor(rs.randint(0, cfg.vocab_size,
+                                           (PTQ_BATCH, PTQ_SEQ)))
+               for _ in range(PTQ_CALIB + 1)]
+    held = batches.pop()
+
+    def f32_loss():
+        """The next-token loss on the held-out batch from f32 logits (a
+        bf16 loss near 10.5 moves in steps of 0.0625)."""
+        with paddle.no_grad():
+            logits = model(held).astype("float32")
+            v = logits.shape[-1]
+            return float(paddle.nn.functional.cross_entropy(
+                logits[:, :-1].reshape([-1, v]),
+                held[:, 1:].reshape([-1])))
+    base = f32_loss()
+    linears = _block_linears(paddle, model)
+    qcfg = Q.QuantConfig()
+    qcfg.add_layer_config(linears)
+    ptq = Q.PTQ(qcfg)
+    ptq.quantize(model, inplace=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with paddle.no_grad():
+        for b in batches:
+            model(b)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ptq.convert(model, inplace=True)
+    torch.cuda.synchronize()
+    convert_s = time.perf_counter() - t0
+    quanted = [l for _, l in model.named_sublayers()
+               if isinstance(l, Q.QuantedLinear)]
+    on_card = all(q.act_quanter._scale._data.device.type == CARD_TYPE
+                  and q.weight_quanter._scale._data.device.type == CARD_TYPE
+                  for q in quanted)
+    run.check(len(quanted) == 7 * L and on_card,
+              f"22b: convert(inplace=True) gives {len(quanted)} "
+              f"QuantedLinears (want {7 * L}), their scales on the card: "
+              f"{on_card}")
+    _reset(mods)
+    ticks0 = fa.dispatch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    qloss = f32_loss()
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - held_before) / 1e9
+    launches = _launches(mods)
+    dispatch = fa.dispatch_counts(ticks0)
+    run.check(launches == {n: (L if n == "library_flash_fwd" else 0)
+                           for n in launches}
+              and dispatch == {("nn.sdpa", "library_flash"): L},
+              f"22b: the converted forward launches lf_fwd {L} times and "
+              f"no other attention kernel ({launches}, dispatch "
+              f"{dispatch})")
+    rel = abs(qloss - base) / abs(base)
+    run.check(math.isfinite(qloss) and rel <= PTQ_LOSS_TOL,
+              f"22b: the int8 fake-quantized loss on a held-out batch "
+              f"{qloss:.5f} against the bf16 model's {base:.5f}: {rel:.2e} "
+              f"(bound {PTQ_LOSS_TOL})")
+
+    def fwd():
+        with paddle.no_grad():
+            return model(held)
+    ms, _ = _event_ms(torch, fwd, reps=3)
+    del model, quanted, ptq
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"22b: PTQ Llama-2-7B (bf16, {7 * L} quanted Linears) B{PTQ_BATCH}"
+          f" S{PTQ_SEQ}: the converted forward {ms:.2f} ms (CUDA events, "
+          f"median of 3), peak {peak_gb:.2f} GB above what the phase held "
+          f"(the weights included); loss {qloss:.5f} against "
+          f"{base:.5f}; built in {build_s:.1f} s, {PTQ_CALIB} calibration "
+          f"forwards {calib_s:.2f} s, convert {convert_s:.2f} s", flush=True)
+    return {"ms": ms, "peak_gb": peak_gb, "loss": qloss, "base_loss": base,
+            "loss_rel": rel, "calib_s": calib_s, "convert_s": convert_s,
+            "build_s": build_s, "quanted_linears": 7 * L}
+
+
+def kitti_voxels(rs, grid, n):
+    """n distinct voxel sites of a [1, *grid] batch and 4 features each."""
+    total = int(np.prod(grid))
+    lin = np.unique(rs.randint(0, total, n + n // 2))
+    lin = np.sort(rs.permutation(lin)[:n])
+    z, y, x = np.unravel_index(lin, grid)
+    idx = np.stack([np.zeros_like(z), z, y, x])
+    return idx, rs.randn(len(lin), 4).astype(np.float32)
+
+
+def second_stem(paddle, idx, feats, grid, dev):
+    """SECOND's VoxelBackBone8x stem (OpenPCDet second.yaml): SubmConv3D
+    4->16, BatchNorm (eps 1e-3, momentum 0.01 in torch's terms), ReLU, then
+    Conv3D 16->32 stride 2, BatchNorm, ReLU; one forward and backward on
+    ``dev``. The weights are the layers' own seeded draws."""
+    sp = paddle.sparse
+    paddle.set_device(dev)
+    layers = [sp.nn.SubmConv3D(4, 16, 3, padding=1, bias_attr=False),
+              sp.nn.BatchNorm(16, momentum=0.99, epsilon=1e-3),
+              sp.nn.ReLU(),
+              sp.nn.Conv3D(16, 32, 3, stride=2, padding=1, bias_attr=False),
+              sp.nn.BatchNorm(32, momentum=0.99, epsilon=1e-3),
+              sp.nn.ReLU()]
+
+    def run_once():
+        x = sp.sparse_coo_tensor(idx, feats, [1, *grid, 4])
+        subm = layers[0](x)
+        out = subm
+        for layer in layers[1:]:
+            out = layer(out)
+        loss = (out.values() ** 2).mean()
+        loss.backward()
+        return x, subm, out, loss
+    return layers, run_once
+
+
+def drive_second(run, paddle, torch):
+    """22c: SECOND's voxel stem at the full KITTI grid [41, 1600, 1408] with
+    16,000 voxels on the card; a [41, 200, 176] crop of the same density on
+    the card against the CPU."""
+    rs = np.random.RandomState(22)
+    idx, feats = kitti_voxels(rs, KITTI_GRID, KITTI_VOXELS)
+    layers, once = second_stem(paddle, idx, feats, KITTI_GRID, CARD)
+    x, subm, out, loss = once()
+    torch.cuda.synchronize()
+    sites = bool(torch.equal(subm._idx, x._idx))
+    on_card = out._val.device.type == CARD_TYPE and all(
+        l.weight.grad is not None and l.weight.grad._data.device.type ==
+        CARD_TYPE for l in (layers[0], layers[3]))
+    nnz = (x.nnz(), subm.nnz(), out.nnz())
+    del x, subm, out, loss
+    torch.cuda.empty_cache()
+    # the first call was the warm-up: one timed call, one profiled (a call
+    # takes seconds at this grid)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    once()
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1])
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    wall_ms, rows = _profiled(torch, once)
+    busy = sum(r[1] for r in rows)
+    top = [(k[:60], round(t, 3), c) for k, t, c in rows[:5]]
+    run.check(sites and on_card,
+              f"22c: SECOND's stem at [41, 1600, 1408] with {nnz[0]} "
+              f"voxels: the submanifold output keeps exactly the input's "
+              f"sites ({sites}); the values and the weights' gradients on "
+              f"the card ({on_card}); {nnz[2]} nonzeros after the strided "
+              f"conv")
+    # the crop, card against CPU
+    crop_n = round(KITTI_VOXELS * KITTI_CROP[1] * KITTI_CROP[2]
+                   / (KITTI_GRID[1] * KITTI_GRID[2]))
+    cidx, cfeats = kitti_voxels(np.random.RandomState(22), KITTI_CROP,
+                                crop_n)
+    res = {}
+    for dev in ("cpu", CARD):
+        cl, conce = second_stem(paddle, cidx, cfeats, KITTI_CROP, dev)
+        _, _, cout, closs = conce()
+        res[dev] = (cout._idx.cpu(), cout.to_dense().numpy(), float(closs),
+                    [l.weight.grad.numpy() for l in (cl[0], cl[3])])
+    (ic, dc, lc, gc_), (ig, dg, lg, gg) = res["cpu"], res[CARD]
+    same_sites = bool(torch.equal(ic, ig))
+    out_err = _leaf_err(dg, dc)
+    grad_err = max(_leaf_err(a, b) for a, b in zip(gg, gc_))
+    run.check(same_sites and out_err <= TAIL_TOL and grad_err <= TAIL_TOL
+              and abs(lg - lc) <= TAIL_TOL * abs(lc),
+              f"22c: the [41, 200, 176] crop ({crop_n} voxels) on the card "
+              f"against the CPU: the same output sites ({same_sites}), "
+              f"outputs {out_err:.2e}, both convolutions' weight gradients "
+              f"{grad_err:.2e} of their scale, loss {lg:.6f} vs {lc:.6f} "
+              f"(tolerance {TAIL_TOL})")
+    paddle.set_device(CARD)
+    print(f"22c: SECOND stem, KITTI grid, {nnz[0]} voxels: forward+backward"
+          f" {ms:.2f} ms (CUDA events, after a first call), peak "
+          f"{peak_gb:.2f} GB "
+          f"above what the phase held (the dense block of the reference's "
+          f"design); nnz in/subm/out {nnz}; one profiled call: "
+          f"{wall_ms:.2f} ms wall, kernels {busy:.2f} ms (idle "
+          f"{1 - busy / wall_ms:.3f}), the top kernels {top}", flush=True)
+    return {"ms": ms, "peak_gb": peak_gb, "nnz": list(nnz),
+            "profiled_wall_ms": wall_ms, "kernel_ms": busy, "top": top,
+            "crop_out_err": out_err, "crop_grad_err": grad_err}
+
+
+def arxiv_graph(rs):
+    """A random graph at ogbn-arxiv's size, made symmetric with self-loops,
+    its normalised adjacency D^-1/2 (A + I) D^-1/2, features, labels and a
+    training split of arxiv's size."""
+    n, e = ARXIV["nodes"], ARXIV["edges"]
+    src, dst = rs.randint(0, n, e), rs.randint(0, n, e)
+    keys = np.unique(np.concatenate([src * n + dst, dst * n + src,
+                                     np.arange(n) * (n + 1)]))
+    row, col = keys // n, keys % n
+    deg = np.bincount(row, minlength=n).astype(np.float64)
+    val = (1.0 / np.sqrt(deg[row] * deg[col])).astype(np.float32)
+    x = rs.randn(n, ARXIV["feats"]).astype(np.float32)
+    y = rs.randint(0, ARXIV["classes"], n)
+    train = np.sort(rs.permutation(n)[:ARXIV["train"]])
+    return np.stack([row, col]), val, x, y, train
+
+
+def gcn_model(paddle):
+    """OGB's arxiv GCN (examples/nodeproppred/arxiv/gnn.py): 3 GCNConv
+    layers of 256 (a Linear, the normalised adjacency, a bias), BatchNorm
+    and ReLU between them; dropout left out so the step can be held
+    against the CPU."""
+    nn = paddle.nn
+    dims = [ARXIV["feats"], ARXIV["hidden"], ARXIV["hidden"],
+            ARXIV["classes"]]
+
+    class GCN(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.lins = nn.LayerList([nn.Linear(a, b, bias_attr=False)
+                                      for a, b in zip(dims, dims[1:])])
+            for i, b in enumerate(dims[1:]):
+                setattr(self, f"bias_{i}",
+                        self.create_parameter([b], is_bias=True))
+            self.bns = nn.LayerList([nn.BatchNorm1D(ARXIV["hidden"])
+                                     for _ in range(2)])
+
+        def forward(self, adj, x):
+            for i, lin in enumerate(self.lins):
+                x = paddle.sparse.matmul(adj, lin(x)) \
+                    + getattr(self, f"bias_{i}")
+                if i < 2:
+                    x = paddle.nn.functional.relu(self.bns[i](x))
+            return x
+    return GCN()
+
+
+def drive_gcn(run, paddle, torch):
+    """22c: the GCN at ogbn-arxiv's size (169,343 nodes, 1,166,243 edges
+    from seed 22, symmetric with self-loops; 128 features, 3 layers of 256,
+    40 classes), Adam at lr 0.01 for 3 steps on the card; step 0's loss and
+    the first layer's weight gradient against the CPU (f64) at the same
+    size."""
+    sp = paddle.sparse
+    idx, val, x, y, train = arxiv_graph(np.random.RandomState(22))
+    paddle.seed(0)
+    paddle.set_device("cpu")
+    state = {k: v.numpy() for k, v in gcn_model(paddle).state_dict().items()}
+    out = {}
+    for dev in ("cpu", CARD):
+        # the CPU's reference in f64, the card in f32
+        dt = "float64" if dev == "cpu" else "float32"
+        paddle.set_device(dev)
+        model = gcn_model(paddle)
+        model.set_state_dict(state)
+        model.to(dtype=dt)
+        adj = sp.sparse_coo_tensor(idx, val, [ARXIV["nodes"]] * 2, dtype=dt)
+        xt, yt = paddle.to_tensor(x, dtype=dt), paddle.to_tensor(y[train])
+        tr = paddle.to_tensor(train)
+        opt = paddle.optimizer.Adam(learning_rate=GCN_LR,
+                                    parameters=model.parameters())
+        losses, ms = [], []
+        for step in range(GCN_STEPS if dev == CARD else 1):
+            t0 = time.perf_counter()
+            logits = model(adj, xt)
+            loss = paddle.nn.functional.cross_entropy(
+                paddle.gather(logits, tr), yt)
+            loss.backward()
+            if step == 0:
+                grad = model.lins[0].weight.grad.numpy()
+                on_dev = logits._data.device.type
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[dev] = (losses, grad, on_dev, ms, adj.nnz())
+        del model, adj, opt, logits, loss
+    (lc, gc_, _, _, nnz), (lg, gg, dev_type, ms, _) = out["cpu"], out[CARD]
+    loss_err = abs(lg[0] - lc[0]) / abs(lc[0])
+    grad_err = _leaf_err(gg, gc_)
+    run.check(dev_type == CARD_TYPE and all(math.isfinite(v) for v in lg)
+              and lg[-1] < lg[0],
+              f"22c: the arxiv-size GCN's sparse.matmul runs on the card "
+              f"({dev_type}); losses finite and falling over {GCN_STEPS} "
+              f"Adam steps: {lg}")
+    run.check(loss_err <= TAIL_TOL and grad_err <= GCN_GRAD_TOL,
+              f"22c: step 0 on the card (f32) against the CPU (f64; {nnz} "
+              f"stored entries): loss {lg[0]:.7f} vs {lc[0]:.7f} "
+              f"({loss_err:.2e}, tolerance {TAIL_TOL}), the first layer's "
+              f"weight gradient {grad_err:.2e} of its scale (tolerance "
+              f"{GCN_GRAD_TOL})")
+    paddle.set_device(CARD)
+    step_ms = float(np.median(ms[1:]))
+    print(f"22c: GCN at ogbn-arxiv's size ({ARXIV['nodes']} nodes, {nnz} "
+          f"stored entries of the normalised adjacency): {step_ms:.2f} ms a "
+          f"step (host clock with the loss read, median of steps "
+          f"2-{GCN_STEPS}); losses {lg}", flush=True)
+    return {"ms_per_step": step_ms, "step_ms": ms, "losses": lg,
+            "adj_nnz": nnz, "loss_rel_err": loss_err, "grad_err": grad_err}
+
+
+def dist_cases(rs, n):
+    """name -> (numpy parameters, build(D, t, params), a value of each
+    parameter set's support) of every family, at n parameter sets."""
+    def pos(*s):
+        return (rs.rand(n, *s) * 2 + 0.5).astype(np.float32)
+
+    def unit(*s):
+        return (rs.rand(n, *s) * 0.8 + 0.1).astype(np.float32)
+
+    def normal(*s):
+        return rs.randn(n, *s).astype(np.float32)
+    a = rs.randn(n, 3, 3)
+    cov = a @ a.transpose(0, 2, 1) + 3 * np.eye(3)
+    tril = np.linalg.cholesky(cov).astype(np.float32)
+    s = np.sqrt(np.einsum("nii->ni", cov))
+    lkj = np.linalg.cholesky(cov / s[:, :, None] / s[:, None, :]).astype(
+        np.float32)
+    counts = np.stack([rs.multinomial(5, [0.2, 0.3, 0.5]) for _ in range(8)])
+    mult = counts[rs.randint(0, 8, n)].astype(np.float32)
+    probs3 = np.full((n, 3), [0.2, 0.3, 0.5], np.float32)
+    lo, hi = -pos(), pos()
+    return {
+        "Normal": ((normal(), pos()), lambda D, t, p: D.Normal(*map(t, p)),
+                   normal()),
+        "Uniform": ((lo, hi), lambda D, t, p: D.Uniform(*map(t, p)),
+                    lo + (hi - lo) * unit()),
+        "Bernoulli": ((unit(),), lambda D, t, p: D.Bernoulli(t(p[0])),
+                      (rs.rand(n) < 0.5).astype(np.float32)),
+        "Categorical": ((normal(5),),
+                        lambda D, t, p: D.Categorical(logits=t(p[0])),
+                        rs.randint(0, 5, n)),
+        "Exponential": ((pos(),), lambda D, t, p: D.Exponential(t(p[0])),
+                        pos()),
+        "Gamma": ((pos(), pos()), lambda D, t, p: D.Gamma(*map(t, p)), pos()),
+        "Beta": ((pos(), pos()), lambda D, t, p: D.Beta(*map(t, p)), unit()),
+        "Dirichlet": ((pos(3),), lambda D, t, p: D.Dirichlet(t(p[0])),
+                      probs3),
+        "Laplace": ((normal(), pos()), lambda D, t, p: D.Laplace(*map(t, p)),
+                    normal()),
+        "Gumbel": ((normal(), pos()), lambda D, t, p: D.Gumbel(*map(t, p)),
+                   normal()),
+        "LogNormal": ((normal(), pos()),
+                      lambda D, t, p: D.LogNormal(*map(t, p)), pos()),
+        "Multinomial": ((probs3,),
+                        lambda D, t, p: D.Multinomial(5, t(p[0])), mult),
+        "Geometric": ((unit(),), lambda D, t, p: D.Geometric(t(p[0])),
+                      rs.randint(1, 6, n).astype(np.float32)),
+        "Poisson": ((pos() * 20,), lambda D, t, p: D.Poisson(t(p[0])),
+                    rs.randint(0, 40, n).astype(np.float32)),
+        "Binomial": ((np.full(n, 10.0, np.float32), unit()),
+                     lambda D, t, p: D.Binomial(*map(t, p)),
+                     rs.randint(0, 11, n).astype(np.float32)),
+        "Cauchy": ((normal(), pos()), lambda D, t, p: D.Cauchy(*map(t, p)),
+                   normal()),
+        "Chi2": ((pos() * 3,), lambda D, t, p: D.Chi2(t(p[0])), pos()),
+        "StudentT": ((pos() * 3, normal(), pos()),
+                     lambda D, t, p: D.StudentT(*map(t, p)), normal()),
+        "MultivariateNormal": ((normal(3), tril),
+                               lambda D, t, p: D.MultivariateNormal(
+                                   t(p[0]), scale_tril=t(p[1])), normal(3)),
+        "ContinuousBernoulli": ((unit(),),
+                                lambda D, t, p: D.ContinuousBernoulli(
+                                    t(p[0])), unit()),
+        "Independent": ((normal(4), pos(4)),
+                        lambda D, t, p: D.Independent(D.Normal(*map(t, p)),
+                                                      1), normal(4)),
+        "TransformedDistribution": (
+            (normal(), pos()),
+            lambda D, t, p: D.TransformedDistribution(
+                D.Normal(*map(t, p)), [D.AffineTransform(
+                    t(np.float32(0.5)), t(np.float32(2.0))),
+                    D.ExpTransform()]), pos()),
+        "LKJCholesky": ((pos(),), lambda D, t, p: D.LKJCholesky(3, t(p[0])),
+                        lkj),
+    }
+
+
+# name -> (scalar parameters, build(D, t), mean, variance) for 22d's draws
+DIST_MOMENTS = {
+    "Normal": (lambda D, t: D.Normal(t(0.5), t(1.5)), 0.5, 2.25),
+    "Uniform": (lambda D, t: D.Uniform(t(-1.0), t(3.0)), 1.0, 16 / 12),
+    "Bernoulli": (lambda D, t: D.Bernoulli(t(0.3)), 0.3, 0.21),
+    "Exponential": (lambda D, t: D.Exponential(t(2.0)), 0.5, 0.25),
+    "Gamma": (lambda D, t: D.Gamma(t(2.5), t(2.0)), 1.25, 0.625),
+    "Beta": (lambda D, t: D.Beta(t(2.0), t(3.0)), 0.4, 0.04),
+    "Laplace": (lambda D, t: D.Laplace(t(0.5), t(1.5)), 0.5, 4.5),
+    "Gumbel": (lambda D, t: D.Gumbel(t(0.5), t(1.5)),
+               0.5 + 0.5772156649015329 * 1.5, math.pi ** 2 / 6 * 2.25),
+    "Geometric": (lambda D, t: D.Geometric(t(0.3)), 1 / 0.3, 0.7 / 0.09),
+    "Poisson": (lambda D, t: D.Poisson(t(7.5)), 7.5, 7.5),
+    "Binomial": (lambda D, t: D.Binomial(t(10.0), t(0.3)), 3.0, 2.1),
+    "Chi2": (lambda D, t: D.Chi2(t(3.0)), 3.0, 6.0),
+    "StudentT": (lambda D, t: D.StudentT(t(10.0), t(0.5), t(1.5)), 0.5,
+                 2.25 * 10 / 8),
+    "ContinuousBernoulli": (lambda D, t: D.ContinuousBernoulli(t(0.3)),
+                            None, None),
+}
+
+
+def drive_distributions(run, paddle, torch):
+    """22d: every family's log_prob (and entropy, where it has one) on the
+    card on 2^16 parameter sets against the CPU on the same parameters;
+    the mean and variance of 2^20 draws on the card within 6 standard
+    errors of the family's."""
+    D = paddle.distribution
+    cases = dist_cases(np.random.RandomState(22), DIST_SETS)
+    errs, worst = {}, 0.0
+    t0 = time.perf_counter()
+    for name, (params, build, value) in cases.items():
+        got = {}
+        for dev in ("cpu", CARD):
+            paddle.set_device(dev)
+            d = build(D, paddle.to_tensor, params)
+            vals = [d.log_prob(paddle.to_tensor(value))]
+            try:
+                vals.append(d.entropy())
+            except NotImplementedError:
+                pass
+            got[dev] = ([v._data.device.type for v in vals],
+                        [v.numpy() for v in vals])
+        devs, card = got[CARD]
+        e = max(_leaf_err(a, b) for a, b in zip(card, got["cpu"][1]))
+        finite = all(np.isfinite(a).all() for a in card)
+        errs[name] = e
+        worst = max(worst, e)
+        what = "log_prob and entropy" if len(card) == 2 else "log_prob"
+        run.check(set(devs) == {CARD_TYPE} and finite and e <= TAIL_TOL,
+                  f"22d: {name}'s {what} on "
+                  f"{DIST_SETS} parameter sets: card against CPU {e:.2e} "
+                  f"of the largest value (tolerance {TAIL_TOL}), finite "
+                  f"{finite}, on {sorted(set(devs))}")
+    lp_s = time.perf_counter() - t0
+    paddle.set_device(CARD)
+    t0 = time.perf_counter()
+    moments = {}
+    for name, (build, mean, var) in DIST_MOMENTS.items():
+        d = build(D, lambda v: paddle.to_tensor(np.float32(v)))
+        s = d.sample([DIST_DRAWS])._data.double()
+        if mean is None:
+            mean = float(d.mean)
+            var = None
+        m, v = float(s.mean()), float(s.var())
+        blocks = s.reshape(32, -1).var(1)
+        se_m = math.sqrt((var if var is not None else v) / DIST_DRAWS)
+        se_v = float(blocks.std()) / math.sqrt(32)
+        ok = abs(m - mean) <= 6 * se_m and (
+            var is None or abs(v - var) <= 6 * se_v) and \
+            s.device.type == CARD_TYPE
+        moments[name] = (m, v)
+        run.check(ok, f"22d: {name}: 2^20 draws on the card, mean {m:.5f} "
+                  f"(want {mean:.5f}, 6 SE {6 * se_m:.5f}), variance "
+                  f"{v:.5f} (want {var}, 6 SE {6 * se_v:.5f})")
+    torch.cuda.synchronize()
+    draws_s = time.perf_counter() - t0
+    print(f"22d: {len(cases)} families' log_prob and entropy at "
+          f"{DIST_SETS} parameter sets on the card and the CPU in "
+          f"{lp_s:.2f} s (worst {worst:.2e}); {len(DIST_MOMENTS)} families' "
+          f"2^20 draws in {draws_s:.2f} s", flush=True)
+    return {"rel_err": errs, "moments": moments, "log_prob_s": lp_s,
+            "draws_s": draws_s}
+
+
+def drive_tail_rest(run, paddle, GPTConfig, GPTForCausalLM, torch):
+    """22e: utils.run_check on the card, a dlpack round trip, a host C++
+    extension and a custom op on card tensors, onnx.export of the 2-layer
+    GPT, version.cuda()."""
+    import contextlib
+    import ctypes
+    import io as _io
+    from paddle_tpu_torch.jit import InputSpec
+    from paddle_tpu_torch.utils import cpp_extension, dlpack
+    paddle.set_device(CARD)
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ok = paddle.utils.run_check()
+    name = torch.cuda.get_device_name(0)
+    run.check(ok and name in buf.getvalue(),
+              f"22e: utils.run_check() names the card: "
+              f"{buf.getvalue().strip()}")
+    x = paddle.randn([1024, 1024])
+    y = dlpack.from_dlpack(dlpack.to_dlpack(x))
+    run.check(y._data.data_ptr() == x._data.data_ptr()
+              and y._data.device.type == CARD_TYPE,
+              "22e: a dlpack round trip of a card tensor keeps its "
+              "data_ptr and device")
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "axpy.cc")
+        with open(src, "w") as f:
+            f.write('extern "C" double axpy(double a, double x, double y)'
+                    " { return a * x + y; }\n")
+        t0 = time.perf_counter()
+        lib = cpp_extension.load("axpy", [src], build_directory=d)
+        build_s = time.perf_counter() - t0
+        lib.axpy.restype = ctypes.c_double
+        host = lib.axpy(ctypes.c_double(2.0), ctypes.c_double(3.0),
+                        ctypes.c_double(1.0))
+        op = cpp_extension.register_op(
+            "cube", forward=lambda a: a * a * a,
+            backward=lambda a, g: 3 * a * a * g)
+        v = paddle.to_tensor(np.linspace(-2, 2, 4096, dtype=np.float32),
+                             stop_gradient=False)
+        out = op(v)
+        out.sum().backward()
+        want = 3 * v._data.detach() ** 2
+        run.check(host == 7.0 and out._data.device.type == CARD_TYPE
+                  and torch.allclose(v.grad._data, want)
+                  and torch.allclose(out._data, v._data.detach() ** 3),
+                  f"22e: cpp_extension.load built a host source with g++ "
+                  f"({build_s:.2f} s; axpy {host}), a register_op op ran its"
+                  f" forward and backward on card tensors")
+        cfg = GPTConfig(**SMALL_LAYER_GPT)
+        paddle.seed(0)
+        gpt = GPTForCausalLM(cfg)
+        gpt.eval()
+        t0 = time.perf_counter()
+        path = paddle.onnx.export(gpt, os.path.join(d, "gpt2l"), input_spec=[
+            InputSpec([None, cfg.max_seq_len], "int64")])
+        export_s = time.perf_counter() - t0
+        with open(path) as f:
+            text = f.read()
+    run.check("graph" in text and "library_flash" in text,
+              f"22e: onnx.export of the 2-layer GPT wrote its graph text "
+              f"({len(text)} characters, {export_s:.1f} s) with the "
+              f"library attention op in it")
+    run.check(paddle.version.cuda() == torch.version.cuda,
+              f"22e: version.cuda() {paddle.version.cuda()} equals "
+              f"torch.version.cuda {torch.version.cuda}; cudnn "
+              f"{paddle.version.cudnn()}, nccl {paddle.version.nccl()}")
+    return {"cpp_build_s": build_s, "onnx_export_s": export_s}
+
+
+def drive_phase22(run, paddle, GPTConfig, GPTForCausalLM, mods, fa, torch):
+    """Phase 22, the tail of the breadth: 22a-22e, each timed."""
+    t_phase = time.perf_counter()
+    out = {}
+    for key, fn in (
+            ("qat_small", lambda: check_small_qat(
+                run, paddle, GPTConfig, GPTForCausalLM, mods, torch)),
+            ("qat_medium", lambda: drive_qat_medium(
+                run, paddle, GPTConfig, GPTForCausalLM, mods, torch)),
+            ("ptq_llama", lambda: drive_ptq_llama(run, paddle, fa, mods,
+                                                  torch)),
+            ("second", lambda: drive_second(run, paddle, torch)),
+            ("gcn", lambda: drive_gcn(run, paddle, torch)),
+            ("distribution", lambda: drive_distributions(run, paddle,
+                                                         torch)),
+            ("rest", lambda: drive_tail_rest(run, paddle, GPTConfig,
+                                             GPTForCausalLM, torch))):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        out[key]["phase_s"] = time.perf_counter() - t0
+        print(f"22 {key}: {out[key]['phase_s']:.1f} s", flush=True)
+        paddle.set_device(CARD)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["phase_22_s"] = time.perf_counter() - t_phase
+    print(f"tail phase: {out['phase_22_s']:.1f} s", flush=True)
+    return out
+
+
 def main():
     if sys.argv[1:2] == ["--phase16d-worker"]:
         phase16d_worker(sys.argv[2])
@@ -7974,6 +8787,19 @@ def main():
                               ".cache")
     os.makedirs(cache_root, exist_ok=True)
     mods = (sa, ca, bf, sa2, fa)
+    if "--phase22" in sys.argv[1:]:
+        # phase 22 alone (no kernels line, no ok line): for work on it
+        with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+            os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+            at._table = None
+            tail = drive_phase22(run, paddle, GPTConfig, GPTForCausalLM,
+                                 mods, fa, torch)
+        print(json.dumps({"tail": tail}))
+        print(f"chip_smoke --phase22: {time.perf_counter() - t_script:.1f} "
+              f"s, {len(run.failures)} check(s) failed", flush=True)
+        for what in run.failures:
+            print(f"  {what[:300]}", file=sys.stderr)
+        return 1 if run.failures else 0
     if "--phase21" in sys.argv[1:]:
         # phase 21 alone (no kernels line, no ok line): for work on it
         with tempfile.TemporaryDirectory(dir=cache_root) as cache:
@@ -8217,6 +9043,13 @@ def main():
         at._table = None
         br = drive_phase21(run, paddle, GPTConfig, GPTForCausalLM, mods, fa,
                            torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+        os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+        at._table = None
+        tail = drive_phase22(run, paddle, GPTConfig, GPTForCausalLM, mods,
+                             fa, torch)
 
     kernels = []
     for kern in KERNELS:
@@ -8266,6 +9099,7 @@ def main():
     print(json.dumps({"auto_parallel": ap}))
     print(json.dumps({"host_runtime": hr}))
     print(json.dumps({"breadth": br}))
+    print(json.dumps({"tail": tail}))
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s", flush=True)
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed:",

@@ -56,10 +56,16 @@ What is ported so far:
   dp and sharding, the launcher, sharded checkpoints) and
   ``models/gpt_hybrid``'s data-parallel step with ZeRO-1; its tensor,
   sequence, pipeline and expert-parallel branches; the semi-auto API
-  (``distributed.api``, ``auto_parallel``'s Engine, the planner).
+  (``distributed.api``, ``auto_parallel``'s Engine, the planner);
+- the breadth: ``vision.ops``, ``fft``, ``audio``, the rest of
+  ``incubate``, the parameter server and the native runtime, then
+  ``quantization`` (QAT, PTQ), ``sparse`` (COO tensors over torch's,
+  ``sparse.nn``), ``distribution``, ``decomposition``, ``regularizer``,
+  ``utils`` (``cpp_extension``, ``dlpack``, ``download``), ``onnx``,
+  ``reader``, ``batch``, ``dataset``, ``hub``, ``sysconfig``, ``version``
+  and ``pir_utils``, each a lazy top-level name as in the reference.
 
-Use it as ``import paddle_tpu_torch as paddle``. Names of later slices
-(``vision.ops``, ``fft``, the parameter server, ...) are not here.
+Use it as ``import paddle_tpu_torch as paddle``.
 """
 from __future__ import annotations
 
@@ -142,14 +148,21 @@ __version__ = "0.1.0"
 
 _LAZY = {"vision", "hapi", "metric", "callbacks", "training",
          "distributed", "static", "inference", "incubate", "base",
-         "tensorrt", "tensor", "text", "geometric", "profiler", "audio"}
+         "tensorrt", "tensor", "text", "geometric", "profiler", "audio",
+         "models", "parallel", "distribution", "sparse", "device",
+         "quantization", "utils", "regularizer", "sysconfig", "hub", "onnx",
+         "dataset", "reader", "decomposition", "pir_utils", "batch",
+         "observability", "version"}
 
 
 def __getattr__(name):
     """These modules load on first use, as the reference's do."""
     if name in _LAZY:
         import importlib
-        return importlib.import_module(f"{__name__}.{name}")
+        mod = importlib.import_module(f"{__name__}.{name}")
+        if name == "batch":
+            return mod.batch      # paddle.batch is the function itself
+        return mod
     if name == "Model":
         from .hapi import Model
         return Model

@@ -370,7 +370,10 @@ class Tensor:
     def _assign_array(self, arr):
         """Inplace rebind (the ``inplace: (x -> out)`` discipline,
         ops.yaml:16). A trainable leaf given a value outside autograd stays
-        a trainable leaf and keeps its gradient."""
+        a trainable leaf and keeps its gradient. A host array lands on this
+        tensor's device."""
+        if not isinstance(arr, torch.Tensor):
+            arr = _as_torch(arr, None).to(self._data.device)
         if not self._sg and not arr.requires_grad and _trainable(arr):
             arr = arr.detach().requires_grad_(True)
             old = self._leaf

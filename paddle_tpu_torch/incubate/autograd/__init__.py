@@ -14,9 +14,6 @@ from ...core.tensor import Tensor
 __all__ = ["jvp", "vjp", "Jacobian", "Hessian", "disable_prim",
            "enable_prim", "prim_enabled", "forward_grad", "grad"]
 
-_prim = [False]
-
-
 def _unwrap(xs):
     if isinstance(xs, (list, tuple)):
         return [x._data if isinstance(x, Tensor) else torch.as_tensor(x)
@@ -124,12 +121,15 @@ class Hessian:
 
 
 def enable_prim():
-    _prim[0] = True
+    from ...decomposition import enable_prim as ep
+    ep(True)
 
 
 def disable_prim():
-    _prim[0] = False
+    from ...decomposition import enable_prim as ep
+    ep(False)
 
 
 def prim_enabled():
-    return _prim[0]
+    from ...decomposition import prim_enabled as pe
+    return pe()

@@ -406,18 +406,7 @@ def create_parameter(shape, dtype, name=None, attr=None,
     return p
 
 
-def batch(reader, batch_size, drop_last=False):
-    """Batched reader decorator (ref: python/paddle/batch.py)."""
-    def batched():
-        buf = []
-        for item in reader():
-            buf.append(item)
-            if len(buf) == batch_size:
-                yield buf
-                buf = []
-        if buf and not drop_last:
-            yield buf
-    return batched
+from ..batch import batch  # noqa: E402,F401  (paddle.batch)
 
 
 class LazyGuard:

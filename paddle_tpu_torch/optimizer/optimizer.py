@@ -218,11 +218,16 @@ class Optimizer:
         return mw._data if mw is not None else p._data.detach()
 
     def _decayed(self, p, val, g):
-        """L2 weight decay folded into the gradient (reference
-        regularization semantics)."""
+        """Weight decay folded into the gradient (reference regularization
+        semantics): a float ``c`` adds ``c * param``; a regularizer
+        (``paddle.regularizer.L1Decay``/``L2Decay``) adds its own function
+        of the parameter. The reference reads a ``_coeff`` its regularizers
+        lack, and raises for them."""
         wd = self._weight_decay
         if wd is None:
             return g
+        if callable(wd):
+            return g + wd(val).to(g.dtype)
         coef = getattr(wd, "_coeff", None)
         coef = float(coef) if coef is not None else float(wd)
         return g + coef * val.to(g.dtype)

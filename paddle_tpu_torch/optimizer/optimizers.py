@@ -116,8 +116,9 @@ class AdamW(Adam):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip, lazy_mode, multi_precision,
                          amsgrad, name)
-        self._wd = weight_decay if not hasattr(weight_decay, "_coeff") \
-            else float(weight_decay._coeff)
+        # a regularizer gives its coefficient to the decoupled decay
+        self._wd = weight_decay if not hasattr(weight_decay, "coeff") \
+            else float(weight_decay.coeff)
         self._apply_decay_param_fun = apply_decay_param_fun
         self._lr_ratio = lr_ratio
 

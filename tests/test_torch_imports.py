@@ -19,8 +19,11 @@ tensor and sequence parallelism: ``fleet``'s ``mp_layers`` and
 ``sequence_parallel_utils``, ``split``, the ``parallel`` package,
 ``models.gpt_manual_tp`` and gpt_hybrid's tp + sp step, and the breadth
 slice: ``vision.ops``, ``static.nn.deform_conv2d``, ``base.core``,
-``incubate``'s packages, ``fft`` and ``audio``), and
-its entry points default to CUDA:
+``incubate``'s packages, ``fft`` and ``audio``, and the tail of the breadth:
+``quantization``, ``sparse``, ``distribution``, ``decomposition``,
+``regularizer``, ``utils``, ``onnx``, ``reader``, ``batch``, ``dataset``,
+``hub``, ``sysconfig``, ``version``, ``pir_utils``, ``framework.core`` and
+``common_ops_import``), and its entry points default to CUDA:
 the training step's, and the eager API's, whose tensors land on gpu:0
 unless set_device("cpu") was called."""
 import os
@@ -323,6 +326,42 @@ assert fft.rfft(paddle.ones([8])).shape == [5] and paddle.fft is fft
 assert audio.features.MelSpectrogram(sr=8000, n_fft=64, n_mels=8)(
     paddle.randn([1, 256])).shape[1] == 8
 assert callable(imp.Queue) and callable(operators.graph_send_recv)
+
+# the tail of the breadth: quantization, sparse, distribution,
+# decomposition, regularizer, utils, onnx, reader, batch, dataset, hub,
+# sysconfig, version, pir_utils, framework.core, common_ops_import
+from paddle_tpu_torch import (check_import_scipy, common_ops_import, hub,
+                              pir_utils, sysconfig)
+from paddle_tpu_torch.batch import batch as batch_fn
+from paddle_tpu_torch.framework import core as framework_core
+from paddle_tpu_torch.utils import cpp_extension, dlpack, download
+for name in ("sparse", "distribution", "quantization", "utils",
+             "regularizer", "dataset", "reader", "onnx", "hub",
+             "decomposition", "pir_utils", "sysconfig", "version"):
+    assert getattr(paddle, name).__name__ == f"paddle_tpu_torch.{name}"
+assert paddle.batch is batch_fn is paddle.ops.compat.batch
+qlin = paddle.quantization.QAT(paddle.quantization.QuantConfig()).quantize(
+    nn.Sequential(nn.Linear(4, 2)))
+assert qlin(paddle.randn([3, 4])).shape == [3, 2]
+coo = paddle.sparse.sparse_coo_tensor([[0, 1], [1, 0]], [1.0, 2.0], [2, 2])
+assert paddle.sparse.matmul(coo, paddle.ones([2, 3])).shape == [2, 3]
+assert paddle.distribution.Normal(0.0, 1.0).sample([4]).shape == [4]
+assert paddle.decomposition.has_decomp_rule("softmax")
+assert iag.prim_enabled() is paddle.decomposition.prim_enabled()
+assert paddle.regularizer.L2Decay(0.5)(paddle.ones([2])).shape == [2]
+assert paddle.utils.flatten({"b": [1, 2], "a": 3}) == [3, 1, 2]
+assert dlpack.from_dlpack(dlpack.to_dlpack(paddle.ones([2]))).shape == [2]
+assert callable(cpp_extension.register_op) and callable(download.
+                                                        get_path_from_url)
+assert len(next(paddle.dataset.mnist.train()())[0]) == 784
+assert list(paddle.reader.firstn(lambda: iter(range(5)), 2)()) == [0, 1]
+assert framework_core.TCPStore is base_core.TCPStore
+assert common_ops_import.Variable is paddle.Tensor
+assert callable(hub.load) and check_import_scipy.check_import_scipy("posix")
+assert sysconfig.get_include().endswith("csrc")
+assert paddle.version.cuda() == (torch.version.cuda or "False")
+with pir_utils.IrGuard():
+    pass
 
 def foreign(name):
     return (name in ("jax", "jaxlib", "paddle_tpu")
