@@ -400,6 +400,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
      round trip, cpp_extension and a custom op on the card, onnx.export,
      version. A {"tail": {...}} line. ``--phase22`` runs the build and this
      phase alone.
+ 23. Head dims above 256 (csrc/attention_wide.cuh) and the Layer models'
+     tensor parallelism: (a) every kernel family at D = 384 and 512
+     against its plain version (phase 2's tolerances): simple_attention,
+     qblock_attention and causal_attention at B1 H8 S1024 (bf16 causal and
+     not, f16, f32 causal), blocked_flash at B1 H8 S2048 (the same, and
+     cross-attention Sq=1024, Skv=2048), the library tier at D = 192 and
+     320 (B2 H8 S512) and 384 (B1 H8 S2048), bf16 and f32; each kernel's
+     bf16 causal ms (median of 5 windows, spread), bound, plain ms, and one
+     scaled_dot_product_attention call's ms with the backend it picked; (b)
+     gpt_hybrid through setup() at 8 heads of 384 (h3072, 4 layers, B4
+     S1024: simple; B2 S2048: blocked), of 512 (h4096, B2 S2048: blocked)
+     and of 192 (h1536, B4 S512: the library tier), as phase 4's paths
+     (4 launches a step of each kernel of the tier and of no other, the
+     step-0 loss in [10, 11.5], or within 0.25 of ln V + h 0.02^2 / 2
+     where that lies above 11.5, a falling loss, ms/step), and
+     causal_attention's and qblock_attention's ops at D = 512 and 384,
+     which the chain never picks at these dims; (c) Llama-2-7B with
+     use_tensor_parallel (32 layers, bf16) at world 1 over NCCL beside the
+     dense model on the same weights: the scoring forward at B1 S2048 (32
+     lf_fwd, logits within 2e-2), a DecodeSession on each (B8, prompt 512
+     + 32 greedy tokens, equal but at near-ties; prefill ms, decode
+     ms/token); then two gloo ranks on the card at tp = 2 and 4 of its
+     layers (16 local heads, their cache 16 kv heads, 4 lf_fwd a forward)
+     against world 1: logits within 2e-2, greedy ids equal but at
+     near-ties; (d) the Layer GPT-1.3B with use_tensor_parallel at world 1
+     over NCCL: 3 AdamW steps at B4 S1024 from the dense model's weights,
+     losses within 1e-2 of the dense model's, 24 launches a step of each
+     library kernel. A {"wide_heads": {...}} line; the kernels line gains
+     a row for each new instantiation on these paths. ``--phase23`` runs
+     the build and this phase alone.
 The script sets FLAGS_matmul_precision to "highest", which the flag's
 default gives a user: f32 products and convolutions run in f32.
 Phases 2-6 keep the autotuner's table in a fresh temporary
@@ -410,7 +440,8 @@ Prints {"serving": {...}}, {"moe_gpt": {...}}, {"bert": {...}},
 {"resnet50": {...}}, {"model_fit": {...}}, {"jit": {...}},
 {"eager_api": {...}}, {"distributed": {...}}, {"tensor_parallel": {...}},
 {"pipeline": {...}}, {"expert_parallel": {...}}, {"auto_parallel": {...}},
-{"host_runtime": {...}}, {"breadth": {...}} and {"tail": {...}} lines, the
+{"host_runtime": {...}}, {"breadth": {...}}, {"tail": {...}} and
+{"wide_heads": {...}} lines, the
 script's seconds, the card line, then one {"kernels": [...]} line (each row with its design),
 then as the last line
 {"ok": true, "device": {...}}. Exits non-zero without a CUDA device.
@@ -570,17 +601,22 @@ def ptxas_rows(log):
     """(kernel, registers, spilled bytes) of each entry function in an
     nvcc -Xptxas -v log; kernel reads as name<dtype,D> from the mangled
     name (f float, __nv_bfloat16, __half), with ",lse" or ",recompute"
-    after D for the dq launch's two forms."""
+    after D for the dq launch's two forms, and name<dtype,form> for the
+    runtime-D kernels (attention_wide.cuh: "online" or "two-pass" for a
+    forward)."""
     import re
     rows, kernel, spill = [], None, 0
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
-            m = re.search(r"\d+([a-z_]+_kernel)I\d*(\w+?)Li(\d+)E(?:Lb(\d)E)?",
-                          entry.group(1))
-            form = {"1": ",lse", "0": ",recompute"}.get(m and m.group(4), "")
-            kernel = (f"{m.group(1)}<{m.group(2)},{m.group(3)}{form}>" if m
-                      else entry.group(1))
+            m = re.search(r"\d+([a-z_]+_kernel)I\d*(\w+?)(?:Li(\d+)E)?"
+                          r"(?:Lb(\d)E)?E", entry.group(1))
+            forms = ({"1": "online", "0": "two-pass"} if m and "fwd" in
+                     m.group(1) else {"1": "lse", "0": "recompute"})
+            parts = [m.group(2), m.group(3), forms.get(m.group(4))] if m \
+                else []
+            kernel = (f"{m.group(1)}<{','.join(x for x in parts if x)}>"
+                      if m else entry.group(1))
             spill = 0
         spilled = re.search(r"(\d+) bytes spill stores", line)
         if spilled:
@@ -611,7 +647,14 @@ def bound(kernel):
     bf16 peak, against its bytes (each input read once, each output
     written once) over HBM. Causal pairs (i, j <= i) only."""
     name, _, _, label, _, products, tensors, stats, _ = kernel
-    b, h, s, d = attention_shape(label)
+    return bound_at(products, tensors, stats, attention_shape(label))
+
+
+def bound_at(products, tensors, stats, shape):
+    """``bound``'s least time (ms) and what sets it, at a [B, H, S, D]
+    shape: ``products`` products of causal pairs, ``tensors`` bf16 [B, H,
+    S, D] tensors and ``stats`` f32 [B, H, S] row statistics moved."""
+    b, h, s, d = shape
     ops_ms = products * 2 * b * h * s * (s + 1) // 2 * d \
         / PEAK_BF16_FLOPS * 1e3
     nbytes = tensors * b * h * s * d * 2 + stats * b * h * s * 4
@@ -738,28 +781,39 @@ def check_kernels(run, mods, torch):
     plain output's scale (an lse or a delta, f32 row statistics, within the
     f32 one). Returns the worst absolute error of each kernel in its bf16
     causal case at its path's shape."""
-    outputs = {k[0]: k[4] for k in KERNELS}
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {}
     for source, label, sq, dname, causal in CHECKS:
-        dtype = getattr(torch, dname)
-        shape = attention_shape(label)
-        q, k, v, do = path_inputs(gen, dtype, torch, shape, sq)
-        calls = kernel_calls(mods, source, q, k, v, do,
-                             1.0 / math.sqrt(shape[-1]), causal)
-        tag = (f"{dname} causal={causal} Sq={sq or shape[2]} Skv={shape[2]} "
-               f"(B{shape[0]} H{shape[1]} D{shape[3]})")
-        for name, (launch, plain) in calls.items():
-            got = _tuple(launch())
-            torch.cuda.synchronize()
-            for out, g, w in zip(outputs[name], got, _tuple(plain())):
-                tol = TOL["float32"] if out in ("lse", "delta") \
-                    else TOL[dname]
-                a, r = max_err(g, w)
-                run.check(r <= tol, f"{name} {out} {tag}: max abs err {a:.3e}"
-                          f" rel {r:.3e} (tolerance rel {tol})")
-                if dname == "bfloat16" and causal and sq is None:
-                    errs[name] = max(errs.get(name, 0.0), a)
+        for name, a in check_case(run, mods, torch, gen, source,
+                                  attention_shape(label), sq, dname,
+                                  causal).items():
+            if dname == "bfloat16" and causal and sq is None:
+                errs[name] = max(errs.get(name, 0.0), a)
+    return errs
+
+
+def check_case(run, mods, torch, gen, source, shape, sq, dname, causal):
+    """One source's kernels against their plain versions at one [B, H, S,
+    D] shape (Sq given: cross-attention), each output within the dtype's
+    tolerance of the plain output's scale (an lse or a delta, f32 row
+    statistics, within the f32 one). Returns {kernel: worst abs err}."""
+    outputs = {k[0]: k[4] for k in KERNELS}
+    dtype = getattr(torch, dname)
+    q, k, v, do = path_inputs(gen, dtype, torch, shape, sq)
+    calls = kernel_calls(mods, source, q, k, v, do,
+                         1.0 / math.sqrt(shape[-1]), causal)
+    tag = (f"{dname} causal={causal} Sq={sq or shape[2]} Skv={shape[2]} "
+           f"(B{shape[0]} H{shape[1]} D{shape[3]})")
+    errs = {}
+    for name, (launch, plain) in calls.items():
+        got = _tuple(launch())
+        torch.cuda.synchronize()
+        for out, g, w in zip(outputs[name], got, _tuple(plain())):
+            tol = TOL["float32"] if out in ("lse", "delta") else TOL[dname]
+            a, r = max_err(g, w)
+            run.check(r <= tol, f"{name} {out} {tag}: max abs err {a:.3e}"
+                      f" rel {r:.3e} (tolerance rel {tol})")
+            errs[name] = max(errs.get(name, 0.0), a)
     return errs
 
 
@@ -795,10 +849,12 @@ def check_small_model(run, TH, GPTConfig, torch):
               f"worst grad leaf rel err {worst:.3e} (tolerance 1e-4)")
 
 
-def drive(run, path, TH, GPTConfig, mods, fa, cost_model, torch, experts=0):
-    """Phase 4 (and 10b, with ``experts``), one path: the training step
-    through setup() and its step, with every count zeroed just before and
-    read just after."""
+def drive(run, path, TH, GPTConfig, mods, fa, cost_model, torch, experts=0,
+          breakdown=True, step0=(10.0, 11.5)):
+    """Phase 4 (and 10b, with ``experts``; 23b without ``breakdown``), one
+    path: the training step through setup() and its step, with every count
+    zeroed just before and read just after; the step-0 loss within
+    ``step0``."""
     label, fields, batch, seq, tier, kernels, warm, timed_steps = path
     cfg = GPTConfig(**fields)
     pcfg = TH.ParallelConfig(remat=True, remat_policy="names", fused_ce=True,
@@ -863,8 +919,9 @@ def drive(run, path, TH, GPTConfig, mods, fa, cost_model, torch, experts=0):
     print(f"{label}: launches {launches}, dispatch {ticks}", flush=True)
     run.check(all(math.isfinite(x) for x in losses),
               f"{label}: losses are finite")
-    run.check(10.0 <= losses[0] <= 11.5,
-              f"{label}: step-0 loss {losses[0]:.4f} near ln(50304) = 10.826")
+    run.check(step0[0] <= losses[0] <= step0[1],
+              f"{label}: step-0 loss {losses[0]:.4f} near ln(50304) = 10.826,"
+              f" in [{step0[0]:.3f}, {step0[1]:.3f}]")
     run.check(losses[-1] < losses[0], f"{label}: loss falls over the steps")
     run.check(launches == {n: L * steps if n in kernels else 0
                            for n in launches},
@@ -876,7 +933,8 @@ def drive(run, path, TH, GPTConfig, mods, fa, cost_model, torch, experts=0):
               and dispatch[("attn.dispatch", tier)] >= L * steps,
               f"{label}: every attention dispatched to {tier}, no fallback")
     run.check(0 < mfu < 1, f"{label}: MFU within (0, 1)")
-    split = step_breakdown(TH, cfg, pcfg, params, opt_state, ids, torch)
+    split = step_breakdown(TH, cfg, pcfg, params, opt_state, ids, torch) \
+        if breakdown else {}
     return {"launches": launches, "steps": steps, "ms_per_step": ms,
             "tokens_per_s": tok_s, "mfu": mfu, "peak_memory_gb": peak_gb,
             "step0_loss": losses[0], "last_loss": losses[-1],
@@ -8699,6 +8757,562 @@ def drive_phase22(run, paddle, GPTConfig, GPTForCausalLM, mods, fa, torch):
     return out
 
 
+# ---------------------------------------------------------------- phase 23
+# Head dims above 256 on the four kernel families, and the library tier's
+# 192/320 (csrc/attention_wide.cuh): (source, [B, H, S, D], Sq (None: S),
+# dtype name, causal).
+WIDE_DIMS = (384, 512)
+WIDE_CHECKS = tuple(
+    [(src, (1, 8, 1024, d), None, dname, causal)
+     for d in WIDE_DIMS
+     for src in ("simple_attention", "simple_attention2", "causal_attention")
+     for dname, causal in (("bfloat16", True), ("bfloat16", False),
+                           ("float16", True), ("float32", True))
+     if causal or src != "causal_attention"]
+    + [("blocked_flash", (1, 8, 2048, d), sq, dname, causal)
+       for d in WIDE_DIMS
+       for sq, dname, causal in ((None, "bfloat16", True),
+                                 (None, "bfloat16", False),
+                                 (1024, "bfloat16", False),
+                                 (None, "float16", True),
+                                 (None, "float32", True))]
+    + [("flash_attention", shape, None, dname, True)
+       for shape in ((2, 8, 512, 192), (2, 8, 512, 320), (1, 8, 2048, 384))
+       for dname in ("bfloat16", "float32")])
+
+# SDPA's backends by the index torch._fused_sdp_choice returns.
+SDPA_BACKENDS = {0: "math", 1: "flash", 2: "efficient", 3: "cudnn",
+                 4: "overrideable"}
+
+
+def sdpa_backend(torch, q, k, v):
+    """The backend one scaled_dot_product_attention(is_causal=True) call
+    picks for these [B, H, S, D] inputs (flash takes D <= 256 only)."""
+    choice = getattr(torch, "_fused_sdp_choice", None)
+    if choice is None:
+        return "unknown"
+    return SDPA_BACKENDS.get(int(choice(q, k, v, is_causal=True)), "unknown")
+
+
+def check_wide_kernels(run, mods, torch):
+    """Phase 23a: every kernel family at head dims 384 and 512 (and the
+    library tier at 192, 320 and 384) against its plain version on the
+    card (phase 2's tolerances), then each kernel's bf16 causal time at
+    each dim (median of 5 windows, spread), its bound, its plain
+    version's time and one scaled_dot_product_attention call's, with the
+    backend SDPA picked. Returns {"errs": {kernel@dD: worst abs err of its
+    bf16 causal case}, "times": {...}}."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    errs = {}
+    for source, shape, sq, dname, causal in WIDE_CHECKS:
+        for name, a in check_case(run, mods, torch, gen, source, shape, sq,
+                                  dname, causal).items():
+            if dname == "bfloat16" and causal and sq is None:
+                key = f"{name}@d{shape[3]}"
+                errs[key] = max(errs.get(key, 0.0), a)
+    kern = {k[0]: k for k in KERNELS}
+    times = {}
+    for source, shape in dict.fromkeys(
+            (src, shp) for src, shp, sq, dname, causal in WIDE_CHECKS
+            if dname == "bfloat16" and causal and sq is None):
+        q, k, v, do = path_inputs(gen, torch.bfloat16, torch, shape)
+        calls = kernel_calls(mods, source, q, k, v, do,
+                             1.0 / math.sqrt(shape[-1]), True)
+        lib = {"fwd": windows_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), reps=3)}
+        ql, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
+        out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+        lib["bwd"] = windows_ms(lambda: torch.autograd.grad(
+            out, (ql, kl, vl), do, retain_graph=True), reps=3)
+        backend = sdpa_backend(torch, q, k, v)
+        for name, (launch, plain) in calls.items():
+            _, _, _, _, _, products, tensors, stats, library = kern[name]
+            ms = windows_ms(launch, reps=3)
+            plain_ms = windows_ms(plain, reps=1)
+            bound_ms, bound_by = bound_at(products, tensors, stats, shape)
+            key = f"{name}@d{shape[3]}"
+            times[key] = {"shape": list(shape), "ms": ms[0],
+                          "ms_spread": ms[1], "plain_ms": plain_ms[0],
+                          "plain_ms_spread": plain_ms[1],
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": lib[library][0],
+                          "library_ms_spread": lib[library][1],
+                          "sdpa_backend": backend}
+            print(f"{key} B{shape[0]} H{shape[1]} S{shape[2]} bf16 causal: "
+                  f"{ms[0]:.3f} ms (spread {ms[1]:.3f}), bound "
+                  f"{bound_ms:.4f} ms ({bound_by}), roofline share "
+                  f"{bound_ms / ms[0]:.4f}, plain {plain_ms[0]:.3f} ms, "
+                  f"SDPA {library} {lib[library][0]:.3f} ms ({backend})",
+                  flush=True)
+        del q, k, v, do, ql, kl, vl, out
+    torch.cuda.empty_cache()
+    return {"errs": errs, "times": times}
+
+
+# 23b: gpt_hybrid at wide heads through setup(), as phase 4's paths; the
+# static chain picks the monolithic tier at S1024 and the blocked one at
+# S2048 for 384- and 512-dim heads, and the library tier for 192-dim heads
+# (no four-tier gate admits 192)
+WIDE_PATHS = (
+    ("wide384_s1024", dict(vocab_size=50304, hidden_size=3072, num_layers=4,
+                           num_heads=8, max_seq_len=2048), 4, 1024, "simple",
+     ("simple_attention_fwd", "simple_attention_bwd"), 1, 2),
+    ("wide384_s2048", dict(vocab_size=50304, hidden_size=3072, num_layers=4,
+                           num_heads=8, max_seq_len=2048), 2, 2048, "blocked",
+     ("blocked_flash_fwd", "blocked_flash_bwd_dq", "blocked_flash_bwd_dkv"),
+     1, 2),
+    ("wide512_s2048", dict(vocab_size=50304, hidden_size=4096, num_layers=4,
+                           num_heads=8, max_seq_len=2048), 2, 2048, "blocked",
+     ("blocked_flash_fwd", "blocked_flash_bwd_dq", "blocked_flash_bwd_dkv"),
+     1, 2),
+    ("wide192_s512", dict(vocab_size=50304, hidden_size=1536, num_layers=4,
+                          num_heads=8, max_seq_len=512), 4, 512,
+     "library_flash", ("library_flash_fwd", "library_flash_bwd_dq",
+                       "library_flash_bwd_dkv"), 1, 2),
+)
+# 23b: the tiers the chain never picks at these dims, through their own ops
+# (what autotune.run calls for a winner): (source, [B, H, S, D])
+WIDE_TIER_OPS = (("causal_attention", (1, 8, 1024, 512)),
+                 ("simple_attention2", (1, 8, 1024, 384)))
+# The kernels line's rows of the wide instantiations: (kernel, D, the 23b
+# run whose launches it reports)
+WIDE_ROWS = tuple(
+    [(k, 384, "wide384_s1024")
+     for k in ("simple_attention_fwd", "simple_attention_bwd")]
+    + [(k, d, f"wide{d}_s2048") for d in WIDE_DIMS
+       for k in ("blocked_flash_fwd", "blocked_flash_bwd_dq",
+                 "blocked_flash_bwd_dkv")]
+    + [(k, 192, "wide192_s512") for k in ("library_flash_fwd",
+                                          "library_flash_bwd_dq",
+                                          "library_flash_bwd_dkv")]
+    + [(k, 512, "tier_ops") for k in ("causal_attention_fwd",
+                                      "causal_attention_bwd")]
+    + [(k, 384, "tier_ops") for k in ("qblock_attention_fwd",
+                                      "qblock_attention_bwd")])
+TIER_OP_MODULES = {"causal_attention": 1, "simple_attention2": 3}
+
+
+def drive_wide_tier_ops(run, mods, torch):
+    """23b: causal_attention's and qblock_attention's ops at wide heads,
+    forward and backward on leaves (bf16 causal), every count zeroed just
+    before and read just after, against the tiers' plain versions."""
+    gen = torch.Generator(device="cuda").manual_seed(231)
+    launches = {}
+    for source, shape in WIDE_TIER_OPS:
+        mod = mods[TIER_OP_MODULES[source]]
+        q, k, v, do = path_inputs(gen, torch.bfloat16, torch, shape)
+        leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        _reset(mods)
+        out = mod.attention_bhsd(*leaves, causal=True)
+        out.backward(do)
+        torch.cuda.synchronize()
+        got = {n: c for n, c in _launches(mods).items() if c}
+        tier = "causal_skip" if source == "causal_attention" else "qblock"
+        o, grads = plain_attention(mods, tier, q, k, v, do,
+                                   1.0 / math.sqrt(shape[3]))
+        errs = [max_err(g, w)[1] for g, w in
+                zip([out.detach()] + [x.grad for x in leaves], [o, *grads])]
+        names = [n for n in mod.LAUNCHES]
+        run.check(got == {n: 1 for n in names} and
+                  max(errs) <= TOL["bfloat16"],
+                  f"23b: {source}.attention_bhsd {list(shape)} bf16 causal, "
+                  f"forward and backward: one launch of each of {names} "
+                  f"and no other ({got}); o, dq, dk, dv against the plain "
+                  f"versions, worst rel {max(errs):.3e} (tolerance "
+                  f"{TOL['bfloat16']})")
+        launches.update(got)
+        del q, k, v, do, leaves, out
+    return launches
+
+
+def drive_wide_gpt(run, TH, GPTConfig, mods, fa, cost_model, torch):
+    """23b: the WIDE_PATHS through setup() and its step (phase 4's checks:
+    each kernel of the tier 4 launches a step and no other attention
+    kernel, dispatch only to the tier, step-0 loss in [10, 11.5], a
+    falling loss), then the tier ops."""
+    paths = {}
+    for path in WIDE_PATHS:
+        # the tied head over embeddings of std 0.02 puts the step-0 loss at
+        # ln V + h 0.02^2 / 2 (11.03 at h1024, 11.24 at h2048, 11.44 at
+        # h3072, 11.65 at h4096): where that leaves [10, 11.5] the check is
+        # 0.25 around it
+        h, vocab = path[1]["hidden_size"], path[1]["vocab_size"]
+        expected = math.log(vocab) + h * 0.02 ** 2 / 2
+        step0 = (10.0, 11.5) if expected < 11.5 else (expected - 0.25,
+                                                      expected + 0.25)
+        paths[path[0]] = drive(run, path, TH, GPTConfig, mods, fa,
+                               cost_model, torch, breakdown=False,
+                               step0=step0)
+        gc.collect()
+        torch.cuda.empty_cache()
+    paths["tier_ops"] = {"launches": drive_wide_tier_ops(run, mods, torch),
+                         "steps": 1}
+    return paths
+
+
+def phase23c_worker(out_dir):
+    """One rank of 23c, started by the port's launcher over gloo on the one
+    card: LlamaForCausalLM at Llama-2-7B's widths and 4 of its 32 layers with
+    use_tensor_parallel at tp = 2 (fleet's mp_degree), bf16, seed 0: its
+    scoring forward (B1 S512) and a DecodeSession's greedy ids; rank 0
+    writes the logits, the ids, the local heads and the launches."""
+    import torch
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.inference.decode import DecodeSession
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.ops.hopper import flash_attention as fa
+    paddle.set_device("gpu:0")
+    dist.init_parallel_env(backend="gloo")
+    world = dist.get_world_size()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "mp_degree": world,
+                               "pp_degree": 1, "sharding_degree": 1}
+    fleet.init(is_collective=True, strategy=strategy)
+    paddle.seed(0)
+    model = LlamaForCausalLM(_tp_llama_cfg(TP_LLAMA_LAYERS, True))
+    model.bfloat16()
+    model.eval()
+    ids, prompts = _tp_llama_ids()
+    fa.reset_launch_counts()
+    with paddle.no_grad():
+        logits = model(paddle.to_tensor(ids))._data.float()
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    gen = DecodeSession(model, max_length=TP_LLAMA_CAPACITY).generate(
+        prompts, max_new_tokens=TP_LLAMA_NEW).numpy()
+    attn = model.llama.layers[0].self_attn
+    if dist.get_rank() == 0:
+        np.save(os.path.join(out_dir, "logits.npy"), logits.cpu().numpy())
+        np.save(os.path.join(out_dir, "generated.npy"), gen)
+        with open(os.path.join(out_dir, "tp2.json"), "w") as f:
+            json.dump({"world": world, "backend": dist.get_backend(),
+                       "launches": launches,
+                       "local_heads": [attn.num_heads, attn.num_kv_heads],
+                       "cache_kv_heads": int(model.init_cache(
+                           1, 64)[0].k.shape[2])}, f)
+    dist.destroy_process_group()
+
+
+TP_LLAMA_LAYERS, TP_LLAMA_NEW, TP_LLAMA_CAPACITY = 4, 8, 128
+TP_LLAMA_SEQ = 512
+TP_DECODE_BATCH, TP_DECODE_PROMPT, TP_DECODE_NEW = 8, 512, 32
+
+
+def _tp_llama_cfg(layers, tp):
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    cfg = LlamaConfig.llama2_7b()
+    cfg.num_layers, cfg.use_tensor_parallel = layers, tp
+    return cfg
+
+
+def _tp_llama_ids():
+    """23c's two-rank inputs: scoring ids [1, 512] and prompts [2, 64]."""
+    rs = np.random.RandomState(232)
+    return (rs.randint(0, 32000, (1, TP_LLAMA_SEQ)),
+            rs.randint(0, 32000, (2, 64)).astype(np.int32))
+
+
+def start_tp_llama_ranks(root):
+    """Starts 23c's two ranks (the port's launcher, gloo, the one card);
+    returns (temporary directory, process, start time)."""
+    d = tempfile.mkdtemp(dir=os.path.join(root, ".cache"))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "2", os.path.abspath(__file__),
+         "--phase23c-worker", d],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    return d, proc, time.perf_counter()
+
+
+def finish_tp_llama_ranks(run, paddle, fa, torch, started):
+    """23c at tp = 2: the two ranks' logits and greedy ids against the same
+    model at world 1 in this process (no group: the layers' dense path, the
+    same global draws from seed 0)."""
+    from paddle_tpu_torch.inference.decode import DecodeSession
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    d, proc, t0 = started
+    try:
+        _, err = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        _, err = proc.communicate()
+    wall = time.perf_counter() - t0
+    ok = proc.returncode == 0 and os.path.exists(os.path.join(d, "tp2.json"))
+    run.check(ok, f"23c: two ranks at tp = 2 over gloo on the one card ran "
+              f"(rc {proc.returncode}, {wall:.1f} s)"
+              f"{'' if ok else ': ' + err[-1500:]}")
+    if not ok:
+        shutil.rmtree(d, ignore_errors=True)
+        return {"rc": proc.returncode}
+    with open(os.path.join(d, "tp2.json")) as f:
+        two = json.load(f)
+    two_logits = torch.from_numpy(np.load(os.path.join(d, "logits.npy")))
+    two_gen = np.load(os.path.join(d, "generated.npy"))
+    shutil.rmtree(d, ignore_errors=True)
+    paddle.set_device("gpu:0")
+    paddle.seed(0)
+    model = LlamaForCausalLM(_tp_llama_cfg(TP_LLAMA_LAYERS, True))
+    model.bfloat16()
+    model.eval()
+    ids, prompts = _tp_llama_ids()
+    with paddle.no_grad():
+        one = model(paddle.to_tensor(ids))._data.float().cpu()
+    one_gen = DecodeSession(model, max_length=TP_LLAMA_CAPACITY).generate(
+        prompts, max_new_tokens=TP_LLAMA_NEW).numpy()
+    margins, scale = greedy_margins(paddle, model, one_gen, prompts.shape[1],
+                                    torch)
+    dense_path = model.llama.layers[0].self_attn.q_proj._group is None
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    err = _rel_err(two_logits, one)
+    # the argmax may move only where world 1's top-2 margin is a near-tie
+    # (phase 9b's bound: 8 bf16 steps of the logit scale); the row-parallel
+    # sums round each rank's bf16 partial products apart
+    top2 = torch.topk(one, 2, dim=-1).values
+    moved = two_logits.argmax(-1) != one.argmax(-1)
+    tie_bound = BF16_STEPS * 2.0 ** -8 * float(one.abs().max())
+    argmax_same = bool(((top2[..., 0] - top2[..., 1])[moved]
+                        < tie_bound).all())
+    diff = [np.flatnonzero(a != b) for a, b in zip(two_gen[:, 64:],
+                                                   one_gen[:, 64:])]
+    ties = all(x.size == 0 or margins[i, x[0]] < BF16_STEPS * 2.0 ** -8
+               * scale for i, x in enumerate(diff))
+    heads = [32 // 2, 32 // 2]
+    want = {n: TP_LLAMA_LAYERS if n == "library_flash_fwd" else 0
+            for n in fa.LAUNCHES}
+    run.check(dense_path and err <= 2e-2 and argmax_same and ties,
+              f"23c: tp = 2 over gloo, Llama-2-7B widths at "
+              f"{TP_LLAMA_LAYERS} layers, against world 1 without a group "
+              f"(the dense path: {dense_path}): the scoring forward's logits (B1 "
+              f"S{TP_LLAMA_SEQ}) within 2e-2 of world 1's ({err:.3e}), "
+              f"the argmax equal but at near-ties (margin under "
+              f"{tie_bound:.4f}; {int(moved.sum())} of {moved.numel()} "
+              f"moved): {argmax_same}; greedy "
+              f"ids (B2, 64 + {TP_LLAMA_NEW}) equal but at near-ties: "
+              f"{ties} (first differences {[x[:1].tolist() for x in diff]})")
+    run.check(two["local_heads"] == heads and two["cache_kv_heads"] == 16
+              and two["launches"] == want,
+              f"23c: each rank attends over {two['local_heads']} local "
+              f"(query, kv) heads ({heads} expected), its cache holds "
+              f"{two['cache_kv_heads']} kv heads, and a forward launched "
+              f"{two['launches']} ({TP_LLAMA_LAYERS} lf_fwd)")
+    print(f"23c: two ranks at tp = 2 (gloo, the one card): {wall:.1f} s "
+          f"from the launcher's start", flush=True)
+    return {"logits_rel_err": err, "launches": two["launches"],
+            "local_heads": two["local_heads"], "launcher_s": wall,
+            "generated_equal": bool(np.array_equal(two_gen, one_gen))}
+
+
+def drive_tp_llama(run, paddle, fa, mods, torch):
+    """23c at world 1 over NCCL: LlamaConfig.llama2_7b() with
+    use_tensor_parallel (all 32 layers, bf16) built under an "mp" mesh of
+    one rank, so its layers run their collectives, holding the weights of
+    a dense LlamaForCausalLM from seed 0: the scoring forward (B1 S2048,
+    32 lf_fwd) against the dense model's, then a DecodeSession on each (B8,
+    prompt 512 + 32 greedy tokens)."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed.mesh import ProcessMesh, set_mesh
+    from paddle_tpu_torch.inference.decode import DecodeSession
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    paddle.set_device("gpu:0")
+    cfg = _tp_llama_cfg(32, False)
+    L, V = cfg.num_layers, cfg.vocab_size
+    t0 = time.perf_counter()
+    paddle.seed(0)
+    dense = LlamaForCausalLM(cfg)
+    dense.bfloat16()
+    dense.eval()
+    with ProcessMesh([0], dim_names=["mp"]):
+        tp = LlamaForCausalLM(_tp_llama_cfg(32, True))
+    tp.bfloat16()
+    tp.eval()
+    tp.set_state_dict(dense.state_dict())
+    group = tp.llama.layers[0].self_attn.q_proj._group
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ids = paddle.to_tensor(np.random.RandomState(23).randint(
+        0, V, (FUSED_BATCH, FUSED_SEQ)))
+    with paddle.no_grad():
+        want = dense(ids)._data
+        _reset(mods)
+        ticks0 = fa.dispatch_counts()
+        got = tp(ids)._data
+        torch.cuda.synchronize()
+    launches = _launches(mods)
+    dispatch = fa.dispatch_counts(ticks0)
+    err = _rel_err(got, want)
+    finite = bool(torch.isfinite(got).all())
+    del got, want
+    run.check(group is not None and group.nranks == 1
+              and dist.get_backend() == "nccl",
+              f"23c: the TP Llama-2-7B's layers hold an mp group of "
+              f"{getattr(group, 'nranks', None)} rank over "
+              f"{dist.get_backend()}")
+    run.check(launches == {n: (L if n == "library_flash_fwd" else 0)
+                           for n in launches}
+              and dispatch == {("nn.sdpa", "library_flash"): L},
+              f"23c: the TP model's scoring forward (B{FUSED_BATCH} "
+              f"S{FUSED_SEQ}) launches lf_fwd {L} times and no other "
+              f"attention kernel ({ {k: v for k, v in launches.items() if v} }"
+              f", dispatch {dispatch})")
+    run.check(finite and err <= 2e-2,
+              f"23c: its logits equal the dense LlamaForCausalLM's within "
+              f"2e-2 of the largest value ({err:.3e}), finite {finite}")
+    prompts = np.random.RandomState(0).randint(
+        0, V, (TP_DECODE_BATCH, TP_DECODE_PROMPT)).astype(np.int32)
+    out = {}
+    for tag, model in (("dense", dense), ("tp", tp)):
+        sess = DecodeSession(model, max_length=SERVING_CAPACITY)
+        pre_log, dec_log = [], []
+        sess._prefill = _event_timed(torch, sess._prefill, pre_log)
+        sess._decode = _event_timed(torch, sess._decode, dec_log)
+        gen = sess.generate(prompts, max_new_tokens=TP_DECODE_NEW).numpy()
+        torch.cuda.synchronize()
+        out[tag] = {"ids": gen,
+                    "prefill_ms": pre_log[0][0].elapsed_time(pre_log[0][1]),
+                    "decode_ms": float(np.median(
+                        [a.elapsed_time(b) for a, b in dec_log]))}
+    margins, scale = greedy_margins(paddle, dense, out["dense"]["ids"],
+                                    TP_DECODE_PROMPT, torch)
+    bound = BF16_STEPS * 2.0 ** -8 * scale
+    diff = [np.flatnonzero(a != b) for a, b in zip(
+        out["tp"]["ids"][:, TP_DECODE_PROMPT:],
+        out["dense"]["ids"][:, TP_DECODE_PROMPT:])]
+    ties = all(x.size == 0 or margins[i, x[0]] < bound
+               for i, x in enumerate(diff))
+    run.check(ties, f"23c: the TP model's DecodeSession (B{TP_DECODE_BATCH},"
+              f" prompt {TP_DECODE_PROMPT} + {TP_DECODE_NEW}) gives the "
+              f"dense model's greedy ids but at near-ties (top-2 margin "
+              f"under {bound:.4f}, {BF16_STEPS} bf16 steps of the logit "
+              f"scale): first differences {[x[:1].tolist() for x in diff]}")
+    print(f"23c: Llama-2-7B with use_tensor_parallel at world 1 (NCCL), "
+          f"bf16, 32 layers: built beside the dense model in {build_s:.1f} "
+          f"s; logits rel err {err:.3e}; DecodeSession B{TP_DECODE_BATCH} "
+          f"prompt {TP_DECODE_PROMPT}: prefill {out['tp']['prefill_ms']:.2f}"
+          f" ms, decode {out['tp']['decode_ms']:.2f} ms/token (the dense "
+          f"model's {out['dense']['prefill_ms']:.2f} and "
+          f"{out['dense']['decode_ms']:.2f})", flush=True)
+    del dense, tp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"logits_rel_err": err, "build_s": build_s,
+            "lf_fwd_launches": launches["library_flash_fwd"],
+            "prefill_ms": out["tp"]["prefill_ms"],
+            "decode_ms_per_token": out["tp"]["decode_ms"],
+            "dense_prefill_ms": out["dense"]["prefill_ms"],
+            "dense_decode_ms_per_token": out["dense"]["decode_ms"],
+            "generated_equal": bool(np.array_equal(out["tp"]["ids"],
+                                                   out["dense"]["ids"]))}
+
+
+def drive_tp_layer_gpt(run, paddle, GPTConfig, GPTForCausalLM, fa, torch):
+    """23d: the Layer GPT-1.3B with use_tensor_parallel at world 1 over
+    NCCL (an "mp" mesh of one rank), from the dense model's weights (seed
+    0, bf16), 3 AdamW steps (multi_precision) at B4 S1024 on phase 8b's
+    batch, against the dense model's 3 steps: losses within 1e-2 relative,
+    24 launches a step of each library kernel."""
+    from paddle_tpu_torch.distributed.mesh import ProcessMesh
+    cfg = GPTConfig.gpt3_1p3b()
+    L = cfg.num_layers
+    ids = paddle.to_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (LAYER_GPT_BATCH, LAYER_GPT_SEQ)))
+    paddle.set_device("gpu:0")
+    paddle.seed(0)
+    dense = GPTForCausalLM(cfg)
+    dense.bfloat16()
+    state = {k: paddle.Tensor(v._data.clone())
+             for k, v in dense.state_dict().items()}
+    runs = {}
+    for tag in ("dense", "tp"):
+        if tag == "tp":
+            tcfg = GPTConfig.gpt3_1p3b()
+            tcfg.use_tensor_parallel = True
+            with ProcessMesh([0], dim_names=["mp"]):
+                model = GPTForCausalLM(tcfg)
+            model.bfloat16()
+            model.set_state_dict(state)
+            del state
+        else:
+            model = dense
+        opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                     parameters=model.parameters(),
+                                     multi_precision=True)
+        losses, launches, times = [], [], []
+        for _ in range(3):
+            fa.reset_launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = model(ids, ids)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+            losses.append(float(loss))
+            launches.append(dict(fa.LAUNCHES))
+        runs[tag] = (losses, launches, float(np.median(times[1:])))
+        del model, opt
+        dense = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    (dl, _, dms), (tl, tla, tms) = runs["dense"], runs["tp"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(tl, dl))
+    run.check(rel <= 1e-2 and all(map(math.isfinite, tl)),
+              f"23d: the TP Layer GPT-1.3B's losses "
+              f"{[round(x, 4) for x in tl]} equal the dense model's "
+              f"{[round(x, 4) for x in dl]} within 1e-2 relative "
+              f"({rel:.3e})")
+    run.check(all(x == {n: L for n in fa.LAUNCHES} for x in tla),
+              f"23d: each TP step launches each library kernel {L} times "
+              f"({tla[0]})")
+    print(f"23d: Layer GPT-1.3B with use_tensor_parallel at world 1 (NCCL),"
+          f" B{LAYER_GPT_BATCH} S{LAYER_GPT_SEQ}: {tms:.2f} ms/step (the "
+          f"dense model's {dms:.2f}; CUDA events, median of steps 2-3)",
+          flush=True)
+    return {"losses": tl, "dense_losses": dl, "loss_rel_err": rel,
+            "ms_per_step": tms, "dense_ms_per_step": dms,
+            "launches_per_step": tla[0]}
+
+
+def drive_phase23(run, paddle, TH, GPTConfig, GPTForCausalLM, mods, fa,
+                  cost_model, torch):
+    """Phase 23: the wide head dims (23a kernels, 23b gpt_hybrid and the
+    tier ops), then the Layer models' tensor parallelism (23c Llama-2-7B,
+    23d the Layer GPT-1.3B) over NCCL at world 1 while 23c's two gloo ranks
+    run on the same card."""
+    import paddle_tpu_torch.distributed as dist
+    t0 = time.perf_counter()
+    out = {"wide_kernels": check_wide_kernels(run, mods, torch)}
+    out["wide_paths"] = drive_wide_gpt(run, TH, GPTConfig, mods, fa,
+                                       cost_model, torch)
+    t_tp = time.perf_counter()
+    dist.init_parallel_env()
+    try:
+        out["tp_llama"] = drive_tp_llama(run, paddle, fa, mods, torch)
+        started = start_tp_llama_ranks(
+            os.path.dirname(os.path.abspath(__file__)))
+        out["tp_layer_gpt"] = drive_tp_layer_gpt(run, paddle, GPTConfig,
+                                                 GPTForCausalLM, fa, torch)
+    finally:
+        dist.destroy_process_group()
+    out["tp_llama"]["tp2"] = finish_tp_llama_ranks(run, paddle, fa, torch,
+                                                   started)
+    out["tp_s"] = time.perf_counter() - t_tp
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 23: {out['phase_s']:.1f} s (23c-d {out['tp_s']:.1f} s)",
+          flush=True)
+    return out
+
+
 def main():
     if sys.argv[1:2] == ["--phase16d-worker"]:
         phase16d_worker(sys.argv[2])
@@ -8723,6 +9337,9 @@ def main():
         return 0
     if sys.argv[1:2] == ["--phase20e-worker"]:
         phase20e_worker(sys.argv[2])
+        return 0
+    if sys.argv[1:2] == ["--phase23c-worker"]:
+        phase23c_worker(sys.argv[2])
         return 0
     try:
         import torch
@@ -8769,7 +9386,7 @@ def main():
               f"{max((r for _, r, _ in rows), default=0)} registers a "
               f"thread, {sum(sp for _, _, sp in rows)} bytes spilled")
         for kernel, regs, spill in rows:
-            if kernel.startswith("mma_"):
+            if kernel.startswith(("mma_", "wide_")):
                 print(f"    {kernel}: {regs} registers, {spill} bytes "
                       "spilled")
     # the kernels' libraries launch through torch's CUDA runtime: one
@@ -8787,6 +9404,19 @@ def main():
                               ".cache")
     os.makedirs(cache_root, exist_ok=True)
     mods = (sa, ca, bf, sa2, fa)
+    if "--phase23" in sys.argv[1:]:
+        # phase 23 alone (no kernels line, no ok line): for work on it
+        with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+            os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+            at._table = None
+            wide = drive_phase23(run, paddle, TH, GPTConfig, GPTForCausalLM,
+                                 mods, fa, cost_model, torch)
+        print(json.dumps({"wide_heads": wide}))
+        print(f"chip_smoke --phase23: {time.perf_counter() - t_script:.1f} "
+              f"s, {len(run.failures)} check(s) failed", flush=True)
+        for what in run.failures:
+            print(f"  {what[:300]}", file=sys.stderr)
+        return 1 if run.failures else 0
     if "--phase22" in sys.argv[1:]:
         # phase 22 alone (no kernels line, no ok line): for work on it
         with tempfile.TemporaryDirectory(dir=cache_root) as cache:
@@ -9050,6 +9680,13 @@ def main():
         at._table = None
         tail = drive_phase22(run, paddle, GPTConfig, GPTForCausalLM, mods,
                              fa, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=cache_root) as cache:
+        os.environ["PADDLE_TPU_CACHE_DIR"] = cache
+        at._table = None
+        wide = drive_phase23(run, paddle, TH, GPTConfig, GPTForCausalLM,
+                             mods, fa, cost_model, torch)
 
     kernels = []
     for kern in KERNELS:
@@ -9077,6 +9714,29 @@ def main():
               f"{bound_ms / ms:.4f}, plain {plain_ms:.3f} ms (spread "
               f"{plain_spread:.3f}), library {lib_ms:.3f} ms (spread "
               f"{lib_spread:.3f})")
+    kern = {k[0]: k for k in KERNELS}
+    for name, d, label in WIDE_ROWS:
+        _, source, line, *_ = kern[name]
+        key = f"{name}@d{d}"
+        t = wide["wide_kernels"]["times"][key]
+        launched = wide["wide_paths"][label]
+        kernels.append({
+            "name": key, "route": "cuda",
+            "source": "paddle_tpu_torch/ops/hopper/csrc/attention_wide.cuh",
+            "replaces": f"paddle_tpu/ops/pallas/{source}.py:{line}",
+            "design": DESIGN + ", runtime D, a chunk of 64 columns a block",
+            "launches": launched["launches"][name],
+            "launches_per_step": launched["launches"][name]
+            / launched["steps"],
+            "max_abs_err": wide["wide_kernels"]["errs"][key],
+            "tolerance_rel": TOL["bfloat16"], "shape": t["shape"],
+            "ms": t["ms"], "ms_spread": t["ms_spread"],
+            "plain_ms": t["plain_ms"], "plain_ms_spread": t["plain_ms_spread"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "library_ms_spread": t["library_ms_spread"],
+            "sdpa_backend": t["sdpa_backend"],
+        })
     print(json.dumps({"paths": {
         label: {k: v for k, v in p.items() if k != "launches"}
         for label, p in paths.items() if label != "layer_gpt"}}))
@@ -9100,6 +9760,7 @@ def main():
     print(json.dumps({"host_runtime": hr}))
     print(json.dumps({"breadth": br}))
     print(json.dumps({"tail": tail}))
+    print(json.dumps({"wide_heads": wide}))
     print(f"chip_smoke: {time.perf_counter() - t_script:.1f} s", flush=True)
     if run.failures:
         print(f"chip_smoke: {len(run.failures)} check(s) failed:",

@@ -13,9 +13,15 @@ the vocab-parallel lookup is a masked local lookup and a ``psum``. Every
 rank draws the global weight from the same generator and keeps its slice,
 so the shards together are the weight a single process would draw. A
 layer's ``in_features``/``out_features`` (``num_embeddings``) are global;
-each sharded Parameter carries ``split_axis`` and ``global_shape``.
-``set_global_params`` sets a layer's shards from global arrays (the
-reference's) and ``gather_global_params`` gathers them back.
+each sharded Parameter carries ``split_axis``, ``segments`` and
+``global_shape``. ``set_global_params`` sets a layer's shards from global
+arrays (the reference's) and ``gather_global_params`` gathers them back.
+
+A fused projection (the GPT's q|k|v, ``ColumnParallelLinear(segments=3)``)
+holds ``segments`` equal blocks along its split axis; a rank holds its chunk
+of each block, concatenated, so that its shard carries its own heads' q, k
+and v columns. Under GSPMD the reference's contiguous shard straddles q|k|v
+and its global reshape mends that; here each rank computes on its shard.
 
 The group is ``mp_group``, else the model-parallel group of fleet's
 topology, else the "mp"/"tp" axis of the current ``ProcessMesh``; with none
@@ -56,27 +62,55 @@ def _size_rank(group):
     return (1, 0) if group is None else (group.nranks, group.rank)
 
 
+def _shard(v, axis, n, r, segments=1):
+    """Rank ``r``'s slice along ``axis`` of a global array: its chunk of
+    each of ``segments`` equal blocks, concatenated."""
+    if segments == 1:
+        return v.chunk(n, axis)[r]
+    return torch.cat([blk.chunk(n, axis)[r]
+                      for blk in v.chunk(segments, axis)], axis)
+
+
+def gather_global(p, a):
+    """The global array of sharded Parameter ``p`` from every rank's local
+    array ``a`` (its value, or its gradient); ``a`` itself when ``p`` is
+    not sharded."""
+    axis = getattr(p, "split_axis", None)
+    group = getattr(p, "mp_group", None)
+    if axis is None or group is None or group.nranks == 1:
+        return a
+    segments = getattr(p, "segments", 1)
+    if segments == 1:
+        return C._gather_along(a, group, axis)
+    blocks = C._gather_along(a.unflatten(axis, (segments, -1)), group,
+                             axis + 1)
+    return blocks.flatten(axis, axis + 1)
+
+
 def _sharded_parameter(layer, shape, attr, split_axis, group, is_bias=False,
-                       default_initializer=None):
+                       default_initializer=None, segments=1):
     """A Parameter holding this rank's slice along ``split_axis`` of a
-    global parameter of ``shape`` (drawn whole, then sliced), or the whole
-    parameter with ``split_axis`` None."""
+    global parameter of ``shape`` (drawn whole, then sliced; ``_shard``),
+    or the whole parameter with ``split_axis`` None."""
     p = layer.create_parameter(shape, attr, is_bias=is_bias,
                                default_initializer=default_initializer)
     if p is None:
         return None
     n, r = _size_rank(group)
     if split_axis is not None and n > 1:
-        if shape[split_axis] % n:
+        if shape[split_axis] % (n * segments):
             raise ValueError(f"dim {split_axis} of {list(shape)} is not "
-                             f"divisible by the {n} model-parallel ranks")
-        shard = p._data.detach().chunk(n, split_axis)[r].contiguous()
+                             f"divisible into {segments} block(s) over the "
+                             f"{n} model-parallel ranks")
+        shard = _shard(p._data.detach(), split_axis, n, r,
+                       segments).contiguous()
         q = Parameter._wrap_param(shard, trainable=p.trainable, name=p.name)
         q.optimize_attr = p.optimize_attr
         q.regularizer, q.need_clip = p.regularizer, p.need_clip
         p = q
     p.is_distributed = split_axis is not None
     p.split_axis = split_axis
+    p.segments = segments
     p.global_shape = tuple(int(s) for s in shape)
     p.mp_group = group
     return p
@@ -93,22 +127,15 @@ def set_global_params(layer, arrays):
         axis = getattr(p, "split_axis", None)
         n, r = _size_rank(getattr(p, "mp_group", None))
         if axis is not None and n > 1:
-            v = v.chunk(n, axis)[r]
+            v = _shard(v, axis, n, r, getattr(p, "segments", 1))
         p.set_value(v.contiguous())
     return layer
 
 
 def gather_global_params(layer):
     """{name: the global parameter as a torch tensor} on every rank."""
-    out = {}
-    for name, p in layer.named_parameters():
-        a = p._data.detach()
-        axis = getattr(p, "split_axis", None)
-        group = getattr(p, "mp_group", None)
-        if axis is not None and group is not None and group.nranks > 1:
-            a = C._gather_along(a, group, axis)
-        out[name] = a.clone()
-    return out
+    return {name: gather_global(p, p._data.detach()).clone()
+            for name, p in layer.named_parameters()}
 
 
 class VocabParallelEmbedding(Layer):
@@ -149,23 +176,29 @@ class ColumnParallelLinear(Layer):
     """weight [in, out] sharded on out: a pvary'd input times this rank's
     columns (+ its bias), all-gathered on the feature dim when
     ``gather_output`` (reference mp_layers.py:334). Without it the output
-    is this rank's [.., out / n] shard."""
+    is this rank's [.., out / n] shard. ``segments`` (the port's: 3 for a
+    fused q|k|v) shards each of that many equal blocks of the output
+    features; a gathered output then holds the ranks' blocks interleaved,
+    so it is refused."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
                  has_bias=True, gather_output=True, fuse_matmul_bias=False,
-                 mp_group=None, name=None):
+                 mp_group=None, name=None, segments=1):
         super().__init__()
+        if gather_output and segments != 1:
+            raise ValueError("ColumnParallelLinear: segments need "
+                             "gather_output=False")
         self.in_features = in_features
         self.out_features = out_features
         self.gather_output = gather_output
         self._group = _mp_group(mp_group)
         self.weight = _sharded_parameter(
             self, (in_features, out_features), weight_attr, 1, self._group,
-            default_initializer=I.XavierNormal())
+            default_initializer=I.XavierNormal(), segments=segments)
         self.weight.is_distributed = True
         self.bias = _sharded_parameter(
             self, (out_features,), None, 0, self._group,
-            is_bias=True) if has_bias else None
+            is_bias=True, segments=segments) if has_bias else None
 
     def forward(self, x):
         group, gather = self._group, self.gather_output

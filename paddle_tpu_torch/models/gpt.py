@@ -8,13 +8,24 @@ configurations). Attention goes through ``F.scaled_dot_product_attention``
 decode path (the ``caches`` argument, ``init_cache``,
 ``forward_with_cache``, ``generate``) is the reference's: learned positions
 continue from the cache lengths and ``inference.decode.cache_attention``
-writes k/v into the fixed-capacity cache in place. The reference's
-tensor-parallel layers (``use_tensor_parallel``) wait for the distributed
-slice of the port (ROADMAP queue 1) and raise ``NotImplementedError``.
+writes k/v into the fixed-capacity cache in place.
+
+``use_tensor_parallel`` builds the reference's fleet layers: ``qkv`` and
+``fc1`` column-parallel, ``proj`` and ``fc2`` row-parallel, ``wte``
+vocab-parallel. Each rank holds its shards and attends over its own
+``num_heads / tp`` heads: ``qkv`` is ``ColumnParallelLinear(segments=3)``,
+whose shard holds this rank's heads' q, k and v columns (the reference's
+contiguous GSPMD shard straddles q|k|v; ``set_global_params`` and
+``gather_global_params`` take and give the reference's global layout). The
+tied head multiplies by this rank's vocab rows and gathers the shards
+differentiably, so ``forward`` returns global logits, as the reference's.
+Without a model-parallel group the layers are their dense counterparts.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+import torch
 
 import paddle_tpu_torch as paddle
 from paddle_tpu_torch import nn
@@ -44,26 +55,42 @@ class GPTConfig:
                          num_heads=4, max_seq_len=64)
 
 
-def _later(what):
-    return NotImplementedError(
-        f"GPT {what} waits for a later slice of the port (ROADMAP queue 1)")
+def _fleet():
+    from paddle_tpu_torch.distributed import fleet
+    return fleet
 
 
 class GPTAttention(nn.Layer):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
-        if cfg.use_tensor_parallel:
-            raise _later("tensor parallelism")
         self.cfg = cfg
         h = cfg.hidden_size
-        self.qkv = nn.Linear(h, 3 * h)
-        self.proj = nn.Linear(h, h)
+        self.num_heads = cfg.num_heads
+        if cfg.use_tensor_parallel:
+            fleet = _fleet()
+            self.qkv = fleet.ColumnParallelLinear(h, 3 * h,
+                                                  gather_output=False,
+                                                  segments=3)
+            self.proj = fleet.RowParallelLinear(h, h,
+                                                input_is_parallel=True)
+            group = self.qkv._group
+            tp = 1 if group is None else group.nranks
+            if cfg.num_heads % tp:
+                raise ValueError(
+                    f"GPT tensor parallelism: num_heads={cfg.num_heads} is "
+                    f"not divisible by the {tp} model-parallel ranks")
+            self.num_heads = cfg.num_heads // tp
+        else:
+            self.qkv = nn.Linear(h, 3 * h)
+            self.proj = nn.Linear(h, h)
         self.drop = nn.Dropout(cfg.dropout)
 
     def forward(self, x, cache=None):
-        b, s, h = x.shape
-        nh = self.cfg.num_heads
-        qkv = self.qkv(x).reshape([b, s, 3, nh, h // nh])
+        b, s, _ = x.shape
+        nh = self.num_heads          # this rank's heads
+        d = self.cfg.hidden_size // self.cfg.num_heads
+        h = nh * d
+        qkv = self.qkv(x).reshape([b, s, 3, nh, d])
         q, k, v = qkv.unbind(axis=2)
         if cache is not None:
             # fixed-capacity decode path (inference/decode.py): write
@@ -83,8 +110,13 @@ class GPTMLP(nn.Layer):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
         h, m = cfg.hidden_size, cfg.hidden_size * cfg.ffn_mult
-        self.fc1 = nn.Linear(h, m)
-        self.fc2 = nn.Linear(m, h)
+        if cfg.use_tensor_parallel:
+            fleet = _fleet()
+            self.fc1 = fleet.ColumnParallelLinear(h, m, gather_output=False)
+            self.fc2 = fleet.RowParallelLinear(m, h, input_is_parallel=True)
+        else:
+            self.fc1 = nn.Linear(h, m)
+            self.fc2 = nn.Linear(m, h)
         self.drop = nn.Dropout(cfg.dropout)
 
     def forward(self, x):
@@ -113,10 +145,12 @@ class GPTBlock(nn.Layer):
 class GPTModel(nn.Layer):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
-        if cfg.use_tensor_parallel:
-            raise _later("tensor parallelism")
         self.cfg = cfg
-        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        if cfg.use_tensor_parallel:
+            self.wte = _fleet().VocabParallelEmbedding(cfg.vocab_size,
+                                                       cfg.hidden_size)
+        else:
+            self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.wpe = nn.Embedding(cfg.max_seq_len, cfg.hidden_size)
         self.drop = nn.Dropout(cfg.dropout)
         self.blocks = nn.LayerList([GPTBlock(cfg)
@@ -153,16 +187,32 @@ class GPTModel(nn.Layer):
                 x = blk(x)
         x = self.ln_f(x)
         if self.cfg.tie_embeddings:
-            logits = paddle.matmul(x, self.wte.weight, transpose_y=True)
+            logits = self._tied_head(x)
         else:
             logits = self.lm_head(x)
         return logits if caches is None else (logits, caches)
+
+    def _tied_head(self, x):
+        """x times the embedding's transpose: global logits. A
+        vocab-parallel ``wte`` gives this rank's vocab columns, gathered
+        differentiably (Megatron's f on x, since x is the same on every
+        rank, and an all-gather whose backward keeps this rank's chunk)."""
+        group = getattr(self.wte, "_group", None)
+        if group is None:
+            return paddle.matmul(x, self.wte.weight, transpose_y=True)
+        from paddle_tpu_torch.core.dispatch import run_op
+        from paddle_tpu_torch.distributed import collective as C
+
+        def f(a, w):
+            out = torch.matmul(C._Pvary.apply(a, group), w.t())
+            return C._GatherInvariant.apply(out, group, out.dim() - 1)
+        return run_op("matmul", f, x, self.wte.weight)   # AMP: as matmul
 
     def init_cache(self, batch_size, max_length):
         from paddle_tpu_torch.inference.decode import init_static_cache
         d = self.cfg.hidden_size // self.cfg.num_heads
         return [init_static_cache(batch_size, max_length,
-                                  self.cfg.num_heads, d)
+                                  self.blocks[0].attn.num_heads, d)
                 for _ in range(self.cfg.num_layers)]
 
 

@@ -15,8 +15,16 @@ configurations). Three attention branches, as the reference's:
 - the legacy growing ``(k, v)`` concat cache (``init_cache`` without
   ``max_length``).
 
-The reference's tensor-parallel layers (``use_tensor_parallel``) wait for
-the distributed slice of the port and raise ``NotImplementedError``.
+``use_tensor_parallel`` builds the reference's layers: q/k/v/gate/up as
+fleet's ``ColumnParallelLinear(gather_output=False)``, o/down as
+``RowParallelLinear(input_is_parallel=True)``, the embedding as
+``VocabParallelEmbedding``, ``lm_head`` a plain ``Linear``. The reference
+reshapes global arrays under GSPMD; here each rank holds its shards and
+attends over its own heads, ``num_heads / tp`` query heads and
+``num_kv_heads / tp`` kv heads (a head count tp does not divide is refused),
+so GQA's grouping stays within a rank and the caches hold the local kv
+heads. Without a model-parallel group the layers are their dense
+counterparts.
 """
 from __future__ import annotations
 
@@ -54,11 +62,33 @@ class LlamaConfig:
                            num_kv_heads=2, max_seq_len=64)
 
 
-def _no_tensor_parallel(cfg):
+def _column(cfg, i, o):
     if cfg.use_tensor_parallel:
-        raise NotImplementedError(
-            "Llama tensor parallelism waits for the distributed slice of "
-            "the port (ROADMAP queue 1)")
+        from paddle_tpu_torch.distributed import fleet
+        return fleet.ColumnParallelLinear(i, o, has_bias=False,
+                                          gather_output=False)
+    return nn.Linear(i, o, bias_attr=False)
+
+
+def _row(cfg, i, o):
+    if cfg.use_tensor_parallel:
+        from paddle_tpu_torch.distributed import fleet
+        return fleet.RowParallelLinear(i, o, has_bias=False,
+                                       input_is_parallel=True)
+    return nn.Linear(i, o, bias_attr=False)
+
+
+def local_heads(cfg, layer):
+    """(query heads, kv heads) a rank attends over: the config's divided by
+    the model-parallel size of ``layer``'s group (1 without one)."""
+    group = getattr(layer, "_group", None)
+    tp = 1 if group is None else group.nranks
+    for what, n in (("num_heads", cfg.num_heads),
+                    ("num_kv_heads", cfg.num_kv_heads)):
+        if n % tp:
+            raise ValueError(f"Llama tensor parallelism: {what}={n} is not "
+                             f"divisible by the {tp} model-parallel ranks")
+    return cfg.num_heads // tp, cfg.num_kv_heads // tp
 
 
 def apply_rotary_pos_emb(x, position_offset=0, theta=10000.0):
@@ -88,25 +118,27 @@ def apply_rotary_pos_emb(x, position_offset=0, theta=10000.0):
 class LlamaAttention(nn.Layer):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
-        _no_tensor_parallel(cfg)
         self.cfg = cfg
         h = cfg.hidden_size
         d = h // cfg.num_heads
         kv_out = cfg.num_kv_heads * d
-        self.q_proj = nn.Linear(h, h, bias_attr=False)
-        self.k_proj = nn.Linear(h, kv_out, bias_attr=False)
-        self.v_proj = nn.Linear(h, kv_out, bias_attr=False)
-        self.o_proj = nn.Linear(h, h, bias_attr=False)
+        self.q_proj = _column(cfg, h, h)
+        self.k_proj = _column(cfg, h, kv_out)
+        self.v_proj = _column(cfg, h, kv_out)
+        self.o_proj = _row(cfg, h, h)
+        self.num_heads, self.num_kv_heads = local_heads(cfg, self.q_proj)
 
     def forward(self, x, position_offset=0, cache=None):
         from paddle_tpu_torch.inference.decode import (StaticCache,
                                                        cache_attention)
         cfg = self.cfg
-        b, s, h = x.shape
-        d = h // cfg.num_heads
-        q = self.q_proj(x).reshape([b, s, cfg.num_heads, d])
-        k = self.k_proj(x).reshape([b, s, cfg.num_kv_heads, d])
-        v = self.v_proj(x).reshape([b, s, cfg.num_kv_heads, d])
+        b, s, _ = x.shape
+        d = cfg.hidden_size // cfg.num_heads
+        nh, nkv = self.num_heads, self.num_kv_heads
+        h = nh * d            # this rank's width of the attention
+        q = self.q_proj(x).reshape([b, s, nh, d])
+        k = self.k_proj(x).reshape([b, s, nkv, d])
+        v = self.v_proj(x).reshape([b, s, nkv, d])
         if isinstance(cache, StaticCache):
             # fixed-capacity decode path: RoPE offsets come from the
             # per-sequence cache lengths; k/v are written into the cache
@@ -122,8 +154,8 @@ class LlamaAttention(nn.Layer):
             k = paddle.concat([pk, k], axis=1)
             v = paddle.concat([pv, v], axis=1)
             cache = (k, v)
-        if cfg.num_kv_heads != cfg.num_heads:
-            rep = cfg.num_heads // cfg.num_kv_heads
+        if nkv != nh:
+            rep = nh // nkv
             k = k.repeat_interleave(rep, axis=2)
             v = v.repeat_interleave(rep, axis=2)
         out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
@@ -138,11 +170,10 @@ class LlamaMLP(nn.Layer):
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
-        _no_tensor_parallel(cfg)
         h, m = cfg.hidden_size, cfg.intermediate_size
-        self.gate_proj = nn.Linear(h, m, bias_attr=False)
-        self.up_proj = nn.Linear(h, m, bias_attr=False)
-        self.down_proj = nn.Linear(m, h, bias_attr=False)
+        self.gate_proj = _column(cfg, h, m)
+        self.up_proj = _column(cfg, h, m)
+        self.down_proj = _row(cfg, m, h)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -171,9 +202,14 @@ class LlamaBlock(nn.Layer):
 class LlamaModel(nn.Layer):
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
-        _no_tensor_parallel(cfg)
         self.cfg = cfg
-        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        if cfg.use_tensor_parallel:
+            from paddle_tpu_torch.distributed import fleet
+            self.embed_tokens = fleet.VocabParallelEmbedding(
+                cfg.vocab_size, cfg.hidden_size)
+        else:
+            self.embed_tokens = nn.Embedding(cfg.vocab_size,
+                                             cfg.hidden_size)
         self.layers = nn.LayerList([LlamaBlock(cfg)
                                     for _ in range(cfg.num_layers)])
         self.norm = nn.RMSNorm(cfg.hidden_size, epsilon=cfg.rms_eps)
@@ -196,14 +232,15 @@ class LlamaModel(nn.Layer):
     def init_cache(self, batch_size, max_length=None):
         """max_length=None: the legacy growing concat cache (a new shape
         every step). max_length=C: the fixed-capacity static cache of the
-        serving path, k/v written in place."""
+        serving path, k/v written in place. Under tensor parallelism each
+        holds this rank's kv heads."""
         d = self.cfg.hidden_size // self.cfg.num_heads
+        nkv = self.layers[0].self_attn.num_kv_heads
         if max_length is not None:
             from paddle_tpu_torch.inference.decode import init_static_cache
-            return [init_static_cache(batch_size, max_length,
-                                      self.cfg.num_kv_heads, d)
+            return [init_static_cache(batch_size, max_length, nkv, d)
                     for _ in range(self.cfg.num_layers)]
-        z = paddle.zeros([batch_size, 0, self.cfg.num_kv_heads, d])
+        z = paddle.zeros([batch_size, 0, nkv, d])
         return [(z, z) for _ in range(self.cfg.num_layers)]
 
 

@@ -12,8 +12,17 @@ from . import _build
 
 # dtype codes shared with the C entry points: 0 f32, 1 bf16, 2 f16.
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-HEAD_DIMS = (64, 128, 256)
+# The kernels take every multiple of WIDE_CHUNK: 64, 128 and 256 on tiles of
+# their own, the rest on the runtime-D kernels of csrc/attention_wide.cuh.
+WIDE_CHUNK = 64
 TILE_ROWS = 64      # sequence lengths must be multiples of the kernels' tiles
+
+
+def head_dim_ok(d):
+    """Whether the kernels take head dim ``d``: every positive multiple of
+    64. That is what the reference's gates admit together: the four tiers'
+    ``d % 128 == 0 or d == 64`` and the library tier's ``d % 64 == 0``."""
+    return d > 0 and d % WIDE_CHUNK == 0
 
 VP, LL, INT, FLOAT = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
                       ctypes.c_float)
@@ -51,10 +60,10 @@ def check(kernel, what, specs):
         raise ValueError(f"{kernel} {what}: dtype {first.dtype} not in "
                          f"{list(DTYPE_CODE)}")
     d = first.shape[-1]
-    if d not in HEAD_DIMS:
+    if not head_dim_ok(d):
         raise NotImplementedError(
-            f"{kernel}: head dim {d} has no Hopper kernel yet (built for "
-            f"{HEAD_DIMS}; ROADMAP queue 2)")
+            f"{kernel}: head dim {d} has no Hopper kernel (the kernels take "
+            f"multiples of {WIDE_CHUNK}, every head dim a gate admits)")
     for t, _, _ in specs:
         if t.dim() == 4 and t.shape[2] % TILE_ROWS:
             raise ValueError(f"{kernel}: S={t.shape[2]} is not a multiple "

@@ -70,7 +70,10 @@
 // (at D=128 a warp holds two 16 x 128 f32 accumulators; 64-row q tiles
 // spilled there and were 2.5 % slower on an H100); at D=256 two warps share
 // 16 kv rows, each with half of the dk/dv columns, so a block owns 32 kv
-// rows. Sequence lengths are multiples of 64.
+// rows. Sequence lengths are multiples of 64. These tiles are built for
+// D = 64, 128 and 256; every other multiple of 64 runs the runtime-D
+// kernels of attention_wide.cuh, which reuse the D = 64 tiles with a
+// column-chunk axis.
 //
 // What it leaves for later: wgmma (a warpgroup's 64-row products with B read
 // from shared memory by the tensor cores themselves), TMA copies and
@@ -192,16 +195,12 @@ __device__ __forceinline__ void copy_tile(T* dst, const T* src, long long ss) {
 // 16 x N accumulator lies at row (lane / 4) + 8 (e / 2), column
 // 8 j + 2 (lane % 4) + e % 2.
 
-// c[j] = A B^T for one warp: A the 16 rows at sA, B the N rows at sB, both
+// c[j] += A B^T for one warp: A the 16 rows at sA, B the N rows at sB, both
 // [rows][D] tiles at pitch LD in shared memory.
 template <typename T, int D, int N>
-__device__ __forceinline__ void warp_abt(float (&c)[N / 8][4], const T* sA, const T* sB) {
+__device__ __forceinline__ void warp_abt_add(float (&c)[N / 8][4], const T* sA, const T* sB) {
   constexpr int LD = MmaCfg<D>::LD;
   const int lane = threadIdx.x % 32;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
   // ldmatrix x4 row addresses: the A fragment's four 8 x 8 blocks
   // (rows 0-7 / 8-15, columns 0-7 / 8-15), and for B two n8 tiles' (b0, b1).
   const T* pa = sA + (lane & 15) * LD + (lane >> 4) * 8;
@@ -218,6 +217,21 @@ __device__ __forceinline__ void warp_abt(float (&c)[N / 8][4], const T* sA, cons
       mma16816<T>(c[j + 1], a, b[2], b[3]);
     }
   }
+}
+
+template <int N>
+__device__ __forceinline__ void zero_frags(float (&c)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
+}
+
+// c[j] = A B^T, as warp_abt_add.
+template <typename T, int D, int N>
+__device__ __forceinline__ void warp_abt(float (&c)[N / 8][4], const T* sA, const T* sB) {
+  zero_frags<N / 8>(c);
+  warp_abt_add<T, D, N>(c, sA, sB);
 }
 
 // c[j] += A B for one warp and one k16 step: A in registers, B the 16 rows at
@@ -279,6 +293,83 @@ __device__ __forceinline__ void store_rows(T* dst, long long ss, const float (&c
           pack2<T>(c[j][2 * i], c[j][2 * i + 1]);
 }
 
+// One kv tile's scores s (a warp's 16 rows, mma's C layout) into the
+// statistics pass: running row max m and sum l = sum exp(s - m).
+template <int N>
+__device__ __forceinline__ void stats_step(const float (&s)[N][4], float (&m)[2], float (&l)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = s[0][2 * i];
+#pragma unroll
+    for (int j = 0; j < N; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+    const float mn = fmaxf(m[i], quad_max(mx));
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < N; ++j) sum += __expf(s[j][2 * i] - mn) + __expf(s[j][2 * i + 1] - mn);
+    l[i] = l[i] * __expf(m[i] - mn) + quad_sum(sum);
+    m[i] = mn;
+  }
+}
+
+// The recompute backward's statistics pass: stats_step's m and l, and
+// dd = sum dP exp(s - m) rescaled with them (delta = dd / l once every tile
+// is in).
+template <int N>
+__device__ __forceinline__ void stats_delta_step(const float (&s)[N][4], const float (&dp)[N][4],
+                                                 float (&m)[2], float (&l)[2], float (&dd)[2]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = s[0][2 * i];
+#pragma unroll
+    for (int j = 0; j < N; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+    const float mn = fmaxf(m[i], quad_max(mx));
+    float se = 0.f, sd = 0.f;
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int e = 2 * i; e < 2 * i + 2; ++e) {
+        const float p = __expf(s[j][e] - mn);
+        se += p;
+        sd += p * dp[j][e];
+      }
+    const float c = __expf(m[i] - mn);
+    l[i] = l[i] * c + quad_sum(se);
+    dd[i] = dd[i] * c + quad_sum(sd);
+    m[i] = mn;
+  }
+}
+
+// The online softmax's update of one kv tile's scores s: running max m and
+// sum l, acc rescaled by exp(m_old - m_new), s replaced by the unnormalized
+// p = exp(s - m_new).
+template <int N, int W>
+__device__ __forceinline__ void online_step(float (&s)[N][4], float (&acc)[W][4], float (&m)[2],
+                                            float (&l)[2]) {
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = s[0][2 * i];
+#pragma unroll
+    for (int j = 0; j < N; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+    const float mn = fmaxf(m[i], quad_max(mx));
+    alpha[i] = __expf(m[i] - mn);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+#pragma unroll
+      for (int e = 2 * i; e < 2 * i + 2; ++e) {
+        s[j][e] = __expf(s[j][e] - mn);
+        sum += s[j][e];
+      }
+    l[i] = alpha[i] * l[i] + quad_sum(sum);
+    m[i] = mn;
+  }
+#pragma unroll
+  for (int j = 0; j < W; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+}
+
 // Two-pass forward, one block per (q tile, head, batch), heaviest causal
 // tiles first. Stage st < kend streams kv tile st's k (pass 1: m and l);
 // stage kend + t streams tile t's k and v (pass 2: P V). When lse is not
@@ -330,18 +421,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     warp_abt<T, D, BN>(s, sQ + r0 * LD, sK + buf);
     scale_mask<BN / 8, false>(s, scale, causal && k0 + BN - 1 > q0 + r0, q0 + r0, k0);
     if (st < kend) {
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float mx = s[0][2 * i];
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
-        const float mn = fmaxf(m[i], quad_max(mx));
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j) sum += __expf(s[j][2 * i] - mn) + __expf(s[j][2 * i + 1] - mn);
-        l[i] = l[i] * __expf(m[i] - mn) + quad_sum(sum);
-        m[i] = mn;
-      }
+      stats_step<BN / 8>(s, m, l);
       if (st == kend - 1) {
         rl[0] = 1.f / l[0];
         rl[1] = 1.f / l[1];
@@ -368,12 +448,12 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-// delta[i] = rowsum(x * y) of rows lane / 4 + 8 i of a warp's 16 rows at x
-// and y (row strides xs, ys), in f32: each thread of a quad sums every
-// fourth 16-byte chunk of the row, then the quad adds its four sums.
-template <typename T, int D>
+// delta[i] = rowsum(x * y) of rows lane / 4 + 8 i of a warp's 16 rows of d
+// columns at x and y (row strides xs, ys), in f32: each thread of a quad sums
+// every fourth 16-byte chunk of the row, then the quad adds its four sums.
+template <typename T>
 __device__ __forceinline__ void quad_row_dots(float (&delta)[2], const T* x, long long xs,
-                                              const T* y, long long ys) {
+                                              const T* y, long long ys, int d) {
   constexpr int V = 16 / sizeof(T);
   const int lane = threadIdx.x % 32;
 #pragma unroll
@@ -381,7 +461,7 @@ __device__ __forceinline__ void quad_row_dots(float (&delta)[2], const T* x, lon
     const long long r = (lane >> 2) + 8 * i;
     float part = 0.f;
 #pragma unroll
-    for (int j = 0; j < D / (4 * V); ++j) {
+    for (int j = 0; j < d / (4 * V); ++j) {
       const int c = ((lane & 3) + 4 * j) * V;
       const uint4 rx = *reinterpret_cast<const uint4*>(x + r * xs + c);
       const uint4 ry = *reinterpret_cast<const uint4*>(y + r * ys + c);
@@ -440,9 +520,9 @@ __global__ void __launch_bounds__(kMmaThreads)
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
   float lse[2] = {0.f, 0.f}, delta[2] = {0.f, 0.f};
   if constexpr (LSE) {
-    quad_row_dots<T, D>(delta, static_cast<const T*>(a.o) + b * a.lo.sb + h * a.lo.sh +
-                                   static_cast<long long>(q0 + r0) * a.lo.ss, a.lo.ss,
-                        g + r0 * a.lg.ss, a.lg.ss);
+    quad_row_dots<T>(delta, static_cast<const T*>(a.o) + b * a.lo.sb + h * a.lo.sh +
+                                static_cast<long long>(q0 + r0) * a.lo.ss, a.lo.ss,
+                     g + r0 * a.lg.ss, a.lg.ss, D);
     lse[0] = a.lse[row];
     lse[1] = a.lse[row + 8];
   }
@@ -463,28 +543,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     scale_mask<BN / 8, false>(s, a.scale, a.causal && k0 + BN - 1 > q0 + r0, q0 + r0, k0);
     warp_abt<T, D, BN>(dp, sDO + r0 * LD, sV + buf);
     if (st < pass) {
-      // running m and l, and dd = sum dP exp(s - m) rescaled with them:
-      // delta = dd / l once every tile is in.
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float mx = s[0][2 * i];
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
-        const float mn = fmaxf(m[i], quad_max(mx));
-        float se = 0.f, sd = 0.f;
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-          for (int e = 2 * i; e < 2 * i + 2; ++e) {
-            const float p = __expf(s[j][e] - mn);
-            se += p;
-            sd += p * dp[j][e];
-          }
-        const float c = __expf(m[i] - mn);
-        l[i] = l[i] * c + quad_sum(se);
-        dd[i] = dd[i] * c + quad_sum(sd);
-        m[i] = mn;
-      }
+      stats_delta_step<BN / 8>(s, dp, m, l, dd);
       if (st == pass - 1) {
 #pragma unroll
         for (int i = 0; i < 2; ++i) {

@@ -58,6 +58,7 @@ struct BwdArgs {
   int B, H, Sq, Skv;
   float scale;
   int causal;
+  int D;  // the head dim (the runtime-D kernels read it)
 };
 
 template <int D>
@@ -96,16 +97,12 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, long long ss
   }
 }
 
-// acc[i][j] = sum_d A[ty + 16i][d] * B[tx + 16j][d] for two [BM][D] tiles.
+// acc[i][j] += sum_d A[ty + 16i][d] * B[tx + 16j][d] for two [BM][D] tiles.
 template <int D>
-__device__ __forceinline__ void dot_rows(float (&acc)[Tile<D>::RM][Tile<D>::RM], const float* A,
-                                         const float* B) {
+__device__ __forceinline__ void dot_rows_add(float (&acc)[Tile<D>::RM][Tile<D>::RM], const float* A,
+                                             const float* B) {
   using C = Tile<D>;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < C::RM; ++i)
-#pragma unroll
-    for (int j = 0; j < C::RM; ++j) acc[i][j] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
     float a[C::RM], b[C::RM];
@@ -120,14 +117,25 @@ __device__ __forceinline__ void dot_rows(float (&acc)[Tile<D>::RM][Tile<D>::RM],
   }
 }
 
-// Scaled, masked scores of q rows q0 + ty + 16i against kv rows k0 + tx + 16j,
-// in the reference's order: dot, times scale, then the causal mask.
+// acc[i][j] = sum_d A[ty + 16i][d] * B[tx + 16j][d] for two [BM][D] tiles.
 template <int D>
-__device__ __forceinline__ void scores(float (&s)[Tile<D>::RM][Tile<D>::RM], const float* sQ,
-                                       const float* sK, float scale, int causal, int q0, int k0) {
+__device__ __forceinline__ void dot_rows(float (&acc)[Tile<D>::RM][Tile<D>::RM], const float* A,
+                                         const float* B) {
+  using C = Tile<D>;
+#pragma unroll
+  for (int i = 0; i < C::RM; ++i)
+#pragma unroll
+    for (int j = 0; j < C::RM; ++j) acc[i][j] = 0.f;
+  dot_rows_add<D>(acc, A, B);
+}
+
+// s = s * scale, then -1e30 where kv row k0 + tx + 16j lies past q row
+// q0 + ty + 16i when causal: the reference's order.
+template <int D>
+__device__ __forceinline__ void scale_mask_rows(float (&s)[Tile<D>::RM][Tile<D>::RM], float scale,
+                                                int causal, int q0, int k0) {
   using C = Tile<D>;
   const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  dot_rows<D>(s, sQ, sK);
 #pragma unroll
   for (int i = 0; i < C::RM; ++i)
 #pragma unroll
@@ -135,6 +143,39 @@ __device__ __forceinline__ void scores(float (&s)[Tile<D>::RM][Tile<D>::RM], con
       s[i][j] *= scale;
       if (causal && q0 + ty + 16 * i < k0 + tx + 16 * j) s[i][j] = kNegInf;
     }
+}
+
+// delta[i] = rowsum(dO * O) of the rows ty + 16 i of one BM-row tile of d
+// columns, read from device memory in 16-byte vectors.
+template <typename T, int D>
+__device__ __forceinline__ void row_delta(float (&delta)[Tile<D>::RM], const T* o, long long os,
+                                          const T* g, long long gs, int d) {
+  using C = Tile<D>;
+  constexpr int V = 16 / sizeof(T);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < C::RM; ++i) {
+    const int r = ty + 16 * i;
+    float part = 0.f;
+    for (int c = tx * V; c < d; c += 16 * V) {
+      const uint4 ro = *reinterpret_cast<const uint4*>(o + r * os + c);
+      const uint4 rg = *reinterpret_cast<const uint4*>(g + r * gs + c);
+      const T* eo = reinterpret_cast<const T*>(&ro);
+      const T* eg = reinterpret_cast<const T*>(&rg);
+#pragma unroll
+      for (int j = 0; j < V; ++j) part += to_f32(eg[j]) * to_f32(eo[j]);
+    }
+    delta[i] = row_sum16(part);
+  }
+}
+
+// Scaled, masked scores of q rows q0 + ty + 16i against kv rows k0 + tx + 16j,
+// in the reference's order: dot, times scale, then the causal mask.
+template <int D>
+__device__ __forceinline__ void scores(float (&s)[Tile<D>::RM][Tile<D>::RM], const float* sQ,
+                                       const float* sK, float scale, int causal, int q0, int k0) {
+  dot_rows<D>(s, sQ, sK);
+  scale_mask_rows<D>(s, scale, causal, q0, k0);
 }
 
 // acc[i][j] += sum_c A(ty + 16i, c) * B[c][tx + 16j], A a [BM][BM] tile
@@ -159,6 +200,56 @@ __device__ __forceinline__ void tile_matmul(float (&acc)[Tile<D>::RM][Tile<D>::R
   }
 }
 
+// One kv tile's scaled scores s into the running row max m and sum
+// l = sum exp(s - m).
+template <int D>
+__device__ __forceinline__ void tile_stats_step(const float (&s)[Tile<D>::RM][Tile<D>::RM],
+                                                float (&m)[Tile<D>::RM], float (&l)[Tile<D>::RM]) {
+  using C = Tile<D>;
+#pragma unroll
+  for (int i = 0; i < C::RM; ++i) {
+    float tmax = s[i][0];
+#pragma unroll
+    for (int j = 1; j < C::RM; ++j) tmax = fmaxf(tmax, s[i][j]);
+    const float mn = fmaxf(m[i], row_max16(tmax));
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < C::RM; ++j) sum += expf(s[i][j] - mn);
+    l[i] = l[i] * expf(m[i] - mn) + row_sum16(sum);
+    m[i] = mn;
+  }
+}
+
+// The online softmax's update of one kv tile's scores s: running max m and
+// sum l, acc rescaled by exp(m_old - m_new), and the unnormalized
+// p = exp(s - m_new), rounded to T, into the [BM][BM] tile sP.
+template <typename T, int D>
+__device__ __forceinline__ void tile_online_step(const float (&s)[Tile<D>::RM][Tile<D>::RM],
+                                                 float (&m)[Tile<D>::RM], float (&l)[Tile<D>::RM],
+                                                 float (&acc)[Tile<D>::RM][Tile<D>::RD], float* sP) {
+  using C = Tile<D>;
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < C::RM; ++i) {
+    float tmax = s[i][0];
+#pragma unroll
+    for (int j = 1; j < C::RM; ++j) tmax = fmaxf(tmax, s[i][j]);
+    const float mn = fmaxf(m[i], row_max16(tmax));
+    const float alpha = expf(m[i] - mn);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < C::RM; ++j) {
+      const float p = expf(s[i][j] - mn);
+      sum += p;
+      sP[(ty + 16 * i) * C::LS + tx + 16 * j] = to_f32(from_f32<T>(p));
+    }
+    l[i] = alpha * l[i] + row_sum16(sum);
+    m[i] = mn;
+#pragma unroll
+    for (int j = 0; j < C::RD; ++j) acc[i][j] *= alpha;
+  }
+}
+
 // Row max m and row sum l = sum exp(s - m) over the kv tiles [0, kend).
 template <typename T, int D>
 __device__ __forceinline__ void row_stats(float (&m)[Tile<D>::RM], float (&l)[Tile<D>::RM],
@@ -176,18 +267,7 @@ __device__ __forceinline__ void row_stats(float (&m)[Tile<D>::RM], float (&l)[Ti
     __syncthreads();
     float s[C::RM][C::RM];
     scores<D>(s, sQ, sK, scale, causal, q0, kt * C::BM);
-#pragma unroll
-    for (int i = 0; i < C::RM; ++i) {
-      float tmax = s[i][0];
-#pragma unroll
-      for (int j = 1; j < C::RM; ++j) tmax = fmaxf(tmax, s[i][j]);
-      const float mn = fmaxf(m[i], row_max16(tmax));
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < C::RM; ++j) sum += expf(s[i][j] - mn);
-      l[i] = l[i] * expf(m[i] - mn) + row_sum16(sum);
-      m[i] = mn;
-    }
+    tile_stats_step<D>(s, m, l);
   }
 }
 
@@ -288,13 +368,20 @@ cudaError_t by_dtype(int dtype, F&& f) {
   }
 }
 
+// The head dims with tiles of their own are template arguments; every other
+// multiple of kWideChunk reaches f as kWide, the runtime-D kernels of
+// attention_wide.cuh.
+constexpr int kWide = 0;
+constexpr int kWideChunk = 64;
+
 template <typename F>
 cudaError_t by_dtype_and_d(int dtype, int d, F&& f) {
   switch (d) {
     case 64: return by_dtype<64>(dtype, f);
     case 128: return by_dtype<128>(dtype, f);
     case 256: return by_dtype<256>(dtype, f);
-    default: return cudaErrorInvalidValue;
+    default:
+      return d > 0 && d % kWideChunk == 0 ? by_dtype<kWide>(dtype, f) : cudaErrorInvalidValue;
   }
 }
 

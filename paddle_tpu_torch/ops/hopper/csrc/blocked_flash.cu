@@ -36,7 +36,9 @@
 // where bf16 rounds p; these kernels' max moves every kv tile, 64 columns
 // (32 at D=256 on the tensor cores, for the registers of the 16 x 256
 // accumulator; 32 at D=256 on the CUDA cores too), which changes p's
-// rounding within bf16's step and nothing else.
+// rounding within bf16's step and nothing else. Head dims other than 64,
+// 128 and 256 (384, 512, and the library tier's 192, 320, ...) run the
+// runtime-D kernels of attention_wide.cuh behind the same entry points.
 //
 // What it leaves for later: wgmma with TMA and warp specialisation for all
 // three launches (attention_mma.cuh); the dk/dv launch recomputes S and dP,
@@ -101,25 +103,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     float s[C::RM][C::RM];
     scores<D>(s, sQ, sKV, scale, causal && kt == qt, q0, kt * C::BM);
-#pragma unroll
-    for (int i = 0; i < C::RM; ++i) {
-      float tmax = s[i][0];
-#pragma unroll
-      for (int j = 1; j < C::RM; ++j) tmax = fmaxf(tmax, s[i][j]);
-      const float mn = fmaxf(m[i], row_max16(tmax));
-      const float alpha = expf(m[i] - mn);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < C::RM; ++j) {
-        const float p = expf(s[i][j] - mn);
-        sum += p;
-        sP[(ty + 16 * i) * C::LS + tx + 16 * j] = to_f32(from_f32<T>(p));
-      }
-      l[i] = alpha * l[i] + row_sum16(sum);
-      m[i] = mn;
-#pragma unroll
-      for (int j = 0; j < C::RD; ++j) acc[i][j] *= alpha;
-    }
+    tile_online_step<T, D>(s, m, l, acc, sP);
     __syncthreads();
     load_tile<T, D>(sKV, v + kvbase + kt * C::BM * lkv.ss, lkv.ss);
     __syncthreads();
@@ -186,31 +170,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     float s[BN / 8][4];
     warp_abt<T, D, BN>(s, sQ + r0 * LD, sK + buf);
     scale_mask<BN / 8, false>(s, scale, causal && k0 + BN - 1 > q0 + r0, q0 + r0, k0);
-    // m_new, alpha = exp(m_old - m_new), p = exp(s - m_new) in f32 (s holds
-    // p from here), l = alpha l + rowsum(p)
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mx = s[0][2 * i];
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
-      const float mn = fmaxf(m[i], quad_max(mx));
-      alpha[i] = __expf(m[i] - mn);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int e = 2 * i; e < 2 * i + 2; ++e) {
-          s[j][e] = __expf(s[j][e] - mn);
-          sum += s[j][e];
-        }
-      l[i] = alpha[i] * l[i] + quad_sum(sum);
-      m[i] = mn;
-    }
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+    online_step<BN / 8, D / 8>(s, acc, m, l);  // s holds the unnormalized p from here
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
       uint32_t af[4];
@@ -236,11 +196,14 @@ __global__ void __launch_bounds__(kMmaThreads)
 // only when cross_causal: the library tier's entry points.
 template <typename T, int D>
 cudaError_t launch_online_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
-                              const long long* st, int B, int H, int Sq, int Skv, float scale,
-                              int causal, bool cross_causal, cudaStream_t cs) {
+                              const long long* st, int B, int H, int Sq, int Skv, int d,
+                              float scale, int causal, bool cross_causal, cudaStream_t cs) {
   if (causal && Sq != Skv && !cross_causal) return cudaErrorInvalidValue;
   const Layout lq = layout_at(st, 0), lkv = layout_at(st, 1), lo = layout_at(st, 2);
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (D == kWide) {
+    return launch_wide_fwd<T, true>(q, k, v, o, lse, lq, lkv, lo, B, H, Sq, Skv, d, scale, causal,
+                                    cs);
+  } else if constexpr (std::is_same<T, float>::value) {
     using C = Tile<D>;
     if (Sq % C::BM != 0 || Skv % C::BM != 0) return cudaErrorInvalidValue;
     cudaError_t e = allow_smem(online_fwd_kernel<T, D>, fwd_smem<D>());
@@ -270,7 +233,7 @@ int fwd_entry(int dtype, int d, const void* q, const void* k, const void* v, voi
   return static_cast<int>(by_dtype_and_d(dtype, d, [&](auto t, auto dc) {
     using T = decltype(t);
     return launch_online_fwd<T, decltype(dc)::value>(q, k, v, o, static_cast<float*>(lse), st, B,
-                                                       H, Sq, Skv, scale, causal, cross_causal,
+                                                       H, Sq, Skv, d, scale, causal, cross_causal,
                                                        cs);
   }));
 }
@@ -281,7 +244,7 @@ int dq_entry(int dtype, int d, const void* q, const void* k, const void* v, cons
   auto cs = static_cast<cudaStream_t>(stream);
   const BwdArgs a{q, k, v, o, dout, static_cast<float*>(const_cast<void*>(lse)),
                   static_cast<float*>(delta), layout_at(st, 0), layout_at(st, 1),
-                  layout_at(st, 2), layout_at(st, 3), B, H, Sq, Skv, scale, causal};
+                  layout_at(st, 2), layout_at(st, 3), B, H, Sq, Skv, scale, causal, d};
   return static_cast<int>(by_dtype_and_d(dtype, d, [&](auto t, auto dc) {
     return launch_lse_dq<decltype(t), decltype(dc)::value>(a, dq, layout_at(st, 4), cs,
                                                            cross_causal);
@@ -295,7 +258,7 @@ int dkv_entry(int dtype, int d, const void* q, const void* k, const void* v, con
   const Layout lq = layout_at(st, 0);
   const BwdArgs a{q, k, v, nullptr, dout, static_cast<float*>(const_cast<void*>(lse)),
                   static_cast<float*>(const_cast<void*>(delta)), lq, layout_at(st, 1), lq,
-                  layout_at(st, 2), B, H, Sq, Skv, scale, causal};
+                  layout_at(st, 2), B, H, Sq, Skv, scale, causal, d};
   return static_cast<int>(by_dtype_and_d(dtype, d, [&](auto t, auto dc) {
     return launch_lse_dkv<decltype(t), decltype(dc)::value>(a, dk, dv, layout_at(st, 3), cs,
                                                             cross_causal);

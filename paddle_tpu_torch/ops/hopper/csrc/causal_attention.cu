@@ -45,9 +45,14 @@ int ca_fwd(int dtype, int d, const void* q, const void* k, const void* v, void* 
   auto cs = static_cast<cudaStream_t>(stream);
   return static_cast<int>(by_dtype_and_d(dtype, d, [&](auto t, auto dc) {
     using T = decltype(t);
-    return launch_two_pass_fwd<T, decltype(dc)::value>(q, k, v, o, static_cast<float*>(lse),
-                                                         layout_at(st, 0), layout_at(st, 1), B,
-                                                         H, S, scale, 1, cs);
+    constexpr int D = decltype(dc)::value;
+    if constexpr (D == kWide)
+      return launch_wide_fwd<T, false>(q, k, v, o, static_cast<float*>(lse), layout_at(st, 0),
+                                       layout_at(st, 0), layout_at(st, 1), B, H, S, S, d, scale, 1,
+                                       cs);
+    else
+      return launch_two_pass_fwd<T, D>(q, k, v, o, static_cast<float*>(lse), layout_at(st, 0),
+                                       layout_at(st, 1), B, H, S, scale, 1, cs);
   }));
 }
 
@@ -59,7 +64,7 @@ int ca_bwd(int dtype, int d, const void* q, const void* k, const void* v, const 
   auto cs = static_cast<cudaStream_t>(stream);
   const BwdArgs a{q, k, v, o, dout, static_cast<float*>(const_cast<void*>(lse)),
                   static_cast<float*>(delta), layout_at(st, 0), layout_at(st, 1),
-                  layout_at(st, 2), layout_at(st, 3), B, H, S, S, scale, 1};
+                  layout_at(st, 2), layout_at(st, 3), B, H, S, S, scale, 1, d};
   return static_cast<int>(by_dtype_and_d(dtype, d, [&](auto t, auto dc) {
     using T = decltype(t);
     constexpr int D = decltype(dc)::value;

@@ -27,33 +27,9 @@
 // launch_lse_dq and launch_lse_dkv; never a path taken on error.
 #pragma once
 
-#include "attention_mma.cuh"
+#include "attention_wide.cuh"
 
 namespace {
-
-// delta[i] = rowsum(dO * O) of the rows ty + 16 i of one BM-row tile, read
-// from device memory in 16-byte vectors.
-template <typename T, int D>
-__device__ __forceinline__ void row_delta(float (&delta)[Tile<D>::RM], const T* o, long long os,
-                                          const T* g, long long gs) {
-  using C = Tile<D>;
-  constexpr int V = 16 / sizeof(T);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < C::RM; ++i) {
-    const int r = ty + 16 * i;
-    float part = 0.f;
-    for (int c = tx * V; c < D; c += 16 * V) {
-      const uint4 ro = *reinterpret_cast<const uint4*>(o + r * os + c);
-      const uint4 rg = *reinterpret_cast<const uint4*>(g + r * gs + c);
-      const T* eo = reinterpret_cast<const T*>(&ro);
-      const T* eg = reinterpret_cast<const T*>(&rg);
-#pragma unroll
-      for (int j = 0; j < V; ++j) part += to_f32(eg[j]) * to_f32(eo[j]);
-    }
-    delta[i] = row_sum16(part);
-  }
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) lse_dq_kernel(BwdArgs a, T* __restrict__ dq, Layout ldq) {
@@ -80,7 +56,7 @@ __global__ void __launch_bounds__(kThreads) lse_dq_kernel(BwdArgs a, T* __restri
   load_tile<T, D>(sDO, g, a.lg.ss);
   float lse[C::RM], delta[C::RM];
   row_delta<T, D>(delta, static_cast<const T*>(a.o) + b * a.lo.sb + h * a.lo.sh + q0 * a.lo.ss,
-                  a.lo.ss, g, a.lg.ss);
+                  a.lo.ss, g, a.lg.ss, D);
 #pragma unroll
   for (int i = 0; i < C::RM; ++i) {
     lse[i] = a.lse[row + ty + 16 * i];
@@ -207,7 +183,10 @@ bool lse_shapes_ok(const BwdArgs& a, bool cross_causal) {
 template <typename T, int D>
 cudaError_t launch_lse_dq(const BwdArgs& a, void* dq, Layout ldq, cudaStream_t st,
                           bool cross_causal = false) {
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (D == kWide) {
+    if (a.causal && a.Sq != a.Skv && !cross_causal) return cudaErrorInvalidValue;
+    return launch_wide_dq<T, true>(a, dq, ldq, st);
+  } else if constexpr (std::is_same<T, float>::value) {
     if (!lse_shapes_ok<D>(a, cross_causal)) return cudaErrorInvalidValue;
     cudaError_t e = allow_smem(lse_dq_kernel<T, D>, lse_dq_smem<D>());
     if (e != cudaSuccess) return e;
@@ -223,7 +202,10 @@ cudaError_t launch_lse_dq(const BwdArgs& a, void* dq, Layout ldq, cudaStream_t s
 template <typename T, int D>
 cudaError_t launch_lse_dkv(const BwdArgs& a, void* dk, void* dv, Layout ldkv, cudaStream_t st,
                            bool cross_causal = false) {
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (D == kWide) {
+    if (a.causal && a.Sq != a.Skv && !cross_causal) return cudaErrorInvalidValue;
+    return launch_wide_dkv<T>(a, dk, dv, ldkv, st);
+  } else if constexpr (std::is_same<T, float>::value) {
     if (!lse_shapes_ok<D>(a, cross_causal)) return cudaErrorInvalidValue;
     cudaError_t e = allow_smem(lse_dkv_kernel<T, D>, lse_dkv_smem<D>());
     if (e != cudaSuccess) return e;

@@ -160,7 +160,9 @@ template <typename T, int D>
 cudaError_t launch_recompute_bwd(const BwdArgs& a, void* dq, void* dk, void* dv, Layout out,
                                  cudaStream_t st) {
   cudaError_t e;
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (D == kWide) {
+    e = launch_wide_dq<T, false>(a, dq, out, st);
+  } else if constexpr (std::is_same<T, float>::value) {
     if (a.Sq % Tile<D>::BM != 0) return cudaErrorInvalidValue;
     e = allow_smem(bwd_dq_kernel<T, D>, dq_smem<D>());
     if (e != cudaSuccess) return e;
@@ -187,8 +189,12 @@ int sa_fwd(int dtype, int d, const void* q, const void* k, const void* v, void* 
   auto st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(by_dtype_and_d(dtype, d, [&](auto t, auto dc) {
     using T = decltype(t);
-    return launch_two_pass_fwd<T, decltype(dc)::value>(q, k, v, o, nullptr, in, out, B, H, S,
-                                                         scale, causal, st);
+    constexpr int D = decltype(dc)::value;
+    if constexpr (D == kWide)
+      return launch_wide_fwd<T, false>(q, k, v, o, nullptr, in, in, out, B, H, S, S, d, scale,
+                                       causal, st);
+    else
+      return launch_two_pass_fwd<T, D>(q, k, v, o, nullptr, in, out, B, H, S, scale, causal, st);
   }));
 }
 
@@ -199,7 +205,7 @@ int sa_bwd(int dtype, int d, const void* q, const void* k, const void* v, const 
            float scale, int causal, void* stream) {
   const Layout in{in_sb, in_sh, in_ss}, g{g_sb, g_sh, g_ss}, out{out_sb, out_sh, out_ss};
   const BwdArgs a{q, k, v, nullptr, dout, static_cast<float*>(lse), static_cast<float*>(delta),
-                  in, in, in, g, B, H, S, S, scale, causal};
+                  in, in, in, g, B, H, S, S, scale, causal, d};
   auto st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(by_dtype_and_d(dtype, d, [&](auto t, auto dc) {
     return launch_recompute_bwd<decltype(t), decltype(dc)::value>(a, dq, dk, dv, out, st);

@@ -281,6 +281,25 @@ def flash_attention_maybe(q, k, v, causal=False, scale=None):
     return _dispatch(q, k, v, causal, scale)
 
 
+def static_tier(bhsd, skv, dtype, causal):
+    """The tier the static chain picks for q [B, H, Sq, D] against kv length
+    ``skv``, the tiers' gates in the reference's order: "simple",
+    "causal_skip", "qblock", "blocked", else "library_flash"."""
+    same_len = bhsd[2] == skv
+    if same_len and sa.supported(bhsd, dtype):
+        return "simple"
+    if causal and same_len and ca.supported(bhsd, dtype):
+        return "causal_skip"
+    if same_len and sa2.supported(bhsd, dtype):
+        return "qblock"
+    if bf.supported(bhsd, skv, dtype, causal):
+        return "blocked"
+    return "library_flash"
+
+
+_TIER_OPS = {"simple": sa, "causal_skip": ca, "qblock": sa2, "blocked": bf}
+
+
 def _dispatch(q, k, v, causal, scale):
     """The chain itself, for tensors that are not on the CPU."""
     if not _supported(q, k, v):
@@ -293,25 +312,12 @@ def _dispatch(q, k, v, causal, scale):
         _count("attn.dispatch", tuned)
         return autotune.run(tuned, q, k, v, causal, scale)
     bhsd = (q.shape[0], q.shape[2], q.shape[1], q.shape[3])
-    same_len = q.shape[1] == k.shape[1]
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    if same_len and sa.supported(bhsd, q.dtype):
-        _count("attn.dispatch", "simple")
-        return sa.attention_bhsd(qt, kt, vt, causal=causal,
-                                 scale=scale).transpose(1, 2)
-    if causal and same_len and ca.supported(bhsd, q.dtype):
-        _count("attn.dispatch", "causal_skip")
-        return ca.attention_bhsd(qt, kt, vt, causal=True,
-                                 scale=scale).transpose(1, 2)
-    if same_len and sa2.supported(bhsd, q.dtype):
-        _count("attn.dispatch", "qblock")
-        return sa2.attention_bhsd(qt, kt, vt, causal=causal,
-                                  scale=scale).transpose(1, 2)
-    if bf.supported(bhsd, k.shape[1], q.dtype, causal):
-        _count("attn.dispatch", "blocked")
-        return bf.attention_bhsd(qt, kt, vt, causal=causal,
-                                 scale=scale).transpose(1, 2)
-    _count("attn.dispatch", "library_flash")
+    tier = static_tier(bhsd, k.shape[1], q.dtype, causal)
+    _count("attn.dispatch", tier)
+    if tier != "library_flash":
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        return _TIER_OPS[tier].attention_bhsd(
+            qt, kt, vt, causal=causal, scale=scale).transpose(1, 2)
     if _library_refuses(q.shape[1], k.shape[1], q.shape[-1]):
         _count("attn.dispatch_fallback", "error")
         return None

@@ -16,8 +16,8 @@ import numpy as np
 import torch
 
 from ..core import dtype as dtype_mod
-from ..core.place import CPUPlace, CUDAPlace, default_device, get_device, \
-    set_device
+from ..core.place import CPUPlace, CUDAPlace, XPUPlace, default_device, \
+    get_device, set_device
 from ..core.tensor import Parameter, Tensor
 from ..jit import InputSpec  # noqa: F401
 from ..nn.layer.layers import ParamAttr
@@ -388,8 +388,8 @@ def cuda_places(device_ids=None):
 
 
 def xpu_places(device_ids=None):
-    raise NotImplementedError("XPUPlace is not in the port (ROADMAP queue "
-                              "1, item 4.3)")
+    ids = device_ids if device_ids is not None else [0]
+    return [XPUPlace(i) for i in ids]
 
 
 def create_global_var(shape, value, dtype, persistable=False,
