@@ -406,9 +406,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
      qblock_attention and causal_attention at B1 H8 S1024 (bf16 causal and
      not, f16, f32 causal), blocked_flash at B1 H8 S2048 (the same, and
      cross-attention Sq=1024, Skv=2048), the library tier at D = 192 and
-     320 (B2 H8 S512) and 384 (B1 H8 S2048), bf16 and f32; each kernel's
-     bf16 causal ms (median of 5 windows, spread), bound, plain ms, and one
-     scaled_dot_product_attention call's ms with the backend it picked; (b)
+     320 (B2 H8 S512) and 384 (B1 H8 S2048), bf16 and f32, and its causal
+     cross-attention at D = 384 (Sq 1024, Skv 2048 and the reverse); bf16
+     causal at D = 448 (simple_attention, blocked_flash: the wgmma
+     kernels' column split of 2 x 224) and D = 640 (simple_attention,
+     causal_attention, blocked_flash, and blocked f16: the column-chunk
+     kernels); each kernel's bf16 causal ms (median of 5 windows,
+     spread), bound, plain ms, and one scaled_dot_product_attention
+     call's ms with the backend it picked; the host us of one wgmma
+     launch's set-up (its tensor maps' encoding, median of 1000); (b)
      gpt_hybrid through setup() at 8 heads of 384 (h3072, 4 layers, B4
      S1024: simple; B2 S2048: blocked), of 512 (h4096, B2 S2048: blocked)
      and of 192 (h1536, B4 S512: the library tier), as phase 4's paths
@@ -428,8 +434,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      over NCCL: 3 AdamW steps at B4 S1024 from the dense model's weights,
      losses within 1e-2 of the dense model's, 24 launches a step of each
      library kernel. A {"wide_heads": {...}} line; the kernels line gains
-     a row for each new instantiation on these paths. ``--phase23`` runs
-     the build and this phase alone.
+     a row for each new instantiation on these paths, its design naming
+     its route. ``--phase23`` runs the build and this phase alone,
+     ``--phase23a`` the build and 23a.
 The script sets FLAGS_matmul_precision to "highest", which the flag's
 default gives a user: f32 products and convolutions run in f32.
 Phases 2-6 keep the autotuner's table in a fresh temporary
@@ -8760,7 +8767,8 @@ def drive_phase22(run, paddle, GPTConfig, GPTForCausalLM, mods, fa, torch):
 # ---------------------------------------------------------------- phase 23
 # Head dims above 256 on the four kernel families, and the library tier's
 # 192/320 (csrc/attention_wide.cuh): (source, [B, H, S, D], Sq (None: S),
-# dtype name, causal).
+# dtype name, causal). 448 is a column split that is not a power of two
+# (2 x 224) on the wgmma kernels; 640 stays on the column-chunk kernels.
 WIDE_DIMS = (384, 512)
 WIDE_CHECKS = tuple(
     [(src, (1, 8, 1024, d), None, dname, causal)
@@ -8778,7 +8786,37 @@ WIDE_CHECKS = tuple(
                                  (None, "float32", True))]
     + [("flash_attention", shape, None, dname, True)
        for shape in ((2, 8, 512, 192), (2, 8, 512, 320), (1, 8, 2048, 384))
-       for dname in ("bfloat16", "float32")])
+       for dname in ("bfloat16", "float32")]
+    + [("flash_attention", shape, sq, "bfloat16", True)
+       for shape, sq in (((1, 8, 2048, 384), 1024),
+                         ((1, 8, 1024, 384), 2048))]
+    + [("simple_attention", (1, 8, 1024, 448), None, "bfloat16", True)]
+    + [("blocked_flash", (1, 8, 2048, 448), None, "bfloat16", True)]
+    + [(src, (1, 8, 1024, 640), None, "bfloat16", True)
+       for src in ("simple_attention", "causal_attention")]
+    + [("blocked_flash", (1, 8, 2048, 640), None, dname, True)
+       for dname in ("bfloat16", "float16")])
+# The routes of csrc/attention_wide.cuh (bf16, f16): the forward and dq at
+# 192 <= D <= 512 on the wgmma kernels, dk/dv and D > 512 on the column
+# chunks; chosen by D and dtype before the launch.
+WGMMA_DESIGN = ("wgmma + TMA, warp-specialised (a producer warp, two "
+                "consumer warpgroups), one score product a tile pair")
+CHUNK_DESIGN = DESIGN + ", runtime D, a chunk of 64 columns a block"
+
+
+def wgmma_wide(d):
+    """Whether head dim ``d`` runs the wgmma forward and dq (bf16, f16)."""
+    return 192 <= d <= 512 and d % 64 == 0 and d != 256
+
+
+def wide_design(name, d):
+    """The design of a wide row's kernels: a backward row names both of
+    its launches' (dq, then dk/dv)."""
+    if not wgmma_wide(d) or name.endswith("_dkv"):
+        return CHUNK_DESIGN
+    if name.endswith("_bwd"):
+        return f"dq: {WGMMA_DESIGN}; dk/dv: {CHUNK_DESIGN}"
+    return WGMMA_DESIGN
 
 # SDPA's backends by the index torch._fused_sdp_choice returns.
 SDPA_BACKENDS = {0: "math", 1: "flash", 2: "efficient", 3: "cudnn",
@@ -8800,8 +8838,10 @@ def check_wide_kernels(run, mods, torch):
     card (phase 2's tolerances), then each kernel's bf16 causal time at
     each dim (median of 5 windows, spread), its bound, its plain
     version's time and one scaled_dot_product_attention call's, with the
-    backend SDPA picked. Returns {"errs": {kernel@dD: worst abs err of its
-    bf16 causal case}, "times": {...}}."""
+    backend SDPA picked; then the host time of one wgmma launch's set-up
+    (its tensor maps' encoding, median of 1000). Returns {"errs":
+    {kernel@dD: worst abs err of its bf16 causal case}, "times": {...},
+    "setup_us": ...}."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(23)
     errs = {}
@@ -8847,7 +8887,12 @@ def check_wide_kernels(run, mods, torch):
                   flush=True)
         del q, k, v, do, ql, kl, vl, out
     torch.cuda.empty_cache()
-    return {"errs": errs, "times": times}
+    q, k, v, _ = path_inputs(gen, torch.bfloat16, torch, (1, 8, 1024, 512))
+    setup_us = mods[0].wide_setup_us(q, k, v, reps=1000)
+    print(f"23a: one wgmma launch's set-up on the host (three tensor maps "
+          f"encoded, bf16 B1 H8 S1024 D512): {setup_us:.3f} us, median of "
+          f"1000", flush=True)
+    return {"errs": errs, "times": times, "setup_us": setup_us}
 
 
 # 23b: gpt_hybrid at wide heads through setup(), as phase 4's paths; the
@@ -9386,7 +9431,7 @@ def main():
               f"{max((r for _, r, _ in rows), default=0)} registers a "
               f"thread, {sum(sp for _, _, sp in rows)} bytes spilled")
         for kernel, regs, spill in rows:
-            if kernel.startswith(("mma_", "wide_")):
+            if kernel.startswith(("mma_", "wide_", "wgmma_")):
                 print(f"    {kernel}: {regs} registers, {spill} bytes "
                       "spilled")
     # the kernels' libraries launch through torch's CUDA runtime: one
@@ -9404,6 +9449,15 @@ def main():
                               ".cache")
     os.makedirs(cache_root, exist_ok=True)
     mods = (sa, ca, bf, sa2, fa)
+    if "--phase23a" in sys.argv[1:]:
+        # the wide kernels alone against their plain versions (23a)
+        wide = check_wide_kernels(run, mods, torch)
+        print(json.dumps({"wide_kernels": wide}))
+        print(f"chip_smoke --phase23a: {time.perf_counter() - t_script:.1f} "
+              f"s, {len(run.failures)} check(s) failed", flush=True)
+        for what in run.failures:
+            print(f"  {what[:300]}", file=sys.stderr)
+        return 1 if run.failures else 0
     if "--phase23" in sys.argv[1:]:
         # phase 23 alone (no kernels line, no ok line): for work on it
         with tempfile.TemporaryDirectory(dir=cache_root) as cache:
@@ -9724,7 +9778,7 @@ def main():
             "name": key, "route": "cuda",
             "source": "paddle_tpu_torch/ops/hopper/csrc/attention_wide.cuh",
             "replaces": f"paddle_tpu/ops/pallas/{source}.py:{line}",
-            "design": DESIGN + ", runtime D, a chunk of 64 columns a block",
+            "design": wide_design(name, d),
             "launches": launched["launches"][name],
             "launches_per_step": launched["launches"][name]
             / launched["steps"],

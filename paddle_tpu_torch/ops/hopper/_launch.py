@@ -13,7 +13,7 @@ from . import _build
 # dtype codes shared with the C entry points: 0 f32, 1 bf16, 2 f16.
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The kernels take every multiple of WIDE_CHUNK: 64, 128 and 256 on tiles of
-# their own, the rest on the runtime-D kernels of csrc/attention_wide.cuh.
+# their own, the rest on the wide kernels of csrc/attention_wide.cuh.
 WIDE_CHUNK = 64
 TILE_ROWS = 64      # sequence lengths must be multiples of the kernels' tiles
 

@@ -13,7 +13,7 @@ Block sizes: ``block_q``/``block_kv`` are validated as the reference does.
 They set the plain version's kv loop, and with it where the running max
 moves and so where bf16 rounds p; the kernels stream kv in their own tiles
 of 64 rows (32 at D=256) whatever the blocks. Head dims other than 64, 128
-and 256 run the runtime-D kernels of ``csrc/attention_wide.cuh``. Causal is top-left and needs Sq == Skv;
+and 256 run the wide kernels of ``csrc/attention_wide.cuh``. Causal is top-left and needs Sq == Skv;
 non-causal cross-attention (Sq != Skv) is supported.
 
 Devices: for CUDA tensors the ops launch the kernels or raise; for CPU

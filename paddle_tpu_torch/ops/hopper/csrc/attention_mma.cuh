@@ -71,9 +71,9 @@
 // spilled there and were 2.5 % slower on an H100); at D=256 two warps share
 // 16 kv rows, each with half of the dk/dv columns, so a block owns 32 kv
 // rows. Sequence lengths are multiples of 64. These tiles are built for
-// D = 64, 128 and 256; every other multiple of 64 runs the runtime-D
-// kernels of attention_wide.cuh, which reuse the D = 64 tiles with a
-// column-chunk axis.
+// D = 64, 128 and 256; every other multiple of 64 runs attention_wide.cuh:
+// its wgmma forward and dq at 192 <= D <= 512 (bf16, f16), and elsewhere
+// the kernels that reuse the D = 64 tiles with a column-chunk axis.
 //
 // What it leaves for later: wgmma (a warpgroup's 64-row products with B read
 // from shared memory by the tensor cores themselves), TMA copies and

@@ -38,7 +38,7 @@
 // accumulator; 32 at D=256 on the CUDA cores too), which changes p's
 // rounding within bf16's step and nothing else. Head dims other than 64,
 // 128 and 256 (384, 512, and the library tier's 192, 320, ...) run the
-// runtime-D kernels of attention_wide.cuh behind the same entry points.
+// wide kernels of attention_wide.cuh behind the same entry points.
 //
 // What it leaves for later: wgmma with TMA and warp specialisation for all
 // three launches (attention_mma.cuh); the dk/dv launch recomputes S and dP,

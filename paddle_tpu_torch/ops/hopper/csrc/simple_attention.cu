@@ -56,6 +56,10 @@
 // must be unit-stride and every row 16-byte aligned (the Python wrapper
 // checks). Each entry point returns cudaGetLastError() after its launches.
 
+#include <algorithm>
+#include <chrono>
+#include <vector>
+
 #include "lse_backward.cuh"
 
 namespace {
@@ -210,6 +214,30 @@ int sa_bwd(int dtype, int d, const void* q, const void* k, const void* v, const 
   return static_cast<int>(by_dtype_and_d(dtype, d, [&](auto t, auto dc) {
     return launch_recompute_bwd<decltype(t), decltype(dc)::value>(a, dq, dk, dv, out, st);
   }));
+}
+
+// The host set-up of one wide forward launch on the wgmma kernels (bf16 or
+// f16, 192 <= d <= 512, attention_wide.cuh): the three tensor maps encoded
+// as sa_fwd encodes them, reps times, each timed on the host's steady clock;
+// writes the median microseconds of one to *us. Launches nothing.
+int sa_wide_setup_us(int dtype, int d, const void* q, const void* k, const void* v, long long sb,
+                     long long sh, long long ss, int B, int H, int S, int reps, float* us) {
+  if (!wgmma_wide(d) || (dtype != 1 && dtype != 2) || reps < 1) return cudaErrorInvalidValue;
+  const Layout l{sb, sh, ss};
+  std::vector<float> times(reps);
+  for (int i = 0; i < reps; ++i) {
+    CUtensorMap m[3];
+    const auto t0 = std::chrono::steady_clock::now();
+    const cudaError_t e = dtype == 1
+        ? fwd_tensor_maps<__nv_bfloat16>(m, q, k, v, l, l, B, H, S, S, d)
+        : fwd_tensor_maps<__half>(m, q, k, v, l, l, B, H, S, S, d);
+    const auto t1 = std::chrono::steady_clock::now();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    times[i] = std::chrono::duration<float, std::micro>(t1 - t0).count();
+  }
+  std::nth_element(times.begin(), times.begin() + reps / 2, times.end());
+  *us = times[reps / 2];
+  return 0;
 }
 
 const char* sa_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -15,6 +15,7 @@ tensors it runs the plain versions below, which the tests and
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -74,6 +75,8 @@ _SIGNATURES = {
               + [L.INT, L.INT, L.INT, L.FLOAT, L.INT, L.VP],
     "sa_bwd": [L.INT, L.INT] + [L.VP] * 9 + [L.LL] * 9
               + [L.INT, L.INT, L.INT, L.FLOAT, L.INT, L.VP],
+    "sa_wide_setup_us": [L.INT, L.INT] + [L.VP] * 3 + [L.LL] * 3
+                        + [L.INT] * 4 + [ctypes.POINTER(ctypes.c_float)],
 }
 
 
@@ -118,6 +121,22 @@ def launch_bwd(kernel, q, k, v, do, sm_scale, causal):
              *L.strides(q), *L.strides(do),
              *L.strides(dq), b, h, s, float(sm_scale), int(causal))
     return dq, dk, dv
+
+
+def wide_setup_us(q, k, v, reps=1000):
+    """Median host microseconds of one wide forward launch's set-up on the
+    wgmma kernels (bf16 or f16, 192 <= D <= 512): the encoding of its three
+    tensor maps, timed ``reps`` times in the library. Launches nothing."""
+    _check("simple_attention", "set-up", (q, k, v), tuple(q.shape), q.dtype)
+    b, h, s, d = q.shape
+    us = ctypes.c_float()
+    err = _lib().sa_wide_setup_us(L.DTYPE_CODE[q.dtype], d, q.data_ptr(),
+                                  k.data_ptr(), v.data_ptr(), *L.strides(q),
+                                  b, h, s, reps, ctypes.byref(us))
+    if err:
+        raise RuntimeError(f"simple_attention set-up: "
+                           f"{_lib().sa_error_string(err).decode()} ({err})")
+    return us.value
 
 
 def simple_attention_fwd_cuda(q, k, v, sm_scale, causal):
